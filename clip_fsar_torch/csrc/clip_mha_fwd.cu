@@ -34,28 +34,15 @@
 //   * the kernel allocates nothing and does not synchronise; it runs on the
 //     stream it is given.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "clip_mha_tile.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;    // query rows per CTA
-constexpr int kBlockK = 64;    // keys per shared-memory tile
-constexpr int kThreads = 256;  // 16 x 16 thread grid
-constexpr int kRows = kBlockQ / 16;  // query rows per thread
-constexpr int kCols = kBlockK / 16;  // key columns per thread
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+using namespace clip_mha;
 
 // Reductions over the 16 threads (one half-warp) that share a query row.
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -75,38 +62,11 @@ constexpr size_t smem_floats() {
   return kBlockQ * (DH + 1) + kBlockK * (DH + 1) + kBlockK * DH + kBlockQ * (kBlockK + 1);
 }
 
-// Copy rows [row0, row0 + count) of one head's Dh-slice into shared memory
-// as fp32, zero-filling rows at or beyond n.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, int dst_stride, const T* __restrict__ src, int64_t src_stride,
-                                          int row0, int count, int n) {
-  for (int i = threadIdx.x; i < count * DH; i += kThreads) {
-    const int r = i / DH, c = i % DH;
-    const int row = row0 + r;
-    dst[r * dst_stride + c] = row < n ? to_float(src[row * src_stride + c]) : 0.f;
-  }
-}
-
 // s[r][j] = q[ty*kRows + r] . k[tx + 16*j] * scale, key columns >= n masked to -inf.
 template <int DH>
 __device__ __forceinline__ void tile_scores(const float* qs, const float* ks, int ty, int tx, int k0, int n, float scale,
                                             float (&s)[kRows][kCols]) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[r][j] = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < DH; ++c) {
-    float qv[kRows], kv[kCols];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) qv[r] = qs[(ty * kRows + r) * (DH + 1) + c];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + 16 * j) * (DH + 1) + c];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[r][j] = fmaf(qv[r], kv[j], s[r][j]);
-  }
+  tile_dot<DH>(qs, ks, ty, tx, s);
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
@@ -181,21 +141,10 @@ __global__ void __launch_bounds__(kThreads) clip_mha_fwd_kernel(const T* __restr
       for (int j = 0; j < kCols; ++j) {
         const float p = (k0 + tx + 16 * j) < n ? expf(s[r][j] - m[r]) : 0.f;
         l[r] += p;
-        ps[(ty * kRows + r) * (kBlockK + 1) + tx + 16 * j] = to_float(from_float<T>(p));
+        ps[(ty * kRows + r) * (kBlockK + 1) + tx + 16 * j] = round_to<T>(p);
       }
     __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float vv[kOut];
-#pragma unroll
-      for (int c = 0; c < kOut; ++c) vv[c] = vs[kk * DH + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = ps[(ty * kRows + r) * (kBlockK + 1) + kk];
-#pragma unroll
-        for (int c = 0; c < kOut; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
-      }
-    }
+    tile_accumulate<DH>(ps, vs, DH, ty, tx, acc);
   }
 
 #pragma unroll

@@ -19,19 +19,19 @@ DATASET_REGISTRY = Registry("DATASET")
 
 
 class FewShotVideoDataset:
-    """Factory for EpisodeSamplers over the val or test split of a few-shot
-    benchmark (both read test_few_shot.txt).  The train split comes with
-    the train path."""
+    """Factory for EpisodeSamplers over one split of a few-shot benchmark:
+    train reads train_few_shot.txt, val and test read test_few_shot.txt
+    (reference ssv2_few_shot.py:100-110)."""
 
     style_name = "Ssv2_few_shot"  # fallback when TRAIN.DATASET_FEW is absent
 
     def __init__(self, cfg, split: str):
-        if split == "train":
-            raise NotImplementedError("episodic training data comes with the few-shot train path (ROADMAP Queue 1)")
         self.cfg = cfg
+        self.split = split
         style = cfg.TRAIN.get("DATASET_FEW", self.style_name)
         self._ssv2_style = style == "Ssv2_few_shot"
-        self.fs_split = load_split_file(os.path.join(cfg.DATA.ANNO_DIR, "test_few_shot.txt"), "test", self._ssv2_style)
+        kind = "train" if split == "train" else "test"
+        self.fs_split = load_split_file(os.path.join(cfg.DATA.ANNO_DIR, f"{kind}_few_shot.txt"), kind, self._ssv2_style)
         self.data_root = cfg.DATA.DATA_ROOT_DIR
         self.decoder = build_decoder(cfg.DATA.get("DECODER", "auto"), self.data_root, cfg_data=cfg.DATA)
 
@@ -45,8 +45,9 @@ class FewShotVideoDataset:
     def make_sampler(self, worker_id: int = 0) -> EpisodeSampler:
         # worker-independent seed: the loader reseeds per (step, slot)
         del worker_id
-        seed = int(self.cfg.get("RANDOM_SEED", 0)) * 100003 + 1  # the JAX package's eval-split seed
-        return EpisodeSampler(self.cfg, self.fs_split, self.decoder, seed=seed, path_map=self.path_map)
+        train = self.split == "train"
+        seed = int(self.cfg.get("RANDOM_SEED", 0)) * 100003 + (0 if train else 1)  # the JAX package's split seeds
+        return EpisodeSampler(self.cfg, self.fs_split, self.decoder, mode="train" if train else "test", seed=seed, path_map=self.path_map)
 
 
 for _name in ("Ssv2_few_shot", "HMDB_few_shot", "UCF_few_shot", "Kinetics_few_shot", "Epic_few_shot"):

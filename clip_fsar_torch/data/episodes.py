@@ -1,11 +1,12 @@
 """Episodic sampler + prefetching loader (counterpart of
 clip_fsar_tpu/data/episodes.py:30-271).
 
-Same protocol and the same numpy RNG streams as the JAX sampler in its
-eval mode: episode ``slot`` of step k is drawn from
+Same protocol and the same numpy RNG streams as the JAX sampler in both
+modes: episode ``slot`` of step k is drawn from
 ``default_rng((seed, k, slot))``, so both packages produce byte-identical
-episodes for one seed.  Train-mode sampling (augmented clips) comes with
-the train path.  A thread pool
+episodes for one seed.  Train mode takes SHOT and QUERY_PER_CLASS clips per
+class through the train transform (random crop, flip); test mode takes
+SHOT_TEST and QUERY_PER_CLASS_TEST through the center crop.  A thread pool
 keeps [E, ...] uint8 batches ready in step order.
 """
 
@@ -18,7 +19,7 @@ import numpy as np
 
 from clip_fsar_tpu.data.sampling import sample_indices_for_cfg
 from clip_fsar_tpu.data.splits import FewShotSplit
-from clip_fsar_torch.data.transforms import fewshot_test_transform
+from clip_fsar_torch.data.transforms import fewshot_test_transform, fewshot_train_transform
 from clip_fsar_torch.data.types import Episode, stack_episodes
 from clip_fsar_torch.utils.logging import get_logger
 
@@ -26,14 +27,13 @@ logger = get_logger(__name__)
 
 
 class EpisodeSampler:
-    """Samples N-way K-shot eval episodes from a split."""
+    """Samples N-way K-shot episodes from a split (``mode`` "train" or "test")."""
 
-    mode = "test"
-
-    def __init__(self, cfg, split: FewShotSplit, decoder, seed: int = 0, path_map=None):
+    def __init__(self, cfg, split: FewShotSplit, decoder, mode: str = "test", seed: int = 0, path_map=None):
         self.cfg = cfg
         self.split = split
         self.decoder = decoder
+        self.mode = mode
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.path_map = path_map or (lambda p: p)
@@ -41,16 +41,24 @@ class EpisodeSampler:
         t = cfg.TRAIN
         # the reference always episodes TRAIN.WAY classes at test too
         self.way = int(t.WAY)
-        self.shot = int(t.get("SHOT_TEST", t.SHOT))
-        self.queries = int(t.get("QUERY_PER_CLASS_TEST", 1))
+        if mode == "train":
+            self.shot = int(t.SHOT)
+            self.queries = int(t.QUERY_PER_CLASS)
+        else:
+            self.shot = int(t.get("SHOT_TEST", t.SHOT))
+            self.queries = int(t.get("QUERY_PER_CLASS_TEST", 1))
         self.classes = np.asarray(split.unique_classes())
 
-    def _load_clip(self, class_id: int, idx: int) -> np.ndarray:
-        """Decode + frame-sample + spatial transform one clip -> uint8 [T, crop, crop, 3]."""
+    def _load_clip(self, class_id: int, idx: int, is_query: bool) -> np.ndarray:
+        """Decode + frame-sample + spatial transform one clip -> uint8 [T, crop, crop, 3].
+        Train clips get the reference's support and query stacks (query
+        clips always flip, support clips only under AUGMENTATION.RANDOM_FLIP)."""
         path = self.path_map(self.split.get(class_id, idx)[0])
         length = self.decoder.length(path)
         fps = self.decoder.fps(path) if hasattr(self.decoder, "fps") else float(self.cfg.DATA.get("FPS", 30))
         frames = self.decoder.read(path, sample_indices_for_cfg(self.cfg, self.mode, length, fps, self.rng))
+        if self.mode == "train":
+            return fewshot_train_transform(frames, self.cfg, self.rng, is_query=is_query)
         return fewshot_test_transform(frames, self.cfg)
 
     def reseed_for_slot(self, step: int, slot: int) -> None:
@@ -78,7 +86,7 @@ class EpisodeSampler:
             # tiny classes: sample with replacement rather than fail
             idxs = rng.choice(n_total, size=need, replace=n_total < need)
             for j, idx in enumerate(idxs):
-                clip = self._load_clip(class_id, int(idx))
+                clip = self._load_clip(class_id, int(idx), is_query=j >= self.shot)
                 (support if j < self.shot else target).append((clip, local_label, class_id))
         perm_s = rng.permutation(len(support))
         perm_t = rng.permutation(len(target))
@@ -100,19 +108,23 @@ class EpisodeLoader:
     in step order.  Workers claim step indices from a shared counter and
     produce out of order; a reorder buffer delivers in order, so the
     stream is the same for any worker count.  Errors in a worker are
-    re-raised by the iterator."""
+    re-raised by the iterator.  Steps are the global indices
+    [start_step, start_step + num_steps): a resumed run continues the
+    (seed, step) episode stream instead of replaying it."""
 
-    def __init__(self, sampler_factory, episodes_per_step: int, num_steps: int, num_workers: int = 4, prefetch: int = 2):
+    def __init__(
+        self, sampler_factory, episodes_per_step: int, num_steps: int, num_workers: int = 4, prefetch: int = 2, start_step: int = 0
+    ):
         self.episodes_per_step = episodes_per_step
-        self.num_steps = int(num_steps)
+        self.num_steps = int(start_step) + int(num_steps)
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
         self._samplers = [sampler_factory(i) for i in range(max(num_workers, 1))]
         self._window = max(prefetch, 1) + len(self._samplers)  # reorder-buffer bound
         self._buffer: dict = {}
         self._cond = threading.Condition()
-        self._next_claim = 0
-        self._next_emit = 0
+        self._next_claim = int(start_step)
+        self._next_emit = int(start_step)
         self._threads = [threading.Thread(target=self._worker, args=(s,), daemon=True) for s in self._samplers]
         for th in self._threads:
             th.start()

@@ -191,7 +191,9 @@ def encode_class_names(arch: CLIPArch, clip_sd, class_names, prompt: Optional[st
 
 
 def build_few_shot_model(cfg, generator: Optional[torch.Generator] = None, flow: str = "auto", device=None) -> FewShotModel:
-    """The eval-mode CNN_OTAM_CLIPFSAR head on ``device`` plus its text banks."""
+    """The CNN_OTAM_CLIPFSAR head on ``device`` (in train mode for the
+    "train" flow) plus its text banks, fp32 constants: the text tower is
+    not trained."""
     device = runtime.device() if device is None else torch.device(device)
     if cfg.VIDEO.HEAD.NAME != "CNN_OTAM_CLIPFSAR":
         raise NotImplementedError(f"head {cfg.VIDEO.HEAD.NAME!r} is not ported yet: ROADMAP Queue 1, breadth")
@@ -208,5 +210,5 @@ def build_few_shot_model(cfg, generator: Optional[torch.Generator] = None, flow:
     )
     head.backbone.load_state_dict(_sub(clip_sd, "visual."))
     init_weights(head.context2, g)
-    head.to(device).eval()
+    head.to(device).train(flow == "train")
     return FewShotModel(head=head, text_train=banks[0], text_test=banks[1])

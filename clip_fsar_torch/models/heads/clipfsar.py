@@ -1,5 +1,5 @@
 """CLIP-FSAR head: CLIP visual features + text-prototype modulation + OTAM
-(counterpart of clip_fsar_tpu/models/heads/clipfsar.py:37-261), eval branch.
+(counterpart of clip_fsar_tpu/models/heads/clipfsar.py:37-261).
 
 The head takes a batch of E episodes and runs the CLIP tower ONCE over all
 E*(S+Q)*T frames — the JAX head is vmapped over E, which XLA turns into the
@@ -9,8 +9,12 @@ leading E axis.
 Eval variants (gated by cfg.TRAIN keys, as in the reference): plain OTAM,
 ``EVAL_TEXT`` (zero-shot text matching), ``COMBINE`` (text^a *
 visual_softmax^(1-a) fusion), ``MERGE_BEFORE`` (class-mean before
-modulation), ``SINGLE_DIRECT`` (one-directional OTAM).  The train branch
-(dropout, classification loss inputs) comes with the train path.
+modulation), ``SINGLE_DIRECT`` (one-directional OTAM).  The train branch modulates the
+prototypes with the train text bank, makes the class logits only under
+``USE_CLASSIFICATION``, and runs the prototype-modulation transformer's
+dropout from the generator it is given.  The RN towers' train mode
+(separate support and target encodes with batch-stat BatchNorm) waits for
+the RN50 tower.
 """
 
 from __future__ import annotations
@@ -73,7 +77,9 @@ class CLIPFSARHead(nn.Module):
         self.head_cfg = head_cfg
         self.backbone = build_vision_tower(arch, dtype=dtype, attention_backend=attention_backend)
         mid = arch.embed_dim  # 512 for ViT-B/16 (few_shot.py:2699-2713)
-        self.context2 = TransformerV1(mid, heads=8, dim_head_k=mid // 8, depth=head_cfg.transformer_depth, dtype=dtype)
+        self.context2 = TransformerV1(
+            mid, heads=8, dim_head_k=mid // 8, dropout_atte=0.2, depth=head_cfg.transformer_depth, dtype=dtype
+        )
         self.scale = nn.Parameter(torch.ones(1, dtype=torch.float32))
 
     def _text_logits(self, text_bank, ep: Episode, image_features: torch.Tensor) -> torch.Tensor:
@@ -83,11 +89,13 @@ class CLIPFSARHead(nn.Module):
         logits = torch.matmul(self.scale * _normalize(image_features), _normalize(text_feats).transpose(-1, -2))
         return torch.softmax(logits, dim=-1)
 
-    def forward(self, ep: Episode, text_train: torch.Tensor, text_test: Optional[torch.Tensor] = None, train: bool = False) -> Dict[str, Any]:
+    def forward(
+        self, ep: Episode, text_train: torch.Tensor, text_test: Optional[torch.Tensor] = None, train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, Any]:
         """ep: E episodes ([E, S, T, H, W, 3] normalized float images ...).
-        Returns {"logits": [E, Q, WAY], "class_logits": [E, S+Q, C_train] | None}."""
-        if train:
-            raise NotImplementedError("the CLIP-FSAR train branch is not ported yet: ROADMAP Queue 1, train slice")
+        Returns {"logits": [E, Q, WAY], "class_logits": [E, S+Q, C_train] | None}.
+        ``generator`` drives the train branch's dropout (off when None)."""
         hc = self.head_cfg
         way, t = hc.way, hc.num_frames
         e, s_clips = ep.support_images.shape[:2]
@@ -103,18 +111,21 @@ class CLIPFSARHead(nn.Module):
         support_features, target_features = feats[:, :s_clips], feats[:, s_clips:]
         nq = target_features.shape[1]
 
-        if hc.eval_text:  # zero-shot: mean target feature vs class-mean support text
+        if not train and hc.eval_text:  # zero-shot: mean target feature vs class-mean support text
             return {"logits": self._text_logits(text_eval, ep, target_features.mean(dim=2)), "class_logits": None}
 
-        # video-text classification logits, computed unconditionally in eval
-        all_feats = torch.cat([support_features, target_features], dim=1).mean(dim=2)
-        class_logits = cos_sim(all_feats, text_train) * self.scale
+        # video-text classification logits: always in eval, under USE_CLASSIFICATION in train
+        class_logits = None
+        if not train or hc.use_classification:
+            all_feats = torch.cat([support_features, target_features], dim=1).mean(dim=2)
+            class_logits = cos_sim(all_feats, text_train) * self.scale
 
         # prototype modulation (few_shot.py:2791-2811)
-        context_support = text_eval[ep.real_support_labels][:, :, None, :].float()  # [E, S, 1, D]
+        bank = text_train if train else text_eval
+        context_support = bank[ep.real_support_labels][:, :, None, :].float()  # [E, S, 1, D]
         raw_target_mean = target_features.mean(dim=2)  # COMBINE's text term uses pre-modulation features
         flat_t = target_features.reshape(e * nq, t, -1)
-        target_features = self.context2(flat_t, flat_t, flat_t).reshape(e, nq, t, -1)
+        target_features = self.context2(flat_t, flat_t, flat_t, generator).reshape(e, nq, t, -1)
 
         support_feats = support_features
         if hc.merge_before:
@@ -122,7 +133,7 @@ class CLIPFSARHead(nn.Module):
             context_support = class_mean(context_support, ep.support_labels, way)
         merged = torch.cat([support_feats, context_support], dim=2)  # [E, n, T+1, D]
         flat_m = merged.reshape((-1,) + merged.shape[2:])
-        support_feats = self.context2(flat_m, flat_m, flat_m)[:, :t].reshape(merged.shape[:2] + (t, -1))
+        support_feats = self.context2(flat_m, flat_m, flat_m, generator)[:, :t].reshape(merged.shape[:2] + (t, -1))
         if not hc.merge_before:
             support_feats = class_mean(support_feats, ep.support_labels, way)
         # prototypes are ordered by class id 0..WAY-1
@@ -132,7 +143,7 @@ class CLIPFSARHead(nn.Module):
         dists = frame_dists.reshape(e, nq, t, way, t).transpose(2, 3)  # [E, Q, WAY, Tq, Ts]
         cum_dists = otam_distance(dists, single_direction=hc.single_direct)  # [E, Q, WAY]
 
-        if hc.combine:
+        if not train and hc.combine:
             # text-visual fusion (few_shot.py:2924-2928); 8.0 is the
             # reference's hard-coded constant, not NUM_INPUT_FRAMES
             text_probs = self._text_logits(text_eval, ep, raw_target_mean)

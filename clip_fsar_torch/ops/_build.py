@@ -1,11 +1,12 @@
 """Builds and loads the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library goes
-to ``build/kernels/<hash>/`` under the repository root (git-ignored), keyed
-by a hash of the sources and flags, so a second process reuses it and an
-edited source rebuilds.  Nothing is built at import: the first kernel call
-builds.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all of
+them started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library goes to
+``build/kernels/<hash>/`` under the repository root (git-ignored), keyed by a
+hash of the sources, the headers they include and the flags, so a second
+process reuses it and an edited source rebuilds.  Nothing is built at
+import: the first kernel call builds.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _LIB_NAME = "libclip_fsar_kernels.so"
 
 
@@ -37,33 +38,48 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _compile_all(nvcc: str, srcs: list, work: str) -> list:
+    """One nvcc per source, all running at once; returns the object paths.
+    Raises with the compiler's errors if any of them fails."""
+    objs = [os.path.join(work, os.path.basename(src) + ".o") for src in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)
+    ]
+    logs = [(src, proc.communicate()[0], proc.returncode) for src, proc in zip(srcs, procs)]
+    with open(os.path.join(work, "nvcc.log"), "w") as f:
+        for src, out, _ in logs:
+            f.write(f"== {os.path.basename(src)}\n{out}")
+    failed = [(src, out, rc) for src, out, rc in logs if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{os.path.basename(s)} ({rc}):\n{out[-4000:]}" for s, out, rc in failed))
+    return objs
+
+
 def build() -> str:
-    """Compile the kernels if this source/flag combination has no library
-    yet; returns the library path.  The compiler's ``-Xptxas -v`` report
-    (registers, shared memory, spills per kernel) is kept as ``nvcc.log``
-    beside it."""
+    """Compile the kernels if this source/header/flag combination has no
+    library yet; returns the library path.  The compilers' ``-Xptxas -v``
+    report (registers, shared memory, spills per kernel) is kept as
+    ``nvcc.log`` beside it."""
     srcs = sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        with open(src, "rb") as f:
-            digest.update(f.read())
+    for path in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
     out_dir = os.path.join(BUILD_ROOT, digest.hexdigest()[:16])
     lib_path = os.path.join(out_dir, _LIB_NAME)
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True)
-        with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-            f.write(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        objs = _compile_all(nvcc, srcs, work)
+        tmp = os.path.join(work, _LIB_NAME)
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(os.path.join(work, "nvcc.log"), os.path.join(out_dir, "nvcc.log"))
         os.replace(tmp, lib_path)  # atomic: a concurrent builder sees the whole file or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return lib_path
 
 
@@ -75,6 +91,8 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.clip_mha_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.clip_mha_fwd.restype = i
+    lib.clip_mha_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.clip_mha_bwd.restype = i
     lib.clip_kernels_error_string.argtypes = [i]
     lib.clip_kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,8 +3,9 @@
     python -m clip_fsar_torch.runs.run --cfg configs/projects/CLIPFSAR/hmdb51/CLIPFSAR_HMDB51_1shot_v1.yaml [KEY.SUB value ...]
 
 Dispatches on TASK_TYPE and queues the runs in the JAX package's order.
-Only the few-shot test runner is ported; every other runner raises
-NotImplementedError (``TRAIN.ENABLE False`` skips few-shot training).
+The few-shot runners are ported (``TRAIN.ENABLE True`` trains, then tests
+the last checkpoint); every other runner raises NotImplementedError before
+any work starts.
 """
 
 from __future__ import annotations
@@ -13,14 +14,14 @@ import os
 from typing import Any, Dict, List, Optional
 
 from clip_fsar_tpu.config.config import load_config, parse_args
-from clip_fsar_torch.train.loop import test_few_shot
+from clip_fsar_torch.train.loop import test_few_shot, train_few_shot
 from clip_fsar_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger(__name__)
 
+_RUNNERS = {"train_few_shot": train_few_shot, "test_few_shot": test_few_shot}
 # runners not ported yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    "train_few_shot": "the few-shot train path (ROADMAP Queue 1, train slice); set TRAIN.ENABLE False to run the test protocol",
     "train": "classification / pretrain (ROADMAP Queue 1, breadth)",
     "test": "classification (ROADMAP Queue 1, breadth)",
     "submission_classification": "classification (ROADMAP Queue 1, breadth)",
@@ -75,7 +76,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     results = {}
     for run_cfg, name in runs:
         logger.info("=== run: %s ===", name)
-        results[name] = test_few_shot(run_cfg)
+        results[name] = _RUNNERS[name](run_cfg)
     return results
 
 

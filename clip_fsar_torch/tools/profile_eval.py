@@ -77,6 +77,8 @@ def slice_cfg(*extra: str):
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "clip_mha_bwd" in low:
+        return "clip_mha_bwd"
     if "clip_mha" in low:
         return "clip_mha"
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "sm80_")):

@@ -1,0 +1,153 @@
+"""Where the time of the few-shot train slice goes on a CUDA card.
+
+    python -m clip_fsar_torch.tools.profile_train [--out chiprun_out/profile_train.txt]
+
+The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with
+a ViT-B/16 tower at full width (fresh weights from the seed), the synthetic
+decoder, E = 4 episodes (960 frames of 224 px) per step in 2 episode chunks,
+BATCH_SIZE_PER_TASK 4, bf16.  Each reading is printed on a line that starts
+with the tag of its reading set:
+
+- ``loader[train w=4]``: the host train loader alone (no device), ms per
+  step over 4 steps with the config's 4 worker threads;
+- ``step[<path> #i]``: one batch resident on the card, the whole train step
+  (augmentation, forward and backward of both chunks, the optimizer's
+  micro-step) timed with CUDA events, three timings of 4 steps;
+- ``kernels[<path> #i]``: ``torch.profiler`` over two such steps: device time
+  per kernel name (device events only), grouped into the attention forward
+  kernel / backward kernel / GEMM / softmax / memcpy / other, the wall time,
+  and the busy share of the wall;
+- ``loop[<path> #i]``: ``train_few_shot`` over 6 steps (no validation) under
+  the profiler: wall seconds of the step loop, device busy time (the union of
+  device-event intervals) and idle share, peak device memory.
+
+``<path>`` is ``fused`` (the clip_mha kernels) or ``split`` (plain attention
+with fp32 logits), run in the order fused, split, fused, split.  Exits
+non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from clip_fsar_torch.tools import profile_eval
+from clip_fsar_torch.tools.profile_eval import CONFIG, PATHS, _busy_us, _device_events, _report_kernels, card, say
+
+EPISODES = 4
+TRAIN_OPTS = [
+    "VIDEO.HEAD.BACKBONE_NAME", "ViT-B/16",
+    "TRAIN.ENABLE", "True",
+    "DATA.DECODER", "synthetic",
+    "TPU.EPISODES_PER_STEP", str(EPISODES),
+    "TPU.EPISODE_CHUNKS", "2",
+    "TRAIN.BATCH_SIZE_PER_TASK", "4",
+    "TRAIN.VAL_FRE_ITER", "0",
+    "LOG_PERIOD", "100",
+]
+STEPS = 4  # steps per timing
+
+
+def train_cfg(*extra: str):
+    from clip_fsar_torch.runs.run import load_config
+
+    return load_config(CONFIG, TRAIN_OPTS + list(extra))
+
+
+def time_loader(steps: int = STEPS) -> None:
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+
+    cfg = train_cfg()
+    workers = int(cfg.DATA_LOADER.NUM_WORKERS)
+    t0 = time.perf_counter()
+    with build_few_shot_loader(cfg, "train", num_steps=steps, episodes_per_step=EPISODES) as loader:
+        got = sum(1 for _ in loader)
+    ms = (time.perf_counter() - t0) * 1e3
+    say(f"loader[train w={workers}]: {got} steps of {EPISODES} episodes ({EPISODES * 240} frames) in {ms:.1f} ms, "
+        f"{ms / got:.1f} ms per step (host only)")
+
+
+def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.train.loop import step_generator, train_few_shot
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = train_cfg(*PATHS[path])
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+    train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=EPISODES) as loader:
+        batch = next(iter(loader)).to(dev)
+    gen = step_generator(cfg, 0, dev)
+    train_step(state, batch, 1e-6, gen)
+    torch.cuda.synchronize()
+
+    tag = f"step[{path} #{reading}]"
+    readings = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            train_step(state, batch, 1e-6, gen)
+        end.record()
+        torch.cuda.synchronize()
+        readings.append(start.elapsed_time(end) / steps)
+    say(f"{tag}: batch resident, {EPISODES * 240} frames in 2 chunks, ms per train step over {steps} steps: "
+        + " / ".join(f"{ms:.3f}" for ms in readings))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            train_step(state, batch, 1e-6, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _report_kernels(f"kernels[{path} #{reading}]", prof, wall_ms, 2)
+    del model, state, train_step, batch
+    torch.cuda.empty_cache()
+
+    tag = f"loop[{path} #{reading}]"
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out_dir:
+        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", "6", "OUTPUT_DIR", out_dir)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stats = train_few_shot(loop_cfg)
+            torch.cuda.synchronize()
+    busy_s = _busy_us(_device_events(prof)) / 1e6
+    say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s under the profiler, "
+        f"{stats['steps'] * EPISODES / stats['seconds']:.3f} train episodes/s, device busy {busy_s:.3f} s, "
+        f"idle {(1 - busy_s / stats['seconds']) * 100:.1f} % of the loop; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="also append every line to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: torch sees no CUDA device; this script measures the card only")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        profile_eval._out = args.out
+    from clip_fsar_torch import runtime
+
+    runtime.device("cuda")
+    say(card())
+    say(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    time_loader()
+    for reading in (1, 2):
+        for path in PATHS:
+            profile_path(path, reading)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,29 +1,43 @@
-"""Head checkpoints saved by the port and the test-time checkpoint search
-(counterpart of clip_fsar_tpu/train/pretrain.py:247-301).
+"""Checkpoints saved by the port, auto-resume, and the test-time checkpoint
+search (counterpart of clip_fsar_tpu/train/checkpoint.py and
+clip_fsar_tpu/train/pretrain.py:247-301).
 
-A checkpoint is ``torch.save({"head": state_dict})``.  Loading is
-non-strict as in the JAX package: entries whose name and shape match the
-head are taken, the rest are skipped with a log line.  Checkpoints of the
-JAX package (orbax) are not read yet.
+``Checkpointer(OUTPUT_DIR)`` writes ``OUTPUT_DIR/checkpoints/<step>.pt``
+(``torch.save`` of the step, the head's state dict, the optimizer with its
+accumulation window, and the EMA parameters), atomically, keeping the newest
+five.  A head checkpoint file (``save_checkpoint``) holds the head's state
+dict alone.  Loading a checkpoint FILE (TEST/TRAIN.CHECKPOINT_FILE_PATH) is
+non-strict as in the JAX package: entries whose name and shape match the head
+are taken, the rest are skipped with a log line.  Checkpoints of the JAX
+package (orbax) are not read.
 """
 
 from __future__ import annotations
 
 import os
+import re
+from typing import Optional
 
 import torch
 from torch import nn
 
+from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
+_STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
-def save_checkpoint(path: str, head: nn.Module) -> None:
+
+def _atomic_save(obj, path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"
-    torch.save({"head": head.state_dict()}, tmp)
-    os.replace(tmp, path)
+    torch.save(obj, tmp)
+    os.replace(tmp, path)  # a reader sees the whole file or none
+
+
+def save_checkpoint(path: str, head: nn.Module) -> None:
+    _atomic_save({"head": head.state_dict()}, path)
 
 
 def load_checkpoint_file(path: str, head: nn.Module) -> bool:
@@ -44,16 +58,100 @@ def load_checkpoint_file(path: str, head: nn.Module) -> bool:
     return bool(take)
 
 
+class Checkpointer:
+    """Step-stamped train checkpoints under ``<output_dir>/checkpoints``."""
+
+    def __init__(self, output_dir: str, max_to_keep: int = 5):
+        self.dir = os.path.abspath(os.path.join(output_dir, "checkpoints"))
+        self.max_to_keep = max_to_keep
+
+    def steps(self) -> list:
+        if not os.path.isdir(self.dir):
+            return []
+        return sorted(int(m.group(1)) for name in os.listdir(self.dir) if (m := _STEP_FILE.match(name)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.dir, f"{step}.pt")
+
+    def save(self, step: int, state: TrainState) -> str:
+        cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+        _atomic_save(
+            {
+                "step": state.step,
+                "head": cpu(state.model_variables()),
+                "optimizer": state.optimizer.state_dict(),
+                "ema": None if state.ema is None else cpu(state.ema),
+            },
+            self.path(step),
+        )
+        for old in self.steps()[: -self.max_to_keep]:
+            os.unlink(self.path(old))
+        logger.info("Saved checkpoint at step %d", step)
+        return self.path(step)
+
+    def load(self, step: Optional[int] = None) -> Optional[dict]:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return torch.load(self.path(step), map_location="cpu", weights_only=True)
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> Optional[int]:
+        """Load checkpoint ``step`` (the latest by default) into ``state`` in
+        place; returns the restored step, None when there is none.  The
+        head must match (a mismatch raises); an optimizer state or EMA from
+        another configuration is reinitialized with a warning, as the JAX
+        package's non-strict restore does."""
+        raw = self.load(step)
+        if raw is None:
+            return None
+        state.head.load_state_dict(raw["head"])  # strict: a params mismatch is never skippable
+        kept = []
+        if raw["optimizer"]["signature"] == state.optimizer.signature():
+            state.optimizer.load_state_dict(raw["optimizer"])
+        else:
+            kept.append("optimizer")
+        if (state.ema is None) != (raw["ema"] is None):
+            kept.append("ema")
+        elif state.ema is not None:
+            state.ema = {k: v.to(state.ema[k].device) for k, v in raw["ema"].items()}
+        if kept:
+            logger.warning("Checkpoint step %d does not match the current run configuration in %s: those were reinitialized", raw["step"], kept)
+        state.step = int(raw["step"])
+        logger.info("Restored checkpoint from step %d", state.step)
+        return state.step
+
+
+def auto_resume(cfg, checkpointer: Checkpointer, state: TrainState) -> Optional[int]:
+    """Resume from the latest OUTPUT_DIR checkpoint when TRAIN.AUTO_RESUME
+    (reference checkpoint.py:532-577); returns the step or None."""
+    if not bool(cfg.TRAIN.get("AUTO_RESUME", True)):
+        return None
+    return checkpointer.restore(state)
+
+
 def load_test_weights(cfg, head: nn.Module) -> str:
-    """Test-time search (reference checkpoint.py:452-529):
-    TEST.CHECKPOINT_FILE_PATH -> TRAIN.CHECKPOINT_FILE_PATH -> the freshly
-    built weights.  Returns which one the head now holds.  (The JAX search
-    also tries the last OUTPUT_DIR checkpoint, which only training writes;
-    the port's training is not ported yet.)"""
-    for key in ("TEST", "TRAIN"):
-        path = str(cfg[key].get("CHECKPOINT_FILE_PATH", "") or "") if key in cfg else ""
-        if path and load_checkpoint_file(path, head):
-            logger.info("testing with %s.CHECKPOINT_FILE_PATH: %s", key, path)
-            return path
+    """Test-time search (reference checkpoint.py:452-529, JAX
+    pretrain.py:279-301): TEST.CHECKPOINT_FILE_PATH -> the latest
+    checkpoint in OUTPUT_DIR/checkpoints (the trained weights, not EMA) ->
+    TRAIN.CHECKPOINT_FILE_PATH -> the freshly built weights.  Returns which
+    one the head now holds."""
+    test_path = str(cfg.TEST.get("CHECKPOINT_FILE_PATH", "") or "") if "TEST" in cfg else ""
+    train_path = str(cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") or "") if "TRAIN" in cfg else ""
+    if test_path and load_checkpoint_file(test_path, head):
+        logger.info("testing with TEST.CHECKPOINT_FILE_PATH: %s", test_path)
+        return test_path
+    ckpt = Checkpointer(cfg.get("OUTPUT_DIR", None) or ".")
+    step = ckpt.latest_step()
+    if step is not None:
+        head.load_state_dict(ckpt.load(step)["head"])
+        logger.info("testing with the last OUTPUT_DIR checkpoint (step %d)", step)
+        return ckpt.path(step)
+    if train_path and load_checkpoint_file(train_path, head):
+        logger.info("testing with TRAIN.CHECKPOINT_FILE_PATH: %s", train_path)
+        return train_path
     logger.info("no checkpoint found — testing with freshly built weights")
     return "fresh"

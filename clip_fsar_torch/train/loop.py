@@ -1,9 +1,17 @@
-"""Few-shot test loop (counterpart of clip_fsar_tpu/train/loop.py:61-175,
-347-368).  The train loop comes with the train path."""
+"""Few-shot train and test loops (counterpart of
+clip_fsar_tpu/train/loop.py:47-368).
+
+Iteration accounting as in the JAX package: one step consumes
+TPU.EPISODES_PER_STEP episodes and corresponds to one reference iteration,
+so the LR schedule, VAL_FRE_ITER and NUM_TRAIN_TASKS transfer unchanged;
+with TRAIN.BATCH_SIZE_PER_TASK = k the optimizer updates every k steps.
+"""
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import statistics
 import time
 from typing import Any, Dict, Optional
 
@@ -13,8 +21,10 @@ import torch
 from clip_fsar_torch import runtime
 from clip_fsar_torch.data.loader import build_few_shot_loader
 from clip_fsar_torch.models.builder import FewShotModel, build_few_shot_model
-from clip_fsar_torch.train.checkpoint import load_test_weights
-from clip_fsar_torch.train.step import make_eval_step
+from clip_fsar_torch.train.checkpoint import Checkpointer, auto_resume, load_checkpoint_file, load_test_weights
+from clip_fsar_torch.train.optimizer import Optimizer, epoch_for_iter, get_lr_at_epoch
+from clip_fsar_torch.train.state import TrainState
+from clip_fsar_torch.train.step import make_eval_step, make_train_step
 from clip_fsar_torch.utils.logging import get_logger, log_json_stats, setup_logging
 
 logger = get_logger(__name__)
@@ -96,15 +106,120 @@ def evaluate(cfg, model: FewShotModel, num_tasks: int, episodes_per_step: int, s
     return {**stats, "episode_logits": np.concatenate(logits_kept), "seconds": seconds}
 
 
+def step_generator(cfg, step: int, device) -> torch.Generator:
+    """The generator of train step ``step`` (jitter draws and dropout),
+    seeded from RANDOM_SEED + 1 and the step index, so a resumed run draws
+    what an uninterrupted one would."""
+    seed = np.random.SeedSequence((int(cfg.get("RANDOM_SEED", 0)) + 1, step)).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+@contextlib.contextmanager
+def _weights(head: torch.nn.Module, state_dict: Dict[str, torch.Tensor]):
+    """Run the head with ``state_dict`` loaded, then put its own weights back."""
+    own = {k: v.clone() for k, v in head.state_dict().items()}
+    head.load_state_dict(state_dict)
+    try:
+        yield head
+    finally:
+        head.load_state_dict(own)
+
+
+def train_few_shot(cfg) -> Dict[str, Any]:
+    """Episodic training: NUM_TRAIN_TASKS steps of TPU.EPISODES_PER_STEP
+    episodes, validation on the val split every VAL_FRE_ITER steps (and on
+    the EMA weights too when MODEL.EMA is on), a checkpoint at each
+    validation and at the end, auto-resume from OUTPUT_DIR.  Returns the JAX
+    package's stats (best_val_top1, final_iter) plus the per-step losses,
+    the optimizer updates made, the wall seconds of the step loop (data
+    included, model build excluded), the part of them spent validating and
+    checkpointing, and the steps this call ran."""
+    setup_logging(cfg.get("OUTPUT_DIR", None))
+    device = runtime.device()
+    e = int(cfg.TPU.get("EPISODES_PER_STEP", 1))
+    model = build_few_shot_model(cfg, flow="train", device=device)
+    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+    ckpt = Checkpointer(cfg.OUTPUT_DIR)
+    start_iter = auto_resume(cfg, ckpt, state) or 0
+    if start_iter:
+        logger.info("auto-resumed at iteration %d", start_iter)
+    elif cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") and load_checkpoint_file(str(cfg.TRAIN.CHECKPOINT_FILE_PATH), model.head):
+        if state.ema is not None:
+            state.ema = {n: p.detach().clone() for n, p in model.head.named_parameters()}
+    train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+
+    num_train_tasks = int(cfg.TRAIN.NUM_TRAIN_TASKS)
+    val_every = int(cfg.TRAIN.get("VAL_FRE_ITER", 0) or 0)
+    num_val_tasks = int(cfg.TRAIN.get("NUM_VAL_TASKS", 500))
+    e_val = int(cfg.TPU.get("EVAL_EPISODES_PER_STEP", 0) or e)
+    log_period = int(cfg.get("LOG_PERIOD", 10))
+    window = collections.deque(maxlen=log_period)
+    best = {"top1_acc": 0.0}
+    losses, updates, val_seconds = [], 0, 0.0
+    remaining = max(num_train_tasks - start_iter, 0)
+    logger.info("train loop: %d iterations x %d episodes/step on %s", remaining, e, device)
+    t0 = time.perf_counter()
+    with build_few_shot_loader(cfg, "train", num_steps=remaining, episodes_per_step=e, start_step=start_iter) as loader:
+        cur_iter = start_iter
+        t_last, iters_last = time.perf_counter(), cur_iter
+        for batch in loader:
+            lr = get_lr_at_epoch(cfg, epoch_for_iter(cfg, cur_iter))
+            metrics = train_step(state, batch.to(device, non_blocking=True), lr, step_generator(cfg, cur_iter, device))
+            cur_iter += 1
+            losses.append(metrics["loss"])
+            updates += int(metrics["updated"])
+            window.append(metrics["loss"])
+            if cur_iter % log_period == 0 or cur_iter == num_train_tasks:
+                now = time.perf_counter()
+                log_json_stats(
+                    {
+                        "_type": "train_iter",
+                        "iter": f"{cur_iter}/{num_train_tasks}",
+                        "loss": round(statistics.median(window), 5),
+                        "top1": round(metrics["top1"] * 100, 2),
+                        "lr": lr,
+                        "eps_per_sec": round(e * (cur_iter - iters_last) / max(now - t_last, 1e-9), 3),
+                    },
+                    logger,
+                )
+                t_last, iters_last = now, cur_iter
+            if val_every and cur_iter % val_every == 0:
+                t_val = time.perf_counter()
+                ckpt.save(cur_iter, state)
+                stats = evaluate(cfg, model, num_val_tasks, e_val, split="val", device=device)
+                if stats["top1_acc"] >= best["top1_acc"]:
+                    best = stats
+                if state.ema is not None:
+                    with _weights(model.head, state.ema_variables()):
+                        evaluate(cfg, model, num_val_tasks, e_val, split="val", device=device)
+                val_seconds += time.perf_counter() - t_val
+                t_last, iters_last = time.perf_counter(), cur_iter  # keep validation out of the rate window
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    ckpt.save(max(num_train_tasks, 1), state)
+    logger.info("training done at iter %d; best interleaved top1=%.3f", num_train_tasks, best["top1_acc"])
+    return {
+        "best_val_top1": best["top1_acc"],
+        "final_iter": num_train_tasks,
+        "losses": losses,
+        "updates": updates,
+        "seconds": seconds,
+        "val_seconds": val_seconds,
+        "steps": len(losses),
+    }
+
+
 def test_few_shot(cfg) -> Dict[str, Any]:
     """The few-shot test protocol: build the model, pick its weights
     (checkpoint search), run TRAIN.NUM_TEST_TASKS episodes in steps of
-    TEST.BATCH_SIZE episodes."""
+    TEST.BATCH_SIZE episodes.  The stats say which weights were tested
+    (``weights``: a checkpoint path or "fresh")."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
     device = runtime.device()
     model = build_few_shot_model(cfg, flow="test", device=device)
-    load_test_weights(cfg, model.head)
+    weights = load_test_weights(cfg, model.head)
     num_tasks = int(cfg.TRAIN.get("NUM_TEST_TASKS", 10000))
     e = int(cfg.TEST.get("BATCH_SIZE", cfg.TPU.get("EPISODES_PER_STEP", 1)))
     logger.info("few-shot test: %d episodes, %d per step, on %s", num_tasks, e, device)
-    return evaluate(cfg, model, num_tasks, e, device=device)
+    return {**evaluate(cfg, model, num_tasks, e, device=device), "weights": weights}

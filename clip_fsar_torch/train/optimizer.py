@@ -1,0 +1,232 @@
+"""Learning-rate policies, the reference's parameter groups, and the
+optimizer (counterpart of clip_fsar_tpu/train/optimizer.py:39-157, 201-358).
+
+The LR policies and the grouping are the JAX package's own arithmetic on the
+reference's parameter names (``"head." +`` the port's names, which follow
+the reference's torch names).  ``Optimizer`` is the JAX transformation chain
+as torch optimizers over param groups, in the same order:
+
+    clip_by_global_norm (TRAIN.CLIP_GRAD_NORM)
+    -> torch-L2 decay added to the gradient before the moments (adam, sgd;
+       SOLVER.WEIGHT_DECAY for the 'rest'/'head' groups, BN.WEIGHT_DECAY
+       for 'bn') or decoupled after them (adamw)
+    -> Adam (b1 0.9, b2 0.999, eps 1e-8), AdamW or SGD with momentum
+    -> 1/10 lr for the 'bn' and 'rest' groups under LR_REDUCE and FINE_TUNE
+    -> frozen parameters (FIXED_WEIGHTS, ONLY_LINEAR, BN.WB_LOCK) never move,
+
+accumulated over TRAIN.BATCH_SIZE_PER_TASK micro-steps with the semantics of
+the JAX ``cond_multi_steps``: gradients are summed, divided by k on the k-th
+micro-step, and the update uses the lr of that emitting step.
+``TPU.FLAT_OPTIMIZER`` is a TPU layout choice with no effect on the numbers
+and is not read.  LARS (self-supervised pretraining) is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+# ---------------------------------------------------------------------------
+# LR policies (reference lr_policy.py:10-56)
+# ---------------------------------------------------------------------------
+
+
+def lr_cosine(cfg, cur_epoch: float) -> float:
+    s = cfg.SOLVER
+    return float(s.BASE_LR) * (math.cos(math.pi * cur_epoch / float(s.MAX_EPOCH)) + 1.0) * 0.5
+
+
+def lr_steps_with_relative_lrs(cfg, cur_epoch: float) -> float:
+    s = cfg.SOLVER
+    steps = list(s.STEPS) + [s.MAX_EPOCH]
+    ind = 0
+    for ind, step in enumerate(steps):
+        if cur_epoch < step:
+            break
+    return float(s.LRS[ind - 1]) * float(s.BASE_LR)
+
+
+_POLICIES = {"cosine": lr_cosine, "steps_with_relative_lrs": lr_steps_with_relative_lrs}
+
+
+def get_lr_at_epoch(cfg, cur_epoch: float) -> float:
+    """Policy LR with linear warmup below WARMUP_EPOCHS."""
+    policy = _POLICIES[cfg.SOLVER.LR_POLICY]
+    lr = policy(cfg, cur_epoch)
+    warmup = float(cfg.SOLVER.get("WARMUP_EPOCHS", 0))
+    if cur_epoch < warmup:
+        lr_start = float(cfg.SOLVER.WARMUP_START_LR)
+        lr_end = policy(cfg, warmup)
+        lr = cur_epoch * (lr_end - lr_start) / warmup + lr_start
+    return lr
+
+
+def epoch_for_iter(cfg, cur_iter: int) -> float:
+    """The lr epoch of global iteration ``cur_iter``, as the reference's
+    few-shot trainer computes it (train_net_few_shot.py:58,65,95):
+    i // STEPS_ITER + NUM_FOLDS * i / STEPS_ITER.  The fractional term makes
+    the schedule advance at about 2i/STEPS_ITER for NUM_FOLDS = 1, a
+    reference quirk the JAX package keeps (optimizer.py:69-80)."""
+    steps_iter = int(cfg.SOLVER.get("STEPS_ITER", 1) or 1)
+    cur_epoch = cur_iter // steps_iter
+    num_folds = int(cfg.TRAIN.get("NUM_FOLDS", 1))
+    return cur_epoch + num_folds * float(cur_iter) / max(steps_iter, 1)
+
+
+# ---------------------------------------------------------------------------
+# parameter groups (reference models/utils/optimizer.py:43-83)
+# ---------------------------------------------------------------------------
+
+
+def _reference_name_parts(parts: List[str]) -> List[str]:
+    """Drop flax norm-wrapper segments under a CLIP ``ln_*`` module (the
+    JAX package's rule; the port's names have none, so this is a no-op on
+    them and kept for the shared arithmetic)."""
+    out = []
+    for i, p in enumerate(parts):
+        if p.startswith(("layernorm_", "batchnorm_", "groupnorm_")) and i > 0 and parts[i - 1].startswith("ln"):
+            continue
+        out.append(p)
+    return out
+
+
+def classify_param(parts: List[str]) -> str:
+    """Reference grouping, same elif order, substring matching:
+    'no_decay' ("embd"/"cls_token", wd 0), 'bn' ("bn"/"norm",
+    BN.WEIGHT_DECAY, lr-reduced), 'head' ("head", full wd, never
+    lr-reduced), 'rest' (full wd, lr-reduced)."""
+    name = ".".join(_reference_name_parts(parts))
+    if "embd" in name or "cls_token" in name:
+        return "no_decay"
+    if "bn" in name or "norm" in name:
+        return "bn"
+    if "head" in name:
+        return "head"
+    return "rest"
+
+
+def _name_parts(name: str, name_prefix: str) -> List[str]:
+    parts = name.lower().split(".")
+    return (name_prefix.lower().split("/") + parts) if name_prefix else parts
+
+
+def param_groups(names, name_prefix: str = "head") -> Dict[str, str]:
+    """{parameter name: group label}.  ``name_prefix`` positions the names
+    inside the reference's model namespace (few-shot heads live under
+    ``head.``, so with it every CLIP ``ln_*`` weight is decayed and
+    ``context2.norm_*`` is not, as in the reference)."""
+    return {n: classify_param(_name_parts(n, name_prefix)) for n in names}
+
+
+def fixed_params(cfg, names, name_prefix: str = "head") -> set:
+    """Names of frozen parameters: TRAIN.FIXED_WEIGHTS matches the first two
+    components of the reference name, TRAIN.ONLY_LINEAR freezes all but
+    'head' names (reference optimizer.py:50-57)."""
+    fixed = set(cfg.TRAIN.get("FIXED_WEIGHTS", []) or []) if "TRAIN" in cfg else set()
+    only_linear = bool(cfg.TRAIN.get("ONLY_LINEAR", False)) if "TRAIN" in cfg else False
+    out = set()
+    for n in names:
+        parts = _name_parts(n, name_prefix)
+        if any(p in fixed for p in parts[:2]) or (only_linear and "head" not in ".".join(_reference_name_parts(parts))):
+            out.add(n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the optimizer
+# ---------------------------------------------------------------------------
+
+
+class Optimizer:
+    """The JAX optimizer chain over a module's parameters (see the module
+    docstring).  ``step(lr)`` takes the gradients in the parameters'
+    ``.grad`` as one micro-step and returns True when it applied an update."""
+
+    def __init__(self, cfg, module: nn.Module, name_prefix: str = "head"):
+        s = cfg.SOLVER
+        self.method = str(s.get("OPTIM_METHOD", "adam"))
+        wd = float(s.get("WEIGHT_DECAY", 0.0) or 0.0)
+        bn_wd = float(cfg.BN.get("WEIGHT_DECAY", 0.0) or 0.0) if "BN" in cfg else 0.0
+        wb_lock = bool(cfg.BN.get("WB_LOCK", False)) if "BN" in cfg else False
+        lr_reduce = bool(cfg.TRAIN.get("LR_REDUCE", False)) and bool(cfg.TRAIN.get("FINE_TUNE", False)) if "TRAIN" in cfg else False
+        clip = cfg.TRAIN.get("CLIP_GRAD_NORM", None) if "TRAIN" in cfg else None
+        self.clip_norm = float(clip) if clip else None
+        self.k = int(cfg.TRAIN.get("BATCH_SIZE_PER_TASK", 1)) if "TRAIN" in cfg else 1
+
+        named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+        self.params = [p for _, p in named]  # every trained parameter: accumulation and clipping see them all
+        groups = param_groups([n for n, _ in named], name_prefix)
+        frozen = fixed_params(cfg, [n for n, _ in named], name_prefix)
+        if wb_lock:
+            frozen |= {n for n, g in groups.items() if g == "bn"}
+        if self.method in ("adam", "sgd"):
+            decay = {"rest": wd, "head": wd, "bn": bn_wd, "no_decay": 0.0}
+        elif self.method == "adamw":  # decoupled decay for the decay mask only
+            decay = {"rest": wd, "head": wd, "bn": 0.0, "no_decay": 0.0}
+        elif self.method == "lars":
+            raise NotImplementedError("SOLVER.OPTIM_METHOD lars (self-supervised pretraining) is not ported yet: ROADMAP Queue 1, breadth")
+        else:
+            raise NotImplementedError(f"Unsupported OPTIM_METHOD {self.method!r}")
+
+        buckets: Dict[tuple, List[nn.Parameter]] = {}
+        for n, p in named:
+            if n in frozen:
+                continue
+            g = groups[n]
+            key = (g, decay[g], 0.1 if (lr_reduce and g in ("bn", "rest")) else 1.0)
+            buckets.setdefault(key, []).append(p)
+        param_groups_ = [{"params": ps, "weight_decay": wd_, "lr_scale": scale, "group": g} for (g, wd_, scale), ps in buckets.items()]
+        if self.method == "adam":
+            self.inner = torch.optim.Adam(param_groups_, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        elif self.method == "adamw":
+            self.inner = torch.optim.AdamW(param_groups_, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        else:
+            self.inner = torch.optim.SGD(
+                param_groups_, lr=0.0, momentum=float(s.get("MOMENTUM", 0.9)), nesterov=bool(s.get("NESTEROV", False)), dampening=0.0
+            )
+        self.mini_step = 0
+        self.acc: Optional[List[torch.Tensor]] = None  # gradient sums of the open window (k > 1)
+
+    def signature(self) -> dict:
+        """What a checkpointed optimizer state must match to be restored."""
+        return {
+            "method": self.method,
+            "k": self.k,
+            "groups": [(g["group"], g["weight_decay"], g["lr_scale"], [tuple(p.shape) for p in g["params"]]) for g in self.inner.param_groups],
+        }
+
+    @torch.no_grad()
+    def step(self, lr: float) -> bool:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            torch._foreach_add_(self.acc, grads)
+            self.mini_step += 1
+            if self.mini_step < self.k:
+                return False
+            grads = torch._foreach_div(self.acc, float(self.k))
+            for a in self.acc:
+                a.zero_()
+            self.mini_step = 0
+        if self.clip_norm is not None:  # optax.clip_by_global_norm
+            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            scale = torch.where(norm < self.clip_norm, torch.ones_like(norm), self.clip_norm / norm)
+            grads = torch._foreach_mul(grads, scale)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        for group in self.inner.param_groups:
+            group["lr"] = lr * group["lr_scale"]
+        self.inner.step()
+        return True
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step, "acc": self.acc, "signature": self.signature()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.inner.load_state_dict(sd["inner"])
+        self.mini_step = int(sd["mini_step"])
+        self.acc = None if sd["acc"] is None else [a.to(p.device) for a, p in zip(sd["acc"], self.params)]

@@ -1,21 +1,142 @@
-"""Eval step over a batch of episodes (counterpart of
-clip_fsar_tpu/train/step.py:33-37, 192-220).
+"""Train and eval steps over a batch of episodes (counterpart of
+clip_fsar_tpu/train/step.py:40-220).
 
-Episodes arrive as uint8 [E, ...] tensors on the device; normalization runs
-there in float32, then one head call covers all E episodes (one tower call
-over E*(S+Q)*T frames, as the JAX vmap compiles to).  The train step comes
-with the train path.
+Episodes arrive as uint8 [E, ...] tensors on the device; augmentation and
+normalization run there in float32, then one head call covers all E
+episodes (one tower call over E*(S+Q)*T frames, as the JAX vmap compiles to).
+
+Train loss, as the reference's few-shot loop (train_net_few_shot.py:108-152):
+CE(episode logits, target labels) + USE_CLASSIFICATION_VALUE *
+CE(video-text class logits, real support | real target labels), each a mean
+over the episode, then a mean over the E episodes.  ``TPU.EPISODE_CHUNKS``
+runs the E episodes as c sequential micro-batches whose gradients are summed
+and divided by c, so only E/c episodes' activations are alive at once.  A
+non-finite loss leaves the parameters, the optimizer moments and the
+accumulation window untouched (the NaN guard, :161-180).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import math
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from clip_fsar_torch.data import augment
 from clip_fsar_torch.data.transforms import normalize_images
 from clip_fsar_torch.data.types import Episode
+from clip_fsar_torch.train.state import TrainState
+
+# loss terms of heads that are not ported yet
+_UNPORTED_LOSSES = {
+    "USE_LOCAL": "the HyRSM local loss",
+    "TEMPORAL_LOSS_WEIGHT": "the temporal regularizer",
+    "USE_CONTRASTIVE": "the MoLo contrastive terms",
+    "USE_RECONS": "the MoLo reconstruction loss",
+}
+
+
+def _check_train_cfg(cfg, arch) -> None:
+    """Raise for what the train step does not have yet (the augmentation
+    checks its own config)."""
+    for key, what in _UNPORTED_LOSSES.items():
+        if cfg.TRAIN.get(key, False):
+            raise NotImplementedError(f"TRAIN.{key} ({what}) belongs to a head that is not ported yet: ROADMAP Queue 1, breadth")
+    if "TPU" in cfg:
+        # TPU.REMAT resolves as the JAX builder does (builder.py:91-111): auto = on for towers of 24+ layers
+        remat = cfg.TPU.get("REMAT", False)
+        deep = arch.is_vit and arch.vision_layers >= 24
+        if (deep if str(remat).lower() == "auto" else bool(remat)) or int(cfg.TPU.get("FRAME_CHUNKS", 1) or 1) > 1:
+            raise NotImplementedError("TPU.REMAT / TPU.FRAME_CHUNKS (rematerialized towers) are not ported yet: ROADMAP Queue 1, train slice leftovers")
+
+
+def make_loss_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
+    """loss_fn(batch, generator) -> (loss, metrics) for a normalized batch of
+    episodes: the mean over episodes of the per-episode loss, and the
+    per-step means of ``loss``, ``ce`` and ``top1`` as 0-dim tensors."""
+    use_cls = bool(cfg.TRAIN.get("USE_CLASSIFICATION", False))
+    cls_value = float(cfg.TRAIN.get("USE_CLASSIFICATION_VALUE", 1.0) or 1.0)
+    cls_only = bool(cfg.TRAIN.get("USE_CLASSIFICATION_ONLY", False))
+
+    def loss_fn(batch: Episode, generator: Optional[torch.Generator]):
+        out = head(batch, text_train, text_test, train=True, generator=generator)
+        logits = out["logits"]  # [E, Q, WAY]
+        labels = batch.target_labels.long()
+        ep_ce = F.cross_entropy(logits.flatten(0, 1), labels.flatten(), reduction="none").reshape(labels.shape).mean(dim=-1)
+        loss = ep_ce
+        if use_cls:
+            real = torch.cat([batch.real_support_labels, batch.real_target_labels], dim=1).long()  # [E, S+Q]
+            cls_logits = out["class_logits"]
+            cls_ce = F.cross_entropy(cls_logits.flatten(0, 1), real.flatten(), reduction="none").reshape(real.shape).mean(dim=-1)
+            loss = cls_value * cls_ce if cls_only else ep_ce + cls_value * cls_ce
+        top1 = (logits.argmax(dim=-1) == labels).float().mean(dim=-1)
+        return loss.mean(), {"loss": loss.mean().detach(), "ce": ep_ce.mean().detach(), "top1": top1.mean().detach()}
+
+    return loss_fn
+
+
+def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
+    """grad_fn(batch, generator) -> metrics (python floats): augment and
+    normalize the uint8 batch, then forward and backward over the
+    TPU.EPISODE_CHUNKS micro-batches, leaving the gradient of the mean loss
+    over the E episodes in the parameters' ``.grad``.  ``generator`` (a
+    torch.Generator on the batch's device) drives the jitter draws and
+    dropout; None turns both off (normalization only)."""
+    _check_train_cfg(cfg, head.arch)
+    mean = tuple(float(x) for x in cfg.DATA.MEAN)
+    std = tuple(float(x) for x in cfg.DATA.STD)
+    ep_chunks = int(cfg.TPU.get("EPISODE_CHUNKS", 1)) if "TPU" in cfg else 1
+    loss_fn = make_loss_fn(head, cfg, text_train, text_test)
+
+    def aug(images: torch.Tensor, is_query: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+        e, n = images.shape[:2]
+        out = augment.fewshot_train_augment(images.flatten(0, 1), cfg, mean, std, is_query, generator)
+        return out.reshape((e, n) + out.shape[1:])
+
+    def grad_fn(batch: Episode, generator: Optional[torch.Generator]) -> Dict[str, float]:
+        batch = batch.replace(
+            support_images=aug(batch.support_images, False, generator),
+            target_images=aug(batch.target_images, True, generator),
+        )
+        e = batch.support_images.shape[0]
+        c = ep_chunks if (ep_chunks > 1 and e % ep_chunks == 0) else 1
+        head.zero_grad(set_to_none=True)
+        chunk_metrics = []
+        for i in range(c):
+            chunk = batch.map(lambda x, i=i: x[i * (e // c) : (i + 1) * (e // c)])
+            loss, metrics = loss_fn(chunk, generator)
+            loss.backward()  # sums the chunks' gradients into .grad
+            chunk_metrics.append(metrics)
+        if c > 1:
+            for p in head.parameters():
+                if p.grad is not None:
+                    p.grad.div_(c)
+        return {k: torch.stack([m[k] for m in chunk_metrics]).mean().item() for k in chunk_metrics[0]}
+
+    return grad_fn
+
+
+def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
+    """train_step(state, batch, lr, generator) -> metrics (python floats),
+    updating ``state`` in place: ``make_grad_fn``'s gradient, then the
+    optimizer (one micro-step of its accumulation window) unless the loss is
+    not finite, the step counter, and the EMA."""
+    grad_fn = make_grad_fn(head, cfg, text_train, text_test)
+    ema_decay = float(cfg.MODEL.EMA.DECAY) if ("MODEL" in cfg and cfg.MODEL.EMA.get("ENABLE", False)) else None
+
+    def train_step(state: TrainState, batch: Episode, lr: float, generator: Optional[torch.Generator]) -> Dict[str, float]:
+        metrics = grad_fn(batch, generator)
+        ok = math.isfinite(metrics["loss"])
+        metrics["updated"] = state.optimizer.step(lr) if ok else False
+        head.zero_grad(set_to_none=True)
+        state.step += 1
+        if ema_decay is not None:
+            state.update_ema(ema_decay)
+        metrics["nan_skipped"] = 0.0 if ok else 1.0
+        return metrics
+
+    return train_step
 
 
 def make_eval_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable[[Episode], Dict[str, torch.Tensor]]:

@@ -1,6 +1,7 @@
 """The port's episodic data path against clip_fsar_tpu: byte-identical
-episodes from the same seed, step and slot (val and test splits), the
-in-order threaded loader, and the move to a device."""
+episodes from the same seed, step and slot (train, val and test splits),
+the train augmentation given the JAX package's own draws, the in-order
+threaded loader and its start step, and the move to a device."""
 
 import dataclasses
 
@@ -8,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from clip_fsar_torch.data.augment import JitterConfig, JitterDraws, color_jitter_batch, fewshot_train_augment
 from clip_fsar_torch.data.datasets import DATASET_REGISTRY
 from clip_fsar_torch.data.episodes import EpisodeLoader
+from clip_fsar_torch.data.transforms import normalize_images, standardize
 from clip_fsar_torch.data.types import Episode, stack_episodes
 from tests.torch_parity import tiny_cfg
 
@@ -18,13 +21,15 @@ torch.set_num_threads(2)
 _FIELDS = [f.name for f in dataclasses.fields(Episode)]
 
 
-@pytest.mark.parametrize("split", ["test", "val"])
+@pytest.mark.parametrize("split", ["test", "val", "train"])
 def test_sampler_episodes_byte_identical_to_jax(split):
     """Same cfg, split file, synthetic decoder and (seed, step, slot):
-    every field of every episode equal, images byte for byte."""
+    every field of every episode equal, images byte for byte (train: random
+    crop and flip, 5 support and 25 query clips)."""
     from clip_fsar_tpu.data.datasets import FewShotVideoDataset as JDataset
 
-    cfg = tiny_cfg()
+    cfg = tiny_cfg("TRAIN.ENABLE", str(split == "train"))
+    cfg.AUGMENTATION["RANDOM_FLIP"] = True  # support clips flip too (query clips always may)
     jsampler = JDataset(cfg, split).make_sampler()
     tsampler = DATASET_REGISTRY.get(cfg.TRAIN.DATASET)(cfg, split).make_sampler()
     assert tsampler.seed == jsampler.seed
@@ -37,12 +42,69 @@ def test_sampler_episodes_byte_identical_to_jax(split):
             assert a.dtype == b.dtype and a.shape == b.shape, name
             np.testing.assert_array_equal(a, b, err_msg=name)
     assert got.support_images.shape == (5, 4, 64, 64, 3) and got.support_images.dtype == np.uint8
+    assert got.target_images.shape[0] == (25 if split == "train" else 5)
 
 
 def test_train_split_is_not_ported_yet():
+    """The one part of the train split's augmentation not ported yet,
+    random erasing (off in base.yaml and the shipped few-shot configs),
+    raises and names its ROADMAP item instead of being skipped."""
     cfg = tiny_cfg()
-    with pytest.raises(NotImplementedError, match="train path"):
-        DATASET_REGISTRY.get(cfg.TRAIN.DATASET)(cfg, "train")
+    cfg.AUGMENTATION.RANDOM_ERASING["ENABLE"] = True
+    clips = torch.zeros((2, 4, 8, 8, 3), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="RANDOM_ERASING.*ROADMAP"):
+        fewshot_train_augment(clips, cfg, cfg.DATA.MEAN, cfg.DATA.STD, True, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("consistent", [True, False])
+def test_train_augment_matches_jax_with_its_draws(consistent):
+    """fewshot_train_augment of the JAX package on query clips against the
+    port's apply step fed the JAX draws, recomputed here from the same key as
+    augment.py:347-355, 383, 390 draws them, with one factor per clip or per
+    frame.  fp32 at 1e-5 (the same ops in the same order)."""
+    import jax
+    import jax.numpy as jnp
+
+    from clip_fsar_tpu.data import augment as jaug
+
+    cfg = tiny_cfg("AUGMENTATION.CONSISTENT", str(consistent))
+    clips = np.random.RandomState(5).randint(0, 256, size=(6, 4, 16, 16, 3)).astype(np.uint8)
+    mean, std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+    key = jax.random.PRNGKey(11)
+    want = np.asarray(jaug.fewshot_train_augment(key, jnp.asarray(clips), cfg, mean, std, is_query=True))
+
+    jc = JitterConfig.from_cfg(cfg)
+    n, t = clips.shape[:2]
+    shape = (n, 1, 1, 1, 1) if consistent else (n, t, 1, 1, 1)
+    k = jax.random.split(jax.random.split(key)[0], 6)
+
+    def unif(i, lo, hi, size):
+        return torch.from_numpy(np.array(jax.random.uniform(k[i], size, jnp.float32, lo, hi)))
+
+    draws = JitterDraws(
+        brightness=unif(0, max(0.0, 1.0 - jc.brightness), 1.0 + jc.brightness, shape),
+        contrast=unif(1, max(0.0, 1.0 - jc.contrast), 1.0 + jc.contrast, shape),
+        saturation=unif(2, max(0.0, 1.0 - jc.saturation), 1.0 + jc.saturation, shape),
+        hue=unif(3, -jc.hue, jc.hue, shape[:-1]),
+        order=int(jax.random.randint(k[4], (), 0, 24)),
+        gray=torch.from_numpy(np.array(jax.random.uniform(k[5], (n, 1, 1, 1, 1)) < jc.grayscale)),
+    )
+    got = standardize(color_jitter_batch(torch.from_numpy(clips).float() / 255.0, draws, jc), mean, std)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("is_query, color_aug", [(True, False), (False, True), (False, False)])
+def test_train_augment_gates(is_query, color_aug):
+    """Query clips are jittered unconditionally, support clips only under
+    AUGMENTATION.COLOR_AUG (augment.py:410); without jitter, or without a
+    generator, the clips are only normalized."""
+    cfg = tiny_cfg("AUGMENTATION.COLOR_AUG", str(color_aug))
+    clips = torch.from_numpy(np.random.RandomState(6).randint(0, 256, size=(3, 2, 8, 8, 3)).astype(np.uint8))
+    mean, std = cfg.DATA.MEAN, cfg.DATA.STD
+    plain = normalize_images(clips, mean, std)
+    own = fewshot_train_augment(clips, cfg, mean, std, is_query, torch.Generator().manual_seed(0))
+    assert torch.equal(own, plain) != (is_query or color_aug)
+    assert torch.equal(fewshot_train_augment(clips, cfg, mean, std, is_query, None), plain)
 
 
 class _CountingSampler:
@@ -68,6 +130,9 @@ def test_loader_is_in_step_order_for_any_worker_count():
         with EpisodeLoader(lambda i: _CountingSampler(), episodes_per_step=2, num_workers=workers, num_steps=7) as loader:
             got = [batch.support_images[:, 0].tolist() for batch in loader]
         assert got == [[s * 100, s * 100 + 1] for s in range(7)]
+    # a resumed run continues the stream: global steps 5, 6, 7
+    with EpisodeLoader(lambda i: _CountingSampler(), episodes_per_step=2, num_workers=2, num_steps=3, start_step=5) as loader:
+        assert [batch.support_images[:, 0].tolist() for batch in loader] == [[s * 100, s * 100 + 1] for s in (5, 6, 7)]
 
 
 def test_loader_reraises_a_worker_error():

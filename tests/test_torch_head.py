@@ -1,7 +1,8 @@
 """The CLIP-FSAR head of clip_fsar_torch against clip_fsar_tpu: the
-prototype-modulation TransformerV1 and every eval branch of the head
-(plain OTAM, MERGE_BEFORE, SINGLE_DIRECT, EVAL_TEXT, COMBINE), on the tiny
-ViT with the same weights and the same numpy episodes."""
+prototype-modulation TransformerV1 and every branch of the head (plain
+OTAM, MERGE_BEFORE, SINGLE_DIRECT, EVAL_TEXT, COMBINE, and the train
+branch), on the tiny ViT with the same weights and the same numpy
+episodes; the dropout masks of the train branch."""
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +67,8 @@ def _episodes(num=2, way=5, frames=4, res=64, text_rows=10, seed=0):
 )
 def test_head_eval_branches_match_jax(variant):
     """Head logits (and class logits where the branch makes them) for two
-    episodes in one call, vs the JAX head vmapped over them; fp32 at 1e-4."""
+    episodes in one call, vs the JAX head vmapped over them, in the eval
+    branch and in the train branch; fp32 at 1e-4."""
     from clip_fsar_tpu.data.types import Episode as JEpisode
     from clip_fsar_tpu.models.heads.clipfsar import CLIPFSARConfig as JConfig
     from clip_fsar_tpu.models.heads.clipfsar import CLIPFSARHead as JHead
@@ -78,8 +80,10 @@ def test_head_eval_branches_match_jax(variant):
     batch = _episodes()
 
     jhead = JHead(arch=arch, head_cfg=JConfig.from_cfg(cfg), dtype=jnp.float32)
-    run = jax.jit(jax.vmap(lambda ep: jhead.apply(model.variables, ep, model.text_train, model.text_test, train=False)))
-    want = run(JEpisode(**{k: jnp.asarray(v) for k, v in batch.items()}))
+    # the eval branch, and the train branch with dropout off (deterministic=True), in one compiled call
+    run = jax.jit(jax.vmap(lambda ep: [jhead.apply(model.variables, ep, model.text_train, model.text_test, train=train, deterministic=True)
+                                       for train in (False, True)]))
+    want, want_train = run(JEpisode(**{k: jnp.asarray(v) for k, v in batch.items()}))
 
     head = CLIPFSARHead(arch, CLIPFSARConfig.from_cfg(cfg), dtype=torch.float32)
     head.load_state_dict({k: v for k, v in port_head_state(model, clip_vars).items() if not k.startswith("text.")})
@@ -92,5 +96,29 @@ def test_head_eval_branches_match_jax(variant):
         assert got["class_logits"] is None
     else:
         np.testing.assert_allclose(got["class_logits"].numpy(), np.asarray(want["class_logits"]), atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError):
-        head(Episode(**{k: torch.from_numpy(v) for k, v in batch.items()}), text_train, text_test, train=True)
+
+    # train branch: the train text bank modulates the prototypes, the class logits follow
+    # USE_CLASSIFICATION, EVAL_TEXT and COMBINE do not apply; no generator, so no dropout
+    with torch.no_grad():
+        got = head(Episode(**{k: torch.from_numpy(v) for k, v in batch.items()}), text_train, text_test, train=True)
+    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want_train["logits"]), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got["class_logits"].numpy(), np.asarray(want_train["class_logits"]), atol=1e-4, rtol=1e-4)
+
+
+def test_dropout_masks():
+    """Dropout as flax draws it: keep with probability 1 - rate, kept values
+    scaled by 1/(1 - rate), identity without a generator; the same generator
+    seed gives the same mask.  The rate is read from 200k draws at 4 sigma."""
+    from clip_fsar_torch.models.heads.common import dropout
+
+    x = torch.ones(200_000)
+    assert dropout(x, 0.2, None) is x and dropout(x, 0.0, torch.Generator().manual_seed(0)) is x
+    a = dropout(x, 0.2, torch.Generator().manual_seed(3))
+    b = dropout(x, 0.2, torch.Generator().manual_seed(3))
+    assert torch.equal(a, b)
+    assert set(a.unique().tolist()) == {0.0, 1.25}
+    kept = (a > 0).float().mean().item()
+    assert abs(kept - 0.8) < 4 * (0.8 * 0.2 / x.numel()) ** 0.5
+    assert not torch.equal(a, dropout(x, 0.2, torch.Generator().manual_seed(4)))
+    mod = TransformerV1(32, heads=8, dim_head_k=4, dropout_atte=0.2, dropout_ffn=0.05)
+    assert (mod.attn_0.rate, mod.ff_0.rate) == (0.2, 0.05)

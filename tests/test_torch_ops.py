@@ -1,6 +1,7 @@
-"""clip_fsar_torch ops against clip_fsar_tpu: the clip_mha plain version
-against the JAX Pallas kernel (interpret mode on the CPU), mha, OTAM,
-cos_sim and class_mean.  Inputs are numpy arrays from a seed."""
+"""clip_fsar_torch ops against clip_fsar_tpu: the clip_mha plain versions,
+forward and backward, against the JAX Pallas kernels (interpret mode on the
+CPU), mha, OTAM, cos_sim and class_mean.  Inputs are numpy arrays from a
+seed."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +15,13 @@ from clip_fsar_tpu.ops import otam as jotam
 from clip_fsar_torch.models.heads import common as tcommon
 from clip_fsar_torch.ops import attention as tattn
 from clip_fsar_torch.ops import otam as totam
-from clip_fsar_torch.ops.fused_attention import clip_mha, clip_mha_cuda, clip_mha_reference
+from clip_fsar_torch.ops.fused_attention import (
+    clip_mha,
+    clip_mha_bwd_cuda,
+    clip_mha_bwd_reference,
+    clip_mha_cuda,
+    clip_mha_reference,
+)
 
 torch.set_num_threads(2)
 
@@ -36,17 +43,61 @@ def test_clip_mha_reference_matches_jax_kernel(n, dtype):
     assert o_t.dtype == getattr(torch, dtype) and o_t.shape == (b, n, heads * dh)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [17, 50, 197])
+def test_clip_mha_bwd_reference_matches_jax_kernel(n, dtype):
+    """K2's plain version vs the Pallas backward it stands for, on the JAX
+    forward's o and lse.  fp32: 1e-5 (summation order; measured 7e-7);
+    bf16: 1e-2, one bf16 ulp of values near 1 (dS, P and the outputs are
+    rounded at the same points, so a rare product lands one ulp apart)."""
+    heads, dh, b = 2, 64, 2
+    rng = np.random.RandomState(n)
+    qkv = rng.randn(b, n, 3 * heads * dh).astype(np.float32)
+    do = rng.randn(b, n, heads * dh).astype(np.float32)
+    q_j = jnp.asarray(qkv, dtype)
+    o_j, lse_j = jfa._fwd_impl(q_j, heads)
+    (want,) = jfa._bwd_impl(q_j, o_j, lse_j, jnp.asarray(do, dtype), heads)
+    tdt = getattr(torch, dtype)
+    o_t = torch.from_numpy(np.array(o_j.astype(jnp.float32))).to(tdt)
+    lse_t = torch.from_numpy(np.asarray(lse_j)[:, :, :heads].transpose(0, 2, 1).copy())  # [B, N, 128] lanes -> [B, H, N]
+    got = clip_mha_bwd_reference(torch.from_numpy(qkv).to(tdt), o_t, lse_t, torch.from_numpy(do).to(tdt), heads)
+    assert got.dtype == tdt and got.shape == (b, n, 3 * heads * dh)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+def test_clip_mha_grad_matches_autograd_of_plain_attention():
+    """clip_mha's backward on a CPU tensor (the plain K2) against torch
+    autograd of plain softmax attention, fp32 at 2e-6."""
+    b, n, heads, dh = 2, 19, 3, 32
+    rng = np.random.RandomState(4)
+    qkv = torch.from_numpy(rng.randn(b, n, 3 * heads * dh).astype(np.float32))
+    do = torch.from_numpy(rng.randn(b, n, heads * dh).astype(np.float32))
+    x = qkv.clone().requires_grad_(True)
+    clip_mha(x, heads).backward(do)
+    y = qkv.clone().requires_grad_(True)
+    q, k, v = y.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+    out = torch.softmax(q @ k.transpose(-1, -2) * dh**-0.5, dim=-1) @ v
+    out.transpose(1, 2).reshape(b, n, heads * dh).backward(do)
+    torch.testing.assert_close(x.grad, y.grad, atol=2e-6, rtol=2e-6)
+
+
 def test_clip_mha_dispatch_on_cpu():
-    """A CPU tensor takes the plain version (no launch counted); a call
-    that needs a gradient raises; the kernel entry refuses CPU tensors."""
+    """A CPU tensor takes the plain versions in both directions, with no
+    launch counted; the kernel entries refuse CPU tensors."""
     qkv = torch.from_numpy(np.random.RandomState(0).randn(2, 17, 3 * 64).astype(np.float32))
-    before = clip_mha.launches
+    do = torch.from_numpy(np.random.RandomState(1).randn(2, 17, 64).astype(np.float32))
+    before = (clip_mha_cuda.launches, clip_mha_bwd_cuda.launches)
     torch.testing.assert_close(clip_mha(qkv, 2), clip_mha_reference(qkv, 2)[0], atol=0, rtol=0)
-    assert clip_mha.launches == before
-    with pytest.raises(NotImplementedError):
-        clip_mha(qkv.clone().requires_grad_(True), 2)
+    x = qkv.clone().requires_grad_(True)
+    clip_mha(x, 2).backward(do)
+    o, lse = clip_mha_reference(qkv, 2)
+    torch.testing.assert_close(x.grad, clip_mha_bwd_reference(qkv, o, lse, do, 2), atol=0, rtol=0)
+    assert (clip_mha_cuda.launches, clip_mha_bwd_cuda.launches) == before
     with pytest.raises(ValueError):
         clip_mha_cuda(qkv, 2)
+    with pytest.raises(ValueError):
+        clip_mha_bwd_cuda(qkv, o, lse, do, 2)
 
 
 @pytest.mark.parametrize("causal", [False, True])

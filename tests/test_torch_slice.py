@@ -1,7 +1,7 @@
-"""The few-shot test slice end to end: the port's CLI against the JAX eval
-step on ViT-Tiny-Test (64 px, 4 frames, synthetic decoder, float32), and the
-port's CLI in a process where jax, jaxlib, flax and optax cannot be imported
-(the GPU machine has none of them)."""
+"""The few-shot slices end to end: the port's CLI against the JAX eval step
+on ViT-Tiny-Test (64 px, 4 frames, synthetic decoder, float32), and the
+port's CLI, test and train, in a process where jax, jaxlib, flax, optax and
+orbax cannot be imported (the GPU machine has no flax, optax or orbax)."""
 
 import os
 import subprocess
@@ -78,25 +78,35 @@ def test_slice_matches_jax(tmp_path):
 
 _NO_JAX = """
 import sys
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
     sys.modules[name] = None  # any import of them now raises ImportError
 from clip_fsar_torch.runs.run import main
-out = main(sys.argv[1:])["test_few_shot"]
-assert out["episodes"] == 4 and out["episode_logits"].shape == (4, 5, 5), out
-print("SLICE_OK", out["top1_acc"])
+out = main(sys.argv[1:])
+test = out["test_few_shot"]
+assert test["episodes"] == 4 and test["episode_logits"].shape == (4, 5, 5), test
+if "train_few_shot" in out:
+    assert out["train_few_shot"]["steps"] == 2 and out["train_few_shot"]["updates"] == 1, out["train_few_shot"]
+    assert test["weights"].endswith("2.pt"), test["weights"]
+print("SLICE_OK", test["top1_acc"])
 """
 
 
 def test_slice_runs_with_jax_blocked(tmp_path):
-    """The whole CPU slice through the port's CLI with jax, jaxlib, flax and
-    optax unimportable: nothing on the path may need them."""
+    """The whole CPU slice through the port's CLI with jax, jaxlib, flax,
+    optax and orbax unimportable: nothing on the path may need them.  Run
+    twice: the test protocol alone, and TRAIN.ENABLE True (two train steps
+    with one Adam update, validation, checkpoints, then the test of the
+    step-2 checkpoint)."""
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
-    proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, "--cfg", CONFIG, *TINY_OPTS, "OUTPUT_DIR", str(tmp_path / "out")],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
-    assert "SLICE_OK" in proc.stdout
+    train = ["TRAIN.ENABLE", "True", "TRAIN.NUM_TRAIN_TASKS", "2", "TRAIN.BATCH_SIZE_PER_TASK", "2", "TPU.EPISODES_PER_STEP", "2",
+             "TRAIN.VAL_FRE_ITER", "1", "TRAIN.NUM_VAL_TASKS", "2"]
+    for name, extra in (("test", []), ("train", train)):
+        proc = subprocess.run(
+            [sys.executable, "-c", _NO_JAX, "--cfg", CONFIG, *TINY_OPTS, *extra, "OUTPUT_DIR", str(tmp_path / name)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
+        )
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+        assert "SLICE_OK" in proc.stdout
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -110,8 +120,9 @@ def test_chip_smoke_refuses_without_a_card():
 
 
 def test_profile_eval_busy_time_and_refusal():
-    """The slice profiler counts overlapping device events once, and
-    measures the card only: with no CUDA device it exits non-zero."""
+    """The slice profilers count overlapping device events once, group the
+    kernels by name, and measure the card only: with no CUDA device they
+    exit non-zero."""
     from types import SimpleNamespace
 
     from clip_fsar_torch.tools import profile_eval
@@ -120,20 +131,24 @@ def test_profile_eval_busy_time_and_refusal():
         return SimpleNamespace(time_range=SimpleNamespace(start=start, end=end))
 
     assert profile_eval._busy_us([event(20, 30), event(0, 10), event(5, 12), event(21, 22)]) == 22
-    assert [profile_eval._group(n) for n in ("clip_mha_fwd_kernel<bf16, 64>", "nvjet_tst_192x192", "Memcpy HtoD", "reduce_kernel")] == [
-        "clip_mha", "gemm", "memcpy", "other"
-    ]
+    names = ("clip_mha_fwd_kernel<bf16, 64>", "clip_mha_bwd_dkv_kernel<bf16, 64>", "nvjet_tst_192x192", "Memcpy HtoD", "reduce_kernel")
+    assert [profile_eval._group(n) for n in names] == ["clip_mha", "clip_mha_bwd", "gemm", "memcpy", "other"]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: profile_eval would run for real")
     with pytest.raises(SystemExit, match="no CUDA device"):
         profile_eval.main([])
+    from clip_fsar_torch.tools import profile_train
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        profile_train.main([])
 
 
 def test_cli_refuses_runners_not_ported(tmp_path):
-    """TRAIN.ENABLE True queues few-shot training, which is not ported: the
-    CLI raises before any work instead of skipping it."""
-    with pytest.raises(NotImplementedError, match="train_few_shot"):
-        main(["--cfg", CONFIG, *TINY_OPTS, "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
+    """Classification training is not ported: the CLI raises before any work
+    instead of skipping it."""
+    with pytest.raises(NotImplementedError, match="'train'"):
+        main(["--cfg", CONFIG, *TINY_OPTS, "TASK_TYPE", "classification", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
+    assert not os.path.exists(os.path.join(tmp_path, "checkpoints"))
 
 
 @pytest.mark.parametrize(

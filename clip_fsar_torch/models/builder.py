@@ -49,15 +49,18 @@ def _dtype_from_cfg(cfg) -> torch.dtype:
 
 
 def _attention_backend_from_cfg(cfg, device: torch.device) -> str:
-    """Attention core of the CLIP towers.  ``TPU.ATTENTION_LAYOUT``: fused ->
-    the clip_mha kernel; auto -> fused on a card, the plain path on the CPU;
-    split / unsplit -> the plain path (the two only shaped XLA fusion in the
-    JAX package; the math is the same).  ``TPU.SOFTMAX_DTYPE bfloat16``
-    keeps the plain path's logits in the compute dtype."""
+    """Attention core of the CLIP towers.  ``TPU.PALLAS_ATTENTION`` -> pallas
+    (flash_mha: the K3-K5 kernels on a card, their plain versions on the
+    CPU), read before the layout as the JAX builder does.
+    ``TPU.ATTENTION_LAYOUT``: fused -> the clip_mha kernel; auto -> fused on
+    a card, the plain path on the CPU; split / unsplit -> the plain path (the
+    two only shaped XLA fusion in the JAX package; the math is the same).
+    ``TPU.SOFTMAX_DTYPE bfloat16`` keeps the plain path's logits in the
+    compute dtype."""
     if "TPU" not in cfg:
         return "plain"
     if cfg.TPU.get("PALLAS_ATTENTION", False):
-        raise NotImplementedError("TPU.PALLAS_ATTENTION (flash_mha) is not ported yet: ROADMAP Queue 2 K3")
+        return "pallas"
     layout = str(cfg.TPU.get("ATTENTION_LAYOUT", "auto"))
     if layout == "auto":
         layout = "fused" if device.type == "cuda" else "split"
@@ -67,12 +70,15 @@ def _attention_backend_from_cfg(cfg, device: torch.device) -> str:
 
 
 def _clip_checkpoint_path(cfg) -> Optional[str]:
-    """An OpenAI-format CLIP checkpoint to initialize from, if available."""
+    """An OpenAI-format CLIP checkpoint to initialize from, if available:
+    TRAIN.CLIP_WEIGHTS, then the user's CLIP cache, the root user's CLIP
+    cache and ./weights, the JAX builder's roots in its order."""
     p = cfg.TRAIN.get("CLIP_WEIGHTS", "") if "TRAIN" in cfg else ""
     if p:
         return p
     name = cfg.VIDEO.HEAD.BACKBONE_NAME.replace("/", "-")
-    for root in (os.path.expanduser("~/.cache/clip"), "./weights"):
+    root_cache = os.path.join(os.sep, "root", ".cache", "clip")  # the root user's cache, as the JAX builder spells it
+    for root in (os.path.expanduser("~/.cache/clip"), root_cache, "./weights"):
         p = os.path.join(root, f"{name}.pt")
         if os.path.exists(p):
             return p

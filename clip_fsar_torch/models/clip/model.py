@@ -13,8 +13,11 @@ clamped at 0) with the output in the input dtype.
 
 Attention backends: ``fused`` sends non-causal, unmasked self-attention to
 ``clip_mha`` (the CUDA kernel on a card); everything else, and every other
-backend, goes to the plain ``mha`` (``plain`` = fp32 softmax, ``plain:bf16``
-= softmax in the compute dtype).
+backend, goes through ``split_heads`` -> ``mha`` -> ``merge_heads``
+(``plain`` = fp32 softmax, ``plain:bf16`` = softmax in the compute dtype,
+``pallas`` = ``flash_mha``, the CUDA kernels on a card, which read the
+head-split views of the packed projection and write the layout
+``merge_heads`` reads, so neither side copies).
 
 Eval only for now: no remat, no scan over depth.  ModifiedResNet (RN50)
 is not ported yet (ROADMAP Queue 1, RN50 tower).

@@ -88,11 +88,18 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), with every entry
     point's argument and result types declared."""
     lib = ctypes.CDLL(build())
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.clip_mha_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.clip_mha_fwd.restype = i
     lib.clip_mha_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.clip_mha_bwd.restype = i
+    # pointers, then (B, H, Nq, Nk, Dh, dtype, causal), then (batch, head, sequence) strides per operand
+    lib.flash_mha_fwd.argtypes = [p] * 5 + [i] * 7 + [l] * 9 + [p]
+    lib.flash_mha_fwd.restype = i
+    lib.flash_mha_bwd_dq.argtypes = [p] * 8 + [i] * 7 + [l] * 12 + [p]
+    lib.flash_mha_bwd_dq.restype = i
+    lib.flash_mha_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [l] * 12 + [p]
+    lib.flash_mha_bwd_dkv.restype = i
     lib.clip_kernels_error_string.argtypes = [i]
     lib.clip_kernels_error_string.restype = ctypes.c_char_p
     return lib

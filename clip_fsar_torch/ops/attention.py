@@ -4,11 +4,14 @@ clip_fsar_tpu/ops/attention.py:21-118).
 ``mha`` works on head-split tensors.  Logits and softmax are float32 by
 default; ``backend="plain:bf16"`` keeps them in the input dtype, the
 counterpart of the JAX ``xla:bf16`` backend (``TPU.SOFTMAX_DTYPE
-bfloat16``).  The whole-sequence kernel path lives in
-``ops/fused_attention.py``.
+bfloat16``); ``backend="pallas"`` hands the call to ``flash_mha``
+(``ops/flash_attention.py``, ``TPU.PALLAS_ATTENTION``).  The
+whole-sequence kernel path lives in ``ops/fused_attention.py``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -17,21 +20,28 @@ def mha(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
     backend: str = "plain",
     causal: bool = False,
 ) -> torch.Tensor:
     """Scaled dot-product attention: q [B, H, Nq, Dh], k/v [B, H, Nk, Dh]
-    -> [B, H, Nq, Dh] in q's dtype; ``causal`` masks keys after the query."""
+    -> [B, H, Nq, Dh] in q's dtype.  ``mask`` is additive, broadcastable to
+    [B, H, Nq, Nk] (-inf where disallowed); ``causal`` masks keys after the
+    query."""
     if backend == "pallas":
-        raise NotImplementedError("TPU.PALLAS_ATTENTION (flash_mha) is not ported yet: ROADMAP Queue 2 K3")
+        from clip_fsar_torch.ops.flash_attention import flash_mha
+
+        return flash_mha(q, k, v, mask=mask, causal=causal)
     dtype = q.dtype
     smax_dtype = dtype if backend == "plain:bf16" else torch.float32
     scale = q.shape[-1] ** -0.5
     # products of the input values accumulated in the softmax dtype, as
     # jnp.einsum(preferred_element_type=smax_dtype) does
     logits = torch.matmul(q.to(smax_dtype), k.to(smax_dtype).transpose(-1, -2)) * scale
-    if causal:
-        logits = logits + causal_mask(q.shape[-2], dtype=smax_dtype, device=q.device)
+    if causal and mask is None:
+        mask = causal_mask(q.shape[-2], device=q.device)
+    if mask is not None:
+        logits = logits + mask.to(smax_dtype)
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(dtype), v)
 

@@ -13,16 +13,18 @@ printed on a line that starts with the tag of its reading set:
   with CUDA events, three timings of 8 steps;
 - ``kernels[<path> #i]``: ``torch.profiler`` over two such steps: device
   time per kernel name (device events only, so no op is counted twice),
-  grouped into attention kernel / GEMM / softmax / memcpy / other, the
-  wall time, and the busy share of the wall;
+  grouped into attention kernel (``clip_mha`` or ``flash_mha``) / GEMM /
+  softmax / memcpy / other, the wall time, and the busy share of the wall;
 - ``loop[<path> #i]``: ``evaluate`` over 16 episodes (loader, H2D copies,
   steps), without and then under the profiler: wall seconds, device
-  busy time (the union of device-event intervals) and idle share.
+  busy time (the union of device-event intervals) and idle share, and the
+  peak device memory of the loop.
 
-``<path>`` is ``fused`` (the clip_mha kernel) or ``split`` (plain
-attention with fp32 logits); the two run in the order fused, split, fused,
-split, so each is read twice with the other in between.  Exits non-zero
-without a CUDA device.
+``<path>`` is ``fused`` (the clip_mha kernel), ``split`` (plain attention
+with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
+kernel); they run in the order fused, split, pallas, fused, split, pallas,
+so each is read twice with the others in between.  Exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ SLICE_OPTS = [
 ]
 # the plain attention path with the kernel's math (fp32 logits and softmax)
 PLAIN_OPTS = ["TPU.ATTENTION_LAYOUT", "split", "TPU.SOFTMAX_DTYPE", "float32"]
-PATHS = {"fused": ["TPU.ATTENTION_LAYOUT", "fused"], "split": PLAIN_OPTS}
+PATHS = {"fused": ["TPU.ATTENTION_LAYOUT", "fused"], "split": PLAIN_OPTS, "pallas": ["TPU.PALLAS_ATTENTION", "True"]}
 EPISODES_PER_STEP = 4
 STEPS = 8  # steps per timing
 TOP = 12  # kernel rows printed per profiled set
@@ -77,6 +79,12 @@ def slice_cfg(*extra: str):
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "flash_mha_bwd_dkv" in low:
+        return "flash_mha_bwd_dkv"
+    if "flash_mha_bwd" in low:  # K4 and the delta pass before it
+        return "flash_mha_bwd_dq"
+    if "flash_mha" in low:
+        return "flash_mha"
     if "clip_mha_bwd" in low:
         return "clip_mha_bwd"
     if "clip_mha" in low:
@@ -178,8 +186,10 @@ def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
 
     tag = f"loop[{path} #{reading}]"
     episodes = int(cfg.TRAIN.NUM_TEST_TASKS)
+    torch.cuda.reset_peak_memory_stats()
     plain = evaluate(cfg, model, episodes, EPISODES_PER_STEP, device=dev)
-    say(f"{tag}: {episodes} episodes, {plain['seconds']:.3f} s, {episodes / plain['seconds']:.3f} episodes/s (no profiler)")
+    say(f"{tag}: {episodes} episodes, {plain['seconds']:.3f} s, {episodes / plain['seconds']:.3f} episodes/s (no profiler), "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced = evaluate(cfg, model, episodes, EPISODES_PER_STEP, device=dev)
         torch.cuda.synchronize()

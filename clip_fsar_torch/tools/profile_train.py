@@ -15,15 +15,17 @@ with the tag of its reading set:
   micro-step) timed with CUDA events, three timings of 4 steps;
 - ``kernels[<path> #i]``: ``torch.profiler`` over two such steps: device time
   per kernel name (device events only), grouped into the attention forward
-  kernel / backward kernel / GEMM / softmax / memcpy / other, the wall time,
-  and the busy share of the wall;
+  kernel / backward kernels (``clip_mha_bwd``, or ``flash_mha_bwd_dq`` with
+  its delta pass and ``flash_mha_bwd_dkv``) / GEMM / softmax / memcpy /
+  other, the wall time, and the busy share of the wall;
 - ``loop[<path> #i]``: ``train_few_shot`` over 6 steps (no validation) under
   the profiler: wall seconds of the step loop, device busy time (the union of
   device-event intervals) and idle share, peak device memory.
 
-``<path>`` is ``fused`` (the clip_mha kernels) or ``split`` (plain attention
-with fp32 logits), run in the order fused, split, fused, split.  Exits
-non-zero without a CUDA device.
+``<path>`` is ``fused`` (the clip_mha kernels), ``split`` (plain attention
+with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
+kernels), run in the order fused, split, pallas, fused, split, pallas.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations

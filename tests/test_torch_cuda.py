@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain-torch versions, on the card.
+"""The port's CUDA kernels (clip_mha K1/K2, flash_mha K3-K5) against their plain-torch
+versions, on the card.
 
 Skips without a CUDA device (the kernels have no CPU mode).  On the card:
 
@@ -10,6 +11,15 @@ Imports no JAX, so it also runs where only torch is installed.
 import pytest
 import torch
 
+from clip_fsar_torch.ops.attention import split_heads
+from clip_fsar_torch.ops.flash_attention import (
+    LAUNCHES,
+    flash_mha,
+    flash_mha_bwd_cuda,
+    flash_mha_bwd_reference,
+    flash_mha_cuda,
+    flash_mha_reference,
+)
 from clip_fsar_torch.ops.fused_attention import (
     clip_mha,
     clip_mha_bwd_cuda,
@@ -29,7 +39,7 @@ BWD_SHAPES = [(2, 50, 12, 64), (2, 197, 12, 64), (480, 197, 12, 64), (2, 257, 16
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the clip_mha kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     from clip_fsar_torch import runtime
 
     return runtime.device("cuda")
@@ -121,3 +131,115 @@ def test_clip_mha_bwd_kernel_refuses_what_it_does_not_take(cuda):
         clip_mha_bwd_cuda(qkv, o, lse, torch.zeros(1, 2 * 64, 8, device=cuda).transpose(1, 2), h)  # dO not contiguous
     with pytest.raises(ValueError):
         clip_mha_bwd_cuda(qkv, o, lse.double(), do, h)  # fp64 lse
+
+
+# (B, H, Nq, Nk, Dh): the ViT sequence lengths (q, k and v as head-split views of the packed
+# projection, as the towers pass them), the tiny tower's Dh = 32, and one cross-attention shape
+# with Nq != Nk (separate contiguous tensors)
+FLASH_SHAPES = [(2, 12, 50, 50, 64), (2, 12, 197, 197, 64), (320, 12, 197, 197, 64), (2, 16, 257, 257, 64),
+                (1, 16, 577, 577, 64), (3, 2, 17, 17, 32), (2, 3, 128, 256, 64)]
+FLASH_BWD_SHAPES = [s if s[0] != 320 else (480,) + s[1:] for s in FLASH_SHAPES]
+
+
+def _flash_inputs(b, h, nq, nk, dh, dtype, device, g):
+    """q, k, v: views of one packed [B, N, 3*H*Dh] projection when Nq == Nk, else contiguous tensors."""
+    if nq == nk:
+        qkv = torch.randn(b, nq, 3 * h * dh, generator=g).to(device, dtype)
+        return tuple(split_heads(t, h) for t in qkv.chunk(3, dim=-1))
+    return tuple(torch.randn(b, h, n, dh, generator=g).to(device, dtype) for n in (nq, nk, nk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype, tol", TOLERANCE)
+@pytest.mark.parametrize("b, h, nq, nk, dh", FLASH_SHAPES)
+def test_flash_mha_kernel_matches_plain(cuda, b, h, nq, nk, dh, dtype, tol, causal):
+    """K3 against flash_mha_reference: o at the dtype's tolerance (the kernel's 64-key tiles rescale at
+    other points than the plain version's _auto_block, which changes the bf16 rounding of p), lse at
+    1e-4; one launch counted; flash_mha returns the kernel's result."""
+    g = torch.Generator().manual_seed(nq + nk)
+    q, k, v = _flash_inputs(b, h, nq, nk, dh, dtype, cuda, g)
+    before = LAUNCHES["flash_mha_fwd"]
+    o, lse = flash_mha_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_mha_fwd"] == before + 1
+    assert o.shape == q.shape and o.dtype == dtype and lse.shape == (b, h, nq)
+    ref_o, ref_lse = flash_mha_reference(q, k, v, causal)
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(flash_mha(q, k, v, causal=causal), o, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype, tol", TOLERANCE)
+@pytest.mark.parametrize("b, h, nq, nk, dh", FLASH_BWD_SHAPES)
+def test_flash_mha_bwd_kernels_match_plain(cuda, b, h, nq, nk, dh, dtype, tol, causal):
+    """K4 and K5 against flash_mha_bwd_reference on K3's o and lse; one launch of each counted per
+    call, and the autograd backward of flash_mha is the kernels' result."""
+    g = torch.Generator().manual_seed(nq + nk + 1)
+    q, k, v = _flash_inputs(b, h, nq, nk, dh, dtype, cuda, g)
+    o, lse = flash_mha_cuda(q, k, v, causal)
+    do = torch.empty_like(o).copy_(torch.randn(o.shape, generator=g))
+    before = dict(LAUNCHES)
+    grads = flash_mha_bwd_cuda(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_mha_bwd_dq"] == before["flash_mha_bwd_dq"] + 1
+    assert LAUNCHES["flash_mha_bwd_dkv"] == before["flash_mha_bwd_dkv"] + 1
+    ref = flash_mha_bwd_reference(q, k, v, o, lse, do, causal)
+    for name, got, want, x in zip(("dq", "dk", "dv"), grads, ref, (q, k, v)):
+        assert got.dtype == dtype and got.shape == x.shape, name
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=lambda m, name=name: f"{name}: {m}")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    flash_mha(*leaves, causal=causal).backward(do)
+    assert LAUNCHES["flash_mha_bwd_dkv"] == before["flash_mha_bwd_dkv"] + 2
+    for leaf, got in zip(leaves, grads):
+        torch.testing.assert_close(leaf.grad, got, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b, h, nq, nk, dh", [(2, 12, 197, 197, 64), (2, 3, 128, 256, 64), (3, 2, 17, 17, 32)])
+def test_flash_mha_grad_matches_autograd_of_plain_attention(cuda, b, h, nq, nk, dh, causal):
+    """fp32 K3 + K4 + K5 against torch autograd of plain softmax attention in float64, causal mask
+    top-left aligned: the math independently of the rounding replica.  1e-4: fp32 summation order."""
+    g = torch.Generator().manual_seed(11)
+    q, k, v = _flash_inputs(b, h, nq, nk, dh, torch.float32, cuda, g)
+    do = torch.randn(b, h, nq, dh, generator=g).to(cuda)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    flash_mha(*leaves, causal=causal).backward(do)
+    ref = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    s = ref[0] @ ref[1].transpose(-1, -2) * dh**-0.5
+    if causal:
+        s = s.masked_fill(torch.ones(nq, nk, dtype=torch.bool, device=cuda).triu(1), float("-inf"))
+    (torch.softmax(s, dim=-1) @ ref[2]).backward(do.double())
+    for name, got, want in zip("qkv", leaves, ref):
+        torch.testing.assert_close(got.grad.double(), want.grad, atol=1e-4, rtol=1e-4, msg=lambda m, name=name: f"d{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_flash_mha_kernels_refuse_what_they_do_not_take(cuda):
+    def qkv(dh=64, dtype=torch.float32, device=cuda):
+        return tuple(torch.zeros(1, 2, 8, dh, device=device, dtype=dtype) for _ in range(3))
+
+    with pytest.raises(ValueError):
+        flash_mha_cuda(*qkv(dh=48))
+    with pytest.raises(TypeError):
+        flash_mha_cuda(*qkv(dtype=torch.float16))
+    with pytest.raises(ValueError):
+        flash_mha_cuda(*qkv(device="cpu"))
+    q, k, v = qkv()
+    with pytest.raises(ValueError):
+        flash_mha_cuda(torch.zeros(1, 2, 64, 8, device=cuda).transpose(2, 3), k, v)  # Dh not unit-stride
+    with pytest.raises(ValueError):
+        flash_mha_cuda(q, k, torch.zeros(1, 8, 2, 64, device=cuda).transpose(1, 2))  # v's strides differ from k's
+    with pytest.raises(ValueError):
+        flash_mha_cuda(q, torch.zeros(1, 2, 9, 64, device=cuda), v)  # k and v of different lengths
+    o, lse = flash_mha_cuda(q, k, v)
+    do = torch.zeros_like(o)
+    with pytest.raises(ValueError):
+        flash_mha_bwd_cuda(q, k, v, o, lse.double(), do)  # fp64 lse
+    with pytest.raises(ValueError):
+        flash_mha_bwd_cuda(q, k, v, o, lse, do.contiguous())  # dO strides differ from o's
+    with pytest.raises(TypeError):
+        flash_mha_bwd_cuda(*qkv(dtype=torch.float16), o, lse, do)

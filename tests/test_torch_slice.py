@@ -1,5 +1,6 @@
 """The few-shot slices end to end: the port's CLI against the JAX eval step
-on ViT-Tiny-Test (64 px, 4 frames, synthetic decoder, float32), and the
+on ViT-Tiny-Test (64 px, 4 frames, synthetic decoder, float32), with the
+clip_mha and the flash_mha attention, and the
 port's CLI, test and train, in a process where jax, jaxlib, flax, optax and
 orbax cannot be imported (the GPU machine has no flax, optax or orbax)."""
 
@@ -14,9 +15,10 @@ import torch
 
 from clip_fsar_torch.models.builder import _attention_backend_from_cfg
 from clip_fsar_torch.models.heads.clipfsar import CLIPFSARConfig, CLIPFSARHead
+from clip_fsar_torch.ops.flash_attention import LAUNCHES
 from clip_fsar_torch.runs.run import main
 from clip_fsar_torch.train.checkpoint import save_checkpoint
-from tests.torch_parity import CONFIG, REPO, TINY_OPTS, jax_tiny_model, openai_state_dict, port_head_state
+from tests.torch_parity import CONFIG, REPO, TINY_OPTS, jax_tiny_model, openai_state_dict, pallas_interpret, port_head_state
 
 torch.set_num_threads(2)
 
@@ -47,13 +49,11 @@ def _jax_eval(cfg, model, num_tasks, e):
     }
 
 
-def test_slice_matches_jax(tmp_path):
-    """The port's CLI (CLIP weights from an OpenAI-format file, head weights
-    from a port checkpoint, attention through clip_mha) against the JAX eval
-    step with TPU.ATTENTION_LAYOUT fused (clip_mha in Pallas interpret
-    mode): same 4 episodes, top-1 / top-5 equal, loss and per-episode logits
-    at 1e-4 (fp32)."""
-    cfg, arch, clip_vars, model = jax_tiny_model("fused")
+def _slice_vs_jax(tmp_path, opts, want_logits_and_metrics):
+    """The port's CLI with ``opts`` (CLIP weights from an OpenAI-format file,
+    head weights from a port checkpoint) against the JAX eval step's 4
+    episodes: top-1 / top-5 equal, loss and per-episode logits at 1e-4."""
+    cfg, arch, clip_vars, model, (want_logits, want) = want_logits_and_metrics
     head_sd = port_head_state(model, clip_vars)
     clip_path = tmp_path / "clip.pt"
     torch.save(openai_state_dict(head_sd, clip_vars["params"]["logit_scale"]), str(clip_path))
@@ -65,15 +65,38 @@ def test_slice_matches_jax(tmp_path):
     child.write_text(f"_BASE: {CONFIG}\nTRAIN:\n  CLIP_WEIGHTS: {clip_path}\n")
 
     got = main([
-        "--cfg", str(child), *TINY_OPTS, "TPU.ATTENTION_LAYOUT", "fused",
+        "--cfg", str(child), *TINY_OPTS, *opts,
         "TEST.CHECKPOINT_FILE_PATH", str(head_path), "OUTPUT_DIR", str(tmp_path / "out"),
     ])["test_few_shot"]
-    want_logits, want = _jax_eval(cfg, model, num_tasks=4, e=2)
 
     assert got["episodes"] == 4 and got["episode_logits"].shape == (4, 5, 5)
     np.testing.assert_allclose(got["episode_logits"], want_logits, atol=1e-4, rtol=1e-4)
     assert got["top1_acc"] == want["top1_acc"] and got["top5_acc"] == want["top5_acc"]
     np.testing.assert_allclose(got["loss"], want["loss"], atol=1e-4, rtol=1e-4)
+
+
+def test_slice_matches_jax(tmp_path):
+    """The port's CLI (CLIP weights from an OpenAI-format file, head weights
+    from a port checkpoint, attention through clip_mha) against the JAX eval
+    step with TPU.ATTENTION_LAYOUT fused (clip_mha in Pallas interpret
+    mode): same 4 episodes, top-1 / top-5 equal, loss and per-episode logits
+    at 1e-4 (fp32)."""
+    cfg, arch, clip_vars, model = jax_tiny_model("fused")
+    want = _jax_eval(cfg, model, num_tasks=4, e=2)
+    _slice_vs_jax(tmp_path, ["TPU.ATTENTION_LAYOUT", "fused"], (cfg, arch, clip_vars, model, want))
+
+
+def test_pallas_slice_matches_jax(tmp_path):
+    """The same with TPU.PALLAS_ATTENTION True on both sides: every ViT
+    layer's attention through the port's flash_mha (its plain versions on
+    the CPU) against the JAX eval step with flash_mha's Pallas kernels in
+    interpret mode; logits and loss at 1e-4 (fp32)."""
+    with pallas_interpret():
+        cfg, arch, clip_vars, model = jax_tiny_model("split", pallas=True)
+        want = _jax_eval(cfg, model, num_tasks=4, e=2)
+    before = dict(LAUNCHES)
+    _slice_vs_jax(tmp_path, ["TPU.PALLAS_ATTENTION", "True"], (cfg, arch, clip_vars, model, want))
+    assert LAUNCHES == before  # CPU tensors: the plain versions, no kernel launch
 
 
 _NO_JAX = """
@@ -94,13 +117,13 @@ print("SLICE_OK", test["top1_acc"])
 def test_slice_runs_with_jax_blocked(tmp_path):
     """The whole CPU slice through the port's CLI with jax, jaxlib, flax,
     optax and orbax unimportable: nothing on the path may need them.  Run
-    twice: the test protocol alone, and TRAIN.ENABLE True (two train steps
+    three times: the test protocol alone, TRAIN.ENABLE True (two train steps
     with one Adam update, validation, checkpoints, then the test of the
-    step-2 checkpoint)."""
+    step-2 checkpoint), and the same with TPU.PALLAS_ATTENTION True."""
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
     train = ["TRAIN.ENABLE", "True", "TRAIN.NUM_TRAIN_TASKS", "2", "TRAIN.BATCH_SIZE_PER_TASK", "2", "TPU.EPISODES_PER_STEP", "2",
              "TRAIN.VAL_FRE_ITER", "1", "TRAIN.NUM_VAL_TASKS", "2"]
-    for name, extra in (("test", []), ("train", train)):
+    for name, extra in (("test", []), ("train", train), ("pallas", train + ["TPU.PALLAS_ATTENTION", "True"])):
         proc = subprocess.run(
             [sys.executable, "-c", _NO_JAX, "--cfg", CONFIG, *TINY_OPTS, *extra, "OUTPUT_DIR", str(tmp_path / name)],
             cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
@@ -131,8 +154,11 @@ def test_profile_eval_busy_time_and_refusal():
         return SimpleNamespace(time_range=SimpleNamespace(start=start, end=end))
 
     assert profile_eval._busy_us([event(20, 30), event(0, 10), event(5, 12), event(21, 22)]) == 22
-    names = ("clip_mha_fwd_kernel<bf16, 64>", "clip_mha_bwd_dkv_kernel<bf16, 64>", "nvjet_tst_192x192", "Memcpy HtoD", "reduce_kernel")
-    assert [profile_eval._group(n) for n in names] == ["clip_mha", "clip_mha_bwd", "gemm", "memcpy", "other"]
+    names = ("clip_mha_fwd_kernel<bf16, 64>", "clip_mha_bwd_dkv_kernel<bf16, 64>", "flash_mha_fwd_kernel<bf16, 64>",
+             "flash_mha_bwd_delta_kernel<bf16, 64>", "flash_mha_bwd_dq_kernel<bf16, 64>", "flash_mha_bwd_dkv_kernel<bf16, 64>",
+             "nvjet_tst_192x192", "Memcpy HtoD", "reduce_kernel")
+    assert [profile_eval._group(n) for n in names] == ["clip_mha", "clip_mha_bwd", "flash_mha", "flash_mha_bwd_dq",
+                                                        "flash_mha_bwd_dq", "flash_mha_bwd_dkv", "gemm", "memcpy", "other"]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: profile_eval would run for real")
     with pytest.raises(SystemExit, match="no CUDA device"):
@@ -154,12 +180,21 @@ def test_cli_refuses_runners_not_ported(tmp_path):
 @pytest.mark.parametrize(
     "layout, softmax, device, want",
     [("auto", "float32", "cuda", "fused"), ("auto", "float32", "cpu", "plain"), ("auto", "bfloat16", "cpu", "plain:bf16"),
-     ("fused", "bfloat16", "cpu", "fused"), ("split", "float32", "cuda", "plain"), ("unsplit", "bfloat16", "cuda", "plain:bf16")],
+     ("fused", "bfloat16", "cpu", "fused"), ("split", "float32", "cuda", "plain"), ("unsplit", "bfloat16", "cuda", "plain:bf16"),
+     ("auto", "float32", "cuda", "pallas"), ("auto", "float32", "cpu", "pallas"), ("fused", "float32", "cuda", "pallas"),
+     ("split", "bfloat16", "cpu", "pallas"), ("unsplit", "float32", "cuda", "pallas")],
 )
 def test_attention_backend_from_cfg(layout, softmax, device, want):
     """TPU.ATTENTION_LAYOUT / TPU.SOFTMAX_DTYPE as the JAX builder reads
-    them (builder.py:66-88), auto resolving by device."""
+    them (builder.py:66-88), auto resolving by device.  The cases that want
+    "pallas" set TPU.PALLAS_ATTENTION True, which wins whatever the layout,
+    the softmax dtype and the device: read before the layout, as in the JAX
+    builder (builder.py:73-74), which gives "pallas" too."""
+    from clip_fsar_tpu.models.builder import _attention_backend_from_cfg as jax_backend
     from tests.torch_parity import tiny_cfg
 
-    cfg = tiny_cfg("TPU.ATTENTION_LAYOUT", layout, "TPU.SOFTMAX_DTYPE", softmax)
+    pallas = want == "pallas"
+    cfg = tiny_cfg("TPU.ATTENTION_LAYOUT", layout, "TPU.SOFTMAX_DTYPE", softmax, "TPU.PALLAS_ATTENTION", str(pallas))
     assert _attention_backend_from_cfg(cfg, torch.device(device)) == want
+    if pallas:
+        assert jax_backend(cfg) == "pallas"

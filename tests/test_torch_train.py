@@ -3,6 +3,7 @@ ViT-Tiny-Test (64 px, 4 frames, float32): three train steps from the same
 converted weights and batches, the lr schedule, the parameter groups, and
 the step's own invariants (episode chunks, accumulation, the NaN guard)."""
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -24,7 +25,7 @@ from clip_fsar_torch.models.heads.clipfsar import CLIPFSARConfig, CLIPFSARHead
 from clip_fsar_torch.train import optimizer as topt
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.train.step import make_train_step
-from tests.torch_parity import jax_tiny_clip, port_head_state, tiny_cfg
+from tests.torch_parity import jax_tiny_clip, pallas_interpret, port_head_state, tiny_cfg
 
 torch.set_num_threads(2)
 
@@ -42,19 +43,24 @@ def _port_batch(batch) -> Episode:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_three_steps():
-    """Three JAX make_train_step steps (split attention layout) on three
-    train batches from the JAX loader, with flax Dropout and the color
-    jitter patched to identity.  The optimizer is wrapped so that its state
-    also carries the gradients it was given.  Returns (cfg, arch, clip_vars,
-    model, batches, losses, grads per step, final params)."""
+def _jax_three_steps(pallas: bool = False):
+    """Three JAX make_train_step steps (split attention layout, or flash_mha
+    in Pallas interpret mode with ``pallas``) on three train batches from the
+    JAX loader, with flax Dropout and the color jitter patched to identity.
+    The optimizer is wrapped so that its state also carries the gradients it
+    was given.  Returns (cfg, arch, clip_vars, model, batches, losses, grads
+    per step, final params)."""
+    with pallas_interpret() if pallas else contextlib.nullcontext():
+        return _jax_steps(train_cfg("TPU.ATTENTION_LAYOUT", "split", "TPU.PALLAS_ATTENTION", str(pallas)))
+
+
+def _jax_steps(cfg):
     from clip_fsar_tpu.data.loader import build_few_shot_loader as jloader
     from clip_fsar_tpu.models import builder as jbuilder
     from clip_fsar_tpu.train import step as jstep
     from clip_fsar_tpu.train.loop import build_state
     from clip_fsar_tpu.train.optimizer import build_optimizer, epoch_for_iter, get_lr_at_epoch
 
-    cfg = train_cfg("TPU.ATTENTION_LAYOUT", "split")
     _, arch, clip_vars = jax_tiny_clip()
     with mock.patch.object(jbuilder, "load_or_init_clip", return_value=(arch, clip_vars)):
         model = jbuilder.build_few_shot_model(cfg, jax.random.PRNGKey(0), flow="train")
@@ -77,18 +83,20 @@ def _jax_three_steps():
     return cfg, arch, clip_vars, model, batches, losses, grads, params_from_jax({"params": jax.device_get(state.params)})
 
 
-@pytest.mark.parametrize("backend", ["fused", "plain"])
+@pytest.mark.parametrize("backend", ["fused", "plain", "pallas"])
 def test_three_train_steps_match_jax(backend):
     """Three port train steps (attention through clip_mha's plain forward and
-    backward, or the plain mha) against three JAX steps from the same
-    converted weights and batches, jitter and dropout off on both sides.
+    backward, the plain mha, or flash_mha's plain forward and backward)
+    against three JAX steps from the same converted weights and batches (the
+    JAX steps with TPU.PALLAS_ATTENTION for ``pallas``, flash_mha's Pallas
+    kernels in interpret mode), jitter and dropout off on both sides.
     Losses at 1e-4 and gradients at 2e-4 (fp32; measured 5e-7 and 2e-7).
     Parameters after the steps at atol 5e-4, half of one step at lr 1e-3:
     Adam divides each gradient by its own running RMS, so a gradient at
     rounding-noise level moves its parameter by up to lr either way on
     each side (the key bias's gradient is zero in exact arithmetic, since
     softmax ignores a shift of a whole row; measured worst 1.6e-4)."""
-    cfg, arch, clip_vars, model, batches, want_losses, want_grads, want_params = _jax_three_steps()
+    cfg, arch, clip_vars, model, batches, want_losses, want_grads, want_params = _jax_three_steps(backend == "pallas")
     head = CLIPFSARHead(arch, CLIPFSARConfig.from_cfg(cfg), attention_backend=backend)
     start = {k: v for k, v in port_head_state(model, clip_vars).items() if not k.startswith("text.")}
     head.load_state_dict(start)
@@ -138,7 +146,7 @@ def test_param_groups_match_jax():
     converter only transposes and reshapes, so the constants survive)."""
     from clip_fsar_tpu.train import optimizer as jopt
 
-    cfg, arch, _, model, *_ = _jax_three_steps()
+    cfg, arch, _, model, *_ = _jax_three_steps(False)
     params = jax.device_get(model.variables["params"])
     head = CLIPFSARHead(arch, CLIPFSARConfig.from_cfg(cfg))
     names = [n for n, _ in head.named_parameters()]

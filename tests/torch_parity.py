@@ -8,6 +8,7 @@ Both packages get the same weights (the JAX variables, converted with
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 
@@ -52,15 +53,16 @@ def jax_tiny_clip():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_tiny_model(layout: str = "split"):
+def jax_tiny_model(layout: str = "split", pallas: bool = False):
     """(cfg, arch, clip_vars, FewShotModel) of the JAX package for the tiny
     config, with TPU.ATTENTION_LAYOUT ``layout`` (fused runs the Pallas
-    kernel in interpret mode on the CPU)."""
+    kernel in interpret mode on the CPU) and TPU.PALLAS_ATTENTION ``pallas``
+    (flash_mha; call inside ``pallas_interpret()``)."""
     from unittest import mock
 
     from clip_fsar_tpu.models import builder
 
-    cfg = tiny_cfg("TPU.ATTENTION_LAYOUT", layout)
+    cfg = tiny_cfg("TPU.ATTENTION_LAYOUT", layout, "TPU.PALLAS_ATTENTION", str(pallas))
     rng = jax.random.PRNGKey(int(cfg.get("RANDOM_SEED", 0)))
     _, arch, clip_vars = jax_tiny_clip()
     # the builder would draw the same CLIP weights again from the same key;
@@ -68,6 +70,20 @@ def jax_tiny_model(layout: str = "split"):
     with mock.patch.object(builder, "load_or_init_clip", return_value=(arch, clip_vars)):
         model = builder.build_few_shot_model(cfg, rng, flow="test")
     return cfg, arch, clip_vars, model
+
+
+@contextlib.contextmanager
+def pallas_interpret():
+    """Every pl.pallas_call inside runs in interpret mode, on the CPU (the
+    patch tests/test_flash_attention.py applies: flash_mha, unlike clip_mha,
+    does not switch to interpret mode by itself)."""
+    from unittest import mock
+
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+    with mock.patch.object(pl, "pallas_call", lambda *a, **kw: orig(*a, **{**kw, "interpret": True})):
+        yield
 
 
 def port_clip_state(clip_vars):

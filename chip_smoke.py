@@ -1,4 +1,5 @@
-"""Drive the port's few-shot test and train paths once on an NVIDIA GPU and check them.
+"""Drive the port's few-shot test and train paths, its layer_norm op and its clip_mha
+stage-ablation tool once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -26,6 +27,23 @@ and read just after.  Phases:
    shapes, timed at the train chunk's [480, 12, 197, 64] bf16; and K3 + K4 +
    K5 in fp32 against torch autograd of float64 softmax attention, causal
    and not;
+6a. K6 / K7 vs plain: ``layer_norm_cuda`` and ``layer_norm_bwd_cuda`` against
+   their plain versions at the slices' [63040, 768] and [94560, 768] bf16
+   (timed at the latter) and at small ragged shapes in fp32 and bf16 with a
+   constant row; and K6 + K7 through autograd against float64 autograd of
+   the formula;
+6b. the LayerNorm replay, the path that runs K6 and K7: the ViT-B/16 few-shot
+   model at full width with every LayerNorm module hooked, one eval step
+   (320 frames) and one forward and backward of the tower on a 480-frame
+   chunk; at every hooked site ``layer_norm`` on the module's own input,
+   weight and bias against the module's output (and, for the train shape,
+   dx, dg, db against autograd through the module from the same upstream
+   gradient); launches counted from 0 against the number of sites; the
+   summed time of K6 / K7 against the module's chain;
+6c. K8: the three ablated clip_mha kernels against their plain versions, then
+   the tool's stage table at [320, 197, 2304] bf16, launches counted from 0;
+6d. the loaders' resize: the native C++ pass must build where g++ exists, and
+   one test batch is byte-identical with it and with the numpy replica;
 7. test slice: the port's CLI ``main`` on the HMDB51 1-shot config with a
    ViT-B/16 tower at full width (fresh weights from the seed, synthetic
    decoder), 16 episodes in 4 steps of 4, three times: the fused path (K1 in
@@ -44,6 +62,14 @@ and read just after.  Phases:
    kernel path against the plain attention path, same weights, batch and
    random draws.
 
+Beside each kernel's time the phases time its plain version and, where one
+PyTorch call computes the same function (``scaled_dot_product_attention``
+and its backward, ``F.layer_norm`` and its backward), that call on the same
+inputs: a yardstick that no path of the port runs.  ``bound_ms`` is the least
+time the card could take: the larger of the bytes the function must move
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over the card's peak for their type.
+
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises before it.
 """
@@ -53,10 +79,13 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import shutil
 import tempfile
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 # the test slice: HMDB51 1-shot config, ViT-B/16, synthetic decoder, 16 episodes in steps of 4
 from clip_fsar_torch.tools.profile_eval import CONFIG, PLAIN_OPTS, SLICE_OPTS, card
@@ -95,6 +124,29 @@ TRAIN_OPTS = [
 # step: each bf16 rounding is ~4e-3 relative, and the two paths round attention at different points
 # through 12 layers of backward
 GRAD_REL_TOL = 5e-2
+
+# published peaks of one H100 SXM (dense): device memory, bf16 tensor cores, fp32 outside them
+PEAK_BYTES_PER_S, PEAK_BF16_FLOPS, PEAK_FP32_FLOPS = 3.35e12, 989e12, 67e12
+LN_EVAL_SHAPE, LN_TRAIN_SHAPE = (SLICE_SHAPE[0] * 197, 768), (TRAIN_SHAPE[0] * 197, 768)  # every token of a tower call
+LN_SMALL_SHAPES = [(197, 256), (1300, 512), (3, 70, 128), (577, 1024), (130, 64)]
+# y and dx: summation order (fp32, tests/test_fused_layernorm.py's 1e-5 forward and 2e-4 gradients); one rounding
+# of an output of size <= 8 (bf16: half an ulp of 2^-8 relative)
+LN_TOLERANCE = {torch.float32: (1e-5, 2e-4), torch.bfloat16: (2e-2, 2e-2)}
+DECOMP_SHAPES = [(4, 197, 2304, 12), (4, 50, 1536, 8)]  # (B, N, 3*H*Dh, H): Dh = 64 at two sequence lengths and head counts
+
+
+def _bound(bytes_moved: float, operations: float, peak_ops: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time (ms) the card could take for this many bytes and operations, and which binds."""
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, operations / peak_ops * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _attention_bound(b: int, n: int, h: int, dh: int, tensors_in: float, tensors_out: float, rows_fp32: int, products: int) -> dict:
+    """Bound of an attention kernel on bf16 [b, n, h*dh] tensors: ``tensors_in`` read and ``tensors_out``
+    written (in units of one such tensor), ``rows_fp32`` [b, h, n] fp32 vectors (lse, delta) moved, and
+    ``products`` [n x n x dh] matrix products per head."""
+    bytes_moved = (tensors_in + tensors_out) * b * n * h * dh * 2 + rows_fp32 * b * h * n * 4
+    return _bound(bytes_moved, products * 2 * b * h * n * n * dh)
 
 
 def phase_device() -> str:
@@ -147,20 +199,24 @@ def _alternate(kernel, plain, iters: int = 20) -> tuple:
 
 
 def _reset_launches() -> None:
-    from clip_fsar_torch.ops import flash_attention
+    from clip_fsar_torch.ops import flash_attention, fused_layernorm
     from clip_fsar_torch.ops.fused_attention import clip_mha_bwd_cuda, clip_mha_cuda
+    from clip_fsar_torch.tools import fa_decomp
 
     clip_mha_cuda.launches = clip_mha_bwd_cuda.launches = 0
-    for name in flash_attention.LAUNCHES:
-        flash_attention.LAUNCHES[name] = 0
+    for counts in (flash_attention.LAUNCHES, fused_layernorm.LAUNCHES, fa_decomp.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _launches() -> dict:
     """Every kernel's launches since the last reset, by kernel name."""
-    from clip_fsar_torch.ops.flash_attention import LAUNCHES
+    from clip_fsar_torch.ops import flash_attention, fused_layernorm
     from clip_fsar_torch.ops.fused_attention import clip_mha_bwd_cuda, clip_mha_cuda
+    from clip_fsar_torch.tools import fa_decomp
 
-    return {"clip_mha_fwd": clip_mha_cuda.launches, "clip_mha_bwd": clip_mha_bwd_cuda.launches, **LAUNCHES}
+    return {"clip_mha_fwd": clip_mha_cuda.launches, "clip_mha_bwd": clip_mha_bwd_cuda.launches, **flash_attention.LAUNCHES,
+            **fused_layernorm.LAUNCHES, **{f"clip_mha_decomp_{mode}": n for mode, n in fa_decomp.LAUNCHES.items()}}
 
 
 def _expect_launches(what: str, **want: int) -> dict:
@@ -173,8 +229,22 @@ def _expect_launches(what: str, **want: int) -> dict:
     return got
 
 
+def _sdpa_ms(q, k, v) -> float:
+    """ms of PyTorch's own fused attention on the same head-split views: the library yardstick of the
+    forward kernels, timed here and called nowhere in the port."""
+    with torch.no_grad():
+        return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+
+
+def _sdpa_bwd_ms(leaves, do, wrt=None) -> float:
+    """ms of the backward of PyTorch's fused attention through autograd, from the output gradient
+    ``do`` [B, H, N, Dh] to the gradients of ``wrt`` (default: the q, k, v leaves themselves)."""
+    out = F.scaled_dot_product_attention(*leaves)
+    return _time_ms(lambda: torch.autograd.grad(out, wrt if wrt is not None else leaves, do, retain_graph=True))
+
+
 def phase_fwd_vs_plain() -> dict:
-    from clip_fsar_torch.ops.fused_attention import clip_mha_cuda, clip_mha_reference
+    from clip_fsar_torch.ops.fused_attention import _heads_split, clip_mha_cuda, clip_mha_reference
 
     g = torch.Generator().manual_seed(0)
     worst = 0.0
@@ -193,12 +263,15 @@ def phase_fwd_vs_plain() -> dict:
             torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
             worst = max(worst, err)
     ms, plain_ms, all_ms = _alternate(lambda: clip_mha_cuda(qkv, 12), lambda: clip_mha_reference(qkv, 12))
-    print(f"K1 clip_mha_fwd {list(SLICE_SHAPE)} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    library_ms = _sdpa_ms(*_heads_split(qkv, 12))
+    bound = _attention_bound(SLICE_SHAPE[0], SLICE_SHAPE[1], 12, 64, tensors_in=3, tensors_out=1, rows_fp32=1, products=2)
+    print(f"K1 clip_mha_fwd {list(SLICE_SHAPE)} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
 
 
 def phase_bwd_vs_plain() -> dict:
-    from clip_fsar_torch.ops.fused_attention import clip_mha, clip_mha_bwd_cuda, clip_mha_bwd_reference, clip_mha_cuda
+    from clip_fsar_torch.ops.fused_attention import _heads_split, clip_mha, clip_mha_bwd_cuda, clip_mha_bwd_reference, clip_mha_cuda
 
     g = torch.Generator().manual_seed(1)
     worst = 0.0
@@ -217,7 +290,14 @@ def phase_bwd_vs_plain() -> dict:
             torch.testing.assert_close(dqkv.float(), ref.float(), atol=tol, rtol=tol)
             worst = max(worst, err)
     ms, plain_ms, all_ms = _alternate(lambda: clip_mha_bwd_cuda(qkv, o, lse, do, 12), lambda: clip_mha_bwd_reference(qkv, o, lse, do, 12))
-    print(f"K2 clip_mha_bwd {list(TRAIN_SHAPE)} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms")
+    # the library yardstick: autograd through fused attention on views of a packed leaf, down to the packed dqkv
+    leaf = qkv.detach().requires_grad_(True)
+    b, n, _ = TRAIN_SHAPE
+    library_ms = _sdpa_bwd_ms(_heads_split(leaf, 12), do.reshape(b, n, 12, 64).transpose(1, 2), wrt=leaf)
+    bound = _attention_bound(b, n, 12, 64, tensors_in=5, tensors_out=3, rows_fp32=1, products=5)  # qkv, o, do, lse -> dqkv
+    print(f"K2 clip_mha_bwd {list(TRAIN_SHAPE)} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, "
+          f"scaled_dot_product_attention backward {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    del leaf
     fwd_ms = _time_ms(lambda: clip_mha_cuda(qkv, 12))
     print(f"K1 clip_mha_fwd {list(TRAIN_SHAPE)} bf16: kernel {fwd_ms:.4f} ms (K2 / K1 = {ms / fwd_ms:.2f})")
 
@@ -234,7 +314,7 @@ def phase_bwd_vs_plain() -> dict:
         err = (x.grad.double() - y.grad).abs().max().item()
         print(f"K1+K2 grad vs float64 autograd [{b},{n},{3 * h * dh}] fp32: max abs {err:.3e} (tol 1e-4)")
         torch.testing.assert_close(x.grad.double(), y.grad, atol=1e-4, rtol=1e-4)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
 
 
 def _flash_inputs(b, h, nq, nk, dh, dtype, g) -> tuple:
@@ -275,9 +355,12 @@ def phase_flash_fwd_vs_plain() -> dict:
     b, n, _ = SLICE_SHAPE
     q, k, v = _flash_inputs(b, 12, n, n, 64, torch.bfloat16, g)
     ms, plain_ms, all_ms = _alternate(lambda: flash_mha_cuda(q, k, v), lambda: flash_mha_reference(q, k, v))
+    library_ms = _sdpa_ms(q, k, v)
+    bound = _attention_bound(b, n, 12, 64, tensors_in=3, tensors_out=1, rows_fp32=1, products=2)
     print(f"K3 flash_mha_fwd [{b},12,{n},64] bf16 (views of [{b},{n},2304]): kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, "
-          f"plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+          f"plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
 
 
 def phase_flash_bwd_vs_plain() -> tuple:
@@ -327,6 +410,13 @@ def phase_flash_bwd_vs_plain() -> tuple:
     print(f"K4 flash_mha_bwd_dq (delta pass + dQ) {shape}: kernel {dq_all[0]:.4f} / {dq_all[1]:.4f} ms, plain {dq_all[2]:.4f} / {dq_all[3]:.4f} ms")
     print(f"K5 flash_mha_bwd_dkv {shape}: kernel {dkv_all[0]:.4f} / {dkv_all[1]:.4f} ms, plain {dkv_all[2]:.4f} / {dkv_all[3]:.4f} ms")
     print(f"K3 flash_mha_fwd {shape}: kernel {fwd_ms:.4f} ms ((K4 + K5) / K3 = {(dq_ms + dkv_ms) / fwd_ms:.2f})")
+    # one library call computes dq, dk and dv together: its time stands beside K4 and beside K5, and is to be
+    # held against their sum
+    library_ms = _sdpa_bwd_ms([t.detach().requires_grad_(True) for t in (q, k, v)], do)
+    dq_bound = _attention_bound(b, n, 12, 64, tensors_in=5, tensors_out=1, rows_fp32=2, products=3)  # q, k, v, o, do, lse -> dq, delta
+    dkv_bound = _attention_bound(b, n, 12, 64, tensors_in=4, tensors_out=2, rows_fp32=2, products=4)  # q, k, v, do, lse, delta -> dk, dv
+    print(f"K4 + K5 {shape}: kernels {dq_ms + dkv_ms:.4f} ms, scaled_dot_product_attention backward (dq, dk, dv) {library_ms:.4f} ms; "
+          f"bounds K4 {dq_bound['bound_ms']:.4f} ms ({dq_bound['bound_by']}), K5 {dkv_bound['bound_ms']:.4f} ms ({dkv_bound['bound_by']})")
 
     # the math, independently of the rounding replica: fp32 kernels vs autograd of float64 softmax attention
     for b, h, nq, nk, dh in ((4, 12, 197, 197, 64), (2, 12, 128, 256, 64)):
@@ -344,8 +434,289 @@ def phase_flash_bwd_vs_plain() -> tuple:
             print(f"K3+K4+K5 grad vs float64 autograd [{b},{h},{nq},{nk},{dh}] fp32{' causal' if causal else ''}: max abs {err:.3e} (tol 1e-4)")
             for x, y in zip(leaves, ref):
                 torch.testing.assert_close(x.grad.double(), y.grad, atol=1e-4, rtol=1e-4)
-    return ({"max_abs_err": worst_dq, "ms": dq_ms, "plain_ms": dq_plain_ms},
-            {"max_abs_err": worst_dkv, "ms": dkv_ms, "plain_ms": dkv_plain_ms})
+    covers = "flash_mha_bwd_dq + flash_mha_bwd_dkv"
+    return ({"max_abs_err": worst_dq, "ms": dq_ms, "plain_ms": dq_plain_ms, "library_ms": library_ms, "library_covers": covers, **dq_bound},
+            {"max_abs_err": worst_dkv, "ms": dkv_ms, "plain_ms": dkv_plain_ms, "library_ms": library_ms, "library_covers": covers, **dkv_bound})
+
+
+def _ln_inputs(shape, dtype, g, constant_row: bool = False) -> tuple:
+    """x, dy in ``dtype`` and fp32 weight and bias on the card, from the generator; optionally row 1
+    of x holds one value (its variance is 0 up to rounding and is clamped)."""
+    d = shape[-1]
+    x = torch.randn(*shape, generator=g) * 2.0 + 0.5
+    if constant_row:
+        x.reshape(-1, d)[1] = 2.5
+    return (x.to("cuda", dtype), (torch.rand(d, generator=g) + 0.5).cuda(), torch.randn(d, generator=g).cuda(),
+            torch.randn(*shape, generator=g).to("cuda", dtype))
+
+
+def phase_layer_norm_vs_plain() -> tuple:
+    """K6 and K7 against their plain versions; returns the records of both."""
+    from clip_fsar_torch.ops.fused_layernorm import layer_norm, layer_norm_bwd_cuda, layer_norm_bwd_reference, layer_norm_cuda, layer_norm_reference
+
+    g = torch.Generator().manual_seed(4)
+    worst_fwd = worst_bwd = 0.0
+    cases = [(shape, dtype) for shape in LN_SMALL_SHAPES for dtype in LN_TOLERANCE] + [(LN_EVAL_SHAPE, torch.bfloat16), (LN_TRAIN_SHAPE, torch.bfloat16)]
+    for shape, dtype in cases:
+        y_tol, dx_tol = LN_TOLERANCE[dtype]
+        x, w, b, dy = _ln_inputs(shape, dtype, g, constant_row=True)
+        y = layer_norm_cuda(x, w, b)
+        dx, dg, db = layer_norm_bwd_cuda(x, w, dy)
+        torch.cuda.synchronize()
+        ref_y = layer_norm_reference(x, w, b)
+        ref_dx, ref_dg, ref_db = layer_norm_bwd_reference(x, w, dy)
+        rows = x.numel() // shape[-1]
+        # dg, db: fp32 sums of `rows` terms of size ~1 taken in another order than torch's; the error grows as
+        # sqrt(rows) roundings of the running sum (~sqrt(rows) * |sum| * 6e-8), far below this
+        sum_tol = 1e-4 * max(1.0, rows**0.5)
+        errs = [(a.float() - r.float()).abs().max().item() for a, r in ((y, ref_y), (dx, ref_dx), (dg, ref_dg), (db, ref_db))]
+        print(f"K6/K7 layer_norm {list(shape)} {str(dtype)[6:]}: max|y-ref| {errs[0]:.3e} (atol = rtol = {y_tol}) max|dx-ref| {errs[1]:.3e} "
+              f"(atol = rtol = {dx_tol}) max|dg-ref| {errs[2]:.3e} max|db-ref| {errs[3]:.3e} (atol {sum_tol:.1e}, rtol 1e-4)")
+        torch.testing.assert_close(y.float(), ref_y.float(), atol=y_tol, rtol=y_tol)
+        torch.testing.assert_close(dx.float(), ref_dx.float(), atol=dx_tol, rtol=dx_tol)
+        torch.testing.assert_close(dg, ref_dg, atol=sum_tol, rtol=1e-4)
+        torch.testing.assert_close(db, ref_db, atol=sum_tol, rtol=1e-4)
+        if not (y.reshape(-1, shape[-1])[1].float() - b).abs().max().item() <= y_tol * (1 + b.abs().max().item()):
+            raise AssertionError("the constant row did not normalise to the bias")
+        worst_fwd, worst_bwd = max(worst_fwd, errs[0]), max(worst_bwd, errs[1])
+        # the same result on every run: fixed-order sums, no atomics
+        again = layer_norm_bwd_cuda(x, w, dy)
+        if not all(torch.equal(a, r) for a, r in zip(again, (dx, dg, db))):
+            raise AssertionError(f"layer_norm_bwd_cuda {list(shape)} is not deterministic")
+
+    # x, w, b, dy are now the train chunk's [94560, 768] bf16
+    rows, d = LN_TRAIN_SHAPE
+    fwd_ms, fwd_plain_ms, fwd_all = _alternate(lambda: layer_norm_cuda(x, w, b), lambda: layer_norm_reference(x, w, b))
+    bwd_ms, bwd_plain_ms, bwd_all = _alternate(lambda: layer_norm_bwd_cuda(x, w, dy), lambda: layer_norm_bwd_reference(x, w, dy))
+    # the library yardstick, timed and used nowhere else: F.layer_norm (two-pass variance) and its backward
+    with torch.no_grad():
+        fwd_library_ms = _time_ms(lambda: F.layer_norm(x, (d,), w.to(x.dtype), b.to(x.dtype), 1e-5))
+    leaves = [x.detach().requires_grad_(True), w.to(x.dtype).requires_grad_(True), b.to(x.dtype).requires_grad_(True)]
+    out = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
+    bwd_library_ms = _time_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+    del out, leaves
+    fwd_bound = _bound(2 * rows * d * 2 + 2 * d * 4, 8 * rows * d, PEAK_FP32_FLOPS)  # x in, y out, g and b in; ~8 fp32 operations an element
+    bwd_bound = _bound(3 * rows * d * 2 + 3 * d * 4, 20 * rows * d, PEAK_FP32_FLOPS)  # x, dy in, dx out, g in, dg and db out
+    print(f"K6 layer_norm_fwd {list(LN_TRAIN_SHAPE)} bf16: kernel {fwd_all[0]:.4f} / {fwd_all[1]:.4f} ms, plain {fwd_all[2]:.4f} / {fwd_all[3]:.4f} ms, "
+          f"F.layer_norm {fwd_library_ms:.4f} ms, bound {fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']})")
+    print(f"K7 layer_norm_bwd {list(LN_TRAIN_SHAPE)} bf16: kernel {bwd_all[0]:.4f} / {bwd_all[1]:.4f} ms, plain {bwd_all[2]:.4f} / {bwd_all[3]:.4f} ms, "
+          f"F.layer_norm backward {bwd_library_ms:.4f} ms, bound {bwd_bound['bound_ms']:.4f} ms ({bwd_bound['bound_by']})")
+
+    # the math, independently of the rounding replica: fp32 K6 + K7 through autograd vs float64 autograd of the
+    # two-pass formula, with a dy that autograd hands over non-contiguous (a transposed view)
+    for shape in ((197, 768), (3, 70, 128), (577, 1024)):
+        x, w, b, dy = _ln_inputs(shape, torch.float32, g)
+        dy = dy.repeat_interleave(2, dim=-1)[..., ::2]  # the same values behind a stride of 2
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        layer_norm(*leaves).backward(dy)
+        ref = [t.double().requires_grad_(True) for t in (x, w, b)]
+        mu = ref[0].mean(-1, keepdim=True)
+        ((ref[0] - mu) / torch.sqrt(ref[0].var(-1, unbiased=False, keepdim=True) + 1e-5) * ref[1] + ref[2]).backward(dy.double())
+        err = max((a.grad.double() - r.grad).abs().max().item() for a, r in zip(leaves, ref))
+        print(f"K6+K7 grad vs float64 autograd {list(shape)} fp32 (dy contiguous: {dy.is_contiguous()}): max abs {err:.3e} (tol 1e-4)")
+        for a, r in zip(leaves, ref):
+            torch.testing.assert_close(a.grad.double(), r.grad, atol=1e-4, rtol=1e-4)
+    return ({"max_abs_err": worst_fwd, "ms": fwd_ms, "plain_ms": fwd_plain_ms, "library_ms": fwd_library_ms, **fwd_bound},
+            {"max_abs_err": worst_bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": bwd_library_ms, **bwd_bound})
+
+
+class _Span:
+    """CUDA-event time of a ``with`` block, added to ``totals[key]`` when read after a synchronise."""
+
+    pending: list = []
+
+    def __init__(self, key: str):
+        self.key, self.start, self.end = key, torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def __enter__(self):
+        self.start.record()
+
+    def __exit__(self, *exc):
+        self.end.record()
+        _Span.pending.append(self)
+
+    @classmethod
+    def collect(cls) -> dict:
+        torch.cuda.synchronize()
+        totals: dict = {}
+        for span in cls.pending:
+            totals[span.key] = totals.get(span.key, 0.0) + span.start.elapsed_time(span.end)
+        cls.pending = []
+        return totals
+
+
+def _replay_sites(sites: list, what: str, backward: bool) -> dict:
+    """At every recorded LayerNorm site (module, x, y[, dy]): ``layer_norm`` on the module's own input and
+    parameters against the module's output and, with ``backward``, its dx, dg, db against autograd through
+    the module's chain from the same upstream gradient.  Launches are counted from 0 against the sites.
+    Returns the launches and the summed CUDA-event times of the kernels and of the module's chain."""
+    from clip_fsar_torch.ops.fused_layernorm import layer_norm
+
+    worst = {"y": 0.0, "dx": 0.0, "dx_rel": 0.0, "dg": 0.0, "db": 0.0}
+    _reset_launches()
+    for name, module, x, y, dy in sites:
+        y_tol, dx_tol = LN_TOLERANCE[x.dtype]
+        chain_leaves = [x.detach().requires_grad_(backward), module.weight, module.bias]
+        kernel_leaves = [x.detach().requires_grad_(backward), module.weight.detach().requires_grad_(backward),
+                         module.bias.detach().requires_grad_(backward)]
+        with torch.set_grad_enabled(backward):
+            with _Span("chain_fwd"):
+                chain_y = module.forward(chain_leaves[0])  # the module's chain, past its hooks
+            with _Span("kernel_fwd"):
+                kernel_y = layer_norm(*kernel_leaves, module.eps)
+        if not torch.equal(chain_y, y):
+            raise AssertionError(f"{what} {name}: the module's chain does not reproduce its own output")
+        worst["y"] = max(worst["y"], (kernel_y.float() - y.float()).abs().max().item())
+        torch.testing.assert_close(kernel_y.float(), y.float(), atol=y_tol, rtol=y_tol, msg=lambda m, name=name: f"{what} {name} y: {m}")
+        if not backward:
+            continue
+        with _Span("chain_bwd"):
+            want = torch.autograd.grad(chain_y, chain_leaves, dy)
+        with _Span("kernel_bwd"):
+            got = torch.autograd.grad(kernel_y, kernel_leaves, dy)
+        rows = x.numel() // x.shape[-1]
+        # dg, db sum `rows` bf16-rounded dy terms in fp32 in another order; scale the tolerance to the sums' size
+        scale = max(1.0, want[1].abs().max().item(), want[2].abs().max().item())
+        dx_size = max(1.0, want[0].float().abs().max().item())  # dx is not of size 1 here: the tolerance follows its size
+        dx_atol = dx_tol * dx_size
+        worst["dx_rel"] = max(worst["dx_rel"], (got[0].float() - want[0].float()).abs().max().item() / dx_size)
+        for key, a, r, atol, rtol in (("dx", got[0], want[0], dx_atol, dx_tol), ("dg", got[1], want[1], 1e-3 * scale, 1e-3),
+                                      ("db", got[2], want[2], 1e-3 * scale, 1e-3)):
+            worst[key] = max(worst[key], (a.float() - r.float()).abs().max().item())
+            torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=rtol, msg=lambda m, name=name, key=key: f"{what} {name} {key} ({rows} rows): {m}")
+    times = _Span.collect()
+    want_launches = {"layer_norm_fwd": len(sites), **({"layer_norm_bwd": len(sites)} if backward else {})}
+    launches = _expect_launches(f"the LayerNorm replay, {what} ({len(sites)} sites)", **want_launches)
+    print(f"LayerNorm replay, {what}: {len(sites)} sites, launches {want_launches}; max|y - module| {worst['y']:.3e}"
+          + (f", max|dx - autograd| {worst['dx']:.3e} ({worst['dx_rel']:.3e} of the site's largest |dx|; tol {LN_TOLERANCE[torch.bfloat16][1]}), "
+             f"max|dg - autograd| {worst['dg']:.3e}, max|db - autograd| {worst['db']:.3e}" if backward else "")
+          + f"; summed over the sites: K6 {times['kernel_fwd']:.3f} ms vs the module's chain {times['chain_fwd']:.3f} ms"
+          + (f", K7 {times['kernel_bwd']:.3f} ms vs the chain's backward {times['chain_bwd']:.3f} ms" if backward else ""))
+    return {"launches": launches, "times": times}
+
+
+def phase_layer_norm_replay() -> dict:
+    """The path that runs K6 and K7: every LayerNorm site of the ViT-B/16 few-shot model, in one eval step
+    (320 frames) and in one forward and backward of the tower on a 480-frame chunk.  The model's own
+    forward is untouched: the hooks only record.  Returns the launches of both shapes together."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.models.clip.model import LayerNorm
+    from clip_fsar_torch.tools.profile_eval import slice_cfg
+    from clip_fsar_torch.train.step import make_eval_step
+
+    dev = runtime.device("cuda")
+    cfg = slice_cfg()
+    model = build_few_shot_model(cfg, flow="test", device=dev)
+    norms = {name: m for name, m in model.head.named_modules() if isinstance(m, LayerNorm)}
+    tower = [name for name in norms if name.startswith("backbone.")]
+    if len(tower) != 2 * LAYERS + 2:
+        raise AssertionError(f"expected ln_pre, {LAYERS} x (ln_1, ln_2) and ln_post in the tower, found {tower}")
+    sites: list = []
+
+    def record(name):
+        def hook(module, inputs, output):
+            site = [name, module, inputs[0].detach(), output.detach(), None]
+            if output.requires_grad:
+                output.register_hook(lambda grad, site=site: site.__setitem__(4, grad.detach()))
+            sites.append(site)
+        return hook
+
+    handles = [m.register_forward_hook(record(name)) for name, m in norms.items()]
+    with build_few_shot_loader(cfg, "test", num_steps=1, episodes_per_step=4) as loader:
+        batch = next(iter(loader)).to(dev)
+    make_eval_step(model.head, cfg, model.text_train, model.text_test)(batch)
+    fired = {site[0] for site in sites}
+    print(f"LayerNorm replay: {len(norms)} LayerNorm modules, {len(fired)} reached by the eval step in {len(sites)} calls; "
+          f"not reached: {sorted(set(norms) - fired)}")
+    if not set(tower) <= fired or not any(not name.startswith(("backbone.", "text.")) for name in fired):
+        raise AssertionError(f"the eval step did not reach every tower LayerNorm and the head's: {sorted(fired)}")
+    if max(site[2].numel() for site in sites) != LN_EVAL_SHAPE[0] * LN_EVAL_SHAPE[1]:
+        raise AssertionError("no LayerNorm site saw the whole [320 x 197, 768] batch")
+    eval_run = _replay_sites(sites, "eval step of 320 frames", backward=False)
+    del batch
+    sites.clear()
+
+    g = torch.Generator().manual_seed(5)
+    frames = torch.randn(TRAIN_SHAPE[0], 224, 224, 3, generator=g).to(dev, torch.bfloat16)
+    out = model.head.backbone(frames)
+    out.backward(torch.randn(out.shape, generator=g).to(dev, out.dtype))
+    for h in handles:
+        h.remove()
+    if [site[0] for site in sites] != tower or any(site[4] is None for site in sites):
+        raise AssertionError(f"the tower's forward and backward did not reach its {len(tower)} LayerNorm sites once each with a gradient")
+    model.head.zero_grad(set_to_none=True)
+    train_run = _replay_sites(sites, "tower forward and backward of 480 frames", backward=True)
+    sites.clear()
+    del model, out, frames
+    torch.cuda.empty_cache()
+    launches = {name: eval_run["launches"][name] + train_run["launches"][name] for name in ("layer_norm_fwd", "layer_norm_bwd")}
+    return {"launches": launches, "eval": eval_run["times"], "train": train_run["times"]}
+
+
+def phase_fa_decomp(card_line: str) -> dict:
+    """K8: the ablated clip_mha kernels against their plain versions, then the tool's table at the test
+    slice's shape with the launches counted from 0.  Returns one record per ablated mode."""
+    from clip_fsar_torch.tools import fa_decomp
+
+    worst = {mode: 0.0 for mode in fa_decomp.ABLATED}
+    for b, n, d3, h in DECOMP_SHAPES:
+        for dtype, tol in TOLERANCE.items():
+            qkv = fa_decomp.make_qkv((b, n, d3), dtype, seed=n)
+            for mode in fa_decomp.ABLATED:
+                o = fa_decomp.fa_decomp_cuda(qkv, h, mode)
+                torch.cuda.synchronize()
+                ref = fa_decomp.fa_decomp_reference(qkv, h, mode)
+                err = (o.float() - ref.float()).abs().max().item()
+                print(f"K8 clip_mha_decomp[{mode}] [{b},{n},{d3}] H={h} {str(dtype)[6:]}: max|o-ref| {err:.3e} (tol {tol})")
+                torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=tol)
+                worst[mode] = max(worst[mode], err)
+    _reset_launches()
+    ms = fa_decomp.report(SLICE_SHAPE, print, card_line)
+    per_mode = 1 + 10 * 3  # the tool's warm-up launch, then 10 launches in each of 3 rounds
+    launches = _expect_launches("the fa_decomp table", clip_mha_fwd=per_mode, **{f"clip_mha_decomp_{mode}": per_mode for mode in fa_decomp.ABLATED})
+    qkv = fa_decomp.make_qkv(SLICE_SHAPE)
+    b, n, _ = SLICE_SHAPE
+    bound = _attention_bound(b, n, 12, 64, tensors_in=3, tensors_out=1, rows_fp32=0, products=2)  # K1's work less the lse
+    return {mode: {"max_abs_err": worst[mode], "ms": ms[mode], "plain_ms": _time_ms(lambda m=mode: fa_decomp.fa_decomp_reference(qkv, 12, m), iters=5),
+                   "library_ms": None, "launches": launches[f"clip_mha_decomp_{mode}"], **bound} for mode in fa_decomp.ABLATED}
+
+
+def phase_loader_resize() -> None:
+    """The loaders' resize: with g++ on the machine the native C++ pass must have built and loaded; one
+    test batch of 4 episodes is byte-identical with it and with the numpy replica."""
+    from clip_fsar_torch.data import transforms
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.native import frameops
+    from clip_fsar_torch.tools.profile_eval import slice_cfg
+
+    have_gxx = shutil.which("g++") is not None
+    if have_gxx and not frameops.available():
+        raise AssertionError(f"g++ is on this machine but the native frameops library is not loaded: {frameops.failure()}")
+    print(f"loader resize: g++ {'found' if have_gxx else 'not found'}; native frameops "
+          + (f"loaded ({frameops.num_threads()} OpenMP threads per clip, {os.cpu_count()} cores)" if frameops.available()
+             else f"unavailable ({frameops.failure()}): the transforms run the numpy replica"))
+
+    def one_batch():
+        with build_few_shot_loader(slice_cfg(), "test", num_steps=1, episodes_per_step=4) as loader:
+            return next(iter(loader))
+
+    before = dict(transforms.RESIZE_CALLS)
+    first = one_batch()
+    frameops.set_enabled(False)
+    try:
+        second = one_batch()
+    finally:
+        frameops.set_enabled(True)
+    took = {k: transforms.RESIZE_CALLS[k] - before[k] for k in before}
+    if took["numpy"] == 0 or (frameops.available() and took["native"] == 0):
+        raise AssertionError(f"the two batches did not go through both resize implementations: {took}")
+    fields = [name for name, a in vars(first).items() if a is not None]
+    for name in fields:
+        if not np.array_equal(np.asarray(getattr(first, name)), np.asarray(getattr(second, name))):
+            raise AssertionError(f"episode field {name} differs between the native resize and the numpy replica")
+    print(f"loader resize: one batch of 4 episodes with each implementation ({took} clips), fields {fields} identical")
 
 
 def run_test_slice(extra_opts, out_dir: str) -> dict:
@@ -486,15 +857,22 @@ def phase_train_step_paths() -> None:
 
 
 def main() -> None:
-    phase_device()
+    smi = phase_device()
     build_seconds = phase_build()
     timings = {"clip_mha_fwd": phase_fwd_vs_plain(), "clip_mha_bwd": phase_bwd_vs_plain(), "flash_mha_fwd": phase_flash_fwd_vs_plain()}
     timings["flash_mha_bwd_dq"], timings["flash_mha_bwd_dkv"] = phase_flash_bwd_vs_plain()
+    timings["layer_norm_fwd"], timings["layer_norm_bwd"] = phase_layer_norm_vs_plain()
+    replay = phase_layer_norm_replay()
+    decomp = phase_fa_decomp(smi)
+    timings.update({f"clip_mha_decomp_{mode}": record for mode, record in decomp.items()})
+    phase_loader_resize()
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         phase_test_slice(out_dir)
         train = {path: phase_train_slice(os.path.join(out_dir, f"train_{path}"), path) for path in TRAIN_PATHS}
     phase_train_step_paths()
+    from clip_fsar_torch.data.transforms import RESIZE_CALLS
 
+    print(f"loader resize: clips resized in this run by each implementation: {RESIZE_CALLS}")
     print(f"summary: build {build_seconds:.2f} s; "
           + "; ".join(f"{path} train slice {t['episodes_per_s']:.3f} episodes/s, peak {t['peak_gib']:.3f} GiB" for path, t in train.items()))
     kernels = [
@@ -503,13 +881,23 @@ def main() -> None:
         ("flash_mha_fwd", "flash", "clip_fsar_torch/csrc/flash_mha_fwd.cu", "clip_fsar_tpu/ops/flash_attention.py:47"),
         ("flash_mha_bwd_dq", "flash", "clip_fsar_torch/csrc/flash_mha_bwd.cu", "clip_fsar_tpu/ops/flash_attention.py:98"),
         ("flash_mha_bwd_dkv", "flash", "clip_fsar_torch/csrc/flash_mha_bwd.cu", "clip_fsar_tpu/ops/flash_attention.py:123"),
-    ]
-    # launches: each kernel's count from the train slice (train, validation, test) of its own path
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": train[path]["launches"][name],
-         "max_abs_err": timings[name]["max_abs_err"], "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"]}
-        for name, path, source, replaces in kernels
-    ]}))
+        ("layer_norm_fwd", "replay", "clip_fsar_torch/csrc/layer_norm.cu", "clip_fsar_tpu/ops/fused_layernorm.py:77"),
+        ("layer_norm_bwd", "replay", "clip_fsar_torch/csrc/layer_norm.cu", "clip_fsar_tpu/ops/fused_layernorm.py:96"),
+    ] + [(f"clip_mha_decomp_{mode}", "tool", "clip_fsar_torch/csrc/clip_mha_decomp.cu", "tools/_fa_decomp.py:64") for mode in decomp]
+    # launches: each kernel's count from the path that runs it, counted from 0: the train slice (train,
+    # validation, test) of its own attention path, the LayerNorm replay, the stage-ablation tool's table
+    launches = {"fused": train["fused"]["launches"], "flash": train["flash"]["launches"], "replay": replay["launches"],
+                "tool": {name: record["launches"] for name, record in timings.items() if "launches" in record}}
+    records = []
+    for name, path, source, replaces in kernels:
+        t = timings[name]
+        records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[path][name],
+                        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "lib_ms": t["library_ms"],
+                        **({"library_covers": t["library_covers"]} if "library_covers" in t else {})})
+        if not records[-1]["launches"] > 0:
+            raise AssertionError(f"{name} was launched no time on the path that runs it")
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 
 

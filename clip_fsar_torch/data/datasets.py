@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import os
 
-from clip_fsar_tpu.data.decode import build_decoder
-from clip_fsar_tpu.data.splits import load_split_file
-from clip_fsar_tpu.utils.registry import Registry
+from clip_fsar_torch.data.decode import build_decoder
 from clip_fsar_torch.data.episodes import EpisodeSampler
+from clip_fsar_torch.data.splits import load_split_file
+from clip_fsar_torch.utils.registry import Registry
 
 DATASET_REGISTRY = Registry("DATASET")
 

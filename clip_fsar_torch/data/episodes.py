@@ -17,8 +17,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from clip_fsar_tpu.data.sampling import sample_indices_for_cfg
-from clip_fsar_tpu.data.splits import FewShotSplit
+from clip_fsar_torch.data.sampling import sample_indices_for_cfg
+from clip_fsar_torch.data.splits import FewShotSplit
 from clip_fsar_torch.data.transforms import fewshot_test_transform, fewshot_train_transform
 from clip_fsar_torch.data.types import Episode, stack_episodes
 from clip_fsar_torch.utils.logging import get_logger

@@ -18,7 +18,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from clip_fsar_tpu.models.clip.tokenizer import tokenize
+from clip_fsar_torch.models.clip.tokenizer import tokenize
 from clip_fsar_torch import runtime
 from clip_fsar_torch.models.clip.arch import ARCHS, CLIPArch
 from clip_fsar_torch.models.clip.convert import load_openai_checkpoint, resize_vision_pos_embed

@@ -100,6 +100,17 @@ def library() -> ctypes.CDLL:
     lib.flash_mha_bwd_dq.restype = i
     lib.flash_mha_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [l] * 12 + [p]
     lib.flash_mha_bwd_dkv.restype = i
+    # x, g, b, y, then (rows, D, eps, dtype)
+    lib.layer_norm_fwd.argtypes = [p] * 4 + [l, i, ctypes.c_float, i, p]
+    lib.layer_norm_fwd.restype = i
+    # x, g, dy, dx, the two [blocks, D] partials, dg, db, then (rows, D, eps, dtype)
+    lib.layer_norm_bwd.argtypes = [p] * 8 + [l, i, ctypes.c_float, i, p]
+    lib.layer_norm_bwd.restype = i
+    lib.layer_norm_bwd_block_rows.argtypes = []
+    lib.layer_norm_bwd_block_rows.restype = i
+    # qkv, out, then (B, N, H, Dh, dtype, mode)
+    lib.clip_mha_decomp.argtypes = [p, p, i, i, i, i, i, i, p]
+    lib.clip_mha_decomp.restype = i
     lib.clip_kernels_error_string.argtypes = [i]
     lib.clip_kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, List, Optional
 
-from clip_fsar_tpu.config.config import load_config, parse_args
+from clip_fsar_torch.config.config import load_config, parse_args
 from clip_fsar_torch.train.loop import test_few_shot, train_few_shot
 from clip_fsar_torch.utils.logging import get_logger, setup_logging
 

@@ -7,8 +7,11 @@ tower at full width (fresh weights from the seed), the synthetic decoder,
 E = 4 episodes (320 frames of 224 px) per step, bf16.  Each reading is
 printed on a line that starts with the tag of its reading set:
 
-- ``loader[w=4]``, ``loader[w=8]``: the host loader alone (no device), ms
-  per step over 8 steps with 4 and 8 worker threads;
+- ``loader[w=4 native omp=1]`` ...: the host loader alone (no device), ms
+  per step over 8 steps with 4 and 8 worker threads, with the native C++
+  resize (``clip_fsar_torch/native/frameops``) at 1 OpenMP thread per clip
+  and at the OpenMP default, and with the numpy replica, in turn, twice
+  (``--loader-only`` stops after these);
 - ``step[<path> #i]``: one batch resident on the card, the eval step timed
   with CUDA events, three timings of 8 steps;
 - ``kernels[<path> #i]``: ``torch.profiler`` over two such steps: device
@@ -57,6 +60,14 @@ TOP = 12  # kernel rows printed per profiled set
 _out: Optional[str] = None
 
 
+def set_out(path: Optional[str]) -> None:
+    """Also append every ``say`` line to ``path`` (its directory is made)."""
+    global _out
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    _out = path
+
+
 def say(line: str) -> None:
     print(line, flush=True)
     if _out:
@@ -72,7 +83,7 @@ def card() -> str:
 
 
 def slice_cfg(*extra: str):
-    from clip_fsar_tpu.config.config import load_config
+    from clip_fsar_torch.config.config import load_config
 
     return load_config(CONFIG, SLICE_OPTS + list(extra))
 
@@ -135,15 +146,49 @@ def _report_kernels(tag: str, prof, wall_ms: float, steps: int) -> None:
         say(f"{tag}: {ms:10.3f} ms {ms / total * 100:5.1f} % x{n:<5d} {name[:110]}")
 
 
+def resize_variants():
+    """(label, switch) for each way the loaders can resize: the native library at 1 OpenMP thread
+    per clip and at the OpenMP default, then the numpy replica.  ``switch()`` selects it for the
+    calls that follow; without the library only the numpy replica is listed."""
+    from clip_fsar_torch.native import frameops
+
+    def native(threads: int):
+        frameops.set_enabled(True)
+        frameops.set_num_threads(threads)
+
+    variants = []
+    if frameops.available():
+        frameops.set_num_threads(0)
+        variants = [("native omp=1", lambda: native(1)), (f"native omp={frameops.num_threads()}", lambda: native(0))]
+    else:
+        say(f"loader: native frameops unavailable ({frameops.failure()}); numpy replica only")
+    return variants + [("numpy", lambda: frameops.set_enabled(False))]
+
+
+def restore_resize() -> None:
+    """Back to the loaders' default: the native library where it built, at the OpenMP default."""
+    from clip_fsar_torch.native import frameops
+
+    frameops.set_enabled(True)
+    frameops.set_num_threads(0)
+
+
 def time_loader(workers: int, steps: int = STEPS) -> None:
+    """The test loader alone with each resize variant in turn, twice."""
     from clip_fsar_torch.data.loader import build_few_shot_loader
 
     cfg = slice_cfg("DATA_LOADER.NUM_WORKERS", str(workers))
-    t0 = time.perf_counter()
-    with build_few_shot_loader(cfg, "test", num_steps=steps, episodes_per_step=EPISODES_PER_STEP) as loader:
-        got = sum(1 for _ in loader)
-    ms = (time.perf_counter() - t0) * 1e3
-    say(f"loader[w={workers}]: {got} steps of {EPISODES_PER_STEP} episodes in {ms:.1f} ms, {ms / got:.1f} ms per step (host only)")
+    variants = resize_variants()
+    for reading in (1, 2):
+        for label, switch in variants:
+            switch()
+            t0 = time.perf_counter()
+            with build_few_shot_loader(cfg, "test", num_steps=steps, episodes_per_step=EPISODES_PER_STEP) as loader:
+                got = sum(1 for _ in loader)
+            ms = (time.perf_counter() - t0) * 1e3
+            say(f"loader[w={workers} {label} #{reading}]: {got} steps of {EPISODES_PER_STEP} episodes in {ms:.1f} ms, "
+                f"{ms / got:.1f} ms per step (host only, {os.cpu_count()} cores)")
+    restore_resize()
 
 
 def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
@@ -202,19 +247,19 @@ def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
 
 
 def main(argv=None) -> None:
-    global _out
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also append every line to this file")
+    ap.add_argument("--loader-only", action="store_true", help="time the host loader and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: torch sees no CUDA device; this script measures the card only")
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        _out = args.out
+    set_out(args.out)
     say(card())
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
     for workers in (4, 8):
         time_loader(workers)
+    if args.loader_only:
+        return
     for reading in (1, 2):
         for path in PATHS:
             profile_path(path, reading)

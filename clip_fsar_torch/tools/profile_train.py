@@ -8,8 +8,11 @@ decoder, E = 4 episodes (960 frames of 224 px) per step in 2 episode chunks,
 BATCH_SIZE_PER_TASK 4, bf16.  Each reading is printed on a line that starts
 with the tag of its reading set:
 
-- ``loader[train w=4]``: the host train loader alone (no device), ms per
-  step over 4 steps with the config's 4 worker threads;
+- ``loader[train w=4 native omp=1]`` ...: the host train loader alone (no
+  device), ms per step over 4 steps with the config's 4 worker threads, with
+  the native C++ resize at 1 OpenMP thread per clip and at the OpenMP
+  default, and with the numpy replica, in turn, twice (``--loader-only``
+  stops after these);
 - ``step[<path> #i]``: one batch resident on the card, the whole train step
   (augmentation, forward and backward of both chunks, the optimizer's
   micro-step) timed with CUDA events, three timings of 4 steps;
@@ -65,12 +68,17 @@ def time_loader(steps: int = STEPS) -> None:
 
     cfg = train_cfg()
     workers = int(cfg.DATA_LOADER.NUM_WORKERS)
-    t0 = time.perf_counter()
-    with build_few_shot_loader(cfg, "train", num_steps=steps, episodes_per_step=EPISODES) as loader:
-        got = sum(1 for _ in loader)
-    ms = (time.perf_counter() - t0) * 1e3
-    say(f"loader[train w={workers}]: {got} steps of {EPISODES} episodes ({EPISODES * 240} frames) in {ms:.1f} ms, "
-        f"{ms / got:.1f} ms per step (host only)")
+    variants = profile_eval.resize_variants()
+    for reading in (1, 2):
+        for label, switch in variants:
+            switch()
+            t0 = time.perf_counter()
+            with build_few_shot_loader(cfg, "train", num_steps=steps, episodes_per_step=EPISODES) as loader:
+                got = sum(1 for _ in loader)
+            ms = (time.perf_counter() - t0) * 1e3
+            say(f"loader[train w={workers} {label} #{reading}]: {got} steps of {EPISODES} episodes ({EPISODES * 240} frames) "
+                f"in {ms:.1f} ms, {ms / got:.1f} ms per step (host only, {os.cpu_count()} cores)")
+    profile_eval.restore_resize()
 
 
 def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
@@ -134,18 +142,19 @@ def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also append every line to this file")
+    ap.add_argument("--loader-only", action="store_true", help="time the host loader and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: torch sees no CUDA device; this script measures the card only")
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        profile_eval._out = args.out
+    profile_eval.set_out(args.out)
     from clip_fsar_torch import runtime
 
     runtime.device("cuda")
     say(card())
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
     time_loader()
+    if args.loader_only:
+        return
     for reading in (1, 2):
         for path in PATHS:
             profile_path(path, reading)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (clip_mha K1/K2, flash_mha K3-K5) against their plain-torch
-versions, on the card.
+"""The port's CUDA kernels (clip_mha K1/K2, flash_mha K3-K5, layer_norm K6/K7, the clip_mha
+stage-ablation kernels K8) against their plain-torch versions, on the card.
 
 Skips without a CUDA device (the kernels have no CPU mode).  On the card:
 
@@ -27,6 +27,15 @@ from clip_fsar_torch.ops.fused_attention import (
     clip_mha_cuda,
     clip_mha_reference,
 )
+from clip_fsar_torch.ops import fused_layernorm
+from clip_fsar_torch.ops.fused_layernorm import (
+    layer_norm,
+    layer_norm_bwd_cuda,
+    layer_norm_bwd_reference,
+    layer_norm_cuda,
+    layer_norm_reference,
+)
+from clip_fsar_torch.tools import fa_decomp
 
 # atol = rtol: summation order (fp32); rounding of p, dS and the outputs to bf16 (bf16)
 TOLERANCE = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -243,3 +252,119 @@ def test_flash_mha_kernels_refuse_what_they_do_not_take(cuda):
         flash_mha_bwd_cuda(q, k, v, o, lse, do.contiguous())  # dO strides differ from o's
     with pytest.raises(TypeError):
         flash_mha_bwd_cuda(*qkv(dtype=torch.float16), o, lse, do)
+
+
+# y and dx: (fp32 forward, fp32 gradients) at the JAX test's tolerances (summation order); one rounding of the output in bf16
+LN_TOLERANCE = [(torch.float32, 1e-5, 2e-4), (torch.bfloat16, 2e-2, 2e-2)]
+# small ragged shapes, every width class (64 tiny, 512 text and head, 768, 1024), a leading batch axis, and
+# every token of the test slice's 320 frames and of the train chunk's 480 frames
+LN_SHAPES = [(197, 256), (1300, 512), (3, 70, 128), (577, 1024), (130, 64), (63040, 768), (94560, 768)]
+
+
+def _ln_inputs(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    d = shape[-1]
+    x = torch.randn(*shape, generator=g) * 2.0 + 0.5
+    x.reshape(-1, d)[1] = 2.5  # a constant row: the variance is 0 up to rounding and is clamped
+    return (x.to(device, dtype), (torch.rand(d, generator=g) + 0.5).to(device), torch.randn(d, generator=g).to(device),
+            torch.randn(*shape, generator=g).to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, y_tol, dx_tol", LN_TOLERANCE)
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_layer_norm_kernels_match_plain(cuda, shape, dtype, y_tol, dx_tol):
+    """K6 and K7 against their plain versions; dg and db at a tolerance that grows with the square root
+    of the number of rows summed in fp32; one launch of each counted; the same result on a second run;
+    layer_norm and its autograd backward return the kernels' results."""
+    x, w, b, dy = _ln_inputs(shape, dtype, cuda, shape[0])
+    before = dict(fused_layernorm.LAUNCHES)
+    y = layer_norm_cuda(x, w, b)
+    dx, dg, db = layer_norm_bwd_cuda(x, w, dy)
+    torch.cuda.synchronize()
+    assert fused_layernorm.LAUNCHES == {"layer_norm_fwd": before["layer_norm_fwd"] + 1, "layer_norm_bwd": before["layer_norm_bwd"] + 1}
+    assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape and dg.dtype == db.dtype == torch.float32
+    ref_dx, ref_dg, ref_db = layer_norm_bwd_reference(x, w, dy)
+    torch.testing.assert_close(y.float(), layer_norm_reference(x, w, b).float(), atol=y_tol, rtol=y_tol)
+    torch.testing.assert_close(dx.float(), ref_dx.float(), atol=dx_tol, rtol=dx_tol)
+    sum_tol = 1e-4 * max(1.0, (x.numel() // shape[-1]) ** 0.5)
+    torch.testing.assert_close(dg, ref_dg, atol=sum_tol, rtol=1e-4)
+    torch.testing.assert_close(db, ref_db, atol=sum_tol, rtol=1e-4)
+    for a, r in zip(layer_norm_bwd_cuda(x, w, dy), (dx, dg, db)):
+        torch.testing.assert_close(a, r, atol=0, rtol=0)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    out = layer_norm(*leaves)
+    torch.testing.assert_close(out, y, atol=0, rtol=0)
+    out.backward(dy)
+    for leaf, r in zip(leaves, (dx, dg, db)):
+        torch.testing.assert_close(leaf.grad, r, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(197, 768), (3, 70, 128), (577, 1024)])
+def test_layer_norm_grad_matches_float64_autograd(cuda, shape):
+    """fp32 K6 + K7 through autograd against float64 autograd of the two-pass formula, with a dy that
+    arrives non-contiguous (the backward packs it): the math independently of the rounding replica."""
+    x, w, b, dy = _ln_inputs(shape, torch.float32, cuda, 13)
+    dy = dy.repeat_interleave(2, dim=-1)[..., ::2]  # the same values behind a stride of 2
+    assert not dy.is_contiguous()
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = fused_layernorm.LAUNCHES["layer_norm_bwd"]
+    layer_norm(*leaves).backward(dy)
+    assert fused_layernorm.LAUNCHES["layer_norm_bwd"] == before + 1
+    ref = [t.double().requires_grad_(True) for t in (x, w, b)]
+    mu = ref[0].mean(-1, keepdim=True)
+    ((ref[0] - mu) / torch.sqrt(ref[0].var(-1, unbiased=False, keepdim=True) + 1e-5) * ref[1] + ref[2]).backward(dy.double())
+    for name, got, want in zip(("dx", "dg", "db"), leaves, ref):
+        torch.testing.assert_close(got.grad.double(), want.grad, atol=1e-4, rtol=1e-4, msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernels_refuse_what_they_do_not_take(cuda):
+    w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    x = torch.zeros(8, 768, device=cuda)
+    for d in (1028, 2048, 4):  # not a multiple of 8, wider than 1024, narrower than 8
+        with pytest.raises(ValueError):
+            layer_norm_cuda(torch.zeros(8, d, device=cuda), torch.ones(d, device=cuda), torch.zeros(d, device=cuda))
+    with pytest.raises(TypeError):
+        layer_norm_cuda(x.half(), w, b)
+    with pytest.raises(ValueError):
+        layer_norm_cuda(x.cpu(), w.cpu(), b.cpu())
+    with pytest.raises(ValueError):
+        layer_norm_cuda(torch.zeros(768, 8, device=cuda).t(), w, b)  # not contiguous
+    with pytest.raises(ValueError):
+        layer_norm_cuda(x, w.bfloat16(), b)  # g must be float32 at the launcher
+    with pytest.raises(ValueError):
+        layer_norm_bwd_cuda(x, w, torch.zeros(768, 8, device=cuda).t())  # dy not contiguous
+    with pytest.raises(ValueError):
+        layer_norm_bwd_cuda(x, w, x.bfloat16())  # dy in another dtype than x
+    y = layer_norm(torch.zeros(8, 1024, device=cuda).t()[:768].t(), w, b)  # the op packs a strided x itself
+    assert y.shape == (8, 768)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLERANCE)
+@pytest.mark.parametrize("mode", fa_decomp.ABLATED)
+@pytest.mark.parametrize("b, n, h, dh", [(4, 197, 12, 64), (4, 50, 8, 64), (3, 17, 2, 32), (320, 197, 12, 64)])
+def test_fa_decomp_kernels_match_plain(cuda, b, n, h, dh, mode, dtype, tol):
+    """Each ablated mode of K8 against its plain version, on inputs scaled as the tool scales them; one
+    launch counted; ``full`` is the shipped forward kernel."""
+    qkv = fa_decomp.make_qkv((b, n, 3 * h * dh), dtype, seed=n)
+    before = dict(fa_decomp.LAUNCHES)
+    o = fa_decomp.fa_decomp_cuda(qkv, h, mode)
+    torch.cuda.synchronize()
+    assert fa_decomp.LAUNCHES == {**before, mode: before[mode] + 1}
+    ref = fa_decomp.fa_decomp_reference(qkv, h, mode)
+    assert o.dtype == dtype and o.shape == ref.shape
+    torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(fa_decomp.fa_decomp_cuda(qkv, h, "full"), clip_mha_cuda(qkv, h)[0], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fa_decomp_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        fa_decomp.fa_decomp_cuda(torch.zeros(1, 8, 3 * 2 * 48, device=cuda), 2, "exp")  # Dh = 48
+    with pytest.raises(ValueError):
+        fa_decomp.fa_decomp_cuda(torch.zeros(1, 8, 3 * 2 * 64, device=cuda), 2, "softmax")
+    with pytest.raises(TypeError):
+        fa_decomp.fa_decomp_cuda(torch.zeros(1, 8, 3 * 2 * 64, device=cuda, dtype=torch.float16), 2, "exp")

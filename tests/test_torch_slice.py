@@ -101,7 +101,7 @@ def test_pallas_slice_matches_jax(tmp_path):
 
 _NO_JAX = """
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
+for name in ("clip_fsar_tpu", "jax", "jaxlib", "flax", "optax", "orbax"):
     sys.modules[name] = None  # any import of them now raises ImportError
 from clip_fsar_torch.runs.run import main
 out = main(sys.argv[1:])
@@ -115,8 +115,8 @@ print("SLICE_OK", test["top1_acc"])
 
 
 def test_slice_runs_with_jax_blocked(tmp_path):
-    """The whole CPU slice through the port's CLI with jax, jaxlib, flax,
-    optax and orbax unimportable: nothing on the path may need them.  Run
+    """The whole CPU slice through the port's CLI with clip_fsar_tpu, jax,
+    jaxlib, flax, optax and orbax unimportable: nothing on the path may need them.  Run
     three times: the test protocol alone, TRAIN.ENABLE True (two train steps
     with one Adam update, validation, checkpoints, then the test of the
     step-2 checkpoint), and the same with TPU.PALLAS_ATTENTION True."""

@@ -61,10 +61,6 @@ static void hresize_row(const uint8_t* src, const Tap* xtaps, int crop_w, uint16
     }
 }
 
-// OpenMP threads per clip; 0 = the OpenMP default.  One value for every calling
-// thread (omp_set_num_threads would set it for the calling thread alone).
-static int g_num_threads = 0;
-
 }  // namespace
 
 extern "C" {
@@ -96,7 +92,7 @@ int clip_resize_crop_flip(const uint8_t* in, int t, int h, int w,
     const int row_elems = crop_w * 3;
 
 #ifdef _OPENMP
-#pragma omp parallel for schedule(static) if (t > 1) num_threads(g_num_threads > 0 ? g_num_threads : omp_get_max_threads())
+#pragma omp parallel for schedule(static) if (t > 1)
 #endif
     for (int f = 0; f < t; ++f) {
         const uint8_t* src = in + f * in_frame;
@@ -148,14 +144,10 @@ int clip_resize(const uint8_t* in, int t, int h, int w, int out_h, int out_w, ui
 
 int frameops_num_threads() {
 #ifdef _OPENMP
-    return g_num_threads > 0 ? g_num_threads : omp_get_max_threads();
+    return omp_get_max_threads();
 #else
     return 1;
 #endif
 }
-
-// Threads each later call runs a clip's frames on, from whichever thread it
-// comes; 0 returns to the OpenMP default.
-void frameops_set_num_threads(int n) { g_num_threads = n > 0 ? n : 0; }
 
 }  // extern "C"

@@ -96,8 +96,6 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.clip_resize.argtypes = [u8p] + [ctypes.c_int] * 5 + [u8p]
         lib.clip_resize.restype = ctypes.c_int
         lib.frameops_num_threads.restype = ctypes.c_int
-        lib.frameops_set_num_threads.argtypes = [ctypes.c_int]
-        lib.frameops_set_num_threads.restype = None
         _lib = lib
         logger.info("native frameops loaded from %s (%d OpenMP threads)", path, lib.frameops_num_threads())
         return _lib
@@ -121,18 +119,11 @@ def set_enabled(flag: bool) -> None:
 
 
 def num_threads() -> int:
-    """OpenMP threads the library runs a clip's frames on (0 when it is not loaded)."""
+    """OpenMP threads the library runs a clip's frames on: the OpenMP default, which the
+    environment's OMP_NUM_THREADS sets (0 when the library is not loaded).  The loader's worker
+    threads each call the library, so workers x this many threads share the host's cores."""
     lib = _load()
     return lib.frameops_num_threads() if lib is not None else 0
-
-
-def set_num_threads(n: int) -> None:
-    """OpenMP threads for every later call, whichever thread makes it (0: the OpenMP default).
-    The loader's worker threads each call the library, so workers x this many threads share the
-    host's cores."""
-    lib = _load()
-    if lib is not None:
-        lib.frameops_set_num_threads(int(n))
 
 
 def _u8p(a: np.ndarray):

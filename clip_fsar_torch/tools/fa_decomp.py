@@ -85,6 +85,19 @@ def fa_decomp_cuda(qkv: torch.Tensor, heads: int, mode: str) -> torch.Tensor:
     return out
 
 
+def assert_close_to_scale(got: torch.Tensor, want: torch.Tensor, tol: float, what: str = "") -> float:
+    """Hold ``got`` to ``want`` within ``tol`` of ``want``'s largest magnitude (plus ``tol`` of each
+    value); returns the largest difference as a share of that magnitude.  With the inputs scaled
+    by INPUT_SCALE the modes' outputs are small (about 1e-4 for ``matmul``, 1e-3 for ``nomax``), so
+    a fixed absolute tolerance would exceed what it compares."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    if not scale > 0.0:
+        raise AssertionError(f"{what}: the reference is all zeros (or not finite), nothing to compare")
+    torch.testing.assert_close(got / scale, want / scale, atol=tol, rtol=tol, msg=lambda m: f"{what} (in units of max|ref| = {scale:.3e}): {m}")
+    return (got - want).abs().max().item() / scale
+
+
 def make_qkv(shape: Sequence[int], dtype: torch.dtype = torch.bfloat16, seed: int = 0) -> torch.Tensor:
     """The tool's input on the card: standard normal from the seed, scaled by INPUT_SCALE."""
     g = torch.Generator().manual_seed(seed)

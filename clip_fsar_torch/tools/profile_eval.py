@@ -7,11 +7,12 @@ tower at full width (fresh weights from the seed), the synthetic decoder,
 E = 4 episodes (320 frames of 224 px) per step, bf16.  Each reading is
 printed on a line that starts with the tag of its reading set:
 
-- ``loader[w=4 native omp=1]`` ...: the host loader alone (no device), ms
+- ``loader[w=4 native omp=8]`` ...: the host loader alone (no device), ms
   per step over 8 steps with 4 and 8 worker threads, with the native C++
-  resize (``clip_fsar_torch/native/frameops``) at 1 OpenMP thread per clip
-  and at the OpenMP default, and with the numpy replica, in turn, twice
-  (``--loader-only`` stops after these);
+  resize (``clip_fsar_torch/native/frameops``) and with the numpy replica,
+  in turn, twice (``--loader-only`` stops after these; ``omp`` is the
+  library's OpenMP threads per clip, the OpenMP default: run with
+  ``OMP_NUM_THREADS=1`` in the environment for the one-thread reading);
 - ``step[<path> #i]``: one batch resident on the card, the eval step timed
   with CUDA events, three timings of 8 steps;
 - ``kernels[<path> #i]``: ``torch.profiler`` over two such steps: device
@@ -147,30 +148,25 @@ def _report_kernels(tag: str, prof, wall_ms: float, steps: int) -> None:
 
 
 def resize_variants():
-    """(label, switch) for each way the loaders can resize: the native library at 1 OpenMP thread
-    per clip and at the OpenMP default, then the numpy replica.  ``switch()`` selects it for the
-    calls that follow; without the library only the numpy replica is listed."""
+    """(label, switch) for each way the loaders can resize: the native library (at the OpenMP
+    default, which OMP_NUM_THREADS sets for the whole process), then the numpy replica.
+    ``switch()`` selects it for the calls that follow; without the library only the numpy
+    replica is listed."""
     from clip_fsar_torch.native import frameops
-
-    def native(threads: int):
-        frameops.set_enabled(True)
-        frameops.set_num_threads(threads)
 
     variants = []
     if frameops.available():
-        frameops.set_num_threads(0)
-        variants = [("native omp=1", lambda: native(1)), (f"native omp={frameops.num_threads()}", lambda: native(0))]
+        variants = [(f"native omp={frameops.num_threads()}", lambda: frameops.set_enabled(True))]
     else:
         say(f"loader: native frameops unavailable ({frameops.failure()}); numpy replica only")
     return variants + [("numpy", lambda: frameops.set_enabled(False))]
 
 
 def restore_resize() -> None:
-    """Back to the loaders' default: the native library where it built, at the OpenMP default."""
+    """Back to the loaders' default: the native library where it built."""
     from clip_fsar_torch.native import frameops
 
     frameops.set_enabled(True)
-    frameops.set_num_threads(0)
 
 
 def time_loader(workers: int, steps: int = STEPS) -> None:

@@ -8,11 +8,12 @@ decoder, E = 4 episodes (960 frames of 224 px) per step in 2 episode chunks,
 BATCH_SIZE_PER_TASK 4, bf16.  Each reading is printed on a line that starts
 with the tag of its reading set:
 
-- ``loader[train w=4 native omp=1]`` ...: the host train loader alone (no
+- ``loader[train w=4 native omp=8]`` ...: the host train loader alone (no
   device), ms per step over 4 steps with the config's 4 worker threads, with
-  the native C++ resize at 1 OpenMP thread per clip and at the OpenMP
-  default, and with the numpy replica, in turn, twice (``--loader-only``
-  stops after these);
+  the native C++ resize and with the numpy replica, in turn, twice
+  (``--loader-only`` stops after these; ``omp`` is the library's OpenMP
+  threads per clip, the OpenMP default: run with ``OMP_NUM_THREADS=1`` in
+  the environment for the one-thread reading);
 - ``step[<path> #i]``: one batch resident on the card, the whole train step
   (augmentation, forward and backward of both chunks, the optimizer's
   micro-step) timed with CUDA events, three timings of 4 steps;

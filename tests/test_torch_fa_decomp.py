@@ -7,7 +7,9 @@ run in interpret mode on the CPU.
 calls ``pl.pallas_call`` directly, hence ``pallas_interpret``.  Inputs are
 scaled by 0.02, as both tools scale theirs, so exp(s) needs no row max.
 Tolerances: 1e-5 in fp32 (summation order), 2e-2 in bf16 (the rounding of p
-and of the output).
+and of the output), each as a share of the reference's largest value: the
+outputs are as small as 3e-5 at these inputs, so an absolute tolerance would
+pass anything.
 """
 
 import functools
@@ -49,7 +51,7 @@ def test_plain_mode_matches_the_jax_kernel(mode, dtype, tol):
     xt = torch.from_numpy(qkv).to(getattr(torch, dtype))
     got = fa_decomp.fa_decomp_reference(xt, HEADS, mode)
     assert got.dtype == xt.dtype and got.shape == (SHAPE[0], SHAPE[1], SHAPE[2] // 3)
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=tol, atol=tol)
+    fa_decomp.assert_close_to_scale(got, torch.from_numpy(np.array(want.astype(jnp.float32))), tol, f"{mode} {dtype}")
     if mode == "full":  # the shipped kernel's plain version, not a copy of it
         torch.testing.assert_close(got, clip_mha_reference(xt, HEADS)[0], atol=0, rtol=0)
 
@@ -62,6 +64,22 @@ def test_modes_differ_as_designed():
     torch.testing.assert_close(out["nomax"], out["full"], atol=1e-6, rtol=1e-6)
     assert (out["exp"] - out["nomax"]).abs().max() > 1e-3
     assert (out["matmul"] - out["exp"]).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("wrong", ["zeros", "half", "sign"])
+def test_scaled_tolerance_rejects_wrong_outputs(wrong):
+    """The comparison the kernels are held with is not vacuous at these magnitudes: zeros, a
+    mis-scaled and a sign-flipped output all fail it in every ablated mode, in fp32 and bf16."""
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        xt = torch.from_numpy(_qkv()).to(dtype)
+        for mode in fa_decomp.ABLATED:
+            ref = fa_decomp.fa_decomp_reference(xt, HEADS, mode)
+            assert fa_decomp.assert_close_to_scale(ref, ref, tol) == 0.0
+            bad = {"zeros": torch.zeros_like(ref), "half": ref * 0.5, "sign": -ref}[wrong]
+            with pytest.raises(AssertionError):
+                fa_decomp.assert_close_to_scale(bad, ref, tol, mode)
+    with pytest.raises(AssertionError):
+        fa_decomp.assert_close_to_scale(torch.zeros(3), torch.zeros(3), 1e-4)  # nothing to compare
 
 
 def test_launcher_refuses_cpu_tensors_and_unknown_modes():

@@ -12,16 +12,24 @@ and read just after.  Phases:
 2. build: compile the CUDA kernels from ``clip_fsar_torch/csrc``, one nvcc
    per source, all started together;
 3. K1 vs plain: ``clip_mha_cuda`` against ``clip_mha_reference`` at the ViT
-   shapes and at the test slice's shape [320, 197, 2304] bf16, where both are
-   also timed with CUDA events;
+   shapes, which cover both branches of the bf16 tensor-core kernel by name
+   (one block of scores up to 256 keys, key tiles above), at ragged lengths
+   on each branch, at a length whose K and V stream through shared memory in
+   stages, and at the slices' shapes [320, 197, 2304] and [480, 197, 2304]
+   bf16; o and lse finite, the same bits on a second launch; at the two
+   slice shapes the kernel is timed with CUDA events beside its plain
+   version, ``scaled_dot_product_attention``, its bound and the time of the
+   scalar kernel it replaced;
 4. K2 vs plain: ``clip_mha_bwd_cuda`` against ``clip_mha_bwd_reference`` at
    the same ViT shapes and at the train slice's shape [480, 197, 2304] bf16,
    timed there; and the two kernels' gradient against torch autograd of
    plain float64 softmax attention at two shapes;
 5. K3 vs plain: ``flash_mha_cuda`` against ``flash_mha_reference`` (o and
    lse) at the same ViT shapes as head-split views of a packed projection and
-   at one cross-attention shape (Nq 128, Nk 256), fp32 and bf16, causal and
-   not; timed at the test slice's [320, 12, 197, 64] bf16;
+   at cross-attention shapes (Nq 128, Nk 256; Nq 100, Nk 300), fp32 and bf16,
+   causal and not (so rows that see one key and query blocks whose tiles are
+   skipped past the diagonal), o and lse finite, the same bits on a second
+   launch; timed at [320, 12, 197, 64] and [480, 12, 197, 64] bf16 like K1;
 6. K4 / K5 vs plain: ``flash_mha_bwd_dq_cuda`` (with its delta pass) and
    ``flash_mha_bwd_dkv_cuda`` against their plain versions at the same
    shapes, timed at the train chunk's [480, 12, 197, 64] bf16; and K3 + K4 +
@@ -97,10 +105,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # (B, N, H, Dh): the ViT-B/32, B/16, L/14, L/14@336px sequence lengths at
 # 12 and 16 heads, plus the tiny test tower's Dh = 32, H = 2
 KERNEL_SHAPES = [(4, n, h, 64) for n in (50, 197, 257, 577) for h in (12, 16)] + [(4, 17, 2, 32)]
+# the text tower's N = 77 at H = 8 (flash_mha also runs it causal); lengths that are no multiple of 8 or 16 on
+# the single-block branch (203: 13 sub-tiles of 16 keys, 251: 16) and on the tiled branch (333); and 1100
+# keys, which stream through shared memory in two stages
+KERNEL_SHAPES += [(4, 77, 8, 64), (2, 203, 4, 64), (2, 251, 4, 32), (2, 333, 3, 32), (1, 1100, 2, 64)]
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # atol = rtol: summation order (fp32); rounding of p, dS and the outputs (bf16)
 SLICE_SHAPE = (320, 197, 2304)  # test slice: E=4 episodes x 10 clips x 8 frames, N=197, 3*768
 # (B, H, Nq, Nk, Dh) for flash_mha: the same ViT shapes, and one cross-attention shape with Nq != Nk
-FLASH_SHAPES = [(b, h, n, n, dh) for b, n, h, dh in KERNEL_SHAPES] + [(2, 12, 128, 256, 64)]
+FLASH_SHAPES = [(b, h, n, n, dh) for b, n, h, dh in KERNEL_SHAPES] + [(2, 12, 128, 256, 64), (2, 3, 100, 300, 64)]
 FLASH_OPTS = ["TPU.PALLAS_ATTENTION", "True"]
 
 # the train slice: the flagship's E = 4 and BATCH_SIZE_PER_TASK 4; 2 episode chunks so that the
@@ -123,6 +135,10 @@ TRAIN_OPTS = [
     "TEST.BATCH_SIZE", "4",
     "LOG_PERIOD", "1",
 ]
+# ms per launch of the scalar-FMA forward kernels that the tensor-core kernels replaced, by kernel and frames:
+# what this script read at commit 8f41df3 on an NVIDIA H100 80GB HBM3 at 700.00 W (bf16, N = 197, 12 heads of 64)
+EARLIER_MS = {"clip_mha_fwd": {320: 3.7873, 480: 5.6240}, "flash_mha_fwd": {320: 2.6949, 480: 4.0259},
+              "clip_mha_decomp_matmul": {320: 2.5272}, "clip_mha_decomp_exp": {320: 2.6027}, "clip_mha_decomp_nomax": {320: 2.6050}}
 # norm-relative gradient error allowed between the kernel and the plain attention path in one bf16 train
 # step: each bf16 rounding is ~4e-3 relative, and the two paths round attention at different points
 # through 12 layers of backward
@@ -169,17 +185,34 @@ def phase_device() -> str:
 
 def phase_build() -> float:
     from clip_fsar_torch.ops import _build
+    from clip_fsar_torch.ops.fused_attention import SINGLE_BLOCK_MAX
 
     t0 = time.perf_counter()
     path = _build.build()
-    _build.library()
+    lib = _build.library()
     seconds = time.perf_counter() - t0
+    if lib.attn_fwd_single_block_max() != SINGLE_BLOCK_MAX:
+        raise AssertionError(f"the kernels take {lib.attn_fwd_single_block_max()} keys as one block, forward_branch says {SINGLE_BLOCK_MAX}")
     print(f"build: {seconds:.2f} s -> {os.path.relpath(path, REPO)}")
     with open(os.path.join(os.path.dirname(path), "nvcc.log")) as f:
         for line in f:
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if "Compiling entry function" in line:
+                print("  ptxas:", _entry_name(line.split("'")[1]))
+            elif "registers" in line or "spill" in line or line.startswith("=="):
                 print("  ptxas:", line.strip())
     return seconds
+
+
+def _entry_name(mangled: str) -> str:
+    """A kernel's mangled name cut to what tells it apart: the tensor-core forward's template arguments by
+    name, else the name's start."""
+    import re
+
+    if "forward_kernel" in mangled:
+        dh, kt, mode, stage, threads, min_blocks = re.findall(r"ELi(\d+)", mangled)[-6:]
+        return (f"attn_mma::forward_kernel Dh={dh} sub-tiles={kt} mode={('single', 'online', 'two-pass')[int(mode)]} "
+                f"stage={('full', 'matmul', 'exp', 'nomax')[int(stage)]} threads={threads} min blocks per SM={min_blocks}")
+    return mangled[:80]
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -246,31 +279,65 @@ def _sdpa_bwd_ms(leaves, do, wrt=None) -> float:
     return _time_ms(lambda: torch.autograd.grad(out, wrt if wrt is not None else leaves, do, retain_graph=True))
 
 
+def _check_forward(what: str, run, ref, tol: float) -> float:
+    """One forward kernel launch ``run() -> (o, lse)`` against its plain version ``ref()``: o within ``tol``
+    (atol = rtol), lse within 1e-4, both finite (rows that see one key, the ragged last query block), and the
+    same bits on a second launch (no atomics, a fixed order of sums).  Returns max|o - ref|."""
+    o, lse = run()
+    torch.cuda.synchronize()
+    ref_o, ref_lse = ref()
+    err = (o.float() - ref_o.float()).abs().max().item()
+    print(f"{what}: max|o-ref| {err:.3e} max|lse-ref| {(lse - ref_lse).abs().max().item():.3e} (tol {tol})")
+    if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"{what}: o or lse is not finite")
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    again_o, again_lse = run()
+    if not (torch.equal(again_o, o) and torch.equal(again_lse, lse)):
+        raise AssertionError(f"{what}: a second launch gave other bits")
+    return err
+
+
+def _time_forward(name: str, shape_text: str, frames: int, kernel, plain, sdpa_inputs) -> dict:
+    """A forward kernel at a slice's shape: kernel and plain version in turn, the library call, and the time
+    of the scalar kernel it replaced; fails unless the kernel is the faster of those two."""
+    ms, plain_ms, all_ms = _alternate(kernel, plain)
+    library_ms = _sdpa_ms(*sdpa_inputs)
+    bound = _attention_bound(frames, 197, 12, 64, tensors_in=3, tensors_out=1, rows_fp32=1, products=2)
+    earlier = EARLIER_MS[name][frames]
+    print(f"{name} {shape_text} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms (the scalar kernel it replaced: {earlier:.4f} ms, "
+          f"{earlier / ms:.1f}x), plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
+          f"(kernel / library = {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it reached)")
+    if not ms < earlier:
+        raise AssertionError(f"{name} {shape_text}: {ms:.4f} ms is no faster than the kernel it replaced ({earlier:.4f} ms)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "earlier_ms": earlier, **bound}
+
+
+def _forward_record(worst: float, timed: dict) -> dict:
+    """The ``kernels`` record of a forward kernel: the test slice's shape under the contract's keys, the train
+    chunk's under ``at_480_frames``."""
+    return {"max_abs_err": worst, **timed[SLICE_SHAPE[0]], "at_480_frames": timed[TRAIN_SHAPE[0]]}
+
+
 def phase_fwd_vs_plain() -> dict:
-    from clip_fsar_torch.ops.fused_attention import _heads_split, clip_mha_cuda, clip_mha_reference
+    from clip_fsar_torch.ops.fused_attention import _heads_split, clip_mha_cuda, clip_mha_reference, forward_branch
 
     g = torch.Generator().manual_seed(0)
     worst = 0.0
-    for b, n, h, dh in KERNEL_SHAPES + [(SLICE_SHAPE[0], SLICE_SHAPE[1], 12, 64)]:
+    timed = {}
+    for b, n, h, dh in KERNEL_SHAPES + [(SLICE_SHAPE[0], 197, 12, 64), (TRAIN_SHAPE[0], 197, 12, 64)]:
         for dtype, tol in TOLERANCE.items():
-            if b == SLICE_SHAPE[0] and dtype != torch.bfloat16:
+            if b >= SLICE_SHAPE[0] and dtype != torch.bfloat16:
                 continue
             qkv = torch.randn(b, n, 3 * h * dh, generator=g).to("cuda", dtype)
-            o, lse = clip_mha_cuda(qkv, h)
-            torch.cuda.synchronize()
-            ref_o, ref_lse = clip_mha_reference(qkv, h)
-            err = (o.float() - ref_o.float()).abs().max().item()
-            print(f"K1 clip_mha_fwd [{b},{n},{3 * h * dh}] H={h} Dh={dh} {str(dtype)[6:]}: max|o-ref| {err:.3e} "
-                  f"max|lse-ref| {(lse - ref_lse).abs().max().item():.3e} (tol {tol})")
-            torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
-            torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+            branch = f"{forward_branch(n)} branch" if dtype == torch.bfloat16 else "scalar kernel"
+            err = _check_forward(f"K1 clip_mha_fwd [{b},{n},{3 * h * dh}] H={h} Dh={dh} {str(dtype)[6:]} ({branch})",
+                                 lambda: clip_mha_cuda(qkv, h), lambda: clip_mha_reference(qkv, h), tol)
             worst = max(worst, err)
-    ms, plain_ms, all_ms = _alternate(lambda: clip_mha_cuda(qkv, 12), lambda: clip_mha_reference(qkv, 12))
-    library_ms = _sdpa_ms(*_heads_split(qkv, 12))
-    bound = _attention_bound(SLICE_SHAPE[0], SLICE_SHAPE[1], 12, 64, tensors_in=3, tensors_out=1, rows_fp32=1, products=2)
-    print(f"K1 clip_mha_fwd {list(SLICE_SHAPE)} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, "
-          f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
+        if b >= SLICE_SHAPE[0]:
+            timed[b] = _time_forward("clip_mha_fwd", f"[{b}, 197, 2304]", b, lambda: clip_mha_cuda(qkv, 12), lambda: clip_mha_reference(qkv, 12),
+                                     _heads_split(qkv, 12))
+    return _forward_record(worst, timed)
 
 
 def phase_bwd_vs_plain() -> dict:
@@ -301,8 +368,6 @@ def phase_bwd_vs_plain() -> dict:
     print(f"K2 clip_mha_bwd {list(TRAIN_SHAPE)} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, "
           f"scaled_dot_product_attention backward {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     del leaf
-    fwd_ms = _time_ms(lambda: clip_mha_cuda(qkv, 12))
-    print(f"K1 clip_mha_fwd {list(TRAIN_SHAPE)} bf16: kernel {fwd_ms:.4f} ms (K2 / K1 = {ms / fwd_ms:.2f})")
 
     # the math, independently of the rounding replica: fp32 kernels vs autograd of float64 softmax attention
     for b, n, h, dh in ((4, 197, 12, 64), (2, 577, 16, 64)):
@@ -341,29 +406,22 @@ def _flash_cases():
 
 def phase_flash_fwd_vs_plain() -> dict:
     from clip_fsar_torch.ops.flash_attention import flash_mha_cuda, flash_mha_reference
+    from clip_fsar_torch.ops.fused_attention import forward_branch
 
     g = torch.Generator().manual_seed(2)
     worst = 0.0
     for (b, h, nq, nk, dh), dtype, tol, causal in _flash_cases():
         q, k, v = _flash_inputs(b, h, nq, nk, dh, dtype, g)
-        o, lse = flash_mha_cuda(q, k, v, causal)
-        torch.cuda.synchronize()
-        ref_o, ref_lse = flash_mha_reference(q, k, v, causal)
-        err = (o.float() - ref_o.float()).abs().max().item()
-        print(f"K3 flash_mha_fwd [{b},{h},{nq},{nk},{dh}] {str(dtype)[6:]}{' causal' if causal else ''}: max|o-ref| {err:.3e} "
-              f"max|lse-ref| {(lse - ref_lse).abs().max().item():.3e} (tol {tol})")
-        torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
-        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+        branch = f"{forward_branch(nk)} branch" if dtype == torch.bfloat16 else "scalar kernel"
+        err = _check_forward(f"K3 flash_mha_fwd [{b},{h},{nq},{nk},{dh}] {str(dtype)[6:]}{' causal' if causal else ''} ({branch})",
+                             lambda: flash_mha_cuda(q, k, v, causal), lambda: flash_mha_reference(q, k, v, causal), tol)
         worst = max(worst, err)
-    b, n, _ = SLICE_SHAPE
-    q, k, v = _flash_inputs(b, 12, n, n, 64, torch.bfloat16, g)
-    ms, plain_ms, all_ms = _alternate(lambda: flash_mha_cuda(q, k, v), lambda: flash_mha_reference(q, k, v))
-    library_ms = _sdpa_ms(q, k, v)
-    bound = _attention_bound(b, n, 12, 64, tensors_in=3, tensors_out=1, rows_fp32=1, products=2)
-    print(f"K3 flash_mha_fwd [{b},12,{n},64] bf16 (views of [{b},{n},2304]): kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, "
-          f"plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
-          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
+    timed = {}
+    for b in (SLICE_SHAPE[0], TRAIN_SHAPE[0]):
+        q, k, v = _flash_inputs(b, 12, 197, 197, 64, torch.bfloat16, g)
+        timed[b] = _time_forward("flash_mha_fwd", f"[{b}, 12, 197, 64] (views of [{b}, 197, 2304])", b, lambda: flash_mha_cuda(q, k, v),
+                                 lambda: flash_mha_reference(q, k, v), (q, k, v))
+    return _forward_record(worst, timed)
 
 
 def phase_flash_bwd_vs_plain() -> tuple:
@@ -700,8 +758,11 @@ def phase_fa_decomp(card_line: str) -> dict:
     launches = _expect_launches("the fa_decomp table", clip_mha_fwd=per_mode, **{f"clip_mha_decomp_{mode}": per_mode for mode in fa_decomp.ABLATED})
     b, n, _ = SLICE_SHAPE
     bound = _attention_bound(b, n, 12, 64, tensors_in=3, tensors_out=1, rows_fp32=0, products=2)  # K1's work less the lse
+    print("fa_decomp: the scalar kernels these modes replaced took " + ", ".join(
+        f"{mode} {EARLIER_MS[f'clip_mha_decomp_{mode}'][b]:.4f} ms" for mode in fa_decomp.ABLATED) + f", full {EARLIER_MS['clip_mha_fwd'][b]:.4f} ms")
     return {mode: {"max_abs_err": worst[mode], "ms": ms[mode], "plain_ms": _time_ms(lambda m=mode: fa_decomp.fa_decomp_reference(qkv, 12, m), iters=5),
-                   "library_ms": None, "launches": launches[f"clip_mha_decomp_{mode}"], **bound} for mode in fa_decomp.ABLATED}
+                   "library_ms": None, "launches": launches[f"clip_mha_decomp_{mode}"], "earlier_ms": EARLIER_MS[f"clip_mha_decomp_{mode}"][b],
+                   **bound} for mode in fa_decomp.ABLATED}
 
 
 def phase_loader_resize() -> None:
@@ -915,7 +976,7 @@ def main() -> None:
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[path][name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        **({"library_covers": t["library_covers"]} if "library_covers" in t else {})})
+                        **{key: t[key] for key in ("library_covers", "earlier_ms", "at_480_frames") if key in t}})
         if not records[-1]["launches"] > 0:
             raise AssertionError(f"{name} was launched no time on the path that runs it")
     print(json.dumps({"kernels": records}))

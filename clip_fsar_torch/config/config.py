@@ -233,5 +233,7 @@ def load_config(cfg_file: str, opts: Optional[List[str]] = None, strict_override
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="clip_fsar_torch runner")
     parser.add_argument("--cfg", dest="cfg_file", type=str, required=True, help="path to the config yaml")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where the run computes: the card (default; fails without one) or the CPU")
     parser.add_argument("opts", nargs=argparse.REMAINDER, help="KEY.SUBKEY value override pairs")
     return parser.parse_args(argv)

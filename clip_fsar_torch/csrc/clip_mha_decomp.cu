@@ -12,28 +12,35 @@
 // round() is the rounding to the storage dtype before the second product, as
 // in the full kernel.  The numbers are wrong by design (no row max, so the
 // caller keeps s small); only the differences between the modes' times and
-// the full kernel's mean anything: full - nomax is the max pass, nomax - exp
-// the row sum and the divide, exp - matmul the exponential.  The fourth mode
-// of the TPU tool, "full", is clip_mha_fwd.cu itself and has no copy here.
+// the full kernel's mean anything: full - nomax is the row max (with its
+// subtraction, and above 256 keys the first pass), nomax - exp the row sum and
+// the divide, exp - matmul the exponential.  The fourth mode of the TPU tool,
+// "full", is clip_mha_fwd.cu itself and has no copy here.
 //
 // What bounds them on an H100: the same as clip_mha_fwd.cu, whose bytes they
 // move (less the lse) and whose two products they compute.
 //
-// Design: clip_mha_fwd.cu's grid (query tile, head, clip), 256 threads, 64 x 64
-// tiles and tile helpers (clip_mha_tile.cuh), so the products cost what they
-// cost there.  None of the modes needs the row max, so each is a single pass
-// over the key tiles: the full kernel's first pass (and its second q.k^T) is
-// what "full - nomax" then measures.  Only O is written.
+// Design: each mode is the kernel clip_mha_fwd.cu launches for the same dtype
+// with stages left out, so the products cost what they cost there.  bf16: the
+// tensor-core kernel of attn_mma.cuh with its STAGE parameter set (same grid,
+// shared memory, fragments and loop; no max, and for matmul and exp no sum).
+// fp32: clip_mha_fwd.cu's grid (query tile, head, clip), 256 threads, 64 x 64
+// tiles and tile helpers (clip_mha_tile.cuh) in a single pass over the key
+// tiles, the full kernel's first pass being what "full - nomax" measures.
+// Only O is written.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "clip_mha_tile.cuh"
 
 namespace {
 
 using namespace clip_mha;
+
+struct clip_mha_decomp_bf16 {};  // names this file's instantiations of attn_mma::forward_kernel
 
 constexpr int kMatmul = 0, kExp = 1, kNoMax = 2;
 
@@ -126,6 +133,21 @@ int launch(const void* qkv, void* out, int b, int n, int heads, cudaStream_t str
   return (int)cudaGetLastError();
 }
 
+// bf16: clip_mha_fwd.cu's tensor-core launch with the stage code of the mode (kMatmul, kExp, kNoMax = mode + 1).
+template <int DH, int STAGE>
+int launch_mma(const void* qkv, void* out, int b, int n, int heads, cudaStream_t stream) {
+  const attn_mma::Params p = attn_mma::packed_params<DH>(qkv, out, nullptr, n, heads);
+  return attn_mma::launch_forward<clip_mha_decomp_bf16, DH, attn_mma::kTwoPass, STAGE>(p, b, stream);
+}
+
+template <int DH>
+int launch_mma_mode(int mode, const void* qkv, void* out, int b, int n, int heads, cudaStream_t stream) {
+  if (mode == kMatmul) return launch_mma<DH, attn_mma::kMatmul>(qkv, out, b, n, heads, stream);
+  if (mode == kExp) return launch_mma<DH, attn_mma::kExp>(qkv, out, b, n, heads, stream);
+  if (mode == kNoMax) return launch_mma<DH, attn_mma::kNoMax>(qkv, out, b, n, heads, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int DH>
 int launch_mode(int mode, const void* qkv, void* out, int b, int n, int heads, cudaStream_t stream) {
   if (mode == kMatmul) return launch<T, DH, kMatmul>(qkv, out, b, n, heads, stream);
@@ -141,8 +163,8 @@ int launch_mode(int mode, const void* qkv, void* out, int b, int n, int heads, c
 extern "C" int clip_mha_decomp(const void* qkv, void* out, int b, int n, int heads, int dh, int dtype, int mode,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 64) return launch_mode<__nv_bfloat16, 64>(mode, qkv, out, b, n, heads, s);
-  if (dtype == 1 && dh == 32) return launch_mode<__nv_bfloat16, 32>(mode, qkv, out, b, n, heads, s);
+  if (dtype == 1 && dh == 64) return launch_mma_mode<64>(mode, qkv, out, b, n, heads, s);
+  if (dtype == 1 && dh == 32) return launch_mma_mode<32>(mode, qkv, out, b, n, heads, s);
   if (dtype == 0 && dh == 64) return launch_mode<float, 64>(mode, qkv, out, b, n, heads, s);
   if (dtype == 0 && dh == 32) return launch_mode<float, 32>(mode, qkv, out, b, n, heads, s);
   return (int)cudaErrorInvalidValue;

@@ -16,11 +16,19 @@
 // What bounds it on an H100: at CLIP shapes (N = 197, Dh = 64) one head is a
 // [197x64].[64x197] and a [197x197].[197x64] product, about 10 MFLOP, read from
 // 3*197*64*2 bytes of bf16 -- some 130 FLOP per byte, so the kernel is bound by
-// latency and occupancy (many small independent (clip, head) problems) more
-// than by HBM bandwidth.  This first version is simple and exact rather than
-// fast: scalar fp32 FMAs out of shared memory, no tensor cores.
+// instruction rate, latency and occupancy (many small independent (clip, head)
+// problems), not by HBM bandwidth.
 //
-// Design:
+// bf16, the type the models run in, goes to the tensor cores: attn_mma.cuh
+// holds that kernel and the note on its design (one CTA per clip and head, K
+// and V once into shared memory as bf16, mma.sync for both products, P kept in
+// registers; q.k^T formed once for N <= 256, two tensor-core passes above).
+//
+// fp32 keeps the exact kernel below: the tensor cores have no fp32 product
+// (TF32 keeps three digits), and the fp32 checks against float64 need all of
+// fp32.  It is simple rather than fast: scalar FMAs out of shared memory.
+//
+// Design of the fp32 kernel:
 //   * grid = (ceil(N / 64) query tiles, H, B); 256 threads per CTA, laid out
 //     as a 16 x 16 grid in which each thread owns 4 query rows and 4 key
 //     columns (scores) or 4 x Dh/16 output elements (P.V);
@@ -38,11 +46,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "clip_mha_tile.cuh"
 
 namespace {
 
 using namespace clip_mha;
+
+struct clip_mha_fwd_bf16 {};  // names this file's instantiations of attn_mma::forward_kernel
 
 // Reductions over the 16 threads (one half-warp) that share a query row.
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -172,17 +183,27 @@ int launch(const void* qkv, void* out, void* lse, int b, int n, int heads, cudaS
   return (int)cudaGetLastError();
 }
 
+// bf16: the tensor-core kernel on the packed projection, q | k | v and the heads found by stride.
+template <int DH>
+int launch_mma(const void* qkv, void* out, void* lse, int b, int n, int heads, cudaStream_t stream) {
+  const attn_mma::Params p = attn_mma::packed_params<DH>(qkv, out, lse, n, heads);
+  return attn_mma::launch_forward<clip_mha_fwd_bf16, DH, attn_mma::kTwoPass, attn_mma::kFull>(p, b, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
 extern "C" int clip_mha_fwd(const void* qkv, void* out, void* lse, int b, int n, int heads, int dh, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 64) return launch<__nv_bfloat16, 64>(qkv, out, lse, b, n, heads, s);
-  if (dtype == 1 && dh == 32) return launch<__nv_bfloat16, 32>(qkv, out, lse, b, n, heads, s);
+  if (dtype == 1 && dh == 64) return launch_mma<64>(qkv, out, lse, b, n, heads, s);
+  if (dtype == 1 && dh == 32) return launch_mma<32>(qkv, out, lse, b, n, heads, s);
   if (dtype == 0 && dh == 64) return launch<float, 64>(qkv, out, lse, b, n, heads, s);
   if (dtype == 0 && dh == 32) return launch<float, 32>(qkv, out, lse, b, n, heads, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The most keys the bf16 forwards (clip_mha, flash_mha) take as one block of scores; key tiles above.
+extern "C" int attn_fwd_single_block_max() { return attn_mma::kSingleBlockMax; }
 
 extern "C" const char* clip_kernels_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

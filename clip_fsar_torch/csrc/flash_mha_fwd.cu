@@ -14,8 +14,10 @@
 //
 // p is rounded to T against the running max before P.V, and the accumulator
 // is rescaled in fp32, at the TPU kernel's points (flash_attention.py:63-90).
-// The tile of 64 keys rescales at other points than the TPU's one 224-wide
-// block at N = 197: the same in fp32, another bf16 rounding of p.
+// The bf16 kernel takes the TPU's own key blocks (one block up to 256 keys,
+// blocks of 128 above), so it rounds p where the TPU kernel does; the fp32
+// kernel's tiles of 64 keys rescale at other points, which is the same
+// function in fp32.
 //
 // q [B, H, Nq, Dh] and k, v [B, H, Nk, Dh] are read through their batch,
 // head and sequence strides (unit stride on Dh), so head-split views of the
@@ -27,12 +29,20 @@
 // What bounds it on an H100: at CLIP shapes (N = 197, Dh = 64) one head is a
 // [197x64].[64x197] and a [197x197].[197x64] product, about 10 MFLOP, from
 // 3*197*64*2 bytes of bf16 -- some 130 FLOP per byte, so it is bound by the
-// arithmetic issue rate of the scalar fp32 FMAs and by latency and occupancy
-// (many small independent (clip, head) problems), not by HBM bandwidth.
-// This first version is simple and exact rather than fast: scalar fp32 FMAs
-// out of shared memory, no tensor cores.
+// instruction rate, latency and occupancy (many small independent (clip,
+// head) problems), not by HBM bandwidth.
 //
-// Design:
+// bf16, the type the models run in, goes to the tensor cores: attn_mma.cuh
+// holds that kernel and the note on its design (one CTA per clip and head, K
+// and V once into shared memory as bf16, mma.sync for both products, P kept in
+// registers; one block of scores for Nk <= 256, the online recurrence over key
+// tiles of 128 above, causal tiles past the diagonal skipped).
+//
+// fp32 keeps the exact kernel below: the tensor cores have no fp32 product
+// (TF32 keeps three digits), and the fp32 checks against float64 need all of
+// fp32.  It is simple rather than fast: scalar FMAs out of shared memory.
+//
+// Design of the fp32 kernel:
 //   * grid = (ceil(Nq / 64) query tiles, H, B); 256 threads per CTA as the
 //     16 x 16 grid of clip_mha_tile.cuh: 4 query rows x 4 key columns per
 //     thread for the scores, 4 rows x Dh/16 columns for P.V;
@@ -52,11 +62,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "clip_mha_tile.cuh"
 
 namespace {
 
 using namespace clip_mha;
+
+struct flash_mha_fwd_bf16 {};  // names this file's instantiations of attn_mma::forward_kernel
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' mask value
 
@@ -180,6 +193,27 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   return (int)cudaGetLastError();
 }
 
+// bf16: the tensor-core kernel on the strided head-split views.
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v, void* o, void* lse, int b, int heads, int nq, int nk, int causal,
+               Strides qst, Strides kvst, Strides ost, cudaStream_t stream) {
+  attn_mma::Params p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.qs = {qst.b, qst.h, qst.n};
+  p.ks = {kvst.b, kvst.h, kvst.n};
+  p.os = {ost.b, ost.h, ost.n};
+  p.heads = heads;
+  p.nq = nq;
+  p.nk = nk;
+  p.causal = causal;
+  p.scale = (float)(1.0 / sqrt((double)DH));
+  return attn_mma::launch_forward<flash_mha_fwd_bf16, DH, attn_mma::kOnline, attn_mma::kFull>(p, b, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides in elements: q's, k's and v's
@@ -190,8 +224,8 @@ extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v, void* 
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qst{q_sb, q_sh, q_sn}, kvst{kv_sb, kv_sh, kv_sn}, ost{o_sb, o_sh, o_sn};
-  if (dtype == 1 && dh == 64) return launch<__nv_bfloat16, 64>(q, k, v, o, lse, b, heads, nq, nk, causal, qst, kvst, ost, s);
-  if (dtype == 1 && dh == 32) return launch<__nv_bfloat16, 32>(q, k, v, o, lse, b, heads, nq, nk, causal, qst, kvst, ost, s);
+  if (dtype == 1 && dh == 64) return launch_mma<64>(q, k, v, o, lse, b, heads, nq, nk, causal, qst, kvst, ost, s);
+  if (dtype == 1 && dh == 32) return launch_mma<32>(q, k, v, o, lse, b, heads, nq, nk, causal, qst, kvst, ost, s);
   if (dtype == 0 && dh == 64) return launch<float, 64>(q, k, v, o, lse, b, heads, nq, nk, causal, qst, kvst, ost, s);
   if (dtype == 0 && dh == 32) return launch<float, 32>(q, k, v, o, lse, b, heads, nq, nk, causal, qst, kvst, ost, s);
   return (int)cudaErrorInvalidValue;

@@ -200,7 +200,7 @@ def build_few_shot_model(cfg, generator: Optional[torch.Generator] = None, flow:
     """The CNN_OTAM_CLIPFSAR head on ``device`` (in train mode for the
     "train" flow) plus its text banks, fp32 constants: the text tower is
     not trained."""
-    device = runtime.device() if device is None else torch.device(device)
+    device = runtime.device(device)
     if cfg.VIDEO.HEAD.NAME != "CNN_OTAM_CLIPFSAR":
         raise NotImplementedError(f"head {cfg.VIDEO.HEAD.NAME!r} is not ported yet: ROADMAP Queue 1, breadth")
     g = generator if generator is not None else torch.Generator().manual_seed(int(cfg.get("RANDOM_SEED", 0)))

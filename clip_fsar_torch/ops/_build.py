@@ -111,6 +111,8 @@ def library() -> ctypes.CDLL:
     # qkv, out, then (B, N, H, Dh, dtype, mode)
     lib.clip_mha_decomp.argtypes = [p, p, i, i, i, i, i, i, p]
     lib.clip_mha_decomp.restype = i
+    lib.attn_fwd_single_block_max.argtypes = []
+    lib.attn_fwd_single_block_max.restype = i
     lib.clip_kernels_error_string.argtypes = [i]
     lib.clip_kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,7 +6,9 @@ k/v [B, H, Nk, Dh] (cross-attention allowed) and returns [B, H, Nq, Dh] in
 q's dtype; ``causal`` masks key j for query i when j > i (top-left aligned).
 It is a ``torch.autograd.Function`` that keeps (q, k, v, o, lse), as the JAX
 ``custom_vjp`` does.  On a CUDA tensor the forward launches K3
-(``csrc/flash_mha_fwd.cu``, a port of the TPU ``_fwd_kernel``) and the
+(``csrc/flash_mha_fwd.cu``, a port of the TPU ``_fwd_kernel``; in bf16 the
+tensor-core kernel of ``csrc/attn_mma.cuh`` over the key blocks of
+``_auto_block``: one block up to 256 keys, blocks of 128 above) and the
 backward K4 then K5 (``csrc/flash_mha_bwd.cu``, ports of ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel``); on a CPU tensor they run ``flash_mha_reference``
 and ``flash_mha_bwd_reference``, the same functions in plain torch.  There
@@ -28,6 +30,7 @@ import torch
 
 from clip_fsar_torch.ops import _build
 from clip_fsar_torch.ops import attention as _attention
+from clip_fsar_torch.ops.fused_attention import check_alignment
 
 _NEG_INF = -1e30  # the TPU kernels' mask value: exp(_NEG_INF - m) is 0 for any real row max m
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -159,6 +162,7 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
     """Launch K3: returns (o, lse) like flash_mha_reference, o as a view of a
     [B, Nq, H, Dh] buffer.  Raises on any input the kernel does not take."""
     dh = _check_qkv(q, k, v, "flash_mha_cuda")
+    check_alignment("flash_mha_cuda", q=q, k=k, v=v)
     b, h, nq, _ = q.shape
     nk = k.shape[2]
     o = _heads_last(b, h, nq, dh, q)

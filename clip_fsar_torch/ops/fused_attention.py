@@ -10,6 +10,12 @@ hand-written kernels (``csrc/clip_mha_fwd.cu``, a port of the TPU
 CPU tensor they run ``clip_mha_reference`` and ``clip_mha_bwd_reference``,
 the same functions in plain torch.  There is no fallback from a kernel to
 its plain version.
+
+The bf16 forward runs on the tensor cores (``csrc/attn_mma.cuh``): up to
+``SINGLE_BLOCK_MAX`` keys a warp holds a query block's scores against the
+whole sequence in registers and forms q.k^T once; longer sequences take two
+passes over key tiles (``forward_branch``).  Both round p against the exact
+row max, so the function is the same.  fp32 keeps an exact scalar kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +28,25 @@ from clip_fsar_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+SINGLE_BLOCK_MAX = 256  # keys; csrc/attn_mma.cuh's kSingleBlockMax, the JAX flash kernels' largest single block
+
+
+def forward_branch(n: int) -> str:
+    """Which branch of the bf16 forward kernels a sequence of ``n`` keys
+    takes: ``"single"`` (one block of scores in registers, q.k^T once) up to
+    SINGLE_BLOCK_MAX keys, ``"tiled"`` (key tiles of 128) above.  It
+    follows from n alone, as the launcher reads it."""
+    return "single" if n <= SINGLE_BLOCK_MAX else "tiled"
+
+
+def check_alignment(what: str, **tensors: torch.Tensor) -> None:
+    """The bf16 forward kernels copy rows of Dh values 16 bytes at a time:
+    every tensor must start on a 16-byte boundary and keep every stride but
+    the last a multiple of 8 elements.  Raises ValueError otherwise."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])):
+            raise ValueError(f"{what} reads bf16 {name} in 16-byte pieces: it must start on a 16-byte boundary with strides that "
+                             f"are multiples of 8 elements, got address % 16 = {t.data_ptr() % 16}, strides {t.stride()}")
 
 
 def _heads_split(qkv: torch.Tensor, heads: int):
@@ -92,6 +117,7 @@ def clip_mha_cuda(qkv: torch.Tensor, heads: int) -> Tuple[torch.Tensor, torch.Te
     """Launch the forward kernel: returns (o, lse) like clip_mha_reference.
     Raises on any input the kernel does not take."""
     dh = _check_qkv(qkv, heads, "clip_mha_cuda")
+    check_alignment("clip_mha_cuda", qkv=qkv)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, heads * dh), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)

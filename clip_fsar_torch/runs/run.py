@@ -1,7 +1,9 @@
 """CLI entry point of the port (counterpart of clip_fsar_tpu/runs/run.py:61-140).
 
-    python -m clip_fsar_torch.runs.run --cfg configs/projects/CLIPFSAR/hmdb51/CLIPFSAR_HMDB51_1shot_v1.yaml [KEY.SUB value ...]
+    python -m clip_fsar_torch.runs.run --cfg configs/projects/CLIPFSAR/hmdb51/CLIPFSAR_HMDB51_1shot_v1.yaml [--device cpu] [KEY.SUB value ...]
 
+Runs on the CUDA card and fails without one; ``--device cpu`` (before the
+overrides) asks for the CPU, where the kernels' plain versions run.
 Dispatches on TASK_TYPE and queues the runs in the JAX package's order.
 The few-shot runners are ported (``TRAIN.ENABLE True`` trains, then tests
 the last checkpoint); every other runner raises NotImplementedError before
@@ -13,6 +15,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, List, Optional
 
+from clip_fsar_torch import runtime
 from clip_fsar_torch.config.config import load_config, parse_args
 from clip_fsar_torch.train.loop import test_few_shot, train_few_shot
 from clip_fsar_torch.utils.logging import get_logger, setup_logging
@@ -63,6 +66,7 @@ def _run_list(cfg) -> List[tuple]:
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Run the queued runners; returns each runner's result by name."""
     args = parse_args(argv)
+    device = runtime.device(args.device)  # no card and no --device cpu: raises here, before any work
     cfg = load_config(args.cfg_file, args.opts)
     setup_logging(cfg.get("OUTPUT_DIR", None))
     logger.info("TASK_TYPE=%s OUTPUT_DIR=%s", cfg.get("TASK_TYPE"), cfg.get("OUTPUT_DIR"))
@@ -76,7 +80,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     results = {}
     for run_cfg, name in runs:
         logger.info("=== run: %s ===", name)
-        results[name] = _RUNNERS[name](run_cfg)
+        results[name] = _RUNNERS[name](run_cfg, device=device)
     return results
 
 

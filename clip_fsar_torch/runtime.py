@@ -8,18 +8,17 @@ import torch
 
 
 def device(kind: Optional[str] = None) -> torch.device:
-    """The device the port runs on: ``cuda`` when a card is present, else
-    the CPU.  Asking for ``cuda`` explicitly without a card raises — the
-    port never falls back to the CPU silently.
+    """The device the port runs on: ``cuda`` unless the caller names
+    another.  Without a card ``cuda`` raises; only ``device("cpu")`` gives
+    the CPU -- the port never falls back to it silently.
 
     Also turns TF32 off for matmuls and cuDNN convolutions, so float32 runs
     are true float32 (the JAX reference parity tests run at
     ``jax_default_matmul_precision=highest``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if kind is None:
-        kind = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(kind)
+    dev = torch.device("cuda" if kind is None else kind)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {kind!r} was asked for but torch sees no CUDA device")
+        raise RuntimeError(f"the port runs on device {str(dev)!r} but torch sees no CUDA device; "
+                           "ask for the CPU by name (device 'cpu', --device cpu on the CLI)")
     return dev

@@ -11,11 +11,14 @@ Times deliberately ablated variants of the kernel on the same qkv and grid:
   full   : the shipped kernel, ``clip_mha_cuda``
 
 with s = q.k^T * Dh^-1/2 in fp32 and round() the rounding to qkv's dtype.  The
-three ablated modes are one templated kernel (``csrc/clip_mha_decomp.cu``)
-over the shipped kernel's tiles; their numbers are wrong by design, so the
+three ablated modes are the shipped kernel with stages left out
+(``csrc/clip_mha_decomp.cu``: in bf16 the tensor-core loop of
+``csrc/attn_mma.cuh``); their numbers are wrong by design, so the
 inputs are scaled by 0.02 to keep exp(s) finite, and only the times mean
-anything: ``full - nomax`` is the row-max pass, ``nomax - exp`` the row sum and
-the divide, ``exp - matmul`` the exponential.  Each mode has a plain version,
+anything: ``full - nomax`` is the row max and its subtraction (the shipped
+kernel forms q.k^T once up to 256 keys; above, this difference is its first
+pass), ``nomax - exp`` the row sum and the divide, ``exp - matmul`` the
+exponential.  Each mode has a plain version,
 ``fa_decomp_reference``, that its kernel is held against.
 
 Shapes: the TPU tool's [240, 197, 2304] bf16, and the test and train slices'
@@ -33,7 +36,7 @@ from typing import Dict, Sequence
 import torch
 
 from clip_fsar_torch.ops import _build
-from clip_fsar_torch.ops.fused_attention import _DTYPE_CODES, _check_qkv, _heads_split, clip_mha_cuda, clip_mha_reference
+from clip_fsar_torch.ops.fused_attention import _DTYPE_CODES, _check_qkv, _heads_split, check_alignment, clip_mha_cuda, clip_mha_reference
 
 ABLATED = ("matmul", "exp", "nomax")  # the kernel's mode codes 0, 1, 2
 MODES = ABLATED + ("full",)
@@ -72,6 +75,7 @@ def fa_decomp_cuda(qkv: torch.Tensor, heads: int, mode: str) -> torch.Tensor:
     if mode not in ABLATED:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     dh = _check_qkv(qkv, heads, "fa_decomp_cuda")
+    check_alignment("fa_decomp_cuda", qkv=qkv)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, heads * dh), dtype=qkv.dtype, device=qkv.device)
     if qkv.numel() == 0:
@@ -128,7 +132,7 @@ def report(shape: Sequence[int], say=print, card_line: str = "") -> Dict[str, fl
     ms = time_modes(make_qkv(shape))
     tag = f"fa_decomp {list(shape)} bf16 [{card_line}]"
     say(f"{tag}: " + ", ".join(f"{mode} {ms[mode]:.4f} ms" for mode in MODES))
-    say(f"{tag}: row-max pass (full - nomax) {ms['full'] - ms['nomax']:.4f} ms, row sum and divide (nomax - exp) "
+    say(f"{tag}: row max (full - nomax) {ms['full'] - ms['nomax']:.4f} ms, row sum and divide (nomax - exp) "
         f"{ms['nomax'] - ms['exp']:.4f} ms, exponential (exp - matmul) {ms['exp'] - ms['matmul']:.4f} ms, "
         f"the two products and the traffic (matmul) {ms['matmul']:.4f} ms")
     return ms

@@ -37,7 +37,7 @@ def evaluate(cfg, model: FewShotModel, num_tasks: int, episodes_per_step: int, s
     Returns the JAX package's stats (top1_acc, top5_acc, loss, episodes)
     plus ``episode_logits`` [num_tasks, Q, WAY] and ``seconds``, the wall
     time of the episode loop (data included, model build excluded)."""
-    device = runtime.device() if device is None else torch.device(device)
+    device = runtime.device(device)
     e = episodes_per_step
     num_steps = max(-(-num_tasks // e), 1)  # surplus episodes of the last step are not counted
     eval_step = make_eval_step(model.head, cfg, model.text_train, model.text_test)
@@ -125,7 +125,7 @@ def _weights(head: torch.nn.Module, state_dict: Dict[str, torch.Tensor]):
         head.load_state_dict(own)
 
 
-def train_few_shot(cfg) -> Dict[str, Any]:
+def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     """Episodic training: NUM_TRAIN_TASKS steps of TPU.EPISODES_PER_STEP
     episodes, validation on the val split every VAL_FRE_ITER steps (and on
     the EMA weights too when MODEL.EMA is on), a checkpoint at each
@@ -133,9 +133,10 @@ def train_few_shot(cfg) -> Dict[str, Any]:
     package's stats (best_val_top1, final_iter) plus the per-step losses,
     the optimizer updates made, the wall seconds of the step loop (data
     included, model build excluded), the part of them spent validating and
-    checkpointing, and the steps this call ran."""
+    checkpointing, and the steps this call ran.  Runs on the card unless
+    ``device`` names the CPU."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
-    device = runtime.device()
+    device = runtime.device(device)
     e = int(cfg.TPU.get("EPISODES_PER_STEP", 1))
     model = build_few_shot_model(cfg, flow="train", device=device)
     state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
@@ -210,13 +211,14 @@ def train_few_shot(cfg) -> Dict[str, Any]:
     }
 
 
-def test_few_shot(cfg) -> Dict[str, Any]:
+def test_few_shot(cfg, device=None) -> Dict[str, Any]:
     """The few-shot test protocol: build the model, pick its weights
     (checkpoint search), run TRAIN.NUM_TEST_TASKS episodes in steps of
     TEST.BATCH_SIZE episodes.  The stats say which weights were tested
-    (``weights``: a checkpoint path or "fresh")."""
+    (``weights``: a checkpoint path or "fresh").  Runs on the card unless
+    ``device`` names the CPU."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
-    device = runtime.device()
+    device = runtime.device(device)
     model = build_few_shot_model(cfg, flow="test", device=device)
     weights = load_test_weights(cfg, model.head)
     num_tasks = int(cfg.TRAIN.get("NUM_TEST_TASKS", 10000))

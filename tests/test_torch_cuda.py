@@ -21,11 +21,13 @@ from clip_fsar_torch.ops.flash_attention import (
     flash_mha_reference,
 )
 from clip_fsar_torch.ops.fused_attention import (
+    SINGLE_BLOCK_MAX,
     clip_mha,
     clip_mha_bwd_cuda,
     clip_mha_bwd_reference,
     clip_mha_cuda,
     clip_mha_reference,
+    forward_branch,
 )
 from clip_fsar_torch.ops import fused_layernorm
 from clip_fsar_torch.ops.fused_layernorm import (
@@ -42,6 +44,10 @@ TOLERANCE = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 # (320, 197, 12, 64): the ViT-B/16 test slice's batch of 4 episodes x 10 clips x 8 frames;
 # (480, 197, 12, 64): the train slice's micro-batch of 2 episodes x 30 clips x 8 frames
 SHAPES = [(2, 50, 12, 64), (2, 197, 12, 64), (320, 197, 12, 64), (2, 257, 16, 64), (1, 577, 16, 64), (3, 17, 2, 32)]
+# what the bf16 tensor-core forward adds: the train micro-batch; the text tower's N = 77 at H = 8; ragged
+# lengths on the single-block branch (203 in 13 sub-tiles of 16 keys, 251 in 16), its last length 256, and on
+# the tiled branch (333); 1100 keys, which stream through shared memory in two stages
+FWD_SHAPES = SHAPES + [(480, 197, 12, 64), (2, 77, 8, 64), (2, 203, 4, 64), (2, 251, 4, 32), (2, 256, 2, 64), (2, 333, 3, 32), (1, 1100, 2, 64)]
 BWD_SHAPES = [(2, 50, 12, 64), (2, 197, 12, 64), (480, 197, 12, 64), (2, 257, 16, 64), (1, 577, 16, 64), (3, 17, 2, 32)]
 
 
@@ -56,18 +62,55 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", TOLERANCE)
-@pytest.mark.parametrize("b, n, h, dh", SHAPES)
+@pytest.mark.parametrize("b, n, h, dh", FWD_SHAPES)
 def test_clip_mha_kernel_matches_plain(cuda, b, n, h, dh, dtype, tol):
+    """K1 against clip_mha_reference on both branches of the bf16 kernel and on the fp32 kernel: o at the
+    dtype's tolerance, lse at 1e-4, both finite (the ragged last query block); one launch counted; a second
+    launch gives the same bits (no atomics, a fixed order of sums)."""
     g = torch.Generator().manual_seed(n)
     qkv = torch.randn(b, n, 3 * h * dh, generator=g).to(cuda, dtype)
     before = clip_mha_cuda.launches
     o, lse = clip_mha_cuda(qkv, h)
     torch.cuda.synchronize()
     assert clip_mha_cuda.launches == before + 1
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
     ref_o, ref_lse = clip_mha_reference(qkv, h)
     torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(clip_mha(qkv, h), o, atol=0, rtol=0)
+    again_o, again_lse = clip_mha_cuda(qkv, h)
+    assert torch.equal(again_o, o) and torch.equal(again_lse, lse)
+
+
+@pytest.mark.cuda
+def test_forward_branch_is_the_launchers(cuda):
+    """The length up to which the built kernels keep one block of scores is the one forward_branch
+    reads, so the branch named for a length is the branch the launcher takes."""
+    from clip_fsar_torch.ops import _build
+
+    assert _build.library().attn_fwd_single_block_max() == SINGLE_BLOCK_MAX
+    assert forward_branch(SINGLE_BLOCK_MAX) == "single" and forward_branch(SINGLE_BLOCK_MAX + 1) == "tiled"
+
+
+@pytest.mark.cuda
+def test_bf16_forward_kernels_refuse_unaligned_tensors(cuda):
+    """The bf16 forwards copy 16 bytes at a time: a tensor that starts 2 bytes into its storage, or whose
+    sequence stride is no multiple of 8 elements, is refused; fp32 goes to the scalar kernels, which take it."""
+    b, n, h, dh = 2, 17, 2, 64
+    flat = torch.randn(1 + b * n * 3 * h * dh, device=cuda).to(torch.bfloat16)
+    shifted = flat[1:].view(b, n, 3 * h * dh)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte"):
+        clip_mha_cuda(shifted, h)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mha_cuda(*(split_heads(t, h) for t in shifted.chunk(3, dim=-1)))
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_decomp.fa_decomp_cuda(shifted, h, "exp")
+    wide = torch.randn(b, h, n, dh + 4, device=cuda).to(torch.bfloat16)[..., :dh]  # rows 68 elements apart
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mha_cuda(wide, wide, wide)
+    o, _ = flash_mha_cuda(wide.float(), wide.float(), wide.float())
+    torch.testing.assert_close(o, flash_mha_reference(wide.float(), wide.float(), wide.float())[0], atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -148,6 +191,9 @@ def test_clip_mha_bwd_kernel_refuses_what_it_does_not_take(cuda):
 FLASH_SHAPES = [(2, 12, 50, 50, 64), (2, 12, 197, 197, 64), (320, 12, 197, 197, 64), (2, 16, 257, 257, 64),
                 (1, 16, 577, 577, 64), (3, 2, 17, 17, 32), (2, 3, 128, 256, 64)]
 FLASH_BWD_SHAPES = [s if s[0] != 320 else (480,) + s[1:] for s in FLASH_SHAPES]
+# the forward's extra lengths (see FWD_SHAPES), and cross-attention onto 300 keys (tiled, and causal rows that
+# see fewer keys than the first tile holds) and from 300 queries onto 100 keys
+FLASH_FWD_SHAPES = FLASH_SHAPES + [(b, h, n, n, dh) for b, n, h, dh in FWD_SHAPES[len(SHAPES):]] + [(2, 3, 100, 300, 64), (2, 3, 300, 100, 32)]
 
 
 def _flash_inputs(b, h, nq, nk, dh, dtype, device, g):
@@ -161,11 +207,13 @@ def _flash_inputs(b, h, nq, nk, dh, dtype, device, g):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype, tol", TOLERANCE)
-@pytest.mark.parametrize("b, h, nq, nk, dh", FLASH_SHAPES)
+@pytest.mark.parametrize("b, h, nq, nk, dh", FLASH_FWD_SHAPES)
 def test_flash_mha_kernel_matches_plain(cuda, b, h, nq, nk, dh, dtype, tol, causal):
-    """K3 against flash_mha_reference: o at the dtype's tolerance (the kernel's 64-key tiles rescale at
-    other points than the plain version's _auto_block, which changes the bf16 rounding of p), lse at
-    1e-4; one launch counted; flash_mha returns the kernel's result."""
+    """K3 against flash_mha_reference: o at the dtype's tolerance (bf16: the kernel takes the plain version's
+    _auto_block key blocks, so p is rounded at the same points; fp32: the scalar kernel's 64-key tiles
+    rescale at other points, the same function in fp32), lse at 1e-4, both finite (causal rows that see one
+    key, the ragged last query block); one launch counted; flash_mha returns the kernel's result; a second
+    launch gives the same bits."""
     g = torch.Generator().manual_seed(nq + nk)
     q, k, v = _flash_inputs(b, h, nq, nk, dh, dtype, cuda, g)
     before = LAUNCHES["flash_mha_fwd"]
@@ -177,6 +225,9 @@ def test_flash_mha_kernel_matches_plain(cuda, b, h, nq, nk, dh, dtype, tol, caus
     torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(flash_mha(q, k, v, causal=causal), o, atol=0, rtol=0)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    again_o, again_lse = flash_mha_cuda(q, k, v, causal)
+    assert torch.equal(again_o, o) and torch.equal(again_lse, lse)
 
 
 @pytest.mark.cuda
@@ -345,7 +396,7 @@ def test_layer_norm_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", TOLERANCE)
 @pytest.mark.parametrize("mode", fa_decomp.ABLATED)
-@pytest.mark.parametrize("b, n, h, dh", [(4, 197, 12, 64), (4, 50, 8, 64), (3, 17, 2, 32), (320, 197, 12, 64)])
+@pytest.mark.parametrize("b, n, h, dh", [(4, 197, 12, 64), (4, 50, 8, 64), (3, 17, 2, 32), (320, 197, 12, 64), (2, 333, 3, 32)])
 def test_fa_decomp_kernels_match_plain(cuda, b, n, h, dh, mode, dtype, tol):
     """Each ablated mode of K8 against its plain version, on inputs scaled as the tool scales them (so
     the tolerance is a share of the reference's largest value, not absolute); one launch counted;

@@ -5,8 +5,10 @@ plain mha, and the CPU dispatch.  Inputs are numpy arrays from a seed.
 
 Shapes (B, H, Nq, Nk, Dh): ViT-Tiny-Test's N = 17; N = 300, where the JAX
 kernel streams three 128-wide key blocks and really rescales; a causal
-case; and Nq != Nk (the cross-attention shape of
-tests/test_flash_attention.py), with and without the causal mask.
+case; Nq != Nk (the cross-attention shape of
+tests/test_flash_attention.py), with and without the causal mask; N = 257
+(ViT-L/14: the first length past the single key block, two blocks of 128
+and a ragged one of 1 key); and the text tower's causal N = 77 (one block).
 """
 
 import jax
@@ -35,6 +37,8 @@ CASES = [
     ((2, 2, 40, 40, 32), True),
     ((1, 2, 128, 256, 32), False),
     ((1, 2, 128, 256, 32), True),
+    ((1, 2, 257, 257, 32), False),
+    ((1, 2, 77, 77, 32), True),
 ]
 # fp32: summation order; bf16: one bf16 ulp of values near 1 (p and dS are rounded at the same
 # points on both sides, but fp32 sums taken in another order can land a rounding one ulp apart)

@@ -15,12 +15,15 @@ from clip_fsar_tpu.ops import otam as jotam
 from clip_fsar_torch.models.heads import common as tcommon
 from clip_fsar_torch.ops import attention as tattn
 from clip_fsar_torch.ops import otam as totam
+from clip_fsar_torch.ops.flash_attention import _auto_block
 from clip_fsar_torch.ops.fused_attention import (
+    SINGLE_BLOCK_MAX,
     clip_mha,
     clip_mha_bwd_cuda,
     clip_mha_bwd_reference,
     clip_mha_cuda,
     clip_mha_reference,
+    forward_branch,
 )
 
 torch.set_num_threads(2)
@@ -41,6 +44,38 @@ def test_clip_mha_reference_matches_jax_kernel(n, dtype):
     # JAX keeps the LSE per head in the lane axis of [B, N, 128]
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[:, :, :heads].transpose(0, 2, 1), atol=2e-5, rtol=2e-5)
     assert o_t.dtype == getattr(torch, dtype) and o_t.shape == (b, n, heads * dh)
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("n", [77, 257])
+def test_clip_mha_reference_matches_jax_kernel_on_both_branches(n, dtype, tol):
+    """The same at the lengths that send the bf16 CUDA kernel down its two
+    branches: N = 77 (one block of scores) and N = 257 (ViT-L/14, key tiles
+    and two passes).  The function is one: the plain version and the Pallas
+    kernel both round p against the exact row max whatever the length.  fp32
+    at 1e-5 (summation order), bf16 at 2e-2 (one rounding of p and of O)."""
+    heads, dh, b = 2, 64, 1
+    qkv = np.random.RandomState(n).randn(b, n, 3 * heads * dh).astype(np.float32)
+    o_j, lse_j = jfa._fwd_impl(jnp.asarray(qkv, dtype), heads)
+    o_t, lse_t = clip_mha_reference(torch.from_numpy(qkv).to(getattr(torch, dtype)), heads)
+    np.testing.assert_allclose(o_t.float().numpy(), np.asarray(o_j, np.float32), atol=tol, rtol=tol)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[:, :, :heads].transpose(0, 2, 1), atol=1e-5, rtol=1e-5)
+
+
+def test_forward_branch_follows_the_key_block():
+    """The bf16 forward kernels' branch is a function of the key count alone:
+    one block of scores exactly where the JAX flash kernels' ``_auto_block``
+    is a single block (n <= 256), key tiles of 128 above, where ``_auto_block``
+    gives 128; the port's ``_auto_block`` is the JAX one."""
+    from clip_fsar_tpu.ops import flash_attention as jflash
+
+    assert SINGLE_BLOCK_MAX == 256
+    for n in range(1, 1200):
+        assert _auto_block(n) == jflash._auto_block(n)
+        branch = forward_branch(n)
+        assert branch == forward_branch(n) == ("single" if _auto_block(n) >= n else "tiled")
+        assert (branch == "tiled") == (_auto_block(n) == 128 and n > 128)
+    assert [forward_branch(n) for n in (17, 50, 77, 197, 256, 257, 577)] == ["single"] * 5 + ["tiled"] * 2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -65,7 +65,7 @@ def _slice_vs_jax(tmp_path, opts, want_logits_and_metrics):
     child.write_text(f"_BASE: {CONFIG}\nTRAIN:\n  CLIP_WEIGHTS: {clip_path}\n")
 
     got = main([
-        "--cfg", str(child), *TINY_OPTS, *opts,
+        "--cfg", str(child), "--device", "cpu", *TINY_OPTS, *opts,
         "TEST.CHECKPOINT_FILE_PATH", str(head_path), "OUTPUT_DIR", str(tmp_path / "out"),
     ])["test_few_shot"]
 
@@ -125,11 +125,34 @@ def test_slice_runs_with_jax_blocked(tmp_path):
              "TRAIN.VAL_FRE_ITER", "1", "TRAIN.NUM_VAL_TASKS", "2"]
     for name, extra in (("test", []), ("train", train), ("pallas", train + ["TPU.PALLAS_ATTENTION", "True"])):
         proc = subprocess.run(
-            [sys.executable, "-c", _NO_JAX, "--cfg", CONFIG, *TINY_OPTS, *extra, "OUTPUT_DIR", str(tmp_path / name)],
+            [sys.executable, "-c", _NO_JAX, "--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, *extra, "OUTPUT_DIR", str(tmp_path / name)],
             cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
         )
         assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
         assert "SLICE_OK" in proc.stdout
+
+
+def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """The card is the default: without one, ``main`` with no ``--device``
+    raises before any episode is loaded or any file written, and the same
+    call with ``--device cpu`` runs the test protocol on the CPU."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data import loader
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.device()
+    assert runtime.device("cpu") == torch.device("cpu")
+    built = []
+    build = loader.build_few_shot_loader
+    monkeypatch.setattr("clip_fsar_torch.train.loop.build_few_shot_loader", lambda *a, **k: built.append(a) or build(*a, **k))
+    argv = [*TINY_OPTS, "OUTPUT_DIR", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--cfg", CONFIG, *argv])
+    assert not built and not os.path.exists(tmp_path / "out")
+    got = main(["--cfg", CONFIG, "--device", "cpu", *argv])["test_few_shot"]
+    assert len(built) == 1 and got["episodes"] == 4 and np.isfinite(got["episode_logits"]).all()
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -156,9 +179,12 @@ def test_profile_eval_busy_time_and_refusal():
     assert profile_eval._busy_us([event(20, 30), event(0, 10), event(5, 12), event(21, 22)]) == 22
     names = ("clip_mha_fwd_kernel<bf16, 64>", "clip_mha_bwd_dkv_kernel<bf16, 64>", "flash_mha_fwd_kernel<bf16, 64>",
              "flash_mha_bwd_delta_kernel<bf16, 64>", "flash_mha_bwd_dq_kernel<bf16, 64>", "flash_mha_bwd_dkv_kernel<bf16, 64>",
-             "nvjet_tst_192x192", "Memcpy HtoD", "reduce_kernel")
+             "nvjet_tst_192x192", "Memcpy HtoD", "reduce_kernel",
+             "void attn_mma::forward_kernel<(anonymous namespace)::clip_mha_fwd_bf16, 64, 13, 0, 0, 64, 4>(attn_mma::Params)",
+             "void attn_mma::forward_kernel<(anonymous namespace)::flash_mha_fwd_bf16, 64, 8, 1, 0, 256, 1>(attn_mma::Params)")
     assert [profile_eval._group(n) for n in names] == ["clip_mha", "clip_mha_bwd", "flash_mha", "flash_mha_bwd_dq",
-                                                        "flash_mha_bwd_dq", "flash_mha_bwd_dkv", "gemm", "memcpy", "other"]
+                                                        "flash_mha_bwd_dq", "flash_mha_bwd_dkv", "gemm", "memcpy", "other",
+                                                        "clip_mha", "flash_mha"]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: profile_eval would run for real")
     with pytest.raises(SystemExit, match="no CUDA device"):
@@ -173,7 +199,7 @@ def test_cli_refuses_runners_not_ported(tmp_path):
     """Classification training is not ported: the CLI raises before any work
     instead of skipping it."""
     with pytest.raises(NotImplementedError, match="'train'"):
-        main(["--cfg", CONFIG, *TINY_OPTS, "TASK_TYPE", "classification", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
+        main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TASK_TYPE", "classification", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
     assert not os.path.exists(os.path.join(tmp_path, "checkpoints"))
 
 

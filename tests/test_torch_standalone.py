@@ -56,8 +56,12 @@ def test_load_config_equals_the_original():
     assert a.to_dict() == b.to_dict()
     assert a.SOLVER.WEIGHT_DECAY == 5e-5 and a.DATA.TRAIN_JITTER_SCALES == [72, 80] and not hasattr(a.DATA, "NO_SUCH_KEY")
     assert port._find_pool_base(CONFIG) == original._find_pool_base(CONFIG)
-    ns = port.parse_args(["--cfg", CONFIG, "DATA.DECODER", "synthetic"])
-    assert vars(ns) == vars(original.parse_args(["--cfg", CONFIG, "DATA.DECODER", "synthetic"]))
+    # the port's parser adds --device (the card unless the CPU is asked for); the rest is the original's
+    ns = vars(port.parse_args(["--cfg", CONFIG, "DATA.DECODER", "synthetic"]))
+    assert ns.pop("device") == "cuda"
+    assert ns == vars(original.parse_args(["--cfg", CONFIG, "DATA.DECODER", "synthetic"]))
+    asked = port.parse_args(["--cfg", CONFIG, "--device", "cpu", "DATA.DECODER", "synthetic"])
+    assert asked.device == "cpu" and asked.opts == ["DATA.DECODER", "synthetic"]
 
 
 def test_tokenizer_equals_the_original_and_reads_its_own_merges_file():

@@ -26,9 +26,9 @@ def test_resume_continues_a_run_exactly(tmp_path):
     generator depends on (seed, step) only, and the checkpoint carries the
     open accumulation window (BATCH_SIZE_PER_TASK 4: the one update lands on
     step 4, after the resume)."""
-    straight = train_few_shot(tiny_cfg(*LOOP_OPTS, "TRAIN.NUM_TRAIN_TASKS", "4", "OUTPUT_DIR", str(tmp_path / "a")))
-    first = train_few_shot(tiny_cfg(*LOOP_OPTS, "TRAIN.NUM_TRAIN_TASKS", "2", "OUTPUT_DIR", str(tmp_path / "b")))
-    resumed = train_few_shot(tiny_cfg(*LOOP_OPTS, "TRAIN.NUM_TRAIN_TASKS", "4", "OUTPUT_DIR", str(tmp_path / "b")))
+    straight = train_few_shot(tiny_cfg(*LOOP_OPTS, "TRAIN.NUM_TRAIN_TASKS", "4", "OUTPUT_DIR", str(tmp_path / "a")), device="cpu")
+    first = train_few_shot(tiny_cfg(*LOOP_OPTS, "TRAIN.NUM_TRAIN_TASKS", "2", "OUTPUT_DIR", str(tmp_path / "b")), device="cpu")
+    resumed = train_few_shot(tiny_cfg(*LOOP_OPTS, "TRAIN.NUM_TRAIN_TASKS", "4", "OUTPUT_DIR", str(tmp_path / "b")), device="cpu")
     assert (straight["steps"], first["steps"], resumed["steps"]) == (4, 2, 2)
     assert (straight["updates"], first["updates"], resumed["updates"]) == (1, 0, 1)
     assert straight["losses"] == first["losses"] + resumed["losses"]
@@ -50,7 +50,7 @@ def test_cli_trains_then_tests_the_trained_checkpoint(tmp_path):
     out = str(tmp_path / "out")
     opts = [*TINY_OPTS, *LOOP_OPTS, "TRAIN.NUM_TRAIN_TASKS", "1", "TRAIN.BATCH_SIZE_PER_TASK", "1", "TRAIN.VAL_FRE_ITER", "1",
             "TRAIN.NUM_VAL_TASKS", "2", "OUTPUT_DIR", out]
-    results = main(["--cfg", CONFIG, *opts])
+    results = main(["--cfg", CONFIG, "--device", "cpu", *opts])
     assert results["train_few_shot"]["updates"] == 1 and np.isfinite(results["train_few_shot"]["losses"]).all()
     tested = results["test_few_shot"]
     ckpt = Checkpointer(out)
@@ -58,9 +58,9 @@ def test_cli_trains_then_tests_the_trained_checkpoint(tmp_path):
 
     cfg = tiny_cfg(*opts)
     model = build_few_shot_model(cfg, flow="test", device="cpu")
-    fresh = evaluate(cfg, model, 4, 2)["episode_logits"]
+    fresh = evaluate(cfg, model, 4, 2, device="cpu")["episode_logits"]
     model.head.load_state_dict(ckpt.load()["head"])
-    trained = evaluate(cfg, model, 4, 2)["episode_logits"]
+    trained = evaluate(cfg, model, 4, 2, device="cpu")["episode_logits"]
     np.testing.assert_array_equal(tested["episode_logits"], trained)
     assert np.abs(tested["episode_logits"] - fresh).max() > 1e-4
 
@@ -74,13 +74,13 @@ def test_ema_weights_are_kept_validated_and_checkpointed(tmp_path):
             "TRAIN.NUM_VAL_TASKS", "2", "MODEL.EMA.ENABLE", "True", "MODEL.EMA.DECAY", "0.5", "OUTPUT_DIR", str(tmp_path)]
     cfg = tiny_cfg(*opts)
     fresh = dict(build_few_shot_model(cfg, flow="train", device="cpu").head.named_parameters())
-    assert train_few_shot(cfg)["updates"] == 1
+    assert train_few_shot(cfg, device="cpu")["updates"] == 1
     saved = Checkpointer(str(tmp_path)).load()
     for name, p0 in fresh.items():
         p1 = saved["head"][name]
         assert not torch.equal(saved["ema"][name], p1) or torch.equal(p0, p1), name
         torch.testing.assert_close(saved["ema"][name], 0.5 * p0.detach() + 0.5 * p1, atol=1e-6, rtol=1e-6)
-    resumed = train_few_shot(tiny_cfg(*opts[:-2], "TRAIN.NUM_TRAIN_TASKS", "2", "OUTPUT_DIR", str(tmp_path)))
+    resumed = train_few_shot(tiny_cfg(*opts[:-2], "TRAIN.NUM_TRAIN_TASKS", "2", "OUTPUT_DIR", str(tmp_path)), device="cpu")
     assert resumed["steps"] == 1
     again = Checkpointer(str(tmp_path)).load()
     for name, e1 in saved["ema"].items():

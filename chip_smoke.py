@@ -30,6 +30,8 @@ and read just after.  Phases:
    causal and not (so rows that see one key and query blocks whose tiles are
    skipped past the diagonal), o and lse finite, the same bits on a second
    launch; timed at [320, 12, 197, 64] and [480, 12, 197, 64] bf16 like K1;
+   then K1 and K3 timed on their tiled branch at the ViT-L/14 shapes
+   [320, 257, 3072] and [320, 577, 3072] beside the library call and the bound;
 6. K4 / K5 vs plain: ``flash_mha_bwd_dq_cuda`` (with its delta pass) and
    ``flash_mha_bwd_dkv_cuda`` against their plain versions at the same
    shapes, timed at the train chunk's [480, 12, 197, 64] bf16; and K3 + K4 +
@@ -310,12 +312,12 @@ def _time_forward(name: str, shape_text: str, frames: int, kernel, plain, sdpa_i
           f"(kernel / library = {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it reached)")
     if not ms < earlier:
         raise AssertionError(f"{name} {shape_text}: {ms:.4f} ms is no faster than the kernel it replaced ({earlier:.4f} ms)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "earlier_ms": earlier, **bound}
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
 
 
 def _forward_record(worst: float, timed: dict) -> dict:
-    """The ``kernels`` record of a forward kernel: the test slice's shape under the contract's keys, the train
-    chunk's under ``at_480_frames``."""
+    """The ``kernels`` record of a forward kernel: the test slice's shape under the record's own keys, the
+    train chunk's under ``at_480_frames``; every number in it is measured or computed in this run."""
     return {"max_abs_err": worst, **timed[SLICE_SHAPE[0]], "at_480_frames": timed[TRAIN_SHAPE[0]]}
 
 
@@ -422,6 +424,28 @@ def phase_flash_fwd_vs_plain() -> dict:
         timed[b] = _time_forward("flash_mha_fwd", f"[{b}, 12, 197, 64] (views of [{b}, 197, 2304])", b, lambda: flash_mha_cuda(q, k, v),
                                  lambda: flash_mha_reference(q, k, v), (q, k, v))
     return _forward_record(worst, timed)
+
+
+def phase_tiled_branch_times() -> None:
+    """The bf16 forwards on their tiled branch at the ViT-L/14 towers' shapes (N = 257 at 224 px, 577 at
+    336 px; 16 heads of 64) for a test step's 320 frames: K1 (two tensor-core passes) and K3 (the online
+    recurrence) beside ``scaled_dot_product_attention`` and the bound.  No slice runs these shapes: the
+    times are printed and go into no record."""
+    from clip_fsar_torch.ops.attention import split_heads
+    from clip_fsar_torch.ops.flash_attention import flash_mha_cuda
+    from clip_fsar_torch.ops.fused_attention import clip_mha_cuda, forward_branch
+
+    g = torch.Generator().manual_seed(5)
+    b, h, dh = SLICE_SHAPE[0], 16, 64
+    for n in (257, 577):
+        qkv = torch.randn(b, n, 3 * h * dh, generator=g).to("cuda", torch.bfloat16)
+        q, k, v = (split_heads(t, h) for t in qkv.chunk(3, dim=-1))
+        k1_ms, k3_ms, _ = _alternate(lambda: clip_mha_cuda(qkv, h), lambda: flash_mha_cuda(q, k, v))
+        library_ms = _sdpa_ms(q, k, v)
+        bound = _attention_bound(b, n, h, dh, tensors_in=3, tensors_out=1, rows_fp32=1, products=2)
+        print(f"{forward_branch(n)} branch [{b}, {n}, {3 * h * dh}] H={h} bf16: clip_mha_fwd {k1_ms:.4f} ms, flash_mha_fwd {k3_ms:.4f} ms, "
+              f"scaled_dot_product_attention {library_ms:.4f} ms (kernel / library = {k1_ms / library_ms:.2f}, {k3_ms / library_ms:.2f}), "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
 
 
 def phase_flash_bwd_vs_plain() -> tuple:
@@ -761,8 +785,7 @@ def phase_fa_decomp(card_line: str) -> dict:
     print("fa_decomp: the scalar kernels these modes replaced took " + ", ".join(
         f"{mode} {EARLIER_MS[f'clip_mha_decomp_{mode}'][b]:.4f} ms" for mode in fa_decomp.ABLATED) + f", full {EARLIER_MS['clip_mha_fwd'][b]:.4f} ms")
     return {mode: {"max_abs_err": worst[mode], "ms": ms[mode], "plain_ms": _time_ms(lambda m=mode: fa_decomp.fa_decomp_reference(qkv, 12, m), iters=5),
-                   "library_ms": None, "launches": launches[f"clip_mha_decomp_{mode}"], "earlier_ms": EARLIER_MS[f"clip_mha_decomp_{mode}"][b],
-                   **bound} for mode in fa_decomp.ABLATED}
+                   "library_ms": None, "launches": launches[f"clip_mha_decomp_{mode}"], **bound} for mode in fa_decomp.ABLATED}
 
 
 def phase_loader_resize() -> None:
@@ -942,6 +965,7 @@ def main() -> None:
     smi = phase_device()
     build_seconds = phase_build()
     timings = {"clip_mha_fwd": phase_fwd_vs_plain(), "clip_mha_bwd": phase_bwd_vs_plain(), "flash_mha_fwd": phase_flash_fwd_vs_plain()}
+    phase_tiled_branch_times()
     timings["flash_mha_bwd_dq"], timings["flash_mha_bwd_dkv"] = phase_flash_bwd_vs_plain()
     timings["layer_norm_fwd"], timings["layer_norm_bwd"] = phase_layer_norm_vs_plain()
     replay = phase_layer_norm_replay()
@@ -976,7 +1000,7 @@ def main() -> None:
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[path][name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        **{key: t[key] for key in ("library_covers", "earlier_ms", "at_480_frames") if key in t}})
+                        **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t}})
         if not records[-1]["launches"] > 0:
             raise AssertionError(f"{name} was launched no time on the path that runs it")
     print(json.dumps({"kernels": records}))

@@ -21,9 +21,15 @@ and read just after.  Phases:
    version, ``scaled_dot_product_attention``, its bound and the time of the
    scalar kernel it replaced;
 4. K2 vs plain: ``clip_mha_bwd_cuda`` against ``clip_mha_bwd_reference`` at
-   the same ViT shapes and at the train slice's shape [480, 197, 2304] bf16,
-   timed there; and the two kernels' gradient against torch autograd of
-   plain float64 softmax attention at two shapes;
+   the same shapes (so ragged lengths, N = 577 with 16 heads, Dh = 32), at
+   the last length whose operands stay in shared memory and the first that
+   is staged, both branches of the bf16 tensor-core kernel by name, and at
+   the train slice's shape [480, 197, 2304] bf16; dqkv finite everywhere,
+   the same bits on a second launch; timed at the train shape beside its
+   plain version, the backward of ``scaled_dot_product_attention``, its bound
+   and the time of the scalar kernel it replaced; and the two kernels'
+   gradient in fp32 against torch autograd of plain float64 softmax
+   attention at two shapes;
 5. K3 vs plain: ``flash_mha_cuda`` against ``flash_mha_reference`` (o and
    lse) at the same ViT shapes as head-split views of a packed projection and
    at cross-attention shapes (Nq 128, Nk 256; Nq 100, Nk 300), fp32 and bf16,
@@ -137,9 +143,10 @@ TRAIN_OPTS = [
     "TEST.BATCH_SIZE", "4",
     "LOG_PERIOD", "1",
 ]
-# ms per launch of the scalar-FMA forward kernels that the tensor-core kernels replaced, by kernel and frames:
-# what this script read at commit 8f41df3 on an NVIDIA H100 80GB HBM3 at 700.00 W (bf16, N = 197, 12 heads of 64)
-EARLIER_MS = {"clip_mha_fwd": {320: 3.7873, 480: 5.6240}, "flash_mha_fwd": {320: 2.6949, 480: 4.0259},
+# ms per launch of the scalar-FMA kernels that the tensor-core kernels replaced, by kernel and frames: what this
+# script read on an NVIDIA H100 80GB HBM3 at 700.00 W (bf16, N = 197, 12 heads of 64) at commit 8f41df3 (the
+# forwards) and at commit c522b25 (the clip_mha backward)
+EARLIER_MS = {"clip_mha_fwd": {320: 3.7873, 480: 5.6240}, "flash_mha_fwd": {320: 2.6949, 480: 4.0259}, "clip_mha_bwd": {480: 13.5792},
               "clip_mha_decomp_matmul": {320: 2.5272}, "clip_mha_decomp_exp": {320: 2.6027}, "clip_mha_decomp_nomax": {320: 2.6050}}
 # norm-relative gradient error allowed between the kernel and the plain attention path in one bf16 train
 # step: each bf16 rounding is ~4e-3 relative, and the two paths round attention at different points
@@ -187,7 +194,7 @@ def phase_device() -> str:
 
 def phase_build() -> float:
     from clip_fsar_torch.ops import _build
-    from clip_fsar_torch.ops.fused_attention import SINGLE_BLOCK_MAX
+    from clip_fsar_torch.ops.fused_attention import BWD_RESIDENT_MAX, SINGLE_BLOCK_MAX
 
     t0 = time.perf_counter()
     path = _build.build()
@@ -195,6 +202,8 @@ def phase_build() -> float:
     seconds = time.perf_counter() - t0
     if lib.attn_fwd_single_block_max() != SINGLE_BLOCK_MAX:
         raise AssertionError(f"the kernels take {lib.attn_fwd_single_block_max()} keys as one block, forward_branch says {SINGLE_BLOCK_MAX}")
+    if lib.attn_bwd_resident_max() != BWD_RESIDENT_MAX:
+        raise AssertionError(f"the backward keeps {lib.attn_bwd_resident_max()} rows in shared memory, backward_branch says {BWD_RESIDENT_MAX}")
     print(f"build: {seconds:.2f} s -> {os.path.relpath(path, REPO)}")
     with open(os.path.join(os.path.dirname(path), "nvcc.log")) as f:
         for line in f:
@@ -206,10 +215,14 @@ def phase_build() -> float:
 
 
 def _entry_name(mangled: str) -> str:
-    """A kernel's mangled name cut to what tells it apart: the tensor-core forward's template arguments by
-    name, else the name's start."""
+    """A kernel's mangled name cut to what tells it apart: the tensor-core forward's and backward's template
+    arguments by name, else the name's start."""
     import re
 
+    if "backward_kernel" in mangled:
+        dh, kt, dkv, threads, min_blocks = re.findall(r"EL[ib](\d+)", mangled)[-5:]
+        return (f"attn_mma::backward_kernel Dh={dh} tile={16 * int(kt)} rows pass={'dK/dV' if int(dkv) else 'dQ'} "
+                f"threads={threads} min blocks per SM={min_blocks}")
     if "forward_kernel" in mangled:
         dh, kt, mode, stage, threads, min_blocks = re.findall(r"ELi(\d+)", mangled)[-6:]
         return (f"attn_mma::forward_kernel Dh={dh} sub-tiles={kt} mode={('single', 'online', 'two-pass')[int(mode)]} "
@@ -343,11 +356,21 @@ def phase_fwd_vs_plain() -> dict:
 
 
 def phase_bwd_vs_plain() -> dict:
-    from clip_fsar_torch.ops.fused_attention import _heads_split, clip_mha, clip_mha_bwd_cuda, clip_mha_bwd_reference, clip_mha_cuda
+    from clip_fsar_torch.ops.fused_attention import (
+        BWD_RESIDENT_MAX,
+        _heads_split,
+        backward_branch,
+        clip_mha,
+        clip_mha_bwd_cuda,
+        clip_mha_bwd_reference,
+        clip_mha_cuda,
+    )
 
     g = torch.Generator().manual_seed(1)
     worst = 0.0
-    for b, n, h, dh in KERNEL_SHAPES + [(TRAIN_SHAPE[0], TRAIN_SHAPE[1], 12, 64)]:
+    # KERNEL_SHAPES, the last length whose operands stay in shared memory and the first that is staged, the train chunk
+    edge = [(1, BWD_RESIDENT_MAX, 2, 64), (1, BWD_RESIDENT_MAX + 1, 2, 64)]
+    for b, n, h, dh in KERNEL_SHAPES + edge + [(TRAIN_SHAPE[0], TRAIN_SHAPE[1], 12, 64)]:
         for dtype, tol in TOLERANCE.items():
             if b == TRAIN_SHAPE[0] and dtype != torch.bfloat16:
                 continue
@@ -358,8 +381,14 @@ def phase_bwd_vs_plain() -> dict:
             torch.cuda.synchronize()
             ref = clip_mha_bwd_reference(qkv, o, lse, do, h)
             err = (dqkv.float() - ref.float()).abs().max().item()
-            print(f"K2 clip_mha_bwd [{b},{n},{3 * h * dh}] H={h} Dh={dh} {str(dtype)[6:]}: max|dqkv-ref| {err:.3e} (tol {tol})")
+            branch = f"{backward_branch(n)} branch" if dtype == torch.bfloat16 else "scalar kernels"
+            what = f"K2 clip_mha_bwd [{b},{n},{3 * h * dh}] H={h} Dh={dh} {str(dtype)[6:]} ({branch})"
+            print(f"{what}: max|dqkv-ref| {err:.3e} (tol {tol})")
+            if not torch.isfinite(dqkv.float()).all():
+                raise AssertionError(f"{what}: dqkv is not finite")
             torch.testing.assert_close(dqkv.float(), ref.float(), atol=tol, rtol=tol)
+            if not torch.equal(clip_mha_bwd_cuda(qkv, o, lse, do, h), dqkv):
+                raise AssertionError(f"{what}: a second launch gave other bits")
             worst = max(worst, err)
     ms, plain_ms, all_ms = _alternate(lambda: clip_mha_bwd_cuda(qkv, o, lse, do, 12), lambda: clip_mha_bwd_reference(qkv, o, lse, do, 12))
     # the library yardstick: autograd through fused attention on views of a packed leaf, down to the packed dqkv
@@ -367,8 +396,12 @@ def phase_bwd_vs_plain() -> dict:
     b, n, _ = TRAIN_SHAPE
     library_ms = _sdpa_bwd_ms(_heads_split(leaf, 12), do.reshape(b, n, 12, 64).transpose(1, 2), wrt=leaf)
     bound = _attention_bound(b, n, 12, 64, tensors_in=5, tensors_out=3, rows_fp32=1, products=5)  # qkv, o, do, lse -> dqkv
-    print(f"K2 clip_mha_bwd {list(TRAIN_SHAPE)} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, "
-          f"scaled_dot_product_attention backward {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    earlier = EARLIER_MS["clip_mha_bwd"][b]
+    print(f"K2 clip_mha_bwd {list(TRAIN_SHAPE)} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms (the scalar kernels it replaced: {earlier:.4f} ms, "
+          f"{earlier / ms:.1f}x), plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, scaled_dot_product_attention backward {library_ms:.4f} ms "
+          f"(kernel / library = {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it reached)")
+    if not ms < earlier:
+        raise AssertionError(f"clip_mha_bwd {list(TRAIN_SHAPE)}: {ms:.4f} ms is no faster than the kernels it replaced ({earlier:.4f} ms)")
     del leaf
 
     # the math, independently of the rounding replica: fp32 kernels vs autograd of float64 softmax attention

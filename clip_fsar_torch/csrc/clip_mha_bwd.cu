@@ -17,15 +17,19 @@
 // (fp32, as clip_mha_fwd.cu writes it); dq, dk and dv go straight into their
 // column slices of the packed dqkv [B, N, 3*H*Dh], as the TPU kernel writes them.
 //
-// What bounds it on an H100: per (clip, head) the backward is about seven
-// N x N x Dh products (S and dP twice, dq, dk, dv) against the forward's
-// three, on the same 3*N*Dh + 2*N*Dh values -- still far from the HBM
-// bound at N = 197, so it is bound by latency and occupancy like the forward.
-// This first version is simple and exact rather than fast: scalar fp32 FMAs
-// out of shared memory, no tensor cores.
+// bf16, the type the models run in, goes to the tensor cores: attn_mma_bwd.cuh
+// holds that kernel, what bounds it, and the note on its design (a dQ pass that
+// also writes delta and a dK/dV pass, one body; a warp owns 16 rows with their
+// operands as A fragments from global memory, the other side's operands in
+// swizzled shared memory by cp.async, all seven products mma.sync, P from one
+// ex2.approx, dS and P^T from accumulator fragment to A fragment).
 //
-// Design -- no order between blocks, so no cross-block accumulation and no
-// atomics (FlashAttention-2's split):
+// fp32 keeps the exact kernels below: the tensor cores have no fp32 product,
+// and the fp32 checks against float64 autograd need all of fp32.  They are
+// simple rather than fast: scalar FMAs out of shared memory.
+//
+// Design of the fp32 kernels -- no order between blocks, so no cross-block
+// accumulation and no atomics (FlashAttention-2's split):
 //   1. delta kernel: one warp per (clip, row, head) writes delta [B, H, N]
 //      into fp32 scratch the wrapper allocates;
 //   2. dq kernel: grid (query tiles of 64, H, B); streams key/value tiles of
@@ -35,20 +39,23 @@
 //      recomputes S^T and P^T (bit-identical to the dq kernel's: the same
 //      FMAs in the same order), and accumulates dS^T q and round(P)^T dO
 //      for its 64 key rows.
-//   Tiles of 64 in both directions, so any N fits (N = 577 for ViT-L/14@336).
-//   Each kernel writes only its own outputs, so the result does not depend on
-//   the run.  Nothing is allocated and nothing synchronises inside; all three
-//   run on the stream they are given.
+//   Tiles of 64 in both directions, so any N fits.  Each kernel writes only
+//   its own outputs, so the result does not depend on the run.  Nothing is
+//   allocated and nothing synchronises inside; all run on the stream they
+//   are given.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma_bwd.cuh"
 #include "clip_mha_tile.cuh"
 
 namespace {
 
 using namespace clip_mha;
+
+struct clip_mha_bwd_bf16 {};  // names this file's instantiations of attn_mma::backward_kernel
 
 constexpr int kWarps = kThreads / 32;
 
@@ -278,16 +285,28 @@ int launch_bwd(const void* qkv, const void* o, const void* dout, const void* lse
   return (int)cudaGetLastError();
 }
 
+// bf16: the tensor-core passes on the packed projection, q | k | v and the heads found by stride.
+template <int DH>
+int launch_mma(const void* qkv, const void* o, const void* dout, const void* lse, void* delta, void* dqkv, int b, int n, int heads,
+               cudaStream_t stream) {
+  const attn_mma::BwdParams p = attn_mma::packed_bwd_params<DH>(qkv, o, dout, lse, delta, dqkv, n, heads);
+  return attn_mma::launch_backward<clip_mha_bwd_bf16, DH>(p, b, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  delta: fp32 scratch of B*H*N floats.
-// Returns a cudaError_t (0 = all three kernels launched).
+// Returns a cudaError_t (0 = every kernel launched).
 extern "C" int clip_mha_bwd(const void* qkv, const void* o, const void* dout, const void* lse, void* delta, void* dqkv,
                             int b, int n, int heads, int dh, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 64) return launch_bwd<__nv_bfloat16, 64>(qkv, o, dout, lse, delta, dqkv, b, n, heads, s);
-  if (dtype == 1 && dh == 32) return launch_bwd<__nv_bfloat16, 32>(qkv, o, dout, lse, delta, dqkv, b, n, heads, s);
+  if (dtype == 1 && dh == 64) return launch_mma<64>(qkv, o, dout, lse, delta, dqkv, b, n, heads, s);
+  if (dtype == 1 && dh == 32) return launch_mma<32>(qkv, o, dout, lse, delta, dqkv, b, n, heads, s);
   if (dtype == 0 && dh == 64) return launch_bwd<float, 64>(qkv, o, dout, lse, delta, dqkv, b, n, heads, s);
   if (dtype == 0 && dh == 32) return launch_bwd<float, 32>(qkv, o, dout, lse, delta, dqkv, b, n, heads, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The most streamed rows (keys in the dQ pass, queries in the dK/dV pass) the bf16 backward keeps in shared
+// memory at once; longer sequences go through it in stages.
+extern "C" int attn_bwd_resident_max() { return attn_mma::kBwdResidentMax; }

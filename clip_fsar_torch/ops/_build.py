@@ -113,6 +113,8 @@ def library() -> ctypes.CDLL:
     lib.clip_mha_decomp.restype = i
     lib.attn_fwd_single_block_max.argtypes = []
     lib.attn_fwd_single_block_max.restype = i
+    lib.attn_bwd_resident_max.argtypes = []
+    lib.attn_bwd_resident_max.restype = i
     lib.clip_kernels_error_string.argtypes = [i]
     lib.clip_kernels_error_string.restype = ctypes.c_char_p
     return lib

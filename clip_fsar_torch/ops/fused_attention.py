@@ -16,6 +16,16 @@ The bf16 forward runs on the tensor cores (``csrc/attn_mma.cuh``): up to
 whole sequence in registers and forms q.k^T once; longer sequences take two
 passes over key tiles (``forward_branch``).  Both round p against the exact
 row max, so the function is the same.  fp32 keeps an exact scalar kernel.
+
+The bf16 backward runs on the tensor cores too (``csrc/attn_mma_bwd.cuh``):
+a pass over query rows (delta and dq) and a pass over key rows (dk and dv),
+each warp holding 16 rows' operands as fragments while the other side's
+operands of the head sit in shared memory, P recomputed from the forward's
+LSE with ``ex2.approx``, dS and P rounded to bf16 where the TPU kernel
+rounds them.  Up to ``BWD_RESIDENT_MAX`` rows the head's operands stay in
+shared memory; longer sequences stream through it in stages
+(``backward_branch``).  No atomics: a second launch gives the same bits.
+fp32 keeps exact scalar kernels (a delta, a dq and a dk/dv kernel).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from clip_fsar_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 SINGLE_BLOCK_MAX = 256  # keys; csrc/attn_mma.cuh's kSingleBlockMax, the JAX flash kernels' largest single block
+BWD_RESIDENT_MAX = 832  # rows; csrc/attn_mma_bwd.cuh's kBwdResidentMax: 2 operands x 832 rows x 64 x 2 bytes and their fp32 statistics fill a CTA's shared memory
 
 
 def forward_branch(n: int) -> str:
@@ -39,8 +50,17 @@ def forward_branch(n: int) -> str:
     return "single" if n <= SINGLE_BLOCK_MAX else "tiled"
 
 
+def backward_branch(n: int) -> str:
+    """Which branch of the bf16 backward kernel a sequence of ``n`` rows
+    takes: ``"resident"`` (one CTA per clip and head keeps the other side's
+    operands of the whole head in shared memory) up to BWD_RESIDENT_MAX
+    rows, ``"staged"`` (they stream through shared memory in stages of that
+    many rows) above.  It follows from n alone, as the launcher reads it."""
+    return "resident" if n <= BWD_RESIDENT_MAX else "staged"
+
+
 def check_alignment(what: str, **tensors: torch.Tensor) -> None:
-    """The bf16 forward kernels copy rows of Dh values 16 bytes at a time:
+    """The bf16 tensor-core kernels copy rows of Dh values 16 bytes at a time:
     every tensor must start on a 16-byte boundary and keep every stride but
     the last a multiple of 8 elements.  Raises ValueError otherwise."""
     for name, t in tensors.items():
@@ -143,6 +163,7 @@ def clip_mha_bwd_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do:
             raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape} on {qkv.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous: {t.is_contiguous()})")
     dqkv = torch.empty_like(qkv)
+    check_alignment("clip_mha_bwd_cuda", qkv=qkv, o=o, do=do, dqkv=dqkv)
     if qkv.numel() == 0:
         return dqkv
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)  # rowsum(dO * O) scratch

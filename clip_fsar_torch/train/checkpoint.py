@@ -8,19 +8,29 @@ accumulation window, and the EMA parameters), atomically, keeping the newest
 five.  A head checkpoint file (``save_checkpoint``) holds the head's state
 dict alone.  Loading a checkpoint FILE (TEST/TRAIN.CHECKPOINT_FILE_PATH) is
 non-strict as in the JAX package: entries whose name and shape match the head
-are taken, the rest are skipped with a log line.  Checkpoints of the JAX
-package (orbax) are not read.
+are taken, the rest are skipped with a log line.
+
+Two formats are read: the port's own ``.pt`` files, and the JAX package's
+``.npz`` weight archives (``clip_fsar_tpu.train.pretrain.save_weights_npz``:
+flat "/"-keyed numpy arrays), which is the route for weights the JAX package
+trained.  A path that does not exist is logged and the search goes on, as in
+the JAX package; a path that exists in a format the port cannot read (an
+orbax checkpoint directory, a reference-framework ``.pyth`` / ``.pth`` file,
+a file in which nothing matches the head) raises, so that a run never tests
+or finetunes fresh weights where a checkpoint was named.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from clip_fsar_torch.models.clip.convert import params_from_jax
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.utils.logging import get_logger
 
@@ -40,22 +50,54 @@ def save_checkpoint(path: str, head: nn.Module) -> None:
     _atomic_save({"head": head.state_dict()}, path)
 
 
+_NPZ_ROUTE = ("export the weights with clip_fsar_tpu.train.pretrain.save_weights_npz(path, variables) where the JAX package "
+              "runs, and point the config at that .npz")
+
+
+def _load_npz(path: str) -> Dict[str, torch.Tensor]:
+    """A JAX-package weight archive (flat "/"-keyed arrays, with or without
+    the ``params/`` collection prefix) as a head state dict."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as archive:
+        for key in archive.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = archive[key]
+    try:
+        return params_from_jax(tree if "params" in tree else {"params": tree})
+    except KeyError as e:
+        raise ValueError(f"{path} is not a weight archive of the JAX package's few-shot model: it has no entry {e}") from e
+
+
 def load_checkpoint_file(path: str, head: nn.Module) -> bool:
-    """Non-strict load of a port checkpoint into ``head``; False when the
-    file is missing or nothing in it matches."""
-    if not os.path.isfile(path):
+    """Non-strict load of a checkpoint file into ``head``: the port's own
+    ``.pt`` or a JAX-package ``.npz`` weight archive.  False when the path
+    does not exist; raises when it exists and cannot be read into the head."""
+    if not os.path.exists(path):
         logger.info("checkpoint path %s not found", path)
         return False
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    sd = raw.get("head", raw)
+    if os.path.isdir(path):
+        raise ValueError(f"checkpoint path {path} is a directory (an orbax checkpoint of the JAX package?), which the port does not read: {_NPZ_ROUTE}")
+    if path.endswith((".pyth", ".pth")):
+        raise NotImplementedError(f"checkpoint path {path} is in the reference framework's format, which the port does not read yet "
+                                  f"(ROADMAP Queue 1, checkpoint files): {_NPZ_ROUTE}")
+    if path.endswith(".npz"):
+        sd = _load_npz(path)
+    else:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        sd = raw.get("head", raw)
     own = head.state_dict()
     take = {k: v for k, v in sd.items() if k in own and own[k].shape == v.shape}
     skipped = sorted(set(sd) - set(take))
+    if not take:
+        raise ValueError(f"checkpoint file {path} holds no entry that matches the head by name and shape (e.g. {skipped[:3]})")
     if skipped:
         logger.info("%s: skipped %d entries that do not match the head (e.g. %s)", path, len(skipped), skipped[:3])
     head.load_state_dict(take, strict=False)
     logger.info("loaded %d of %d head entries from %s", len(take), len(own), path)
-    return bool(take)
+    return True
 
 
 class Checkpointer:

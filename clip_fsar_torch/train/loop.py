@@ -125,26 +125,53 @@ def _weights(head: torch.nn.Module, state_dict: Dict[str, torch.Tensor]):
         head.load_state_dict(own)
 
 
+def check_run_cfg(cfg, training: bool) -> None:
+    """Before any work: refuse the config keys that would change the weights
+    and that this port does not act on yet, and say in one log line which
+    speed-only keys it leaves aside (the results are the same without them)."""
+    if training:
+        pre_process = cfg.TRAIN.get("CHECKPOINT_PRE_PROCESS", None)
+        on = [key for key, value in (("TRAIN.CHECKPOINT_PRE_PROCESS.ENABLE", pre_process is not None and pre_process.get("ENABLE", False)),
+                                     ("TRAIN.CHECKPOINT_INFLATE", cfg.TRAIN.get("CHECKPOINT_INFLATE", False))) if value]
+        if on:
+            raise NotImplementedError(f"{' and '.join(on)} (checkpoint surgery of the classification models: position-embedding and tubelet "
+                                      "preprocessing, 2D -> 3D inflation) are not ported yet: ROADMAP Queue 1, breadth")
+    if "TPU" not in cfg:
+        return
+    mesh = cfg.TPU.get("MESH", None)
+    aside = [key for key, value in (("TPU.TRAIN_FRAME_BANK", training and cfg.TPU.get("TRAIN_FRAME_BANK", False)),
+                                    ("TPU.EVAL_FRAME_BANK", cfg.TPU.get("EVAL_FRAME_BANK", False)),
+                                    ("TPU.MESH.DATA", mesh is not None and int(mesh.get("DATA", -1) or -1) > 1)) if value]
+    if aside:
+        logger.info("%s set: the port has no frame bank and no device mesh yet, so this run takes the pixel path on one card "
+                    "(same episodes and results, other speed)", ", ".join(aside))
+
+
 def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     """Episodic training: NUM_TRAIN_TASKS steps of TPU.EPISODES_PER_STEP
     episodes, validation on the val split every VAL_FRE_ITER steps (and on
     the EMA weights too when MODEL.EMA is on), a checkpoint at each
     validation and at the end, auto-resume from OUTPUT_DIR.  Returns the JAX
     package's stats (best_val_top1, final_iter) plus the per-step losses,
-    the optimizer updates made, the wall seconds of the step loop (data
+    the optimizer updates made, whether TRAIN.CHECKPOINT_FILE_PATH gave the
+    start weights (``init_weights``: that path or "fresh"; a resumed run says
+    "resumed"), the wall seconds of the step loop (data
     included, model build excluded), the part of them spent validating and
     checkpointing, and the steps this call ran.  Runs on the card unless
     ``device`` names the CPU."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
+    check_run_cfg(cfg, training=True)
     device = runtime.device(device)
     e = int(cfg.TPU.get("EPISODES_PER_STEP", 1))
     model = build_few_shot_model(cfg, flow="train", device=device)
     state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
     ckpt = Checkpointer(cfg.OUTPUT_DIR)
     start_iter = auto_resume(cfg, ckpt, state) or 0
+    init_weights = "resumed" if start_iter else "fresh"
     if start_iter:
         logger.info("auto-resumed at iteration %d", start_iter)
     elif cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") and load_checkpoint_file(str(cfg.TRAIN.CHECKPOINT_FILE_PATH), model.head):
+        init_weights = str(cfg.TRAIN.CHECKPOINT_FILE_PATH)
         if state.ema is not None:
             state.ema = {n: p.detach().clone() for n, p in model.head.named_parameters()}
     train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
@@ -205,6 +232,7 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
         "final_iter": num_train_tasks,
         "losses": losses,
         "updates": updates,
+        "init_weights": init_weights,
         "seconds": seconds,
         "val_seconds": val_seconds,
         "steps": len(losses),
@@ -218,6 +246,7 @@ def test_few_shot(cfg, device=None) -> Dict[str, Any]:
     (``weights``: a checkpoint path or "fresh").  Runs on the card unless
     ``device`` names the CPU."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
+    check_run_cfg(cfg, training=False)
     device = runtime.device(device)
     model = build_few_shot_model(cfg, flow="test", device=device)
     weights = load_test_weights(cfg, model.head)

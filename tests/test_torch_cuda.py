@@ -21,7 +21,9 @@ from clip_fsar_torch.ops.flash_attention import (
     flash_mha_reference,
 )
 from clip_fsar_torch.ops.fused_attention import (
+    BWD_RESIDENT_MAX,
     SINGLE_BLOCK_MAX,
+    backward_branch,
     clip_mha,
     clip_mha_bwd_cuda,
     clip_mha_bwd_reference,
@@ -49,6 +51,11 @@ SHAPES = [(2, 50, 12, 64), (2, 197, 12, 64), (320, 197, 12, 64), (2, 257, 16, 64
 # the tiled branch (333); 1100 keys, which stream through shared memory in two stages
 FWD_SHAPES = SHAPES + [(480, 197, 12, 64), (2, 77, 8, 64), (2, 203, 4, 64), (2, 251, 4, 32), (2, 256, 2, 64), (2, 333, 3, 32), (1, 1100, 2, 64)]
 BWD_SHAPES = [(2, 50, 12, 64), (2, 197, 12, 64), (480, 197, 12, 64), (2, 257, 16, 64), (1, 577, 16, 64), (3, 17, 2, 32)]
+# what the bf16 tensor-core backward adds: the text tower's N = 77; ragged lengths in tiles of 16 rows (203, 251) and
+# of 32 (333), the last length of the small launch shape (256); N = 577 with more clips; the last resident length,
+# the first staged one, and 1700 rows in three stages at Dh = 32
+BWD_SHAPES += [(2, 77, 8, 64), (2, 203, 4, 64), (2, 251, 4, 32), (2, 256, 2, 64), (2, 333, 3, 32), (4, 577, 16, 64),
+               (1, BWD_RESIDENT_MAX, 2, 64), (1, BWD_RESIDENT_MAX + 1, 2, 64), (1, 1100, 2, 64), (1, 1700, 2, 32)]
 
 
 @pytest.fixture
@@ -117,9 +124,12 @@ def test_bf16_forward_kernels_refuse_unaligned_tensors(cuda):
 @pytest.mark.parametrize("dtype, tol", TOLERANCE)
 @pytest.mark.parametrize("b, n, h, dh", BWD_SHAPES)
 def test_clip_mha_bwd_kernel_matches_plain(cuda, b, n, h, dh, dtype, tol):
-    """K2 against clip_mha_bwd_reference on the forward kernel's o and lse;
-    one launch counted per call, and the autograd backward of clip_mha is
-    the kernel's result."""
+    """K2 against clip_mha_bwd_reference on the forward kernel's o and lse, on
+    both branches of the bf16 kernel (resident and staged) and on the fp32
+    kernels; dqkv finite everywhere (the ragged last tile, where LSE and
+    delta are not defined); one launch counted per call; a second launch
+    gives the same bits (no atomics); and the autograd backward of clip_mha
+    is the kernel's result."""
     g = torch.Generator().manual_seed(n + 1)
     qkv = torch.randn(b, n, 3 * h * dh, generator=g).to(cuda, dtype)
     do = torch.randn(b, n, h * dh, generator=g).to(cuda, dtype)
@@ -130,11 +140,62 @@ def test_clip_mha_bwd_kernel_matches_plain(cuda, b, n, h, dh, dtype, tol):
     assert clip_mha_bwd_cuda.launches == before + 1
     ref = clip_mha_bwd_reference(qkv, o, lse, do, h)
     assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    assert torch.isfinite(dqkv.float()).all()
     torch.testing.assert_close(dqkv.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(clip_mha_bwd_cuda(qkv, o, lse, do, h), dqkv)
     x = qkv.clone().requires_grad_(True)
     clip_mha(x, h).backward(do)
-    assert clip_mha_bwd_cuda.launches == before + 2
+    assert clip_mha_bwd_cuda.launches == before + 3
     torch.testing.assert_close(x.grad, dqkv, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_backward_branch_is_the_launchers(cuda):
+    """The length up to which the built backward keeps a head's operands in shared memory is the one
+    backward_branch reads."""
+    from clip_fsar_torch.ops import _build
+
+    assert _build.library().attn_bwd_resident_max() == BWD_RESIDENT_MAX
+    assert backward_branch(BWD_RESIDENT_MAX) == "resident" and backward_branch(BWD_RESIDENT_MAX + 1) == "staged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [197, 333])
+def test_clip_mha_bwd_kernel_masks_the_dead_columns_of_the_last_tile(cuda, n):
+    """Rows past N are zero-filled in shared memory, so their score is 0; with every live score at -200
+    (q = 5, k = -5 on all of Dh = 64) LSE is about -195 and exp(0 - LSE) overflows: unless P is set to 0
+    there explicitly, inf * 0 puts NaN into dq (dead keys) and into dk and dv (dead queries).  Both launch
+    shapes (tiles of 16 rows at 197, of 32 at 333)."""
+    b, h, dh = 2, 3, 64
+    g = torch.Generator().manual_seed(n)
+    qkv = torch.randn(b, n, 3, h * dh, generator=g)
+    qkv[:, :, 0], qkv[:, :, 1] = 5.0, -5.0
+    qkv = qkv.reshape(b, n, 3 * h * dh).to(cuda, torch.bfloat16)
+    do = torch.randn(b, n, h * dh, generator=g).to(cuda, torch.bfloat16)
+    o, lse = clip_mha_cuda(qkv, h)
+    assert lse.max().item() < -190
+    dqkv = clip_mha_bwd_cuda(qkv, o, lse, do, h)
+    assert torch.isfinite(dqkv.float()).all()
+    torch.testing.assert_close(dqkv.float(), clip_mha_bwd_reference(qkv, o, lse, do, h).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_kernel_refuses_unaligned_tensors(cuda):
+    """The bf16 backward copies rows of dO 16 bytes at a time: a dO or an o that starts 2 bytes into its
+    storage is refused; in fp32 the scalar kernels take the same tensors."""
+    b, n, h, dh = 2, 17, 2, 64
+    qkv = torch.randn(b, n, 3 * h * dh, device=cuda).to(torch.bfloat16)
+    o, lse = clip_mha_cuda(qkv, h)
+    flat = torch.randn(1 + b * n * h * dh, device=cuda).to(torch.bfloat16)
+    shifted = flat[1:].view(b, n, h * dh)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="bf16 do in 16-byte"):
+        clip_mha_bwd_cuda(qkv, o, lse, shifted, h)
+    with pytest.raises(ValueError, match="bf16 o in 16-byte"):
+        clip_mha_bwd_cuda(qkv, shifted, lse, o, h)
+    o32, lse32 = clip_mha_cuda(qkv.float(), h)
+    got = clip_mha_bwd_cuda(qkv.float(), o32, lse32, shifted.float(), h)
+    torch.testing.assert_close(got, clip_mha_bwd_reference(qkv.float(), o32, lse32, shifted.float(), h), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,10 @@ from clip_fsar_torch.ops import attention as tattn
 from clip_fsar_torch.ops import otam as totam
 from clip_fsar_torch.ops.flash_attention import _auto_block
 from clip_fsar_torch.ops.fused_attention import (
+    BWD_RESIDENT_MAX,
     SINGLE_BLOCK_MAX,
+    backward_branch,
+    check_alignment,
     clip_mha,
     clip_mha_bwd_cuda,
     clip_mha_bwd_reference,
@@ -76,6 +79,35 @@ def test_forward_branch_follows_the_key_block():
         assert branch == forward_branch(n) == ("single" if _auto_block(n) >= n else "tiled")
         assert (branch == "tiled") == (_auto_block(n) == 128 and n > 128)
     assert [forward_branch(n) for n in (17, 50, 77, 197, 256, 257, 577)] == ["single"] * 5 + ["tiled"] * 2
+
+
+def test_backward_branch_follows_the_length():
+    """The bf16 backward's branch is a function of the sequence length alone:
+    the other side's operands of a head stay in shared memory while 2
+    operands x n rows x 64 x 2 bytes and two fp32 statistics a row fit a
+    CTA's 232,448 bytes in whole tiles of 64 rows; longer sequences are
+    staged.  Every ViT length of the repo is resident."""
+    per_row = 2 * 64 * 2 + 2 * 4
+    assert BWD_RESIDENT_MAX % 64 == 0 and BWD_RESIDENT_MAX * per_row <= 232448 < (BWD_RESIDENT_MAX + 64) * per_row
+    for n in range(1, 2000):
+        assert backward_branch(n) == ("resident" if n <= BWD_RESIDENT_MAX else "staged")
+    assert [backward_branch(n) for n in (17, 50, 77, 197, 257, 577, 832, 833, 1100)] == ["resident"] * 7 + ["staged"] * 2
+
+
+def test_check_alignment_refuses_a_misaligned_bf16_output_gradient():
+    """The bf16 backward copies rows of dO 16 bytes at a time: a dO that
+    starts 2 bytes into its storage, or whose row stride is no multiple of 8
+    elements, is refused by name; an aligned one and any fp32 tensor pass."""
+    b, n, d = 2, 5, 64
+    flat = torch.zeros(1 + b * n * d, dtype=torch.bfloat16)
+    shifted = flat[1:].view(b, n, d)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="bf16 do in 16-byte pieces"):
+        check_alignment("clip_mha_bwd_cuda", o=flat[:-1].view(b, n, d), do=shifted)
+    with pytest.raises(ValueError, match="bf16 do"):
+        check_alignment("clip_mha_bwd_cuda", do=torch.zeros(b, n, d + 4, dtype=torch.bfloat16)[..., :d])
+    check_alignment("clip_mha_bwd_cuda", o=flat[:-1].view(b, n, d), do=flat[:-1].view(b, n, d), dqkv=torch.zeros(b, n, 3 * d, dtype=torch.bfloat16))
+    check_alignment("clip_mha_bwd_cuda", do=torch.zeros(1 + b * n * d)[1:].view(b, n, d))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -4,6 +4,7 @@ clip_mha and the flash_mha attention, and the
 port's CLI, test and train, in a process where jax, jaxlib, flax, optax and
 orbax cannot be imported (the GPU machine has no flax, optax or orbax)."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -49,18 +50,25 @@ def _jax_eval(cfg, model, num_tasks, e):
     }
 
 
-def _slice_vs_jax(tmp_path, opts, want_logits_and_metrics):
+def _slice_vs_jax(tmp_path, opts, want_logits_and_metrics, npz=False):
     """The port's CLI with ``opts`` (CLIP weights from an OpenAI-format file,
-    head weights from a port checkpoint) against the JAX eval step's 4
-    episodes: top-1 / top-5 equal, loss and per-episode logits at 1e-4."""
+    head weights from a port checkpoint, or with ``npz`` from a weight
+    archive the JAX package wrote) against the JAX eval step's 4 episodes:
+    top-1 / top-5 equal, loss and per-episode logits at 1e-4."""
     cfg, arch, clip_vars, model, (want_logits, want) = want_logits_and_metrics
     head_sd = port_head_state(model, clip_vars)
     clip_path = tmp_path / "clip.pt"
     torch.save(openai_state_dict(head_sd, clip_vars["params"]["logit_scale"]), str(clip_path))
-    head = CLIPFSARHead(arch, CLIPFSARConfig.from_cfg(cfg))
-    head.load_state_dict({k: v for k, v in head_sd.items() if not k.startswith("text.")})
-    head_path = tmp_path / "head.pt"
-    save_checkpoint(str(head_path), head)
+    if npz:
+        from clip_fsar_tpu.train.pretrain import save_weights_npz
+
+        head_path = tmp_path / "head.npz"
+        save_weights_npz(str(head_path), jax.device_get(model.variables))
+    else:
+        head = CLIPFSARHead(arch, CLIPFSARConfig.from_cfg(cfg))
+        head.load_state_dict({k: v for k, v in head_sd.items() if not k.startswith("text.")})
+        head_path = tmp_path / "head.pt"
+        save_checkpoint(str(head_path), head)
     child = tmp_path / "slice.yaml"
     child.write_text(f"_BASE: {CONFIG}\nTRAIN:\n  CLIP_WEIGHTS: {clip_path}\n")
 
@@ -70,6 +78,7 @@ def _slice_vs_jax(tmp_path, opts, want_logits_and_metrics):
     ])["test_few_shot"]
 
     assert got["episodes"] == 4 and got["episode_logits"].shape == (4, 5, 5)
+    assert got["weights"] == str(head_path)
     np.testing.assert_allclose(got["episode_logits"], want_logits, atol=1e-4, rtol=1e-4)
     assert got["top1_acc"] == want["top1_acc"] and got["top5_acc"] == want["top5_acc"]
     np.testing.assert_allclose(got["loss"], want["loss"], atol=1e-4, rtol=1e-4)
@@ -81,9 +90,22 @@ def test_slice_matches_jax(tmp_path):
     step with TPU.ATTENTION_LAYOUT fused (clip_mha in Pallas interpret
     mode): same 4 episodes, top-1 / top-5 equal, loss and per-episode logits
     at 1e-4 (fp32)."""
+    _slice_vs_jax(tmp_path, ["TPU.ATTENTION_LAYOUT", "fused"], _fused_jax_slice())
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_jax_slice():
+    """The JAX tiny model with clip_mha and its eval step's 4 episodes, made once for the tests that share them."""
     cfg, arch, clip_vars, model = jax_tiny_model("fused")
-    want = _jax_eval(cfg, model, num_tasks=4, e=2)
-    _slice_vs_jax(tmp_path, ["TPU.ATTENTION_LAYOUT", "fused"], (cfg, arch, clip_vars, model, want))
+    return cfg, arch, clip_vars, model, _jax_eval(cfg, model, num_tasks=4, e=2)
+
+
+def test_slice_from_jax_npz_archive_matches_jax(tmp_path):
+    """The offline route for weights the JAX package trained: its
+    ``save_weights_npz`` archive of the tiny model's variables, named by
+    TEST.CHECKPOINT_FILE_PATH, is what the port tests (``weights`` names the
+    archive), and the logits are the JAX eval step's at 1e-4 (fp32)."""
+    _slice_vs_jax(tmp_path, ["TPU.ATTENTION_LAYOUT", "fused"], _fused_jax_slice(), npz=True)
 
 
 def test_pallas_slice_matches_jax(tmp_path):

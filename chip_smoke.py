@@ -32,17 +32,25 @@ and read just after.  Phases:
    attention at two shapes;
 5. K3 vs plain: ``flash_mha_cuda`` against ``flash_mha_reference`` (o and
    lse) at the same ViT shapes as head-split views of a packed projection and
-   at cross-attention shapes (Nq 128, Nk 256; Nq 100, Nk 300), fp32 and bf16,
+   at cross-attention shapes (Nq 128, Nk 256; Nq 100, Nk 300; Nq 300, Nk 100),
+   fp32 and bf16,
    causal and not (so rows that see one key and query blocks whose tiles are
    skipped past the diagonal), o and lse finite, the same bits on a second
    launch; timed at [320, 12, 197, 64] and [480, 12, 197, 64] bf16 like K1;
    then K1 and K3 timed on their tiled branch at the ViT-L/14 shapes
    [320, 257, 3072] and [320, 577, 3072] beside the library call and the bound;
-6. K4 / K5 vs plain: ``flash_mha_bwd_dq_cuda`` (with its delta pass) and
+6. K4 / K5 vs plain: ``flash_mha_bwd_dq_cuda`` (dq and delta) and
    ``flash_mha_bwd_dkv_cuda`` against their plain versions at the same
-   shapes, timed at the train chunk's [480, 12, 197, 64] bf16; and K3 + K4 +
-   K5 in fp32 against torch autograd of float64 softmax attention, causal
-   and not;
+   shapes, causal and not, and in bf16 also on both sides of the length up
+   to which the streamed operands stay in shared memory (832 / 833 rows, for
+   the keys of the dQ pass and the queries of the dK/dV pass, together and
+   one at a time), both branches of the tensor-core kernel by name; dq, dk,
+   dv and delta finite, the same bits on a second launch; timed at the train
+   chunk's [480, 12, 197, 64] bf16 beside their plain versions, the backward
+   of ``scaled_dot_product_attention``, their bounds and the times of the
+   scalar kernels they replaced (the script fails unless each is faster);
+   and K3 + K4 + K5 in fp32 against torch autograd of float64 softmax
+   attention, causal and not;
 6a. K6 / K7 vs plain: ``layer_norm_cuda`` and ``layer_norm_bwd_cuda`` against
    their plain versions at the slices' [63040, 768] and [94560, 768] bf16
    (timed at the latter) and at small ragged shapes in fp32 and bf16 with a
@@ -119,8 +127,8 @@ KERNEL_SHAPES = [(4, n, h, 64) for n in (50, 197, 257, 577) for h in (12, 16)] +
 KERNEL_SHAPES += [(4, 77, 8, 64), (2, 203, 4, 64), (2, 251, 4, 32), (2, 333, 3, 32), (1, 1100, 2, 64)]
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # atol = rtol: summation order (fp32); rounding of p, dS and the outputs (bf16)
 SLICE_SHAPE = (320, 197, 2304)  # test slice: E=4 episodes x 10 clips x 8 frames, N=197, 3*768
-# (B, H, Nq, Nk, Dh) for flash_mha: the same ViT shapes, and one cross-attention shape with Nq != Nk
-FLASH_SHAPES = [(b, h, n, n, dh) for b, n, h, dh in KERNEL_SHAPES] + [(2, 12, 128, 256, 64), (2, 3, 100, 300, 64)]
+# (B, H, Nq, Nk, Dh) for flash_mha: the same ViT shapes, and cross-attention shapes with Nq < Nk and Nq > Nk
+FLASH_SHAPES = [(b, h, n, n, dh) for b, n, h, dh in KERNEL_SHAPES] + [(2, 12, 128, 256, 64), (2, 3, 100, 300, 64), (2, 3, 300, 100, 32)]
 FLASH_OPTS = ["TPU.PALLAS_ATTENTION", "True"]
 
 # the train slice: the flagship's E = 4 and BATCH_SIZE_PER_TASK 4; 2 episode chunks so that the
@@ -145,8 +153,9 @@ TRAIN_OPTS = [
 ]
 # ms per launch of the scalar-FMA kernels that the tensor-core kernels replaced, by kernel and frames: what this
 # script read on an NVIDIA H100 80GB HBM3 at 700.00 W (bf16, N = 197, 12 heads of 64) at commit 8f41df3 (the
-# forwards) and at commit c522b25 (the clip_mha backward)
+# forwards), at commit c522b25 (the clip_mha backward) and at commit 74417cb (the flash_mha backward, K4 with its delta pass)
 EARLIER_MS = {"clip_mha_fwd": {320: 3.7873, 480: 5.6240}, "flash_mha_fwd": {320: 2.6949, 480: 4.0259}, "clip_mha_bwd": {480: 13.5792},
+              "flash_mha_bwd_dq": {480: 6.1392}, "flash_mha_bwd_dkv": {480: 7.6857},
               "clip_mha_decomp_matmul": {320: 2.5272}, "clip_mha_decomp_exp": {320: 2.6027}, "clip_mha_decomp_nomax": {320: 2.6050}}
 # norm-relative gradient error allowed between the kernel and the plain attention path in one bf16 train
 # step: each bf16 rounding is ~4e-3 relative, and the two paths round attention at different points
@@ -220,9 +229,10 @@ def _entry_name(mangled: str) -> str:
     import re
 
     if "backward_kernel" in mangled:
-        dh, kt, dkv, threads, min_blocks = re.findall(r"EL[ib](\d+)", mangled)[-5:]
-        return (f"attn_mma::backward_kernel Dh={dh} tile={16 * int(kt)} rows pass={'dK/dV' if int(dkv) else 'dQ'} "
-                f"threads={threads} min blocks per SM={min_blocks}")
+        dh, kt, dkv, causal, threads, min_blocks = re.findall(r"EL[ib](\d+)", mangled)[-6:]
+        tag = next((t for t in ("clip_mha_bwd", "flash_mha_bwd_dq", "flash_mha_bwd_dkv") if f"{t}_bf16" in mangled), "?")
+        return (f"attn_mma::backward_kernel<{tag}> Dh={dh} tile={16 * int(kt)} rows pass={'dK/dV' if int(dkv) else 'dQ'}"
+                f"{' causal' if int(causal) else ''} threads={threads} min blocks per SM={min_blocks}")
     if "forward_kernel" in mangled:
         dh, kt, mode, stage, threads, min_blocks = re.findall(r"ELi(\d+)", mangled)[-6:]
         return (f"attn_mma::forward_kernel Dh={dh} sub-tiles={kt} mode={('single', 'online', 'two-pass')[int(mode)]} "
@@ -482,7 +492,7 @@ def phase_tiled_branch_times() -> None:
 
 
 def phase_flash_bwd_vs_plain() -> tuple:
-    """K4 (with its delta pass) and K5 against their plain versions; returns the records of both."""
+    """K4 (dq and delta) and K5 (dk, dv) against their plain versions; returns the records of both."""
     from clip_fsar_torch.ops.flash_attention import (
         flash_mha,
         flash_mha_bwd_dkv_cuda,
@@ -491,6 +501,7 @@ def phase_flash_bwd_vs_plain() -> tuple:
         flash_mha_bwd_dq_reference,
         flash_mha_cuda,
     )
+    from clip_fsar_torch.ops.fused_attention import BWD_RESIDENT_MAX, backward_branch
 
     g = torch.Generator().manual_seed(3)
     worst_dq = worst_dkv = 0.0
@@ -501,7 +512,13 @@ def phase_flash_bwd_vs_plain() -> tuple:
         do = torch.empty_like(o).copy_(torch.randn(o.shape, generator=g))  # o's layout, as autograd hands it over
         return q, k, v, o, lse, do
 
-    for (b, h, nq, nk, dh), dtype, tol, causal in _flash_cases():
+    cases = list(_flash_cases())
+    # bf16: the last length the streamed side keeps in shared memory and the first it stages, for both passes
+    # at once, for the dQ pass alone (it streams the keys) and for the dK/dV pass alone (the queries)
+    m = BWD_RESIDENT_MAX
+    edge = [(1, 2, m, m, 64), (1, 2, m + 1, m + 1, 64), (1, 2, 100, m + 1, 64), (1, 2, m + 1, 100, 32)]
+    cases += [(shape, torch.bfloat16, TOLERANCE[torch.bfloat16], causal) for shape in edge for causal in (False, True)]
+    for (b, h, nq, nk, dh), dtype, tol, causal in cases:
         q, k, v, o, lse, do = inputs(b, h, nq, nk, dh, dtype, causal)
         dq, delta = flash_mha_bwd_dq_cuda(q, k, v, o, lse, do, causal)
         dk, dv = flash_mha_bwd_dkv_cuda(q, k, v, lse, delta, do, causal)
@@ -509,11 +526,20 @@ def phase_flash_bwd_vs_plain() -> tuple:
         ref_dq, ref_delta = flash_mha_bwd_dq_reference(q, k, v, o, lse, do, causal)
         ref_dk, ref_dv = flash_mha_bwd_dkv_reference(q, k, v, lse, ref_delta, do, causal)
         errs = [(got.float() - want.float()).abs().max().item() for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv))]
-        print(f"K4/K5 flash_mha_bwd [{b},{h},{nq},{nk},{dh}] {str(dtype)[6:]}{' causal' if causal else ''}: max|dq-ref| {errs[0]:.3e} "
-              f"max|dk-ref| {errs[1]:.3e} max|dv-ref| {errs[2]:.3e} max|delta-ref| {(delta - ref_delta).abs().max().item():.3e} (tol {tol})")
+        # the dQ pass streams the keys, the dK/dV pass the queries
+        branch = f"dQ {backward_branch(nk)}, dK/dV {backward_branch(nq)}" if dtype == torch.bfloat16 else "scalar kernels"
+        what = f"K4/K5 flash_mha_bwd [{b},{h},{nq},{nk},{dh}] {str(dtype)[6:]}{' causal' if causal else ''} ({branch})"
+        print(f"{what}: max|dq-ref| {errs[0]:.3e} max|dk-ref| {errs[1]:.3e} max|dv-ref| {errs[2]:.3e} "
+              f"max|delta-ref| {(delta - ref_delta).abs().max().item():.3e} (tol {tol})")
+        if not all(torch.isfinite(t.float()).all() for t in (dq, dk, dv, delta)):
+            raise AssertionError(f"{what}: dq, dk, dv or delta is not finite")
         torch.testing.assert_close(delta, ref_delta, atol=1e-4, rtol=1e-4)
         for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
             torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        again_dq, again_delta = flash_mha_bwd_dq_cuda(q, k, v, o, lse, do, causal)
+        again = (again_dq, again_delta, *flash_mha_bwd_dkv_cuda(q, k, v, lse, again_delta, do, causal))
+        if not all(torch.equal(x, y) for x, y in zip(again, (dq, delta, dk, dv))):
+            raise AssertionError(f"{what}: a second launch gave other bits")
         worst_dq, worst_dkv = max(worst_dq, errs[0]), max(worst_dkv, *errs[1:])
 
     b, n, _ = TRAIN_SHAPE
@@ -525,16 +551,30 @@ def phase_flash_bwd_vs_plain() -> tuple:
                                                lambda: flash_mha_bwd_dkv_reference(q, k, v, lse, delta, do))
     fwd_ms = _time_ms(lambda: flash_mha_cuda(q, k, v))
     shape = f"[{b},12,{n},64] bf16 (views of {list(TRAIN_SHAPE)})"
-    print(f"K4 flash_mha_bwd_dq (delta pass + dQ) {shape}: kernel {dq_all[0]:.4f} / {dq_all[1]:.4f} ms, plain {dq_all[2]:.4f} / {dq_all[3]:.4f} ms")
-    print(f"K5 flash_mha_bwd_dkv {shape}: kernel {dkv_all[0]:.4f} / {dkv_all[1]:.4f} ms, plain {dkv_all[2]:.4f} / {dkv_all[3]:.4f} ms")
-    print(f"K3 flash_mha_fwd {shape}: kernel {fwd_ms:.4f} ms ((K4 + K5) / K3 = {(dq_ms + dkv_ms) / fwd_ms:.2f})")
     # one library call computes dq, dk and dv together: its time stands beside K4 and beside K5, and is to be
     # held against their sum
     library_ms = _sdpa_bwd_ms([t.detach().requires_grad_(True) for t in (q, k, v)], do)
     dq_bound = _attention_bound(b, n, 12, 64, tensors_in=5, tensors_out=1, rows_fp32=2, products=3)  # q, k, v, o, do, lse -> dq, delta
     dkv_bound = _attention_bound(b, n, 12, 64, tensors_in=4, tensors_out=2, rows_fp32=2, products=4)  # q, k, v, do, lse, delta -> dk, dv
-    print(f"K4 + K5 {shape}: kernels {dq_ms + dkv_ms:.4f} ms, scaled_dot_product_attention backward (dq, dk, dv) {library_ms:.4f} ms; "
-          f"bounds K4 {dq_bound['bound_ms']:.4f} ms ({dq_bound['bound_by']}), K5 {dkv_bound['bound_ms']:.4f} ms ({dkv_bound['bound_by']})")
+    for name, what, ms, all_ms, bound in (("flash_mha_bwd_dq", "K4 flash_mha_bwd_dq (dq and delta)", dq_ms, dq_all, dq_bound),
+                                          ("flash_mha_bwd_dkv", "K5 flash_mha_bwd_dkv", dkv_ms, dkv_all, dkv_bound)):
+        earlier = EARLIER_MS[name][b]
+        print(f"{what} {shape}: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms (the scalar kernel it replaced: {earlier:.4f} ms, {earlier / ms:.1f}x), "
+              f"plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+              f"{100 * bound['bound_ms'] / ms:.1f} % of it reached)")
+        if not ms < earlier:
+            raise AssertionError(f"{name} {shape}: {ms:.4f} ms is no faster than the kernel it replaced ({earlier:.4f} ms)")
+    print(f"K3 flash_mha_fwd {shape}: kernel {fwd_ms:.4f} ms ((K4 + K5) / K3 = {(dq_ms + dkv_ms) / fwd_ms:.2f})")
+    print(f"K4 + K5 {shape}: kernels {dq_ms + dkv_ms:.4f} ms, scaled_dot_product_attention backward (dq, dk, dv) {library_ms:.4f} ms "
+          f"(kernels / library = {(dq_ms + dkv_ms) / library_ms:.2f})")
+    # the causal mask at the text tower's length: one CTA owns a (clip, head), so its late query blocks carry most of the work
+    both = {}
+    for causal in (True, False):
+        qc, kc, vc, oc, lsec, doc = inputs(b, 8, 77, 77, 64, torch.bfloat16, causal)
+        _, dc = flash_mha_bwd_dq_cuda(qc, kc, vc, oc, lsec, doc, causal)
+        both[causal] = _time_ms(lambda: (flash_mha_bwd_dq_cuda(qc, kc, vc, oc, lsec, doc, causal), flash_mha_bwd_dkv_cuda(qc, kc, vc, lsec, dc, doc, causal)))
+    print(f"K4 + K5 [{b},8,77,64] bf16: causal {both[True]:.4f} ms, not causal {both[False]:.4f} ms (causal / not = {both[True] / both[False]:.2f}; "
+          f"half the products are masked)")
 
     # the math, independently of the rounding replica: fp32 kernels vs autograd of float64 softmax attention
     for b, h, nq, nk, dh in ((4, 12, 197, 197, 64), (2, 12, 128, 256, 64)):
@@ -978,7 +1018,7 @@ def phase_train_step_paths() -> None:
         named = dict(model.head.named_parameters())
         grads = {n: named[n].grad.float().clone() for n in picked}
         grads["context2"] = torch.cat([p.grad.float().flatten() for n, p in named.items() if n.startswith("context2.")])
-        runs[path] = (metrics["loss"], grads)
+        runs[path] = (metrics["loss"].item(), grads)  # the one read, after the step's work is queued
         del model, named
         torch.cuda.empty_cache()
     loss_p, g_p = runs["plain"]

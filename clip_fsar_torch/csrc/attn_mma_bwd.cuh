@@ -1,15 +1,19 @@
 // Tensor-core attention backward for bf16 on sm_90a, built from the pieces of
 // attn_mma.cuh (cp.async staging into XOR-swizzled tiles, ldmatrix, mma.sync,
 // fragment-to-fragment packing).  clip_mha_bwd.cu instantiates it for the
-// backward of clip_mha; it is what replaces, for bf16, the Pallas TPU kernel
-// clip_fsar_tpu/ops/fused_attention.py: _bwd_kernel.  The tile bodies read and
-// write through batch, head and sequence strides (unit stride on Dh), so a
-// backward on head-split views can be put on them as well.  fp32 inputs do not
-// come here: the tensor cores have no fp32 product.
+// backward of clip_mha on the packed projection, flash_mha_bwd.cu for the two
+// backward kernels of flash_mha on head-split views (cross-attention and the
+// causal mask included); it is what replaces, for bf16, the Pallas TPU kernels
+// clip_fsar_tpu/ops/fused_attention.py: _bwd_kernel and
+// clip_fsar_tpu/ops/flash_attention.py: _bwd_dq_kernel, _bwd_dkv_kernel.  The
+// body reads and writes through batch, head and sequence strides (unit stride
+// on Dh) and keeps Nq and Nk apart.  fp32 inputs do not come here: the tensor
+// cores have no fp32 product.
 //
 // The function, per clip b and head h (scale = Dh^-1/2, T = bf16):
 //
-//   S = q k^T * scale, P = exp(S - LSE)       (fp32; LSE saved by the forward)
+//   S = q k^T * scale, P = exp(S - LSE)       (fp32; LSE saved by the forward;
+//   with CAUSAL, P = 0 where key j > query i, absolute indices, top-left aligned)
 //   delta = rowsum(dO o O)                     (fp32 products of T values)
 //   dP = dO v^T                                (fp32)
 //   dS = round_T(P o (dP - delta))             (rounded once, used for dq and dk)
@@ -55,6 +59,14 @@
 //     P is set to 0 for the dead columns explicitly (LSE and delta are not
 //     defined there: exp(0 - LSE) * 0 must not become NaN).  Dead rows of the
 //     warp's own last block are computed and not stored;
+//   * CAUSAL is a template flag, so the kernels without it carry no test.  With
+//     it, whole tiles on the dead side of the diagonal are left out by the
+//     bounds of the tile loop (the dQ pass stops after the tile of its block's
+//     last query, the dK/dV pass starts at the tile of its block's first key;
+//     a staged block still takes part in every stage's load), and in the tiles
+//     that cross the diagonal P is set to 0 per element: P, not S, for the
+//     reason of the dead columns.  One CTA still owns a whole (clip, head), so
+//     its late query blocks (early key blocks) carry most of the work;
 //   * one CTA per (clip, head) while the streamed operands of the head fit in
 //     shared memory (kBwdResidentMax rows), its warps walking the 16-row blocks
 //     with no block-wide synchronisation after the load; longer sequences are
@@ -77,6 +89,7 @@ struct BwdParams {
   float* delta;      // [B, H, Nq]: written by the dQ pass, read by the dK/dV pass
   Strides qs, ks, os, dqs, dks;  // of q; k and v; o and dO; dq; dk and dv
   int heads, nq, nk;
+  int causal;          // read by the launchers only: the kernels take it as a template flag
   int stage_rows;      // streamed rows in shared memory at a time, a multiple of the tile
   int blocks_per_cta;  // 16-row blocks of its own side a CTA walks
   float scale;
@@ -125,7 +138,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, int64_t stride, c
 
 // ---- the kernel body: the dQ pass (DKV = false) or the dK/dV pass (DKV = true) ----
 
-template <int DH, int KT, bool DKV>
+template <int DH, int KT, bool DKV, bool CAUSAL>
 __device__ __forceinline__ void backward(const BwdParams& p) {
   extern __shared__ __align__(128) unsigned char attn_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
@@ -222,13 +235,19 @@ __device__ __forceinline__ void backward(const BwdParams& p) {
 
     for (int s = 0; s < n_stages; ++s) {
       if (!resident) load_stage(s);
-      const int lo = s * p.stage_rows, hi = min(lo + p.stage_rows, n_str);
+      int lo = s * p.stage_rows, hi = min(lo + p.stage_rows, n_str);
+      const int stage_lo = lo;  // the stage's first row: what the shared tiles' row 0 holds
+      if (CAUSAL) {  // whole tiles on the dead side of the diagonal
+        if (DKV) lo = max(lo, r0 / (16 * KT) * (16 * KT));  // queries before the block's first key see none of its keys
+        else hi = min(hi, r0 + 16);                         // keys after the block's last query are seen by none of its rows
+      }
       for (int c0 = lo; c0 < hi; c0 += 16 * KT) {
-        const uint32_t offset = (uint32_t)(c0 - lo) * DH * 2;
+        const uint32_t offset = (uint32_t)(c0 - stage_lo) * DH * 2;
         float x[2 * KT][4], y[2 * KT][4];
         tile_product<DH, KT>(x, a1, at1.k, offset);  // S or S^T, before the scale
         tile_product<DH, KT>(y, a2, at2.k, offset);  // dP or dP^T
         const bool edge = c0 + 16 * KT > n_str;      // the one tile with dead streamed rows
+        const bool diag = CAUSAL && (DKV ? c0 < r0 + 15 : c0 + 16 * KT - 1 > r0);  // a tile that crosses the diagonal
 #pragma unroll
         for (int kk = 0; kk < KT; ++kk) {
           uint32_t dsa[4], pa[4];  // A fragments of dS (or dS^T) and of P^T over these 16 streamed rows
@@ -237,8 +256,8 @@ __device__ __forceinline__ void backward(const BwdParams& p) {
             const int col = c0 + 16 * kk + 8 * j + 2 * t;  // streamed row of elements 0 and 2; 1 and 3 are the next
             float2 nl = make_float2(0.f, 0.f), dl = nl;
             if (DKV) {
-              nl = *reinterpret_cast<const float2*>(nls + (col - lo));
-              dl = *reinterpret_cast<const float2*>(dls + (col - lo));
+              nl = *reinterpret_cast<const float2*>(nls + (col - stage_lo));
+              dl = *reinterpret_cast<const float2*>(dls + (col - stage_lo));
             }
             float pv[4], ds[4];
 #pragma unroll
@@ -247,6 +266,10 @@ __device__ __forceinline__ void backward(const BwdParams& p) {
               const float del = DKV ? ((e & 1) ? dl.y : dl.x) : ((e >> 1) ? dl1 : dl0);
               float pe = ex2(fmaf(x[2 * kk + j][e], c, neg));
               if (edge && col + (e & 1) >= n_str) pe = 0.f;
+              if (CAUSAL) {  // own row r0 + g (+ 8) against streamed row col (+ 1): key j is dead for query i when j > i
+                const int own = r0 + g + 8 * (e >> 1), str = col + (e & 1);
+                if (diag && (DKV ? str < own : str > own)) pe = 0.f;
+              }
               pv[e] = pe;
               ds[e] = pe * (y[2 * kk + j][e] - del);
             }
@@ -309,15 +332,47 @@ BwdParams packed_bwd_params(const void* qkv, const void* o, const void* dout, co
   return p;
 }
 
-// TAG only names the instantiations of one source file, so a profile tells the files' kernels apart.
-template <typename TAG, int DH, int KT, bool DKV, int THREADS, int MIN_BLOCKS>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) backward_kernel(const BwdParams p) {
-  backward<DH, KT, DKV>(p);
+// Attention backward on head-split views: q, o, dout, dq [B, H, Nq, Dh] and k, v, dk, dv [B, H, Nk, Dh], each
+// found by its own batch, head and sequence strides (k's are v's, o's are dout's, dk's are dv's), lse and delta
+// [B, H, Nq].  The dQ pass reads no dk or dv and the dK/dV pass no o or dq: a pass is given null for those.
+template <int DH>
+BwdParams split_bwd_params(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+                           void* delta, void* dq, void* dk, void* dv, int heads, int nq, int nk, int causal, Strides qs,
+                           Strides ks, Strides os, Strides dqs, Strides dks) {
+  BwdParams p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.qs = qs;
+  p.ks = ks;
+  p.os = os;
+  p.dqs = dqs;
+  p.dks = dks;
+  p.heads = heads;
+  p.nq = nq;
+  p.nk = nk;
+  p.causal = causal;
+  p.scale = (float)(1.0 / sqrt((double)DH));
+  return p;
 }
 
-template <typename TAG, int DH, int KT, bool DKV, int THREADS, int MIN_BLOCKS>
+// TAG only names the instantiations of one source file (and of one pass, where a file wants its passes told
+// apart), so a profile tells the kernels apart.
+template <typename TAG, int DH, int KT, bool DKV, bool CAUSAL, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) backward_kernel(const BwdParams p) {
+  backward<DH, KT, DKV, CAUSAL>(p);
+}
+
+template <typename TAG, int DH, int KT, bool DKV, bool CAUSAL, int THREADS, int MIN_BLOCKS>
 int launch_pass(BwdParams p, int batch, cudaStream_t stream) {
-  auto kernel = backward_kernel<TAG, DH, KT, DKV, THREADS, MIN_BLOCKS>;
+  auto kernel = backward_kernel<TAG, DH, KT, DKV, CAUSAL, THREADS, MIN_BLOCKS>;
   constexpr int kTile = 16 * KT;  // streamed rows are staged in whole tiles, zero-filled past their length
   static_assert(kBwdResidentMax % kTile == 0, "a stage holds whole tiles");
   const int n_own = DKV ? p.nk : p.nq, n_str = DKV ? p.nq : p.nk;
@@ -333,21 +388,22 @@ int launch_pass(BwdParams p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The dQ pass (which also writes delta), then the dK/dV pass, on one stream.  The launch shape follows from
-// the lengths alone.  Up to kSingleBlockMax rows: tiles of 16 streamed rows (X and Y are 16 registers, and 208
-// staged rows hold N = 197), three CTAs an SM; the dQ pass with 5 warps (13 row blocks make 3 rounds with 2
-// idle slots), the dK/dV pass, which holds two accumulators and wants 168 registers, with 4.  Above: tiles of
-// 32, 8 warps, one CTA an SM.  Picked by timing the passes at [480, 197, 2304] and [64, 577, 3072] over tiles of
-// 16, 32 and 64 rows and 2 to 16 warps a CTA.
+// One pass in the launch shape that follows from the lengths alone.  Up to kSingleBlockMax rows: tiles of 16
+// streamed rows (X and Y are 16 registers, and 208 staged rows hold N = 197), three CTAs an SM; the dQ pass with
+// 5 warps (13 row blocks make 3 rounds with 2 idle slots), the dK/dV pass, which holds two accumulators and
+// wants 168 registers, with 4.  Above: tiles of 32, 8 warps, one CTA an SM.  Picked by timing the passes at
+// [480, 197, 2304] and [64, 577, 3072] over tiles of 16, 32 and 64 rows and 2 to 16 warps a CTA.
+template <typename TAG, int DH, bool DKV, bool CAUSAL>
+int launch_shaped(const BwdParams& p, int batch, cudaStream_t stream) {
+  if ((p.nq > p.nk ? p.nq : p.nk) <= kSingleBlockMax) return launch_pass<TAG, DH, 1, DKV, CAUSAL, DKV ? 128 : 160, 3>(p, batch, stream);
+  return launch_pass<TAG, DH, 2, DKV, CAUSAL, 256, 1>(p, batch, stream);
+}
+
+// The dQ pass (which also writes delta), then the dK/dV pass, on one stream, without the causal mask.
 template <typename TAG, int DH>
 int launch_backward(const BwdParams& p, int batch, cudaStream_t stream) {
-  int err;
-  if ((p.nq > p.nk ? p.nq : p.nk) <= kSingleBlockMax) {
-    err = launch_pass<TAG, DH, 1, false, 160, 3>(p, batch, stream);
-    return err ? err : launch_pass<TAG, DH, 1, true, 128, 3>(p, batch, stream);
-  }
-  err = launch_pass<TAG, DH, 2, false, 256, 1>(p, batch, stream);
-  return err ? err : launch_pass<TAG, DH, 2, true, 256, 1>(p, batch, stream);
+  const int err = launch_shaped<TAG, DH, false, false>(p, batch, stream);
+  return err ? err : launch_shaped<TAG, DH, true, false>(p, batch, stream);
 }
 
 }  // namespace attn_mma

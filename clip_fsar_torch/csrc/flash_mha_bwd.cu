@@ -21,15 +21,28 @@
 // each, the layout the head split's backward reads without a copy).  lse
 // and delta are fp32 [B, H, Nq].
 //
-// What bounds it on an H100: per (clip, head) about seven N x N x Dh
-// products (S and dP in both kernels, dq, dk, dv) on 5*N*Dh values -- at
-// N = 197 far from the HBM bound, so like K2 (clip_mha_bwd.cu) it is bound
-// by the scalar fp32 FMA rate, latency and occupancy.  This first version is
-// simple and exact rather than fast: scalar fp32 FMAs out of shared memory,
-// no tensor cores.
+// bf16, the type the models run in, goes to the tensor cores: attn_mma_bwd.cuh
+// holds that kernel, what bounds it, and the note on its design.  The two
+// entry points below are its two passes, one to one: flash_mha_bwd_dq is the
+// dQ pass (a warp owns 16 query rows with q and dO as A fragments from global
+// memory, k and v of the head in swizzled shared memory by cp.async; it also
+// forms delta from the dO fragments it holds and O's and writes it, so there
+// is no delta kernel), flash_mha_bwd_dkv the dK/dV pass (a warp owns 16 key
+// rows, q and dO stream, LSE and delta staged beside them).  All seven
+// products are mma.sync, P comes from one ex2.approx, dS and P^T go from
+// accumulator fragment to A fragment (the packing is the rounding above), and
+// the causal mask is a template flag of the body: whole tiles past the
+// diagonal are skipped and P is set to 0 per element in the tiles across it.
 //
-// Design -- blocks run in no order, so nothing is accumulated across blocks
-// and nothing uses atomics (FlashAttention-2's split, as on the TPU):
+// fp32 keeps the exact kernels below: the tensor cores have no fp32 product,
+// and the fp32 checks against float64 autograd need all of fp32.  They are
+// simple rather than fast, scalar FMAs out of shared memory; per (clip, head)
+// seven N x N x Dh products on 5*N*Dh values, so at N = 197 far from the HBM
+// bound and bound by the fp32 FMA rate, latency and occupancy.
+//
+// Design of the fp32 kernels -- blocks run in no order, so nothing is
+// accumulated across blocks and nothing uses atomics (FlashAttention-2's
+// split, as on the TPU):
 //   1. delta pass: one warp per (clip, head, query row) writes delta into
 //      fp32 scratch the wrapper allocates (the JAX package computes it
 //      outside its kernels);
@@ -46,23 +59,27 @@
 //   Masked entries are P = 0, which is exp(-1e30 - LSE) on the TPU.  Each
 //   kernel writes only its own rows, so the result does not depend on the
 //   run.  Nothing is allocated and nothing synchronises inside; all run on
-//   the stream they are given.
+//   the stream they are given.  In both types delta is fp32 [B, H, Nq],
+//   written by the dq entry and read by the dkv entry after it on the same
+//   stream.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma_bwd.cuh"
 #include "clip_mha_tile.cuh"
 
 namespace {
 
 using namespace clip_mha;
+using attn_mma::Strides;  // batch, head and sequence strides in elements; Dh has stride 1
+
+// name this file's instantiations of attn_mma::backward_kernel, one tag a pass, so a profile tells K4 and K5 apart
+struct flash_mha_bwd_dq_bf16 {};
+struct flash_mha_bwd_dkv_bf16 {};
 
 constexpr int kWarps = kThreads / 32;
-
-struct Strides {  // batch, head and sequence strides in elements; Dh has stride 1
-  int64_t b, h, n;
-};
 
 // delta[(b*H + h)*Nq + i] = sum_c dO[b, h, i, c] * O[b, h, i, c], one warp per row.
 template <typename T, int DH>
@@ -297,12 +314,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+// bf16: one tensor-core pass (DKV false: dq and delta; true: dk and dv) on the head-split views.
+template <typename TAG, int DH, bool DKV>
+int launch_mma(const attn_mma::BwdParams& p, int b, cudaStream_t stream) {
+  return p.causal ? attn_mma::launch_shaped<TAG, DH, DKV, true>(p, b, stream) : attn_mma::launch_shaped<TAG, DH, DKV, false>(p, b, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides in elements: q's, k's and v's
 // (shared), o's and dO's (shared), the output's.  delta: fp32 scratch of
 // B*H*Nq floats, written here and read by flash_mha_bwd_dkv after it on the
-// same stream.  Returns a cudaError_t (0 = the delta pass and K4 launched).
+// same stream.  Returns a cudaError_t (0 = K4 launched; in fp32 the delta pass before it too).
 extern "C" int flash_mha_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                 const void* lse, void* delta, void* dq, int b, int heads, int nq, int nk, int dh,
                                 int dtype, int causal, int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t kv_sb,
@@ -310,12 +333,16 @@ extern "C" int flash_mha_bwd_dq(const void* q, const void* k, const void* v, con
                                 int64_t dq_sh, int64_t dq_sn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qst{q_sb, q_sh, q_sn}, kvst{kv_sb, kv_sh, kv_sn}, ost{o_sb, o_sh, o_sn}, dqst{dq_sb, dq_sh, dq_sn};
+#define FLASH_DQ_MMA(DH)                                                                                                      \
+  launch_mma<flash_mha_bwd_dq_bf16, DH, false>(attn_mma::split_bwd_params<DH>(q, k, v, o, dout, lse, delta, dq, nullptr, nullptr, \
+                                                                              heads, nq, nk, causal, qst, kvst, ost, dqst, Strides{}), b, s)
 #define FLASH_DQ(T, DH) launch_dq<T, DH>(q, k, v, o, dout, lse, delta, dq, b, heads, nq, nk, causal, qst, kvst, ost, dqst, s)
-  if (dtype == 1 && dh == 64) return FLASH_DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && dh == 32) return FLASH_DQ(__nv_bfloat16, 32);
+  if (dtype == 1 && dh == 64) return FLASH_DQ_MMA(64);
+  if (dtype == 1 && dh == 32) return FLASH_DQ_MMA(32);
   if (dtype == 0 && dh == 64) return FLASH_DQ(float, 64);
   if (dtype == 0 && dh == 32) return FLASH_DQ(float, 32);
 #undef FLASH_DQ
+#undef FLASH_DQ_MMA
   return (int)cudaErrorInvalidValue;
 }
 
@@ -328,12 +355,17 @@ extern "C" int flash_mha_bwd_dkv(const void* q, const void* k, const void* v, co
                                  int64_t dkv_sb, int64_t dkv_sh, int64_t dkv_sn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qst{q_sb, q_sh, q_sn}, kvst{kv_sb, kv_sh, kv_sn}, ost{o_sb, o_sh, o_sn}, dkvst{dkv_sb, dkv_sh, dkv_sn};
+#define FLASH_DKV_MMA(DH)                                                                                                  \
+  launch_mma<flash_mha_bwd_dkv_bf16, DH, true>(                                                                            \
+      attn_mma::split_bwd_params<DH>(q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk, dv, heads, nq, nk, causal, qst, \
+                                     kvst, ost, Strides{}, dkvst), b, s)
 #define FLASH_DKV(T, DH) \
   launch_dkv<T, DH>(q, k, v, dout, lse, delta, dk, dv, b, heads, nq, nk, causal, qst, kvst, ost, dkvst, s)
-  if (dtype == 1 && dh == 64) return FLASH_DKV(__nv_bfloat16, 64);
-  if (dtype == 1 && dh == 32) return FLASH_DKV(__nv_bfloat16, 32);
+  if (dtype == 1 && dh == 64) return FLASH_DKV_MMA(64);
+  if (dtype == 1 && dh == 32) return FLASH_DKV_MMA(32);
   if (dtype == 0 && dh == 64) return FLASH_DKV(float, 64);
   if (dtype == 0 && dh == 32) return FLASH_DKV(float, 32);
 #undef FLASH_DKV
+#undef FLASH_DKV_MMA
   return (int)cudaErrorInvalidValue;
 }

@@ -23,9 +23,10 @@ import itertools
 import math
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from clip_fsar_torch.data.transforms import normalize_images, standardize
+from clip_fsar_torch.data.transforms import device_constant, normalize_images, standardize
 
 _LUMA = (0.299, 0.587, 0.114)  # ITU-R 601-2
 
@@ -84,10 +85,14 @@ def check_supported(cfg) -> None:
         raise NotImplementedError("AUGMENTATION.RANDOM_ERASING is not ported yet: ROADMAP Queue 1, train slice leftovers (random erasing)")
 
 
-def draw_jitter(generator: torch.Generator, n: int, t: int, jc: JitterConfig, device=None) -> JitterDraws:
+def draw_jitter(generator: torch.Generator, n: int, t: int, jc: JitterConfig, device=None, stream: int = 0) -> JitterDraws:
     """Every random number of one ``color_jitter_batch`` call, from
     ``generator`` (on ``device``): uniform factors in [max(0, 1-v), 1+v]
-    (hue in [-v, v]), the op-order index, and the grayscale flags."""
+    (hue in [-v, v]), the op-order index, and the grayscale flags.  The
+    order index picks python code, so it is drawn on the host, from the
+    generator's seed and ``stream`` (which tells the calls that share one
+    generator apart): reading it back from the device would make every
+    train step wait for the one before."""
     shape = (n, 1, 1, 1, 1) if jc.consistent else (n, t, 1, 1, 1)
 
     def unif(lo: float, hi: float, size) -> torch.Tensor:
@@ -98,7 +103,7 @@ def draw_jitter(generator: torch.Generator, n: int, t: int, jc: JitterConfig, de
     s_f = unif(max(0.0, 1.0 - jc.saturation), 1.0 + jc.saturation, shape)
     h_f = unif(-jc.hue, jc.hue, shape[:-1])
     num_orders = math.factorial(len(jc.active()))  # permutations of the active ops
-    order = int(torch.randint(num_orders, (1,), generator=generator, device=device).item())
+    order = int(np.random.default_rng((generator.initial_seed(), stream)).integers(num_orders))
     gray = torch.rand((n, 1, 1, 1, 1), generator=generator, device=device) < jc.grayscale
     return JitterDraws(b_f, c_f, s_f, h_f, order, gray)
 
@@ -109,7 +114,7 @@ def _blend(a: torch.Tensor, b: torch.Tensor, ratio: torch.Tensor) -> torch.Tenso
 
 def _grayscale_cf(img: torch.Tensor) -> torch.Tensor:
     """Luma of channel-first [..., 3, H, W], broadcast back to 3 channels."""
-    w = torch.tensor(_LUMA, dtype=img.dtype, device=img.device)[:, None, None]
+    w = device_constant(tuple(_LUMA), img.dtype, img.device)[:, None, None]
     return (img * w).sum(dim=-3, keepdim=True).expand(img.shape)
 
 
@@ -182,5 +187,5 @@ def fewshot_train_augment(
     if generator is None or not (is_query or bool(aug.get("COLOR_AUG", False))):
         return normalize_images(clips, mean, std)
     jc = JitterConfig.from_cfg(cfg)
-    draws = draw_jitter(generator, clips.shape[0], clips.shape[1], jc, device=clips.device)
+    draws = draw_jitter(generator, clips.shape[0], clips.shape[1], jc, device=clips.device, stream=int(is_query))
     return standardize(color_jitter_batch(clips.float() / 255.0, draws, jc), mean, std)

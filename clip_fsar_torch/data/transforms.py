@@ -9,6 +9,7 @@ identical.  ``RESIZE_CALLS`` counts which of the two the loaders took.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -100,10 +101,19 @@ def fewshot_test_transform(frames: np.ndarray, cfg) -> np.ndarray:
     return _fused_resize_crop(frames, nh, nw, (nh - size) // 2, (nw - size) // 2, size, flip=False)
 
 
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once and kept (every caller
+    gets the same tensor: read it, never write to it): a tensor built from
+    python numbers reaches a card by a copy from pageable memory, which waits
+    for everything the card has queued."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def standardize(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
     """Device-side: float [..., 3] in [0, 1] -> (x - mean) / std."""
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    mean_t = device_constant(tuple(float(v) for v in mean), torch.float32, x.device)
+    std_t = device_constant(tuple(float(v) for v in std), torch.float32, x.device)
     return (x - mean_t) / std_t
 
 

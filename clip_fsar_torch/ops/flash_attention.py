@@ -10,9 +10,12 @@ It is a ``torch.autograd.Function`` that keeps (q, k, v, o, lse), as the JAX
 tensor-core kernel of ``csrc/attn_mma.cuh`` over the key blocks of
 ``_auto_block``: one block up to 256 keys, blocks of 128 above) and the
 backward K4 then K5 (``csrc/flash_mha_bwd.cu``, ports of ``_bwd_dq_kernel``
-and ``_bwd_dkv_kernel``); on a CPU tensor they run ``flash_mha_reference``
-and ``flash_mha_bwd_reference``, the same functions in plain torch.  There
-is no fallback from a kernel to its plain version.  An additive ``mask``
+and ``_bwd_dkv_kernel``; in bf16 the two passes of the tensor-core backward
+``csrc/attn_mma_bwd.cuh``, the dQ pass forming delta itself, the causal mask
+a template flag of its body; in fp32 a delta pass and two exact scalar
+kernels); on a CPU tensor they run ``flash_mha_reference`` and
+``flash_mha_bwd_reference``, the same functions in plain torch.  There is
+no fallback from a kernel to its plain version.  An additive ``mask``
 sends the call to the plain ``mha``, as the JAX function sends it to XLA.
 
 The kernels read q, k and v by their batch, head and sequence strides (unit
@@ -201,12 +204,14 @@ def _bwd_args(q, k, v, do, dh: int, causal: bool) -> tuple:
 
 
 def flash_mha_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the delta pass and K4: returns (dq, delta) like
-    flash_mha_bwd_dq_reference, dq as a view of a [B, Nq, H, Dh] buffer.
-    Raises on any input the kernels do not take."""
+    """Launch K4 (in bf16 it forms delta itself, in fp32 a delta pass runs
+    before it): returns (dq, delta) like flash_mha_bwd_dq_reference, dq as a
+    view of a [B, Nq, H, Dh] buffer.  Raises on any input the kernels do not
+    take."""
     dh = _check_bwd(q, k, v, lse, do, o)
     b, h, nq, _ = q.shape
     dq = _heads_last(b, h, nq, dh, q)
+    check_alignment("flash_mha_bwd_dq_cuda", q=q, k=k, v=v, o=o, do=do, dq=dq)
     delta = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, delta
@@ -229,6 +234,7 @@ def flash_mha_bwd_dkv_cuda(q, k, v, lse, delta, do, causal: bool = False) -> Tup
         raise ValueError(f"delta must be a contiguous float32 tensor of shape {tuple(lse.shape)} on {q.device}")
     b, h, _, _ = q.shape
     dk, dv = _heads_last(b, h, k.shape[2], dh, k), _heads_last(b, h, k.shape[2], dh, v)
+    check_alignment("flash_mha_bwd_dkv_cuda", q=q, k=k, v=v, do=do, dk=dk, dv=dv)
     if dk.numel() == 0 or q.shape[2] == 0:
         return dk.zero_(), dv.zero_()
     lib = _build.library()
@@ -242,7 +248,7 @@ def flash_mha_bwd_dkv_cuda(q, k, v, lse, delta, do, causal: bool = False) -> Tup
 
 
 def flash_mha_bwd_cuda(q, k, v, o, lse, do, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K4 (with the delta pass) and then K5: returns (dq, dk, dv)
+    """Launch K4 (which leaves delta) and then K5: returns (dq, dk, dv)
     like flash_mha_bwd_reference."""
     dq, delta = flash_mha_bwd_dq_cuda(q, k, v, o, lse, do, causal)
     return (dq, *flash_mha_bwd_dkv_cuda(q, k, v, lse, delta, do, causal))

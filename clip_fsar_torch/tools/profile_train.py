@@ -1,6 +1,7 @@
 """Where the time of the few-shot train slice goes on a CUDA card.
 
     python -m clip_fsar_torch.tools.profile_train [--out chiprun_out/profile_train.txt]
+        [--paths fused,pallas] [--readings 1] [--loop-steps 18] [--no-loader] [--loop-only]
 
 The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with
 a ViT-B/16 tower at full width (fresh weights from the seed), the synthetic
@@ -16,20 +17,27 @@ with the tag of its reading set:
   the environment for the one-thread reading);
 - ``step[<path> #i]``: one batch resident on the card, the whole train step
   (augmentation, forward and backward of both chunks, the optimizer's
-  micro-step) timed with CUDA events, three timings of 4 steps;
+  micro-step) timed with CUDA events, three timings of 4 steps, and beside
+  each the host's time to queue a step (the launch thread alone: the step
+  reads nothing back, so the host clock stops before the card does);
 - ``kernels[<path> #i]``: ``torch.profiler`` over two such steps: device time
   per kernel name (device events only), grouped into the attention forward
-  kernel / backward kernels (``clip_mha_bwd``, or ``flash_mha_bwd_dq`` with
-  its delta pass and ``flash_mha_bwd_dkv``) / GEMM / softmax / memcpy /
-  other, the wall time, and the busy share of the wall;
-- ``loop[<path> #i]``: ``train_few_shot`` over 6 steps (no validation) under
-  the profiler: wall seconds of the step loop, device busy time (the union of
+  kernel / backward kernels (``clip_mha_bwd``, or ``flash_mha_bwd_dq``, which
+  in bf16 forms delta itself, and ``flash_mha_bwd_dkv``) / GEMM / softmax /
+  memcpy / other, the wall time, and the busy share of the wall;
+- ``loop[<path> #i]``: ``train_few_shot`` over 6 steps (no validation), first
+  as it runs for a user (wall seconds of the step loop and train episodes/s),
+  then under the profiler: wall seconds, device busy time (the union of
   device-event intervals) and idle share, peak device memory.
 
 ``<path>`` is ``fused`` (the clip_mha kernels), ``split`` (plain attention
 with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
-kernels), run in the order fused, split, pallas, fused, split, pallas.
-Exits non-zero without a CUDA device.
+kernels), run in the order fused, split, pallas, fused, split, pallas;
+``--paths`` picks some of them, ``--readings`` how often and ``--loop-steps``
+the loops' length, ``--no-loader`` leaves the loader readings
+out and ``--loop-only`` the ``step`` and ``kernels`` readings.  Metrics are
+never read inside a timed window: the train step returns them on the device
+and these readings do not fetch them.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -82,12 +90,12 @@ def time_loader(steps: int = STEPS) -> None:
     profile_eval.restore_resize()
 
 
-def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
+def profile_step(path: str, reading: int, steps: int = STEPS) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from clip_fsar_torch.data.loader import build_few_shot_loader
     from clip_fsar_torch.models.builder import build_few_shot_model
-    from clip_fsar_torch.train.loop import step_generator, train_few_shot
+    from clip_fsar_torch.train.loop import step_generator
     from clip_fsar_torch.train.optimizer import Optimizer
     from clip_fsar_torch.train.state import TrainState
     from clip_fsar_torch.train.step import make_train_step
@@ -104,17 +112,19 @@ def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
     torch.cuda.synchronize()
 
     tag = f"step[{path} #{reading}]"
-    readings = []
+    readings, queued = [], []
     for _ in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(steps):
             train_step(state, batch, 1e-6, gen)
+        queued.append((time.perf_counter() - t0) * 1e3 / steps)  # the step reads nothing back: this is the launch thread alone
         end.record()
         torch.cuda.synchronize()
         readings.append(start.elapsed_time(end) / steps)
     say(f"{tag}: batch resident, {EPISODES * 240} frames in 2 chunks, ms per train step over {steps} steps: "
-        + " / ".join(f"{ms:.3f}" for ms in readings))
+        + " / ".join(f"{ms:.3f}" for ms in readings) + "; the host queued a step in " + " / ".join(f"{ms:.3f}" for ms in queued) + " ms")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -126,10 +136,21 @@ def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
     del model, state, train_step, batch
     torch.cuda.empty_cache()
 
+
+def profile_loop(path: str, reading: int, steps: int = 6) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from clip_fsar_torch.train.loop import train_few_shot
+
     tag = f"loop[{path} #{reading}]"
+    with tempfile.TemporaryDirectory() as out_dir:
+        stats = train_few_shot(train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir))
+    say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s without the profiler, "
+        f"{stats['steps'] * EPISODES / stats['seconds']:.3f} train episodes/s")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
-        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", "6", "OUTPUT_DIR", out_dir)
+        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             stats = train_few_shot(loop_cfg)
             torch.cuda.synchronize()
@@ -144,6 +165,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also append every line to this file")
     ap.add_argument("--loader-only", action="store_true", help="time the host loader and stop")
+    ap.add_argument("--no-loader", action="store_true", help="leave the host loader's readings out")
+    ap.add_argument("--loop-only", action="store_true", help="leave the step and kernels readings out")
+    ap.add_argument("--paths", default=",".join(PATHS), help="comma-separated attention paths to read, of " + ", ".join(PATHS))
+    ap.add_argument("--loop-steps", type=int, default=6, help="steps of each train loop (two lengths tell the loop's start from its steady step)")
+    ap.add_argument("--readings", type=int, default=2, help="times the chosen paths are read, in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: torch sees no CUDA device; this script measures the card only")
@@ -153,12 +179,18 @@ def main(argv=None) -> None:
     runtime.device("cuda")
     say(card())
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    time_loader()
+    from clip_fsar_torch.ops import _build
+
+    _build.library()  # built before any reading, so no loop's seconds hold the compile
+    if not args.no_loader:
+        time_loader()
     if args.loader_only:
         return
-    for reading in (1, 2):
-        for path in PATHS:
-            profile_path(path, reading)
+    for reading in range(1, args.readings + 1):
+        for path in args.paths.split(","):
+            if not args.loop_only:
+                profile_step(path, reading)
+            profile_loop(path, reading, args.loop_steps)
 
 
 if __name__ == "__main__":

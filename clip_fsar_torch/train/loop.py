@@ -5,6 +5,10 @@ Iteration accounting as in the JAX package: one step consumes
 TPU.EPISODES_PER_STEP episodes and corresponds to one reference iteration,
 so the LR schedule, VAL_FRE_ITER and NUM_TRAIN_TASKS transfer unchanged;
 with TRAIN.BATCH_SIZE_PER_TASK = k the optimizer updates every k steps.
+The train loop reads metrics back from the device only where it logs,
+validates or ends (one read for all the steps since the last), so the host
+runs ahead of the card between those steps and the next batch's copy is
+started while the card still works on the step before.
 """
 
 from __future__ import annotations
@@ -184,6 +188,20 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     window = collections.deque(maxlen=log_period)
     best = {"top1_acc": 0.0}
     losses, updates, val_seconds = [], 0, 0.0
+    pending = []  # metrics of the steps since the last fetch, still on the device
+
+    def fetch() -> float:
+        """Bring the pending steps' metrics to the host in one read (it waits
+        for the last of those steps); returns the last step's top1."""
+        nonlocal updates
+        rows = torch.stack([torch.stack([m["loss"], m["top1"], m["updated"].to(m["loss"].dtype)]) for m in pending]).tolist()
+        pending.clear()
+        for loss, _, updated in rows:
+            losses.append(loss)
+            window.append(loss)
+            updates += int(updated)
+        return rows[-1][1]
+
     remaining = max(num_train_tasks - start_iter, 0)
     logger.info("train loop: %d iterations x %d episodes/step on %s", remaining, e, device)
     t0 = time.perf_counter()
@@ -192,19 +210,17 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
         t_last, iters_last = time.perf_counter(), cur_iter
         for batch in loader:
             lr = get_lr_at_epoch(cfg, epoch_for_iter(cfg, cur_iter))
-            metrics = train_step(state, batch.to(device, non_blocking=True), lr, step_generator(cfg, cur_iter, device))
+            pending.append(train_step(state, batch.to(device, non_blocking=True), lr, step_generator(cfg, cur_iter, device)))
             cur_iter += 1
-            losses.append(metrics["loss"])
-            updates += int(metrics["updated"])
-            window.append(metrics["loss"])
             if cur_iter % log_period == 0 or cur_iter == num_train_tasks:
+                top1 = fetch()
                 now = time.perf_counter()
                 log_json_stats(
                     {
                         "_type": "train_iter",
                         "iter": f"{cur_iter}/{num_train_tasks}",
                         "loss": round(statistics.median(window), 5),
-                        "top1": round(metrics["top1"] * 100, 2),
+                        "top1": round(top1 * 100, 2),
                         "lr": lr,
                         "eps_per_sec": round(e * (cur_iter - iters_last) / max(now - t_last, 1e-9), 3),
                     },
@@ -212,6 +228,8 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
                 )
                 t_last, iters_last = now, cur_iter
             if val_every and cur_iter % val_every == 0:
+                if pending:
+                    fetch()
                 t_val = time.perf_counter()
                 ckpt.save(cur_iter, state)
                 stats = evaluate(cfg, model, num_val_tasks, e_val, split="val", device=device)
@@ -222,6 +240,8 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
                         evaluate(cfg, model, num_val_tasks, e_val, split="val", device=device)
                 val_seconds += time.perf_counter() - t_val
                 t_last, iters_last = time.perf_counter(), cur_iter  # keep validation out of the rate window
+    if pending:
+        fetch()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0

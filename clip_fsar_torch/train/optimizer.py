@@ -142,8 +142,18 @@ def fixed_params(cfg, names, name_prefix: str = "head") -> set:
 
 class Optimizer:
     """The JAX optimizer chain over a module's parameters (see the module
-    docstring).  ``step(lr)`` takes the gradients in the parameters'
-    ``.grad`` as one micro-step and returns True when it applied an update."""
+    docstring).  ``step(lr, ok)`` takes the gradients in the parameters'
+    ``.grad`` as one micro-step and returns, as a 0-dim bool tensor on the
+    parameters' device, whether it applied an update.
+
+    Nothing in a step is decided on the host, as in the JAX chain (its NaN
+    guard and its accumulation window are ``lax.cond``s): ``ok`` (0-dim bool
+    on the device, False for a step to skip) gates the window's sums and its
+    micro-step count, which is a device scalar too, and the update itself is
+    torch's fused optimizer with ``found_inf`` set unless the window closes
+    on this step -- the fused kernels then leave parameters and moments
+    alone and take the step count back.  Every micro-step therefore launches
+    the same kernels, and none waits for the card."""
 
     def __init__(self, cfg, module: nn.Module, name_prefix: str = "head"):
         s = cfg.SOLVER
@@ -180,14 +190,16 @@ class Optimizer:
             buckets.setdefault(key, []).append(p)
         param_groups_ = [{"params": ps, "weight_decay": wd_, "lr_scale": scale, "group": g} for (g, wd_, scale), ps in buckets.items()]
         if self.method == "adam":
-            self.inner = torch.optim.Adam(param_groups_, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+            self.inner = torch.optim.Adam(param_groups_, lr=0.0, betas=(0.9, 0.999), eps=1e-8, fused=True)
         elif self.method == "adamw":
-            self.inner = torch.optim.AdamW(param_groups_, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+            self.inner = torch.optim.AdamW(param_groups_, lr=0.0, betas=(0.9, 0.999), eps=1e-8, fused=True)
         else:
             self.inner = torch.optim.SGD(
-                param_groups_, lr=0.0, momentum=float(s.get("MOMENTUM", 0.9)), nesterov=bool(s.get("NESTEROV", False)), dampening=0.0
+                param_groups_, lr=0.0, momentum=float(s.get("MOMENTUM", 0.9)), nesterov=bool(s.get("NESTEROV", False)), dampening=0.0,
+                fused=True,
             )
-        self.mini_step = 0
+        self.device = self.params[0].device if self.params else torch.device("cpu")
+        self.mini_step = torch.zeros((), dtype=torch.int64, device=self.device)  # micro-steps in the open window (k > 1)
         self.acc: Optional[List[torch.Tensor]] = None  # gradient sums of the open window (k > 1)
 
     def signature(self) -> dict:
@@ -198,20 +210,34 @@ class Optimizer:
             "groups": [(g["group"], g["weight_decay"], g["lr_scale"], [tuple(p.shape) for p in g["params"]]) for g in self.inner.param_groups],
         }
 
+    def _zero_missing_momentum(self) -> None:
+        """Fused SGD creates a momentum buffer on its first call without
+        filling it when that call is skipped; a zero buffer gives the same
+        first update (momentum * 0 + gradient), skipped calls or not."""
+        if self.method != "sgd" or not self.inner.defaults["momentum"]:
+            return
+        for group in self.inner.param_groups:
+            for p in group["params"]:
+                if self.inner.state[p].get("momentum_buffer") is None:
+                    self.inner.state[p]["momentum_buffer"] = torch.zeros_like(p)
+
     @torch.no_grad()
-    def step(self, lr: float) -> bool:
+    def step(self, lr: float, ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if ok is None:
+            ok = torch.ones((), dtype=torch.bool, device=self.device)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        do_update = ok
         if self.k > 1:
             if self.acc is None:
                 self.acc = [torch.zeros_like(p) for p in self.params]
-            torch._foreach_add_(self.acc, grads)
-            self.mini_step += 1
-            if self.mini_step < self.k:
-                return False
+            # a skipped step adds zeros: selected, not multiplied (NaN * 0 is NaN)
+            torch._foreach_add_(self.acc, [torch.where(ok, g, 0.0) for g in grads])
+            self.mini_step += ok
+            do_update = ok & (self.mini_step == self.k)
             grads = torch._foreach_div(self.acc, float(self.k))
-            for a in self.acc:
-                a.zero_()
-            self.mini_step = 0
+            keep = ~do_update  # the window closes: sums and count start over
+            torch._foreach_mul_(self.acc, keep.to(torch.float32))
+            self.mini_step *= keep
         if self.clip_norm is not None:  # optax.clip_by_global_norm
             norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm), self.clip_norm / norm)
@@ -220,13 +246,16 @@ class Optimizer:
             p.grad = g
         for group in self.inner.param_groups:
             group["lr"] = lr * group["lr_scale"]
+        self._zero_missing_momentum()
+        self.inner.grad_scale = None
+        self.inner.found_inf = (~do_update).to(torch.float32)  # 1.: the fused step changes nothing
         self.inner.step()
-        return True
+        return do_update
 
     def state_dict(self) -> dict:
-        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step, "acc": self.acc, "signature": self.signature()}
+        return {"inner": self.inner.state_dict(), "mini_step": int(self.mini_step), "acc": self.acc, "signature": self.signature()}
 
     def load_state_dict(self, sd: dict) -> None:
         self.inner.load_state_dict(sd["inner"])
-        self.mini_step = int(sd["mini_step"])
+        self.mini_step.fill_(int(sd["mini_step"]))
         self.acc = None if sd["acc"] is None else [a.to(p.device) for a, p in zip(sd["acc"], self.params)]

@@ -12,12 +12,15 @@ over the episode, then a mean over the E episodes.  ``TPU.EPISODE_CHUNKS``
 runs the E episodes as c sequential micro-batches whose gradients are summed
 and divided by c, so only E/c episodes' activations are alive at once.  A
 non-finite loss leaves the parameters, the optimizer moments and the
-accumulation window untouched (the NaN guard, :161-180).
+accumulation window untouched (the NaN guard, :161-180).  As there, the
+guard is decided on the device and the metrics stay there: a step reads
+nothing back to the host, so the caller can launch the next step (and copy
+its batch) while the card still works on this one, and fetches metrics only
+where it logs.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -77,7 +80,8 @@ def make_loss_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
 
 
 def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
-    """grad_fn(batch, generator) -> metrics (python floats): augment and
+    """grad_fn(batch, generator) -> metrics (0-dim tensors on the batch's
+    device, nothing is read back): augment and
     normalize the uint8 batch, then forward and backward over the
     TPU.EPISODE_CHUNKS micro-batches, leaving the gradient of the mean loss
     over the E episodes in the parameters' ``.grad``.  ``generator`` (a
@@ -94,7 +98,7 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
         out = augment.fewshot_train_augment(images.flatten(0, 1), cfg, mean, std, is_query, generator)
         return out.reshape((e, n) + out.shape[1:])
 
-    def grad_fn(batch: Episode, generator: Optional[torch.Generator]) -> Dict[str, float]:
+    def grad_fn(batch: Episode, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         batch = batch.replace(
             support_images=aug(batch.support_images, False, generator),
             target_images=aug(batch.target_images, True, generator),
@@ -112,28 +116,32 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
             for p in head.parameters():
                 if p.grad is not None:
                     p.grad.div_(c)
-        return {k: torch.stack([m[k] for m in chunk_metrics]).mean().item() for k in chunk_metrics[0]}
+        return {k: torch.stack([m[k] for m in chunk_metrics]).mean() for k in chunk_metrics[0]}
 
     return grad_fn
 
 
 def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
-    """train_step(state, batch, lr, generator) -> metrics (python floats),
-    updating ``state`` in place: ``make_grad_fn``'s gradient, then the
-    optimizer (one micro-step of its accumulation window) unless the loss is
-    not finite, the step counter, and the EMA."""
+    """train_step(state, batch, lr, generator) -> metrics (0-dim tensors on
+    the device: ``loss``, ``ce``, ``top1``, ``updated`` (bool) and
+    ``nan_skipped`` (0. or 1.)), updating ``state`` in place:
+    ``make_grad_fn``'s gradient, then the optimizer (one micro-step of its
+    accumulation window, which changes nothing when the loss is not finite:
+    the optimizer decides that on the device), the step counter, and the EMA
+    (on every step, from whatever the parameters then are).  No value is read
+    back to the host."""
     grad_fn = make_grad_fn(head, cfg, text_train, text_test)
     ema_decay = float(cfg.MODEL.EMA.DECAY) if ("MODEL" in cfg and cfg.MODEL.EMA.get("ENABLE", False)) else None
 
-    def train_step(state: TrainState, batch: Episode, lr: float, generator: Optional[torch.Generator]) -> Dict[str, float]:
+    def train_step(state: TrainState, batch: Episode, lr: float, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         metrics = grad_fn(batch, generator)
-        ok = math.isfinite(metrics["loss"])
-        metrics["updated"] = state.optimizer.step(lr) if ok else False
+        ok = torch.isfinite(metrics["loss"])
+        metrics["updated"] = state.optimizer.step(lr, ok)
         head.zero_grad(set_to_none=True)
         state.step += 1
         if ema_decay is not None:
             state.update_ema(ema_decay)
-        metrics["nan_skipped"] = 0.0 if ok else 1.0
+        metrics["nan_skipped"] = (~ok).float()
         return metrics
 
     return train_step

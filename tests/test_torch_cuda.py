@@ -16,6 +16,8 @@ from clip_fsar_torch.ops.flash_attention import (
     LAUNCHES,
     flash_mha,
     flash_mha_bwd_cuda,
+    flash_mha_bwd_dkv_cuda,
+    flash_mha_bwd_dq_cuda,
     flash_mha_bwd_reference,
     flash_mha_cuda,
     flash_mha_reference,
@@ -251,7 +253,14 @@ def test_clip_mha_bwd_kernel_refuses_what_it_does_not_take(cuda):
 # with Nq != Nk (separate contiguous tensors)
 FLASH_SHAPES = [(2, 12, 50, 50, 64), (2, 12, 197, 197, 64), (320, 12, 197, 197, 64), (2, 16, 257, 257, 64),
                 (1, 16, 577, 577, 64), (3, 2, 17, 17, 32), (2, 3, 128, 256, 64)]
-FLASH_BWD_SHAPES = [s if s[0] != 320 else (480,) + s[1:] for s in FLASH_SHAPES]
+# the backward at the train chunk's 480 frames; cross-attention from 300 queries onto 100 keys and back (Nq > Nk
+# and Nq < Nk, Dh = 32 and 64); ragged lengths; and, for the bf16 tensor-core passes, the last length the streamed
+# side keeps in shared memory and the first it stages (the dQ pass streams the keys, the dK/dV pass the queries),
+# for both passes at once and for each alone
+FLASH_BWD_SHAPES = [s if s[0] != 320 else (480,) + s[1:] for s in FLASH_SHAPES] + [
+    (2, 3, 300, 100, 32), (2, 3, 100, 300, 64), (2, 8, 77, 77, 64), (2, 4, 203, 203, 64), (2, 3, 333, 333, 32),
+    (1, 2, BWD_RESIDENT_MAX, BWD_RESIDENT_MAX, 64), (1, 2, BWD_RESIDENT_MAX + 1, BWD_RESIDENT_MAX + 1, 64),
+    (1, 2, 100, BWD_RESIDENT_MAX + 1, 64), (1, 2, BWD_RESIDENT_MAX + 1, 100, 32)]
 # the forward's extra lengths (see FWD_SHAPES), and cross-attention onto 300 keys (tiled, and causal rows that
 # see fewer keys than the first tile holds) and from 300 queries onto 100 keys
 FLASH_FWD_SHAPES = FLASH_SHAPES + [(b, h, n, n, dh) for b, n, h, dh in FWD_SHAPES[len(SHAPES):]] + [(2, 3, 100, 300, 64), (2, 3, 300, 100, 32)]
@@ -296,8 +305,10 @@ def test_flash_mha_kernel_matches_plain(cuda, b, h, nq, nk, dh, dtype, tol, caus
 @pytest.mark.parametrize("dtype, tol", TOLERANCE)
 @pytest.mark.parametrize("b, h, nq, nk, dh", FLASH_BWD_SHAPES)
 def test_flash_mha_bwd_kernels_match_plain(cuda, b, h, nq, nk, dh, dtype, tol, causal):
-    """K4 and K5 against flash_mha_bwd_reference on K3's o and lse; one launch of each counted per
-    call, and the autograd backward of flash_mha is the kernels' result."""
+    """K4 and K5 against flash_mha_bwd_reference on K3's o and lse (bf16: the tensor-core passes, whose
+    ex2.approx and fragment packing stay within the dtype's tolerance; fp32: the scalar kernels), delta
+    at 1e-4, everything finite; one launch of each counted per call, the same bits on a second launch,
+    and the autograd backward of flash_mha is the kernels' result."""
     g = torch.Generator().manual_seed(nq + nk + 1)
     q, k, v = _flash_inputs(b, h, nq, nk, dh, dtype, cuda, g)
     o, lse = flash_mha_cuda(q, k, v, causal)
@@ -310,12 +321,106 @@ def test_flash_mha_bwd_kernels_match_plain(cuda, b, h, nq, nk, dh, dtype, tol, c
     ref = flash_mha_bwd_reference(q, k, v, o, lse, do, causal)
     for name, got, want, x in zip(("dq", "dk", "dv"), grads, ref, (q, k, v)):
         assert got.dtype == dtype and got.shape == x.shape, name
+        assert torch.isfinite(got.float()).all(), name
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=lambda m, name=name: f"{name}: {m}")
+    dq, delta = flash_mha_bwd_dq_cuda(q, k, v, o, lse, do, causal)
+    torch.testing.assert_close(delta, (do.float() * o.float()).sum(dim=-1), atol=1e-4, rtol=1e-4)
+    for got, again in zip(grads, (dq, *flash_mha_bwd_dkv_cuda(q, k, v, lse, delta, do, causal))):
+        assert torch.equal(got, again)
+    before = dict(LAUNCHES)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     flash_mha(*leaves, causal=causal).backward(do)
-    assert LAUNCHES["flash_mha_bwd_dkv"] == before["flash_mha_bwd_dkv"] + 2
+    assert LAUNCHES["flash_mha_bwd_dkv"] == before["flash_mha_bwd_dkv"] + 1
     for leaf, got in zip(leaves, grads):
         torch.testing.assert_close(leaf.grad, got, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [197, 333])
+def test_flash_mha_bwd_kernels_mask_the_dead_and_the_causal_columns(cuda, n, causal):
+    """Every live score at -200 (q = 5, k = -5 on all of Dh = 64), so LSE is about -195 and exp(0 - LSE)
+    overflows wherever a score of 0 is not masked: in the zero-filled rows past N of the last tile and,
+    were S masked to 0 in place of P, past the diagonal.  dq, dk and dv stay finite and right, causal and
+    not, in both launch shapes (tiles of 16 rows at 197, of 32 at 333), the same bits twice."""
+    b, h, dh = 2, 3, 64
+    g = torch.Generator().manual_seed(n)
+    qkv = torch.randn(b, n, 3, h * dh, generator=g)
+    qkv[:, :, 0], qkv[:, :, 1] = 5.0, -5.0
+    q, k, v = (split_heads(t, h) for t in qkv.reshape(b, n, 3 * h * dh).to(cuda, torch.bfloat16).chunk(3, dim=-1))
+    o, lse = flash_mha_cuda(q, k, v, causal)
+    assert lse.max().item() < -190
+    do = torch.empty_like(o).copy_(torch.randn(o.shape, generator=g))
+    grads = flash_mha_bwd_cuda(q, k, v, o, lse, do, causal)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, flash_mha_bwd_reference(q, k, v, o, lse, do, causal)):
+        assert torch.isfinite(got.float()).all(), name
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2, msg=lambda m, name=name: f"{name}: {m}")
+    for got, again in zip(grads, flash_mha_bwd_cuda(q, k, v, o, lse, do, causal)):
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_bf16_flash_backward_kernels_refuse_unaligned_tensors(cuda):
+    """The bf16 passes read q, k, v, o and dO 16 bytes at a time: an o and dO that start 2 bytes into their
+    storage are refused by both wrappers; in fp32 the scalar kernels take the same tensors."""
+    b, h, n, dh = 2, 2, 17, 64
+    q, k, v = (torch.randn(b, h, n, dh, device=cuda).to(torch.bfloat16) for _ in range(3))
+    o, lse = flash_mha_cuda(q, k, v)
+    do = torch.empty_like(o).copy_(torch.randn(o.shape, device=cuda))
+    delta = torch.zeros_like(lse)
+
+    def shifted(t):
+        flat = torch.zeros(1 + t.numel(), device=cuda, dtype=t.dtype)
+        out = flat[1:].view(b, n, h, dh).transpose(1, 2)  # o's layout, 2 bytes off
+        return out.copy_(t)
+
+    with pytest.raises(ValueError, match="bf16 o in 16-byte"):
+        flash_mha_bwd_dq_cuda(q, k, v, shifted(o), lse, shifted(do))
+    with pytest.raises(ValueError, match="bf16 do in 16-byte"):
+        flash_mha_bwd_dkv_cuda(q, k, v, lse, delta, shifted(do))
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    o32, lse32 = flash_mha_cuda(q32, k32, v32)
+    got = flash_mha_bwd_cuda(q32, k32, v32, shifted(o32), lse32, shifted(do.float()))
+    for x, y in zip(got, flash_mha_bwd_reference(q32, k32, v32, o32, lse32, do.float())):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_steps_never_wait_for_the_card(cuda):
+    """Two train steps of the tiny tower on the card (jitter and dropout on, an accumulation window of 2)
+    with torch's sync debug mode on: no operation inside them synchronises with the device (each one that
+    did would be named here by the python line that called it)."""
+    import warnings
+
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.tools.profile_eval import CONFIG
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    cfg = load_config(CONFIG, ["VIDEO.HEAD.BACKBONE_NAME", "ViT-Tiny-Test", "TRAIN.ENABLE", "True", "DATA.DECODER", "synthetic",
+                               "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "64", "DATA.TEST_CROP_SIZE", "64", "DATA.TEST_SCALE", "72",
+                               "DATA.TRAIN_JITTER_SCALES", "[72, 80]", "TPU.EPISODES_PER_STEP", "2", "TRAIN.BATCH_SIZE_PER_TASK", "2"])
+    model = build_few_shot_model(cfg, flow="train", device=cuda)
+    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+    step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=2) as loader:
+        batch = next(iter(loader)).to(cuda)
+    step(state, batch, 1e-3, step_generator(cfg, 0, cuda))  # builds and loads the kernels, fills the allocator and the constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            seen = [step(state, batch, 1e-3, step_generator(cfg, i, cuda)) for i in (1, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)}) == []
+    assert [bool(m["updated"]) for m in seen] == [True, False] and int(state.optimizer.mini_step) == 1  # the window closed on step 2 of 3
+    assert all(torch.isfinite(m["loss"]).item() for m in seen)
 
 
 @pytest.mark.cuda

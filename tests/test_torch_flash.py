@@ -8,7 +8,10 @@ kernel streams three 128-wide key blocks and really rescales; a causal
 case; Nq != Nk (the cross-attention shape of
 tests/test_flash_attention.py), with and without the causal mask; N = 257
 (ViT-L/14: the first length past the single key block, two blocks of 128
-and a ragged one of 1 key); and the text tower's causal N = 77 (one block).
+and a ragged one of 1 key); the text tower's causal N = 77 (one block); and
+causal cross-attention in each direction at ragged lengths (Nq 40 < Nk 100:
+keys that no query sees; Nq 100 > Nk 40: query rows past Nk that see every
+key).
 """
 
 import jax
@@ -27,6 +30,7 @@ from clip_fsar_torch.ops.flash_attention import (
     flash_mha_cuda,
     flash_mha_reference,
 )
+from clip_fsar_torch.ops.fused_attention import check_alignment
 from tests.torch_parity import pallas_interpret
 
 torch.set_num_threads(2)
@@ -39,6 +43,8 @@ CASES = [
     ((1, 2, 128, 256, 32), True),
     ((1, 2, 257, 257, 32), False),
     ((1, 2, 77, 77, 32), True),
+    ((1, 2, 40, 100, 32), True),
+    ((1, 2, 100, 40, 32), True),
 ]
 # fp32: summation order; bf16: one bf16 ulp of values near 1 (p and dS are rounded at the same
 # points on both sides, but fp32 sums taken in another order can land a rounding one ulp apart)
@@ -155,3 +161,27 @@ def test_flash_mha_dispatch_on_cpu():
         flash_mha_cuda(q, k, v)
     with pytest.raises(ValueError):
         flash_mha_bwd_cuda(q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("name", ["o", "do", "dq", "dk", "dv"])
+def test_check_alignment_refuses_a_misaligned_head_split_tensor(name):
+    """The bf16 flash backward reads o and dO and writes dq, dk and dv as
+    [B, H, N, Dh] views of [B, N, H, Dh] buffers, 16 bytes at a time: one that
+    starts 2 bytes into its storage, or whose head stride is no multiple of 8
+    elements, is refused by name, whichever of the five it is; aligned views
+    and fp32 tensors pass."""
+    b, h, n, dh = 2, 2, 5, 32
+
+    def heads_last(offset=0, pad=0, dtype=torch.bfloat16):
+        flat = torch.zeros(offset + b * n * h * (dh + pad), dtype=dtype)
+        return flat[offset:].view(b, n, h, dh + pad)[..., :dh].transpose(1, 2)
+
+    good = {key: heads_last() for key in ("q", "k", "v", "o", "do", "dq", "dk", "dv")}
+    check_alignment("flash_mha_bwd_dq_cuda", **good)
+    shifted = heads_last(offset=1)
+    assert shifted.shape == (b, h, n, dh) and shifted.data_ptr() % 16 == 2 and shifted.stride(-1) == 1
+    with pytest.raises(ValueError, match=f"bf16 {name} in 16-byte pieces"):
+        check_alignment("flash_mha_bwd_dq_cuda", **{**good, name: shifted})
+    with pytest.raises(ValueError, match=f"bf16 {name} in 16-byte pieces"):
+        check_alignment("flash_mha_bwd_dkv_cuda", **{**good, name: heads_last(pad=4)})  # head stride Dh + 4
+    check_alignment("flash_mha_bwd_dq_cuda", **{**good, name: heads_last(offset=1, dtype=torch.float32)})

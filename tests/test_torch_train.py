@@ -25,7 +25,7 @@ from clip_fsar_torch.models.heads.clipfsar import CLIPFSARConfig, CLIPFSARHead
 from clip_fsar_torch.train import optimizer as topt
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.train.step import make_train_step
-from tests.torch_parity import jax_tiny_clip, pallas_interpret, port_head_state, tiny_cfg
+from tests.torch_parity import host_reads, jax_tiny_clip, pallas_interpret, port_head_state, tiny_cfg
 
 torch.set_num_threads(2)
 
@@ -238,6 +238,82 @@ def test_nan_guard_leaves_params_moments_and_window_untouched():
         for m in ("exp_avg", "exp_avg_sq", "step"):
             assert torch.equal(moments[m], before[1]["inner"]["state"][key][m]), (key, m)
     assert state.step == 4
+
+
+def test_nan_step_on_the_closing_micro_step_keeps_the_window_open():
+    """BATCH_SIZE_PER_TASK 2 with steps finite, NaN, finite: the NaN step
+    would have closed the window by count, and must not.  Exactly one update
+    happens, after the third step, and it is the update of a run that saw
+    the two finite batches alone: parameters, moments and their step count
+    are the same bits, and the window is closed with nothing in it."""
+    batch = _train_batch()
+    one = lambda i: batch.map(lambda x: x[i : i + 1])  # noqa: E731
+    cfg = train_cfg("TRAIN.BATCH_SIZE_PER_TASK", "2", "TPU.EPISODES_PER_STEP", "1")
+    model, state, step = _port_train(cfg)
+    nan_step = make_train_step(model.head, cfg, model.text_train * float("nan"), model.text_test)
+    updated = [bool(step(state, one(0), 1e-3, None)["updated"])]
+    skipped = nan_step(state, one(1), 1e-3, None)
+    updated.append(bool(skipped["updated"]))
+    assert skipped["nan_skipped"] == 1.0 and int(state.optimizer.mini_step) == 1
+    updated.append(bool(step(state, one(1), 1e-3, None)["updated"]))
+    assert updated == [False, False, True]
+
+    _, clean, clean_step = _port_train(cfg)
+    assert [bool(clean_step(clean, one(i), 1e-3, None)["updated"]) for i in (0, 1)] == [False, True]
+    for name, v in state.head.state_dict().items():
+        assert torch.equal(v, clean.head.state_dict()[name]), name
+    got, want = state.optimizer.state_dict(), clean.optimizer.state_dict()
+    assert got["mini_step"] == want["mini_step"] == 0 and isinstance(got["mini_step"], int)
+    for a, b in zip(got["acc"], want["acc"]):
+        assert torch.equal(a, b) and not a.any()
+    for key, moments in got["inner"]["state"].items():
+        for m in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(moments[m], want["inner"]["state"][key][m]), (key, m)
+        assert moments["step"] == 1
+    assert (state.step, clean.step) == (3, 2)
+
+
+@pytest.mark.parametrize("method", ["adam", "adamw", "sgd"])
+def test_skipped_first_step_leaves_every_optimizer_untouched(method):
+    """A NaN step before any update (no moments yet) with each optimizer:
+    nothing moves, and the next finite step gives the update of a run that
+    never saw the NaN step (SGD's momentum buffer included)."""
+    batch = _train_batch()
+    cfg = train_cfg("SOLVER.OPTIM_METHOD", method)
+    model, state, step = _port_train(cfg)
+    nan_step = make_train_step(model.head, cfg, model.text_train * float("nan"), model.text_test)
+    start = copy.deepcopy(model.head.state_dict())
+    assert not nan_step(state, batch, 1e-3, None)["updated"]
+    for name, v in model.head.state_dict().items():
+        assert torch.equal(v, start[name]), name
+    assert step(state, batch, 1e-3, None)["updated"]
+    _, clean, clean_step = _port_train(cfg)
+    assert clean_step(clean, batch, 1e-3, None)["updated"]
+    moved = 0.0
+    for name, v in state.head.state_dict().items():
+        assert torch.equal(v, clean.head.state_dict()[name]), name
+        moved = max(moved, (v - start[name]).abs().max().item())
+    assert moved > 1e-4
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_train_step_reads_nothing_back_from_the_device(k):
+    """Two train steps (jitter and dropout on, so the generator's draws are
+    taken too), with and without an accumulation window: no value of any
+    tensor is read from python inside them -- the metrics, the NaN guard's
+    flag and the window's count stay tensors -- and the metrics come back as
+    0-dim tensors the caller may fetch when it logs."""
+    batch = _train_batch()
+    model, state, step = _port_train(train_cfg("TRAIN.BATCH_SIZE_PER_TASK", str(k)))
+    with host_reads() as reads:
+        for i in range(2):
+            metrics = step(state, batch, 1e-3, torch.Generator().manual_seed(i))
+    assert reads == []
+    assert set(metrics) == {"loss", "ce", "top1", "updated", "nan_skipped"}
+    for name, v in metrics.items():
+        assert isinstance(v, torch.Tensor) and v.dim() == 0, name
+    assert metrics["updated"].dtype == torch.bool and bool(metrics["updated"]) and metrics["nan_skipped"] == 0.0
+    assert isinstance(state.optimizer.mini_step, torch.Tensor) and state.step == 2
 
 
 def test_optimizer_clipping_lr_reduce_and_wb_lock():

@@ -4,14 +4,17 @@ run that trains then tests the weights it trained (the test-time checkpoint
 search tries the last OUTPUT_DIR checkpoint before the TRAIN path and fresh
 weights, as the JAX package's does)."""
 
+from unittest import mock
+
 import numpy as np
 import torch
 
 from clip_fsar_torch.models.builder import build_few_shot_model
 from clip_fsar_torch.runs.run import main
 from clip_fsar_torch.train.checkpoint import Checkpointer
+from clip_fsar_torch.train import loop
 from clip_fsar_torch.train.loop import evaluate, train_few_shot
-from tests.torch_parity import CONFIG, TINY_OPTS, tiny_cfg
+from tests.torch_parity import CONFIG, TINY_OPTS, host_reads, tiny_cfg
 
 torch.set_num_threads(2)
 
@@ -40,6 +43,37 @@ def test_resume_continues_a_run_exactly(tmp_path):
         for m, v in moments.items():
             assert torch.equal(v, b["optimizer"]["inner"]["state"][key][m]), (key, m)
     assert a["optimizer"]["mini_step"] == b["optimizer"]["mini_step"] == 0
+
+
+def test_train_loop_reads_metrics_only_where_it_logs(tmp_path):
+    """LOG_PERIOD 10 and 4 steps (an update on the 4th), no validation: from
+    the start of the first train step to the end of the last, nothing is read
+    back from a tensor -- not inside a step, not between two steps -- so the
+    host can run ahead of the card; the one fetch comes after the 4th step,
+    and the stats are python numbers as before."""
+    steps = {"done": 0, "inside": False}
+    make = loop.make_train_step
+
+    def counting(*args):
+        step = make(*args)
+
+        def train_step(*a):
+            steps["inside"] = True
+            out = step(*a)
+            steps["inside"], steps["done"] = False, steps["done"] + 1
+            return out
+
+        return train_step
+
+    cfg = tiny_cfg(*LOOP_OPTS, "LOG_PERIOD", "10", "TRAIN.NUM_TRAIN_TASKS", "4", "OUTPUT_DIR", str(tmp_path))
+    with mock.patch.object(loop, "make_train_step", counting), host_reads(lambda: (steps["done"], steps["inside"])) as reads:
+        stats = train_few_shot(cfg, device="cpu")
+    early = [r for r in reads if r[1][1] or 0 < r[1][0] < 4]
+    assert steps["done"] == 4 and early == []
+    assert ("tolist", (4, False)) in reads  # the fetch at the loop's end
+    assert stats["updates"] == 1 and len(stats["losses"]) == 4
+    assert all(isinstance(x, float) for x in stats["losses"]) and isinstance(stats["updates"], int)
+    assert np.isfinite(stats["losses"]).all()
 
 
 def test_cli_trains_then_tests_the_trained_checkpoint(tmp_path):

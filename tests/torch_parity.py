@@ -86,6 +86,29 @@ def pallas_interpret():
         yield
 
 
+_HOST_READS = ("item", "tolist", "cpu", "numpy", "__bool__", "__float__", "__int__", "__index__", "__array__")
+
+
+@contextlib.contextmanager
+def host_reads(where=lambda: None):
+    """Yields a list that gets one (method, where()) entry for every read of
+    a tensor's values from python while the context is open: ``.item()``,
+    ``.tolist()``, ``.cpu()``, ``.numpy()``, ``bool()``, ``float()``,
+    ``int()``, use as an index, ``np.asarray``.  On a card each of these
+    waits for the device; the CPU tests count them instead."""
+    from unittest import mock
+
+    reads = []
+    with contextlib.ExitStack() as stack:
+        for name in _HOST_READS:
+            def counted(self, *args, _orig=getattr(torch.Tensor, name), _name=name, **kwargs):
+                reads.append((_name, where()))
+                return _orig(self, *args, **kwargs)
+
+            stack.enter_context(mock.patch.object(torch.Tensor, name, counted))
+        yield reads
+
+
 def port_clip_state(clip_vars):
     """The JAX CLIP variables as the port's head-state entries: the vision
     tower under ``backbone.``, the text tower under ``text.``."""

@@ -85,14 +85,13 @@ def check_supported(cfg) -> None:
         raise NotImplementedError("AUGMENTATION.RANDOM_ERASING is not ported yet: ROADMAP Queue 1, train slice leftovers (random erasing)")
 
 
-def draw_jitter(generator: torch.Generator, n: int, t: int, jc: JitterConfig, device=None, stream: int = 0) -> JitterDraws:
-    """Every random number of one ``color_jitter_batch`` call, from
-    ``generator`` (on ``device``): uniform factors in [max(0, 1-v), 1+v]
-    (hue in [-v, v]), the op-order index, and the grayscale flags.  The
-    order index picks python code, so it is drawn on the host, from the
-    generator's seed and ``stream`` (which tells the calls that share one
-    generator apart): reading it back from the device would make every
-    train step wait for the one before."""
+def draw_jitter(generator: torch.Generator, host: np.random.Generator, n: int, t: int, jc: JitterConfig, device=None) -> JitterDraws:
+    """Every random number of one ``color_jitter_batch`` call: uniform
+    factors in [max(0, 1-v), 1+v] (hue in [-v, v]) and the grayscale flags
+    from ``generator`` (on ``device``), the op-order index from ``host``.
+    The order index picks python code, so it is drawn on the host: reading
+    it back from the device would make every train step wait for the one
+    before.  Both generators advance with every call."""
     shape = (n, 1, 1, 1, 1) if jc.consistent else (n, t, 1, 1, 1)
 
     def unif(lo: float, hi: float, size) -> torch.Tensor:
@@ -103,9 +102,15 @@ def draw_jitter(generator: torch.Generator, n: int, t: int, jc: JitterConfig, de
     s_f = unif(max(0.0, 1.0 - jc.saturation), 1.0 + jc.saturation, shape)
     h_f = unif(-jc.hue, jc.hue, shape[:-1])
     num_orders = math.factorial(len(jc.active()))  # permutations of the active ops
-    order = int(np.random.default_rng((generator.initial_seed(), stream)).integers(num_orders))
+    order = int(host.integers(num_orders))
     gray = torch.rand((n, 1, 1, 1, 1), generator=generator, device=device) < jc.grayscale
     return JitterDraws(b_f, c_f, s_f, h_f, order, gray)
+
+
+def host_generator(generator: torch.Generator) -> np.random.Generator:
+    """The host generator that goes with ``generator``: seeded from its
+    seed, which the host knows without asking the device."""
+    return np.random.default_rng(generator.initial_seed())
 
 
 def _blend(a: torch.Tensor, b: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
@@ -177,15 +182,20 @@ def color_jitter_batch(clips: torch.Tensor, draws: JitterDraws, jc: JitterConfig
 
 
 def fewshot_train_augment(
-    clips: torch.Tensor, cfg, mean: Sequence[float], std: Sequence[float], is_query: bool, generator: Optional[torch.Generator]
+    clips: torch.Tensor, cfg, mean: Sequence[float], std: Sequence[float], is_query: bool, generator: Optional[torch.Generator],
+    host: Optional[np.random.Generator] = None,
 ) -> torch.Tensor:
     """uint8 clips [N, T, H, W, 3] -> normalized float32: ColorJitter on
     query clips always and on support clips under AUGMENTATION.COLOR_AUG,
-    with draws from ``generator``.  A None generator only normalizes."""
+    with draws from ``generator`` and, for the op order, from the host
+    generator ``host``: a caller that jitters more than once with one
+    ``generator`` makes ``host`` with ``host_generator`` and passes it to
+    every call (without one, each call seeds its own from ``generator``'s
+    seed and so draws the same order).  A None generator only normalizes."""
     check_supported(cfg)
     aug = cfg.AUGMENTATION if "AUGMENTATION" in cfg else {}
     if generator is None or not (is_query or bool(aug.get("COLOR_AUG", False))):
         return normalize_images(clips, mean, std)
     jc = JitterConfig.from_cfg(cfg)
-    draws = draw_jitter(generator, clips.shape[0], clips.shape[1], jc, device=clips.device, stream=int(is_query))
+    draws = draw_jitter(generator, host if host is not None else host_generator(generator), clips.shape[0], clips.shape[1], jc, device=clips.device)
     return standardize(color_jitter_batch(clips.float() / 255.0, draws, jc), mean, std)

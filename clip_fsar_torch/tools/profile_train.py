@@ -1,7 +1,7 @@
 """Where the time of the few-shot train slice goes on a CUDA card.
 
     python -m clip_fsar_torch.tools.profile_train [--out chiprun_out/profile_train.txt]
-        [--paths fused,pallas] [--readings 1] [--loop-steps 18] [--no-loader] [--loop-only]
+        [--sections loader,step,loop] [--paths fused,pallas] [--loop-steps 18]
 
 The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with
 a ViT-B/16 tower at full width (fresh weights from the seed), the synthetic
@@ -12,9 +12,8 @@ with the tag of its reading set:
 - ``loader[train w=4 native omp=8]`` ...: the host train loader alone (no
   device), ms per step over 4 steps with the config's 4 worker threads, with
   the native C++ resize and with the numpy replica, in turn, twice
-  (``--loader-only`` stops after these; ``omp`` is the library's OpenMP
-  threads per clip, the OpenMP default: run with ``OMP_NUM_THREADS=1`` in
-  the environment for the one-thread reading);
+  (``omp`` is the library's OpenMP threads per clip, the OpenMP default: run
+  with ``OMP_NUM_THREADS=1`` in the environment for the one-thread reading);
 - ``step[<path> #i]``: one batch resident on the card, the whole train step
   (augmentation, forward and backward of both chunks, the optimizer's
   micro-step) timed with CUDA events, three timings of 4 steps, and beside
@@ -33,9 +32,9 @@ with the tag of its reading set:
 ``<path>`` is ``fused`` (the clip_mha kernels), ``split`` (plain attention
 with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
 kernels), run in the order fused, split, pallas, fused, split, pallas;
-``--paths`` picks some of them, ``--readings`` how often and ``--loop-steps``
-the loops' length, ``--no-loader`` leaves the loader readings
-out and ``--loop-only`` the ``step`` and ``kernels`` readings.  Metrics are
+``--paths`` picks some of them and ``--loop-steps`` the loops' length.
+``--sections`` picks the reading sets: ``loader``, ``step`` (with
+``kernels``) and ``loop``.  Metrics are
 never read inside a timed window: the train step returns them on the device
 and these readings do not fetch them.  Exits non-zero without a CUDA device.
 """
@@ -64,6 +63,7 @@ TRAIN_OPTS = [
     "LOG_PERIOD", "100",
 ]
 STEPS = 4  # steps per timing
+SECTIONS = ("loader", "step", "loop")  # the reading sets, in the order they are taken
 
 
 def train_cfg(*extra: str):
@@ -164,13 +164,13 @@ def profile_loop(path: str, reading: int, steps: int = 6) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also append every line to this file")
-    ap.add_argument("--loader-only", action="store_true", help="time the host loader and stop")
-    ap.add_argument("--no-loader", action="store_true", help="leave the host loader's readings out")
-    ap.add_argument("--loop-only", action="store_true", help="leave the step and kernels readings out")
+    ap.add_argument("--sections", default=",".join(SECTIONS), help="comma-separated reading sets to take, of " + ", ".join(SECTIONS))
     ap.add_argument("--paths", default=",".join(PATHS), help="comma-separated attention paths to read, of " + ", ".join(PATHS))
     ap.add_argument("--loop-steps", type=int, default=6, help="steps of each train loop (two lengths tell the loop's start from its steady step)")
-    ap.add_argument("--readings", type=int, default=2, help="times the chosen paths are read, in turn")
     args = ap.parse_args(argv)
+    sections, paths = args.sections.split(","), args.paths.split(",")
+    if set(sections) - set(SECTIONS) or set(paths) - set(PATHS):
+        ap.error(f"--sections takes {', '.join(SECTIONS)} and --paths {', '.join(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: torch sees no CUDA device; this script measures the card only")
     profile_eval.set_out(args.out)
@@ -182,15 +182,14 @@ def main(argv=None) -> None:
     from clip_fsar_torch.ops import _build
 
     _build.library()  # built before any reading, so no loop's seconds hold the compile
-    if not args.no_loader:
+    if "loader" in sections:
         time_loader()
-    if args.loader_only:
-        return
-    for reading in range(1, args.readings + 1):
-        for path in args.paths.split(","):
-            if not args.loop_only:
+    for reading in (1, 2):
+        for path in paths:
+            if "step" in sections:
                 profile_step(path, reading)
-            profile_loop(path, reading, args.loop_steps)
+            if "loop" in sections:
+                profile_loop(path, reading, args.loop_steps)
 
 
 if __name__ == "__main__":

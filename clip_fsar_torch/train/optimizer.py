@@ -201,6 +201,7 @@ class Optimizer:
         self.device = self.params[0].device if self.params else torch.device("cpu")
         self.mini_step = torch.zeros((), dtype=torch.int64, device=self.device)  # micro-steps in the open window (k > 1)
         self.acc: Optional[List[torch.Tensor]] = None  # gradient sums of the open window (k > 1)
+        self._zero_missing_momentum()
 
     def signature(self) -> dict:
         """What a checkpointed optimizer state must match to be restored."""
@@ -213,7 +214,8 @@ class Optimizer:
     def _zero_missing_momentum(self) -> None:
         """Fused SGD creates a momentum buffer on its first call without
         filling it when that call is skipped; a zero buffer gives the same
-        first update (momentum * 0 + gradient), skipped calls or not."""
+        first update (momentum * 0 + gradient), skipped calls or not.  Done
+        once, when the state is made or loaded: no step walks the state."""
         if self.method != "sgd" or not self.inner.defaults["momentum"]:
             return
         for group in self.inner.param_groups:
@@ -246,7 +248,6 @@ class Optimizer:
             p.grad = g
         for group in self.inner.param_groups:
             group["lr"] = lr * group["lr_scale"]
-        self._zero_missing_momentum()
         self.inner.grad_scale = None
         self.inner.found_inf = (~do_update).to(torch.float32)  # 1.: the fused step changes nothing
         self.inner.step()
@@ -257,5 +258,6 @@ class Optimizer:
 
     def load_state_dict(self, sd: dict) -> None:
         self.inner.load_state_dict(sd["inner"])
+        self._zero_missing_momentum()
         self.mini_step.fill_(int(sd["mini_step"]))
         self.acc = None if sd["acc"] is None else [a.to(p.device) for a, p in zip(sd["acc"], self.params)]

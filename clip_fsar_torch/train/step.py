@@ -93,15 +93,16 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
     ep_chunks = int(cfg.TPU.get("EPISODE_CHUNKS", 1)) if "TPU" in cfg else 1
     loss_fn = make_loss_fn(head, cfg, text_train, text_test)
 
-    def aug(images: torch.Tensor, is_query: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def aug(images: torch.Tensor, is_query: bool, generator: Optional[torch.Generator], host) -> torch.Tensor:
         e, n = images.shape[:2]
-        out = augment.fewshot_train_augment(images.flatten(0, 1), cfg, mean, std, is_query, generator)
+        out = augment.fewshot_train_augment(images.flatten(0, 1), cfg, mean, std, is_query, generator, host)
         return out.reshape((e, n) + out.shape[1:])
 
     def grad_fn(batch: Episode, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        host = None if generator is None else augment.host_generator(generator)  # the step's host draws (the jitter's op orders)
         batch = batch.replace(
-            support_images=aug(batch.support_images, False, generator),
-            target_images=aug(batch.target_images, True, generator),
+            support_images=aug(batch.support_images, False, generator, host),
+            target_images=aug(batch.target_images, True, generator, host),
         )
         e = batch.support_images.shape[0]
         c = ep_chunks if (ep_chunks > 1 and e % ep_chunks == 0) else 1

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from clip_fsar_torch.data.augment import JitterConfig, JitterDraws, color_jitter_batch, fewshot_train_augment
+from clip_fsar_torch.data.augment import JitterConfig, JitterDraws, color_jitter_batch, draw_jitter, fewshot_train_augment, host_generator
 from clip_fsar_torch.data.datasets import DATASET_REGISTRY
 from clip_fsar_torch.data.episodes import EpisodeLoader
 from clip_fsar_torch.data.transforms import normalize_images, standardize
@@ -105,6 +105,28 @@ def test_train_augment_gates(is_query, color_aug):
     own = fewshot_train_augment(clips, cfg, mean, std, is_query, torch.Generator().manual_seed(0))
     assert torch.equal(own, plain) != (is_query or color_aug)
     assert torch.equal(fewshot_train_augment(clips, cfg, mean, std, is_query, None), plain)
+
+
+def test_jitter_order_is_drawn_anew_on_every_call_and_repeats_with_the_seed():
+    """The op order is drawn on the host (nothing is read back from the
+    generator's device): one pair of generators used over many calls draws
+    varying orders, a second pair of the same seed draws the same sequence,
+    another seed another one."""
+    from tests.torch_parity import host_reads
+
+    jc = JitterConfig(brightness=0.4, contrast=0.4, saturation=0.4, hue=0.1)
+
+    def orders(seed, calls=12):
+        generator = torch.Generator().manual_seed(seed)
+        host = host_generator(generator)
+        return [draw_jitter(generator, host, 2, 3, jc).order for _ in range(calls)]
+
+    with host_reads() as reads:
+        first = orders(7)
+    assert reads == []
+    assert all(0 <= o < 24 for o in first) and len(set(first)) > 1
+    assert orders(7) == first
+    assert orders(8) != first
 
 
 class _CountingSampler:

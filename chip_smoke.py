@@ -87,7 +87,19 @@ and read just after.  Phases:
    step; none of the other path's kernels) and which checkpoint was tested;
 9. the kernels inside the train step: one step's loss and gradients on each
    kernel path against the plain attention path, same weights, batch and
-   random draws.
+   random draws;
+10. the RN50 test slice: the flagship config as shipped, with no backbone
+   override (RN50 at 224 px, 8 frames, 5-way 1-shot), 16 episodes in 4 steps
+   of 4 (320 frames), in bf16 and again at TPU.COMPUTE_DTYPE float32 on the
+   same weights and episodes; the bf16 logits against the fp32 ones;
+11. the RN50 train slice: the same config trained as the ViT slices are (E = 4
+   in 2 chunks, BATCH_SIZE_PER_TASK 4, 8 steps, validation, checkpoint, test of
+   the step-8 checkpoint) with BatchNorm on per-episode batch statistics;
+   checks finite losses, 2 updates, and that the checkpoints hold finite
+   running stats that moved from their fresh values and between steps 4 and 8.
+   Neither RN50 phase launches any kernel: the RN towers' convs, BatchNorm and
+   attention pooling are cuDNN and plain torch, as they are XLA in the JAX
+   package (no Pallas kernel lies on that path).
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -151,6 +163,14 @@ TRAIN_OPTS = [
     "TEST.BATCH_SIZE", "4",
     "LOG_PERIOD", "1",
 ]
+# the RN50 slices: the flagship config as shipped (its BACKBONE_NAME is RN50), fresh weights, synthetic decoder
+RN_TEST_OPTS = ["TRAIN.ENABLE", "False", "DATA.DECODER", "synthetic", "TRAIN.NUM_TEST_TASKS", "16", "TEST.BATCH_SIZE", "4"]
+RN_TRAIN_OPTS = TRAIN_OPTS[2:]  # the ViT train slice's options less its backbone override
+RN_BATCH_NORMS = 3 + 3 * (3 + 4 + 6 + 3) + 4  # stem, three per bottleneck, one per stage's shortcut
+# bf16 test logits against fp32 ones on the same weights and episodes, absolute: this script read a largest
+# difference of 1.68e-2 on logits up to 7.87 in size (NVIDIA H100 80GB HBM3, 700.00 W)
+RN_LOGIT_TOL = 5e-2
+
 # ms per launch of the scalar-FMA kernels that the tensor-core kernels replaced, by kernel and frames: what this
 # script read on an NVIDIA H100 80GB HBM3 at 700.00 W (bf16, N = 197, 12 heads of 64) at commit 8f41df3 (the
 # forwards), at commit c522b25 (the clip_mha backward) and at commit 74417cb (the flash_mha backward, K4 with its delta pass)
@@ -900,13 +920,13 @@ def phase_loader_resize() -> None:
     print(f"loader resize: one batch of 4 episodes with each implementation ({took} clips), fields {fields} identical")
 
 
-def run_test_slice(extra_opts, out_dir: str) -> dict:
+def run_test_slice(extra_opts, out_dir: str, base_opts=SLICE_OPTS) -> dict:
     from clip_fsar_torch.runs.run import main
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    stats = main(["--cfg", CONFIG, *SLICE_OPTS, "OUTPUT_DIR", out_dir, *extra_opts])["test_few_shot"]
+    stats = main(["--cfg", CONFIG, *base_opts, "OUTPUT_DIR", out_dir, *extra_opts])["test_few_shot"]
     torch.cuda.synchronize()
     stats["wall_seconds"] = time.perf_counter() - t0
     stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -948,13 +968,15 @@ def phase_test_slice(out_dir: str) -> None:
                                    atol=2e-2, rtol=2e-2)
 
 
-# the kernels each train path launches: (forward, backward kernels)
-TRAIN_PATHS = {"fused": ([], ("clip_mha_fwd",), ("clip_mha_bwd",)),
-               "flash": (FLASH_OPTS, ("flash_mha_fwd",), ("flash_mha_bwd_dq", "flash_mha_bwd_dkv"))}
+# the options of each train path and the kernels it launches: (options, forward kernels, backward kernels)
+TRAIN_PATHS = {"fused": (TRAIN_OPTS, ("clip_mha_fwd",), ("clip_mha_bwd",)),
+               "flash": (TRAIN_OPTS + FLASH_OPTS, ("flash_mha_fwd",), ("flash_mha_bwd_dq", "flash_mha_bwd_dkv")),
+               "rn50": (RN_TRAIN_OPTS, (), ())}
 
 
 def phase_train_slice(out_dir: str, path: str) -> dict:
-    """A main path: train then test through the CLI, on the fused or the flash attention path."""
+    """A main path: train then test through the CLI, on the ViT's fused or flash attention path or on the
+    RN50 tower."""
     from clip_fsar_torch.runs.run import main
 
     opts, fwd_kernels, bwd_kernels = TRAIN_PATHS[path]
@@ -962,7 +984,7 @@ def phase_train_slice(out_dir: str, path: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    results = main(["--cfg", CONFIG, *TRAIN_OPTS, *opts, "OUTPUT_DIR", out_dir])
+    results = main(["--cfg", CONFIG, *opts, "OUTPUT_DIR", out_dir])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     want_bwd = LAYERS * TRAIN_STEPS * CHUNKS
@@ -990,7 +1012,86 @@ def phase_train_slice(out_dir: str, path: str) -> dict:
           f"validation and checkpoints); CLI wall {wall:.2f} s with the builds and the test of {test['weights']} "
           f"({TEST_EPISODES / test['seconds']:.3f} episodes/s, top1 {test['top1_acc']:.2f}); peak memory {peak / 2**30:.3f} GiB; "
           f"launches {launches}")
-    return {"launches": launches, "episodes_per_s": eps, "peak_gib": peak / 2**30}
+    if path == "rn50":
+        _check_running_stats(out_dir)
+    return {"launches": launches, "episodes_per_s": eps, "peak_gib": peak / 2**30, "step_ms": step_seconds / TRAIN_STEPS * 1e3}
+
+
+def _check_running_stats(out_dir: str) -> None:
+    """The RN50 train slice's checkpoints at steps 4 and 8 (the latter is the one the test protocol
+    loaded): every BatchNorm's running stats are there, finite, moved from the fresh mean 0 and
+    var 1, and moved again between the two checkpoints (live BatchNorm updates them every step)."""
+    stats = {}
+    for step in (VAL_EVERY, TRAIN_STEPS):
+        head = torch.load(os.path.join(out_dir, "checkpoints", f"{step}.pt"), map_location="cpu", weights_only=True)["head"]
+        stats[step] = {k: v for k, v in head.items() if k.endswith(("running_mean", "running_var"))}
+    final = stats[TRAIN_STEPS]
+    if len(final) != 2 * RN_BATCH_NORMS:
+        raise AssertionError(f"the step-{TRAIN_STEPS} checkpoint holds {len(final)} running stats, expected {2 * RN_BATCH_NORMS}")
+    if not all(torch.isfinite(v).all() for v in final.values()):
+        raise AssertionError("non-finite running stats in the checkpoint")
+    fresh = {k: torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v) for k, v in final.items()}
+    moved = [k for k, v in final.items() if not torch.equal(v, fresh[k]) and not torch.equal(v, stats[VAL_EVERY][k])]
+    if len(moved) != len(final):
+        raise AssertionError(f"running stats that did not move: {sorted(set(final) - set(moved))[:5]}")
+    shift = max((v - fresh[k]).abs().max().item() for k, v in final.items())
+    print(f"train slice [rn50]: {len(final)} running stats in the step-{TRAIN_STEPS} checkpoint, all finite, all moved from "
+          f"the fresh (0, 1) and since step {VAL_EVERY}; largest move from fresh {shift:.4e}")
+
+
+def _rn50_work() -> dict:
+    """RN50 at 224 px per frame, from shapes on the meta device: convolution FLOP (2 x MACs) and the
+    outputs of its BatchNorms, with how many of each."""
+    from clip_fsar_torch.models.clip.arch import ARCHS
+    from clip_fsar_torch.models.clip.model import BatchNorm, Conv2d, build_vision_tower
+
+    with torch.device("meta"):
+        tower = build_vision_tower(ARCHS["RN50"], dtype=torch.bfloat16)
+    work = {"conv_flop": 0, "convs": 0, "bn_outputs": 0, "bns": 0}
+
+    def count(module, inputs, out):
+        if isinstance(module, Conv2d):
+            work["conv_flop"] += 2 * out.numel() * module.weight[0].numel()
+            work["convs"] += 1
+        else:
+            work["bn_outputs"] += out.numel()
+            work["bns"] += 1
+
+    for m in tower.modules():
+        if isinstance(m, (Conv2d, BatchNorm)):
+            m.register_forward_hook(count)
+    tower(torch.empty(1, 224, 224, 3, device="meta"))
+    return work
+
+
+def phase_rn_test_slice(out_dir: str, card_line: str) -> dict:
+    """The RN50 test slice in bf16 and in fp32 (same fresh weights, same episodes), no kernel launched in
+    either; the bf16 logits against the fp32 ones."""
+    from clip_fsar_torch.runs.run import load_config
+
+    backbone = load_config(CONFIG, RN_TEST_OPTS).VIDEO.HEAD.BACKBONE_NAME
+    if backbone != "RN50":
+        raise AssertionError(f"the flagship config runs {backbone}, not RN50")
+    work = _rn50_work()
+    if work["bns"] != RN_BATCH_NORMS:
+        raise AssertionError(f"RN50 has {work['bns']} BatchNorms, expected {RN_BATCH_NORMS}")
+    print(f"RN50 at 224 px per frame: {work['conv_flop'] / 1e9:.3f} GFLOP in {work['convs']} convolutions, "
+          f"{work['bn_outputs'] / 1e6:.3f} M BatchNorm outputs in {work['bns']} BatchNorms")
+    runs, launches = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        _reset_launches()
+        runs[dtype] = run_test_slice(["TPU.COMPUTE_DTYPE", dtype], os.path.join(out_dir, f"rn50_{dtype}"), RN_TEST_OPTS)
+        got = _expect_launches(f"the RN50 test slice ({dtype})")  # no kernel: K1-K8 lie on no RN50 path
+        launches = {name: launches.get(name, 0) + n for name, n in got.items()}
+    got, want = (torch.from_numpy(runs[d]["episode_logits"]) for d in ("bfloat16", "float32"))
+    diff = (got - want).abs().max().item()
+    eps = 16 / runs["bfloat16"]["seconds"]
+    print(f"RN50 test slice on {card_line}: bf16 {eps:.3f} episodes/s ({16 * 80 / runs['bfloat16']['seconds']:.1f} frames/s), "
+          f"fp32 {16 / runs['float32']['seconds']:.3f} episodes/s; peak {runs['bfloat16']['max_memory_allocated'] / 2**30:.3f} GiB bf16, "
+          f"{runs['float32']['max_memory_allocated'] / 2**30:.3f} GiB fp32; bf16 vs fp32 logits max abs diff {diff:.4e} "
+          f"(max |logit| {want.abs().max().item():.4f}; atol {RN_LOGIT_TOL})")
+    torch.testing.assert_close(got, want, atol=RN_LOGIT_TOL, rtol=0)
+    return {"episodes_per_s": eps, "peak_gib": runs["bfloat16"]["max_memory_allocated"] / 2**30, "launches": launches}
 
 
 def phase_train_step_paths() -> None:
@@ -1051,12 +1152,15 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         phase_test_slice(out_dir)
         train = {path: phase_train_slice(os.path.join(out_dir, f"train_{path}"), path) for path in TRAIN_PATHS}
+        rn_test = phase_rn_test_slice(out_dir, smi)
     phase_train_step_paths()
     from clip_fsar_torch.data.transforms import RESIZE_CALLS
 
     print(f"loader resize: clips resized in this run by each implementation: {RESIZE_CALLS}")
-    print(f"summary: build {build_seconds:.2f} s; "
-          + "; ".join(f"{path} train slice {t['episodes_per_s']:.3f} episodes/s, peak {t['peak_gib']:.3f} GiB" for path, t in train.items()))
+    print(f"summary on {smi}: build {build_seconds:.2f} s; "
+          + "; ".join(f"{path} train slice {t['episodes_per_s']:.3f} episodes/s, {t['step_ms']:.1f} ms per step, peak {t['peak_gib']:.3f} GiB"
+                      for path, t in train.items())
+          + f"; rn50 test slice {rn_test['episodes_per_s']:.3f} episodes/s, peak {rn_test['peak_gib']:.3f} GiB")
     kernels = [
         ("clip_mha_fwd", "fused", "clip_fsar_torch/csrc/clip_mha_fwd.cu", "clip_fsar_tpu/ops/fused_attention.py:71"),
         ("clip_mha_bwd", "fused", "clip_fsar_torch/csrc/clip_mha_bwd.cu", "clip_fsar_tpu/ops/fused_attention.py:97"),
@@ -1075,7 +1179,7 @@ def main() -> None:
         t = timings[name]
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[path][name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "rn50_launches": train["rn50"]["launches"][name] + rn_test["launches"][name],
                         **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t}})
         if not records[-1]["launches"] > 0:
             raise AssertionError(f"{name} was launched no time on the path that runs it")

@@ -23,6 +23,9 @@ from clip_fsar_torch import runtime
 from clip_fsar_torch.models.clip.arch import ARCHS, CLIPArch
 from clip_fsar_torch.models.clip.convert import load_openai_checkpoint, resize_vision_pos_embed
 from clip_fsar_torch.models.clip.model import (
+    AttentionPool2d,
+    BatchNorm,
+    Conv2d,
     Dense,
     LayerNorm,
     MultiheadAttention,
@@ -131,7 +134,8 @@ def _lecun_normal_(p: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
 @torch.no_grad()
 def init_weights(module: nn.Module, g: torch.Generator) -> None:
     """Fill every parameter of ``module`` with the flax initializer family
-    the JAX package uses for it, drawing from ``g`` in module order."""
+    the JAX package uses for it, drawing from ``g`` in module order, and
+    reset BatchNorm's running stats to flax's (mean 0, var 1)."""
     for m in module.modules():
         if isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
@@ -143,8 +147,15 @@ def init_weights(module: nn.Module, g: torch.Generator) -> None:
         elif isinstance(m, MultiheadAttention):
             _lecun_normal_(m.in_proj_weight, m.in_proj_weight.shape[1], g)
             m.in_proj_bias.zero_()
-        elif isinstance(m, PatchEmbed):
-            _lecun_normal_(m.weight, m.weight[0].numel(), g)
+        elif isinstance(m, (PatchEmbed, Conv2d)):
+            _lecun_normal_(m.weight, m.weight[0].numel(), g)  # fan-in kh * kw * in
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        elif isinstance(m, AttentionPool2d):
+            m.positional_embedding.normal_(0.0, m.positional_embedding.shape[1] ** -0.5, generator=g)
         elif isinstance(m, VisionTransformer):
             std = m.class_embedding.shape[0] ** -0.5
             for p in (m.class_embedding, m.positional_embedding, m.proj):
@@ -211,10 +222,13 @@ def build_few_shot_model(cfg, generator: Optional[torch.Generator] = None, flow:
         names = list(names)
         banks.append(encode_class_names(arch, clip_sd, names, prompt, device) if names else torch.zeros((1, arch.embed_dim), device=device))
 
+    # the reference trains the whole model, so RN BatchNorm runs on batch statistics unless BN.FREEZE (JAX builder.py:341-352)
+    bn_freeze = bool(cfg.BN.get("FREEZE", False)) if "BN" in cfg else False
     head = CLIPFSARHead(
-        arch, CLIPFSARConfig.from_cfg(cfg), dtype=_dtype_from_cfg(cfg), attention_backend=_attention_backend_from_cfg(cfg, device)
+        arch, CLIPFSARConfig.from_cfg(cfg), dtype=_dtype_from_cfg(cfg), attention_backend=_attention_backend_from_cfg(cfg, device),
+        train_backbone_bn=not bn_freeze,
     )
-    head.backbone.load_state_dict(_sub(clip_sd, "visual."))
+    head.backbone.load_state_dict(_sub(clip_sd, "visual."))  # strict: an OpenAI RN file's BN running stats included
     init_weights(head.context2, g)
     head.to(device).train(flow == "train")
     return FewShotModel(head=head, text_train=banks[0], text_test=banks[1])

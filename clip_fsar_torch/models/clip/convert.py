@@ -11,6 +11,11 @@ tower under ``visual.`` — except that the text tower sits under ``text.``
 * ``q_proj`` / ``k_proj`` / ``v_proj`` -> one packed ``in_proj`` (q | k | v);
 * ``_PatchEmbed`` kernel (p, p, c, width) -> conv layout (width, c, p, p);
 * the ``LayerNorm_0`` child scope -> ``weight`` / ``bias``;
+* RN towers: conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw),
+  ``BatchNorm_0`` {scale, bias} -> ``weight`` / ``bias`` and the
+  ``batch_stats`` {mean, var} -> ``running_mean`` / ``running_var``,
+  ``layer{s}_{i}`` -> ``layer{s}.{i}``, ``downsample_conv`` /
+  ``downsample_bn`` -> ``downsample.0`` / ``downsample.1``;
 * embeddings, projections and the head ``scale`` as they are.
 """
 
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from clip_fsar_torch.models.clip.arch import ARCHS, CLIPArch
 
 _OPENAI_META_KEYS = ("input_resolution", "context_length", "vocab_size")
+_BN_COUNTER = ".num_batches_tracked"  # torch BatchNorm2d's step counter: flax has none, nor has the port
 
 
 def infer_arch(sd: Mapping[str, Any]) -> CLIPArch:
@@ -69,7 +75,7 @@ def openai_to_port(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """OpenAI CLIP names -> the port's CLIP names (text tower under ``text.``)."""
     out = {}
     for k, v in sd.items():
-        if k in _OPENAI_META_KEYS:
+        if k in _OPENAI_META_KEYS or k.endswith(_BN_COUNTER):
             continue
         name = k if (k.startswith("visual.") or k == "logit_scale") else f"text.{k}"
         out[name] = torch.as_tensor(v).float()
@@ -91,14 +97,15 @@ def load_openai_checkpoint(path: str) -> Tuple[CLIPArch, Dict[str, torch.Tensor]
 
 
 def resize_vision_pos_embed(sd: Dict[str, torch.Tensor], arch: CLIPArch) -> Dict[str, torch.Tensor]:
-    """Bilinearly resample ``visual.positional_embedding`` to ``arch``'s
-    (non-native) resolution, keeping the CLS row (JAX convert.py:227-254,
+    """Bilinearly resample the vision positional table to ``arch``'s
+    (non-native) resolution, keeping the first row (JAX convert.py:227-254,
     which uses jax.image.resize: half-pixel centres, antialiased when
-    shrinking)."""
-    key = "visual.positional_embedding"
+    shrinking): ``visual.positional_embedding`` on the ViT's patch grid, or
+    ``visual.attnpool.positional_embedding`` on the RN towers' stride-32 grid."""
+    key = "visual.positional_embedding" if "visual.positional_embedding" in sd else "visual.attnpool.positional_embedding"
     pos = sd[key]
     g_old = round((pos.shape[0] - 1) ** 0.5)
-    g_new = arch.image_resolution // arch.vision_patch_size
+    g_new = arch.image_resolution // (arch.vision_patch_size or 32)
     if g_old == g_new:
         return sd
     grid = pos[1:].reshape(g_old, g_old, -1).permute(2, 0, 1)[None]
@@ -144,7 +151,46 @@ def _transformer(out: Dict, prefix: str, tree: Mapping) -> None:
         i += 1
 
 
-def _vision(out: Dict, prefix: str, tree: Mapping) -> None:
+def _conv(out: Dict, name: str, tree: Mapping) -> None:
+    out[f"{name}.weight"] = _t(tree["kernel"]).permute(3, 2, 0, 1).contiguous()  # (kh, kw, in, out) -> (out, in, kh, kw)
+
+
+def _batch_norm(out: Dict, name: str, tree: Mapping, stats: Optional[Mapping]) -> None:
+    _norm(out, name, tree["BatchNorm_0"])
+    if stats is not None:
+        out[f"{name}.running_mean"] = _t(stats["BatchNorm_0"]["mean"])
+        out[f"{name}.running_var"] = _t(stats["BatchNorm_0"]["var"])
+
+
+def _resnet(out: Dict, prefix: str, tree: Mapping, stats: Optional[Mapping]) -> None:
+    """ModifiedResNet params (and, when given, its batch_stats) -> OpenAI names."""
+    sub = lambda name: None if stats is None else stats[name]  # noqa: E731
+    for j in (1, 2, 3):
+        _conv(out, f"{prefix}.conv{j}", tree[f"conv{j}"])
+        _batch_norm(out, f"{prefix}.bn{j}", tree[f"bn{j}"], sub(f"bn{j}"))
+    for stage in (1, 2, 3, 4):
+        i = 0
+        while f"layer{stage}_{i}" in tree:
+            name, blk = f"layer{stage}_{i}", tree[f"layer{stage}_{i}"]
+            p = f"{prefix}.layer{stage}.{i}"
+            blk_stats = sub(name)
+            for j in (1, 2, 3):
+                _conv(out, f"{p}.conv{j}", blk[f"conv{j}"])
+                _batch_norm(out, f"{p}.bn{j}", blk[f"bn{j}"], None if blk_stats is None else blk_stats[f"bn{j}"])
+            if "downsample_conv" in blk:
+                _conv(out, f"{p}.downsample.0", blk["downsample_conv"])
+                _batch_norm(out, f"{p}.downsample.1", blk["downsample_bn"], None if blk_stats is None else blk_stats["downsample_bn"])
+            i += 1
+    pool = tree["attnpool"]
+    out[f"{prefix}.attnpool.positional_embedding"] = _t(pool["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _dense(out, f"{prefix}.attnpool.{name}", pool[name])
+
+
+def _vision(out: Dict, prefix: str, tree: Mapping, stats: Optional[Mapping] = None) -> None:
+    if "attnpool" in tree:
+        _resnet(out, prefix, tree, stats)
+        return
     out[f"{prefix}.conv1.weight"] = _t(tree["conv1"]["kernel"]).permute(3, 2, 0, 1).contiguous()  # (p,p,c,w) -> (w,c,p,p)
     for name in ("class_embedding", "positional_embedding", "proj"):
         out[f"{prefix}.{name}"] = _t(tree[name])
@@ -174,12 +220,14 @@ def _context2(out: Dict, tree: Mapping) -> None:
 
 def params_from_jax(variables: Mapping, text_params: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
     """The JAX FewShotModel variables ({"params": {"backbone", "context2",
-    "scale"}}, numpy leaves) -> a CLIPFSARHead state dict.  With
-    ``text_params`` (the JAX CLIP's ``params["text"]``) the text tower's
-    entries are added under ``text.``, the names of ``CLIP.text``."""
+    "scale"}}, numpy leaves, and for the RN towers {"batch_stats":
+    {"backbone"}}) -> a CLIPFSARHead state dict; without batch_stats the RN
+    running stats are left out.  With ``text_params`` (the JAX CLIP's
+    ``params["text"]``) the text tower's entries are added under ``text.``,
+    the names of ``CLIP.text``."""
     params = variables["params"]
     out: Dict[str, torch.Tensor] = {}
-    _vision(out, "backbone", params["backbone"])
+    _vision(out, "backbone", params["backbone"], (variables.get("batch_stats") or {}).get("backbone"))
     _context2(out, params["context2"])
     out["scale"] = _t(params["scale"])
     if text_params is not None:

@@ -4,7 +4,10 @@
 The head takes a batch of E episodes and runs the CLIP tower ONCE over all
 E*(S+Q)*T frames — the JAX head is vmapped over E, which XLA turns into the
 same single batched tower call.  Everything after the tower keeps the
-leading E axis.
+leading E axis.  The one exception is an RN tower in the train branch with
+live BatchNorm (``train_backbone_bn``, BN.FREEZE off): as in the JAX head
+(clipfsar.py:126-156,192-199) support and target are encoded in two calls,
+support first, each over the E episodes with per-episode batch statistics.
 
 Eval variants (gated by cfg.TRAIN keys, as in the reference): plain OTAM,
 ``EVAL_TEXT`` (zero-shot text matching), ``COMBINE`` (text^a *
@@ -12,9 +15,7 @@ visual_softmax^(1-a) fusion), ``MERGE_BEFORE`` (class-mean before
 modulation), ``SINGLE_DIRECT`` (one-directional OTAM).  The train branch modulates the
 prototypes with the train text bank, makes the class logits only under
 ``USE_CLASSIFICATION``, and runs the prototype-modulation transformer's
-dropout from the generator it is given.  The RN towers' train mode
-(separate support and target encodes with batch-stat BatchNorm) waits for
-the RN50 tower.
+dropout from the generator it is given.
 """
 
 from __future__ import annotations
@@ -71,16 +72,26 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPFSARHead(nn.Module):
-    def __init__(self, arch: CLIPArch, head_cfg: CLIPFSARConfig, dtype: torch.dtype = torch.float32, attention_backend: str = "plain"):
+    def __init__(
+        self, arch: CLIPArch, head_cfg: CLIPFSARConfig, dtype: torch.dtype = torch.float32, attention_backend: str = "plain",
+        train_backbone_bn: bool = False,
+    ):
         super().__init__()
         self.arch = arch
         self.head_cfg = head_cfg
-        self.backbone = build_vision_tower(arch, dtype=dtype, attention_backend=attention_backend)
-        mid = arch.embed_dim  # 512 for ViT-B/16 (few_shot.py:2699-2713)
+        self.backbone = build_vision_tower(arch, dtype=dtype, attention_backend=attention_backend)  # ViT, or ModifiedResNet for RN*
+        self.train_backbone_bn = train_backbone_bn  # RN towers: BatchNorm on batch statistics in the train branch
+        mid = arch.embed_dim  # 1024 for RN50, 512 for ViT-B/16 (few_shot.py:2699-2713)
         self.context2 = TransformerV1(
             mid, heads=8, dim_head_k=mid // 8, dropout_atte=0.2, depth=head_cfg.transformer_depth, dtype=dtype
         )
         self.scale = nn.Parameter(torch.ones(1, dtype=torch.float32))
+
+    def _encode(self, images: torch.Tensor, bn_groups: Optional[int] = None) -> torch.Tensor:
+        """[E, N, T, H, W, 3] -> float32 features [E, N, T, D] in one tower call."""
+        flat = images.reshape((-1,) + images.shape[3:])
+        feats = self.backbone(flat) if self.arch.is_vit else self.backbone(flat, bn_groups)
+        return feats.float().reshape(images.shape[:3] + (-1,))
 
     def _text_logits(self, text_bank, ep: Episode, image_features: torch.Tensor) -> torch.Tensor:
         """softmax(scale * <image, class-mean support text>) over the way
@@ -105,10 +116,12 @@ class CLIPFSARHead(nn.Module):
             raise ValueError(f"episode has {ep.support_images.shape[2]} frames, head expects NUM_INPUT_FRAMES={t}")
         text_eval = text_test if text_test is not None else text_train
 
-        # one tower call over every frame of the step
-        both = torch.cat([ep.support_images, ep.target_images], dim=1)  # [E, S+Q, T, H, W, 3]
-        feats = self.backbone(both.reshape((-1,) + both.shape[3:])).float().reshape(e, both.shape[1], t, -1)
-        support_features, target_features = feats[:, :s_clips], feats[:, s_clips:]
+        if train and self.train_backbone_bn and not self.arch.is_vit:
+            # live BatchNorm: the support call, then the target call, each episode on its own statistics
+            support_features, target_features = self._encode(ep.support_images, e), self._encode(ep.target_images, e)
+        else:  # one tower call over every frame of the step, BatchNorm (if any) on its running stats
+            feats = self._encode(torch.cat([ep.support_images, ep.target_images], dim=1))  # [E, S+Q, T, D]
+            support_features, target_features = feats[:, :s_clips], feats[:, s_clips:]
         nq = target_features.shape[1]
 
         if not train and hc.eval_text:  # zero-shot: mean target feature vs class-mean support text

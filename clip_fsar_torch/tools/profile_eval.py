@@ -1,6 +1,6 @@
 """Where the time of the few-shot test slice goes on a CUDA card.
 
-    python -m clip_fsar_torch.tools.profile_eval [--out chiprun_out/profile_eval.txt]
+    python -m clip_fsar_torch.tools.profile_eval [--out chiprun_out/profile_eval.txt] [--backbone RN50]
 
 The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with a ViT-B/16
 tower at full width (fresh weights from the seed), the synthetic decoder,
@@ -27,14 +27,22 @@ printed on a line that starts with the tag of its reading set:
 ``<path>`` is ``fused`` (the clip_mha kernel), ``split`` (plain attention
 with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
 kernel); they run in the order fused, split, pallas, fused, split, pallas,
-so each is read twice with the others in between.  Exits non-zero without a
-CUDA device.
+so each is read twice with the others in between.
+
+``--backbone`` sets the tower (default ViT-B/16).  An RN tower runs no
+attention path of the config (its attention pool is plain float32 softmax),
+so only ``split`` is read, and its ``kernels`` sets also print
+``rn_split[...]``: the device time inside the convolutions (``aten::convolution``
+and its backward), inside BatchNorm (each module's forward under a profiler
+range, and its autograd backward) and the rest, from the profiler's
+per-op device totals.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import os
 import subprocess
 import time
@@ -89,6 +97,49 @@ def slice_cfg(*extra: str):
     return load_config(CONFIG, SLICE_OPTS + list(extra))
 
 
+def is_rn(backbone: str) -> bool:
+    return backbone.startswith("RN")
+
+
+@contextlib.contextmanager
+def bn_ranges():
+    """Every RN BatchNorm forward inside a profiler range named ``bn_chain`` (the backward is the
+    autograd node ``_BatchNormFnBackward``), for ``report_split``; the model's code is untouched."""
+    from unittest import mock
+
+    from clip_fsar_torch.models.clip.model import BatchNorm
+
+    forward = BatchNorm.forward
+
+    def ranged(self, *args, **kwargs):
+        with torch.profiler.record_function("bn_chain"):
+            return forward(self, *args, **kwargs)
+
+    with mock.patch.object(BatchNorm, "forward", ranged):
+        yield
+
+
+def _device_total_ms(row) -> float:
+    total = getattr(row, "device_time_total", None)
+    return (total if total is not None else row.cuda_time_total) / 1e3
+
+
+def report_split(tag: str, prof, busy_ms: float) -> None:
+    """The RN step's device time split into convolutions, the BatchNorm chain and the rest, from the
+    profiler's per-op totals (each op's own kernels and its children's)."""
+    rows = {row.key: row for row in prof.key_averages()}
+    pick = lambda *names: sum(_device_total_ms(rows[n]) for n in names if n in rows)  # noqa: E731
+    conv_fwd, conv_bwd = pick("aten::convolution"), pick("aten::convolution_backward")
+    bn_fwd = pick("bn_chain")
+    bn_bwd = pick("_BatchNormFnBackward") or pick("autograd::engine::evaluate_function: _BatchNormFnBackward")
+    if not conv_fwd + bn_fwd:
+        say(f"{tag}: the profiler's op rows carry no device time; read the kernel groups above instead")
+        return
+    rest = busy_ms - conv_fwd - conv_bwd - bn_fwd - bn_bwd
+    say(f"{tag}: convolutions {conv_fwd:.3f} ms forward + {conv_bwd:.3f} ms backward, BatchNorm chain {bn_fwd:.3f} ms forward + "
+        f"{bn_bwd:.3f} ms backward, the rest {rest:.3f} ms, of {busy_ms:.3f} ms device busy")
+
+
 def _group(name: str) -> str:
     low = name.lower()
     if "flash_mha_bwd_dkv" in low:
@@ -101,6 +152,10 @@ def _group(name: str) -> str:
         return "clip_mha_bwd"
     if "clip_mha" in low:
         return "clip_mha"
+    if any(s in low for s in ("fprop", "dgrad", "wgrad", "convolve", "conv2d", "convolution")):
+        return "conv"
+    if any(s in low for s in ("nchwtonhwc", "nhwctonchw")):
+        return "conv layout"
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "sm80_")):
         return "gemm"
     if "softmax" in low:
@@ -111,7 +166,10 @@ def _group(name: str) -> str:
 
 
 def _device_events(prof) -> List:
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    """The card's kernels and copies, without the spans that profiler ranges (``bn_chain``) leave on the
+    device timeline."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name != "bn_chain"]
 
 
 def _busy_us(events) -> float:
@@ -125,11 +183,12 @@ def _busy_us(events) -> float:
     return busy
 
 
-def _report_kernels(tag: str, prof, wall_ms: float, steps: int) -> None:
+def _report_kernels(tag: str, prof, wall_ms: float, steps: int) -> float:
+    """Prints the kernel groups and top kernels; returns the device busy ms."""
     events = _device_events(prof)
     if not events:
         say(f"{tag}: the profiler recorded no device events")
-        return
+        return 0.0
     per_name: Dict[str, List[float]] = collections.defaultdict(lambda: [0.0, 0])
     for e in events:
         per_name[e.name][0] += e.time_range.elapsed_us() / 1e3
@@ -145,6 +204,7 @@ def _report_kernels(tag: str, prof, wall_ms: float, steps: int) -> None:
     say(f"{tag}: groups " + ", ".join(f"{g} {ms:.3f} ms x{n}" for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
         say(f"{tag}: {ms:10.3f} ms {ms / total * 100:5.1f} % x{n:<5d} {name[:110]}")
+    return busy
 
 
 def resize_variants():
@@ -187,7 +247,7 @@ def time_loader(workers: int, steps: int = STEPS) -> None:
     restore_resize()
 
 
-def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
+def profile_path(path: str, reading: int, steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from clip_fsar_torch.data.loader import build_few_shot_loader
@@ -196,7 +256,7 @@ def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
     from clip_fsar_torch.train.step import make_eval_step
 
     dev = torch.device("cuda")
-    cfg = slice_cfg(*PATHS[path])
+    cfg = slice_cfg(*PATHS[path], "VIDEO.HEAD.BACKBONE_NAME", backbone)
     model = build_few_shot_model(cfg, flow="test", device=dev)
     eval_step = make_eval_step(model.head, cfg, model.text_train, model.text_test)
     with build_few_shot_loader(cfg, "test", num_steps=1, episodes_per_step=EPISODES_PER_STEP) as loader:
@@ -217,13 +277,15 @@ def profile_path(path: str, reading: int, steps: int = STEPS) -> None:
     say(f"{tag}: batch resident, {EPISODES_PER_STEP * 80} frames, ms per step over {steps} steps: "
         + " / ".join(f"{ms:.3f}" for ms in readings))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with bn_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             eval_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _report_kernels(f"kernels[{path} #{reading}]", prof, wall_ms, 2)
+    busy = _report_kernels(f"kernels[{path} #{reading}]", prof, wall_ms, 2)
+    if is_rn(backbone):
+        report_split(f"rn_split[{path} #{reading}]", prof, busy)
 
     tag = f"loop[{path} #{reading}]"
     episodes = int(cfg.TRAIN.NUM_TEST_TASKS)
@@ -246,19 +308,20 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also append every line to this file")
     ap.add_argument("--loader-only", action="store_true", help="time the host loader and stop")
+    ap.add_argument("--backbone", default="ViT-B/16", help="the CLIP tower (an RN tower reads the split path only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: torch sees no CUDA device; this script measures the card only")
     set_out(args.out)
     say(card())
-    say(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} backbone {args.backbone}")
     for workers in (4, 8):
         time_loader(workers)
     if args.loader_only:
         return
     for reading in (1, 2):
-        for path in PATHS:
-            profile_path(path, reading)
+        for path in ["split"] if is_rn(args.backbone) else PATHS:
+            profile_path(path, reading, backbone=args.backbone)
 
 
 if __name__ == "__main__":

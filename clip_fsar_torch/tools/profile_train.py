@@ -1,7 +1,7 @@
 """Where the time of the few-shot train slice goes on a CUDA card.
 
     python -m clip_fsar_torch.tools.profile_train [--out chiprun_out/profile_train.txt]
-        [--sections loader,step,loop] [--paths fused,pallas] [--loop-steps 18]
+        [--sections loader,step,loop] [--paths fused,pallas] [--loop-steps 18] [--backbone RN50]
 
 The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with
 a ViT-B/16 tower at full width (fresh weights from the seed), the synthetic
@@ -34,7 +34,11 @@ with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
 kernels), run in the order fused, split, pallas, fused, split, pallas;
 ``--paths`` picks some of them and ``--loop-steps`` the loops' length.
 ``--sections`` picks the reading sets: ``loader``, ``step`` (with
-``kernels``) and ``loop``.  Metrics are
+``kernels``) and ``loop``.  ``--backbone`` sets the tower (default
+ViT-B/16); an RN tower reads the ``split`` path only (no attention path of
+the config reaches it) and adds ``rn_split[...]`` to each ``kernels`` set:
+device time in the convolutions, in the BatchNorm chain and in the rest
+(``profile_eval.report_split``).  Metrics are
 never read inside a timed window: the train step returns them on the device
 and these readings do not fetch them.  Exits non-zero without a CUDA device.
 """
@@ -49,7 +53,7 @@ import time
 import torch
 
 from clip_fsar_torch.tools import profile_eval
-from clip_fsar_torch.tools.profile_eval import CONFIG, PATHS, _busy_us, _device_events, _report_kernels, card, say
+from clip_fsar_torch.tools.profile_eval import CONFIG, PATHS, _busy_us, _device_events, _report_kernels, bn_ranges, card, is_rn, report_split, say
 
 EPISODES = 4
 TRAIN_OPTS = [
@@ -90,7 +94,7 @@ def time_loader(steps: int = STEPS) -> None:
     profile_eval.restore_resize()
 
 
-def profile_step(path: str, reading: int, steps: int = STEPS) -> None:
+def profile_step(path: str, reading: int, steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from clip_fsar_torch.data.loader import build_few_shot_loader
@@ -101,7 +105,7 @@ def profile_step(path: str, reading: int, steps: int = STEPS) -> None:
     from clip_fsar_torch.train.step import make_train_step
 
     dev = torch.device("cuda")
-    cfg = train_cfg(*PATHS[path])
+    cfg = train_cfg(*PATHS[path], "VIDEO.HEAD.BACKBONE_NAME", backbone)
     model = build_few_shot_model(cfg, flow="train", device=dev)
     state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
     train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
@@ -126,31 +130,33 @@ def profile_step(path: str, reading: int, steps: int = STEPS) -> None:
     say(f"{tag}: batch resident, {EPISODES * 240} frames in 2 chunks, ms per train step over {steps} steps: "
         + " / ".join(f"{ms:.3f}" for ms in readings) + "; the host queued a step in " + " / ".join(f"{ms:.3f}" for ms in queued) + " ms")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with bn_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             train_step(state, batch, 1e-6, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _report_kernels(f"kernels[{path} #{reading}]", prof, wall_ms, 2)
+    busy = _report_kernels(f"kernels[{path} #{reading}]", prof, wall_ms, 2)
+    if is_rn(backbone):
+        report_split(f"rn_split[{path} #{reading}]", prof, busy)
     del model, state, train_step, batch
     torch.cuda.empty_cache()
 
 
-def profile_loop(path: str, reading: int, steps: int = 6) -> None:
+def profile_loop(path: str, reading: int, steps: int = 6, backbone: str = "ViT-B/16") -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from clip_fsar_torch.train.loop import train_few_shot
 
     tag = f"loop[{path} #{reading}]"
     with tempfile.TemporaryDirectory() as out_dir:
-        stats = train_few_shot(train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir))
+        stats = train_few_shot(train_cfg(*PATHS[path], "VIDEO.HEAD.BACKBONE_NAME", backbone, "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir))
     say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s without the profiler, "
         f"{stats['steps'] * EPISODES / stats['seconds']:.3f} train episodes/s")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
-        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir)
+        loop_cfg = train_cfg(*PATHS[path], "VIDEO.HEAD.BACKBONE_NAME", backbone, "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             stats = train_few_shot(loop_cfg)
             torch.cuda.synchronize()
@@ -167,8 +173,9 @@ def main(argv=None) -> None:
     ap.add_argument("--sections", default=",".join(SECTIONS), help="comma-separated reading sets to take, of " + ", ".join(SECTIONS))
     ap.add_argument("--paths", default=",".join(PATHS), help="comma-separated attention paths to read, of " + ", ".join(PATHS))
     ap.add_argument("--loop-steps", type=int, default=6, help="steps of each train loop (two lengths tell the loop's start from its steady step)")
+    ap.add_argument("--backbone", default="ViT-B/16", help="the CLIP tower (an RN tower reads the split path only)")
     args = ap.parse_args(argv)
-    sections, paths = args.sections.split(","), args.paths.split(",")
+    sections, paths = args.sections.split(","), (["split"] if is_rn(args.backbone) else args.paths.split(","))
     if set(sections) - set(SECTIONS) or set(paths) - set(PATHS):
         ap.error(f"--sections takes {', '.join(SECTIONS)} and --paths {', '.join(PATHS)}")
     if not torch.cuda.is_available():
@@ -178,7 +185,7 @@ def main(argv=None) -> None:
 
     runtime.device("cuda")
     say(card())
-    say(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} backbone {args.backbone}")
     from clip_fsar_torch.ops import _build
 
     _build.library()  # built before any reading, so no loop's seconds hold the compile
@@ -187,9 +194,9 @@ def main(argv=None) -> None:
     for reading in (1, 2):
         for path in paths:
             if "step" in sections:
-                profile_step(path, reading)
+                profile_step(path, reading, backbone=args.backbone)
             if "loop" in sections:
-                profile_loop(path, reading, args.loop_steps)
+                profile_loop(path, reading, args.loop_steps, backbone=args.backbone)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,9 @@ search (counterpart of clip_fsar_tpu/train/checkpoint.py and
 clip_fsar_tpu/train/pretrain.py:247-301).
 
 ``Checkpointer(OUTPUT_DIR)`` writes ``OUTPUT_DIR/checkpoints/<step>.pt``
-(``torch.save`` of the step, the head's state dict, the optimizer with its
-accumulation window, and the EMA parameters), atomically, keeping the newest
-five.  A head checkpoint file (``save_checkpoint``) holds the head's state
+(``torch.save`` of the step, the head's state dict with an RN tower's
+BatchNorm running stats, the optimizer with its accumulation window, and the
+EMA parameters), atomically, keeping the newest five.  A head checkpoint file (``save_checkpoint``) holds the head's state
 dict alone.  Loading a checkpoint FILE (TEST/TRAIN.CHECKPOINT_FILE_PATH) is
 non-strict as in the JAX package: entries whose name and shape match the head
 are taken, the rest are skipped with a log line.
@@ -56,7 +56,8 @@ _NPZ_ROUTE = ("export the weights with clip_fsar_tpu.train.pretrain.save_weights
 
 def _load_npz(path: str) -> Dict[str, torch.Tensor]:
     """A JAX-package weight archive (flat "/"-keyed arrays, with or without
-    the ``params/`` collection prefix) as a head state dict."""
+    the ``params/`` collection prefix; an RN tower's running stats under
+    ``batch_stats/``) as a head state dict."""
     tree: Dict[str, Any] = {}
     with np.load(path) as archive:
         for key in archive.files:

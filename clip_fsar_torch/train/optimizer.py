@@ -81,15 +81,23 @@ def epoch_for_iter(cfg, cur_iter: int) -> float:
 # ---------------------------------------------------------------------------
 
 
+# OpenAI's names of an RN bottleneck's shortcut -> the JAX package's: its BatchNorm must land in the 'bn' group
+_DOWNSAMPLE = {"0": "downsample_conv", "1": "downsample_bn"}
+
+
 def _reference_name_parts(parts: List[str]) -> List[str]:
     """Drop flax norm-wrapper segments under a CLIP ``ln_*`` module (the
-    JAX package's rule; the port's names have none, so this is a no-op on
-    them and kept for the shared arithmetic)."""
+    JAX package's rule; the port's names have none), and name an RN
+    shortcut's ``downsample.0`` / ``downsample.1`` as the JAX package does
+    (``downsample_conv`` / ``downsample_bn``), so each name is grouped as
+    its JAX counterpart is (optimizer.py:95-125)."""
     out = []
     for i, p in enumerate(parts):
         if p.startswith(("layernorm_", "batchnorm_", "groupnorm_")) and i > 0 and parts[i - 1].startswith("ln"):
             continue
-        out.append(p)
+        if p == "downsample" and parts[i + 1 : i + 2] and parts[i + 1] in _DOWNSAMPLE:
+            continue
+        out.append(_DOWNSAMPLE[p] if i > 0 and parts[i - 1] == "downsample" and p in _DOWNSAMPLE else p)
     return out
 
 

@@ -2,7 +2,10 @@
 
 The JAX state is an immutable pytree of arrays; here the head and the
 optimizer are updated in place, and the state holds them with the step
-counter and the EMA copy of the parameters (``MODEL.EMA``).
+counter and the EMA copy of the parameters (``MODEL.EMA``).  The EMA covers
+the parameters only: an RN tower's BatchNorm running stats are buffers of
+the head and stay as trained in both variable sets, as the JAX state's
+``batch_stats`` do.
 """
 
 from __future__ import annotations

@@ -17,6 +17,15 @@ guard is decided on the device and the metrics stay there: a step reads
 nothing back to the host, so the caller can launch the next step (and copy
 its batch) while the card still works on this one, and fetches metrics only
 where it logs.
+
+RN towers with live BatchNorm (BN.FREEZE off) also update the running
+statistics, as the JAX step's mutable ``batch_stats`` do (:63-78,104-112,
+140-160,178-180): each episode starts from the step's running stats r0,
+its support call and then its target call each move them by flax's
+momentum (0.81 r0 + 0.09 m_support + 0.1 m_target), every chunk starts
+from r0 again, and the new stats are the mean over the E episodes.  They
+are written at the step's end where the loss is finite, on every micro-step
+of the accumulation window, on the device.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 from clip_fsar_torch.data import augment
 from clip_fsar_torch.data.transforms import normalize_images
 from clip_fsar_torch.data.types import Episode
+from clip_fsar_torch.models.clip.model import BatchNorm
 from clip_fsar_torch.train.state import TrainState
 
 # loss terms of heads that are not ported yet
@@ -52,6 +62,11 @@ def _check_train_cfg(cfg, arch) -> None:
         deep = arch.is_vit and arch.vision_layers >= 24
         if (deep if str(remat).lower() == "auto" else bool(remat)) or int(cfg.TPU.get("FRAME_CHUNKS", 1) or 1) > 1:
             raise NotImplementedError("TPU.REMAT / TPU.FRAME_CHUNKS (rematerialized towers) are not ported yet: ROADMAP Queue 1, train slice leftovers")
+
+
+def _live_batch_norms(head) -> list:
+    """The BatchNorms whose running stats a train step updates: an RN tower's, unless BN.FREEZE."""
+    return [m for m in head.modules() if isinstance(m, BatchNorm)] if head.train_backbone_bn else []
 
 
 def make_loss_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
@@ -86,8 +101,11 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
     TPU.EPISODE_CHUNKS micro-batches, leaving the gradient of the mean loss
     over the E episodes in the parameters' ``.grad``.  ``generator`` (a
     torch.Generator on the batch's device) drives the jitter draws and
-    dropout; None turns both off (normalization only)."""
+    dropout; None turns both off (normalization only).  With live
+    BatchNorm, each BatchNorm's ``step_stats`` is left holding the step's
+    new running (mean, var) [2, C] for ``BatchNorm.commit``."""
     _check_train_cfg(cfg, head.arch)
+    live_bn = _live_batch_norms(head)
     mean = tuple(float(x) for x in cfg.DATA.MEAN)
     std = tuple(float(x) for x in cfg.DATA.STD)
     ep_chunks = int(cfg.TPU.get("EPISODE_CHUNKS", 1)) if "TPU" in cfg else 1
@@ -107,16 +125,23 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
         e = batch.support_images.shape[0]
         c = ep_chunks if (ep_chunks > 1 and e % ep_chunks == 0) else 1
         head.zero_grad(set_to_none=True)
-        chunk_metrics = []
+        chunk_metrics, stats = [], None
         for i in range(c):
             chunk = batch.map(lambda x, i=i: x[i * (e // c) : (i + 1) * (e // c)])
+            for bn in live_bn:
+                bn.step_stats = None  # every chunk's episodes start from the step's running stats
             loss, metrics = loss_fn(chunk, generator)
             loss.backward()  # sums the chunks' gradients into .grad
             chunk_metrics.append(metrics)
+            if live_bn:  # the mean over the chunk's episodes, summed over the chunks
+                means = [bn.step_stats.mean(dim=0) for bn in live_bn]
+                stats = means if stats is None else torch._foreach_add(stats, means)
         if c > 1:
             for p in head.parameters():
                 if p.grad is not None:
                     p.grad.div_(c)
+        for bn, s in zip(live_bn, stats or []):
+            bn.step_stats = s / c
         return {k: torch.stack([m[k] for m in chunk_metrics]).mean() for k in chunk_metrics[0]}
 
     return grad_fn
@@ -129,15 +154,20 @@ def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor
     ``make_grad_fn``'s gradient, then the optimizer (one micro-step of its
     accumulation window, which changes nothing when the loss is not finite:
     the optimizer decides that on the device), the step counter, and the EMA
-    (on every step, from whatever the parameters then are).  No value is read
-    back to the host."""
+    (on every step, from whatever the parameters then are; it covers the
+    parameters only, the running stats are kept as trained).  With live
+    BatchNorm the running stats take the step's new values where the loss
+    is finite.  No value is read back to the host."""
     grad_fn = make_grad_fn(head, cfg, text_train, text_test)
+    live_bn = _live_batch_norms(head)
     ema_decay = float(cfg.MODEL.EMA.DECAY) if ("MODEL" in cfg and cfg.MODEL.EMA.get("ENABLE", False)) else None
 
     def train_step(state: TrainState, batch: Episode, lr: float, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         metrics = grad_fn(batch, generator)
         ok = torch.isfinite(metrics["loss"])
         metrics["updated"] = state.optimizer.step(lr, ok)
+        for bn in live_bn:
+            bn.commit(ok)
         head.zero_grad(set_to_none=True)
         state.step += 1
         if ema_decay is not None:

@@ -386,10 +386,12 @@ def test_bf16_flash_backward_kernels_refuse_unaligned_tensors(cuda):
 
 
 @pytest.mark.cuda
-def test_train_steps_never_wait_for_the_card(cuda):
-    """Two train steps of the tiny tower on the card (jitter and dropout on, an accumulation window of 2)
-    with torch's sync debug mode on: no operation inside them synchronises with the device (each one that
-    did would be named here by the python line that called it)."""
+@pytest.mark.parametrize("backbone", ["ViT-Tiny-Test", "RN-Tiny-Test"])
+def test_train_steps_never_wait_for_the_card(cuda, backbone):
+    """Two train steps of the tiny tower on the card (jitter and dropout on, an accumulation window of 2;
+    the RN tower with live BatchNorm and its running-stat update) with torch's sync debug mode on: no
+    operation inside them synchronises with the device (each one that did would be named here by the
+    python line that called it)."""
     import warnings
 
     from clip_fsar_torch.config.config import load_config
@@ -401,7 +403,7 @@ def test_train_steps_never_wait_for_the_card(cuda):
     from clip_fsar_torch.train.state import TrainState
     from clip_fsar_torch.train.step import make_train_step
 
-    cfg = load_config(CONFIG, ["VIDEO.HEAD.BACKBONE_NAME", "ViT-Tiny-Test", "TRAIN.ENABLE", "True", "DATA.DECODER", "synthetic",
+    cfg = load_config(CONFIG, ["VIDEO.HEAD.BACKBONE_NAME", backbone, "TRAIN.ENABLE", "True", "DATA.DECODER", "synthetic",
                                "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "64", "DATA.TEST_CROP_SIZE", "64", "DATA.TEST_SCALE", "72",
                                "DATA.TRAIN_JITTER_SCALES", "[72, 80]", "TPU.EPISODES_PER_STEP", "2", "TRAIN.BATCH_SIZE_PER_TASK", "2"])
     model = build_few_shot_model(cfg, flow="train", device=cuda)
@@ -421,6 +423,43 @@ def test_train_steps_never_wait_for_the_card(cuda):
     assert sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)}) == []
     assert [bool(m["updated"]) for m in seen] == [True, False] and int(state.optimizer.mini_step) == 1  # the window closed on step 2 of 3
     assert all(torch.isfinite(m["loss"]).item() for m in seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [None, 2])
+def test_rn_tower_on_the_card_matches_the_cpu(cuda, groups):
+    """The tiny RN tower in float32 on the card (cuDNN convolutions on channels_last, TF32 off) against
+    the same tower on the CPU, on running stats and on two groups' batch statistics: output at 1e-4,
+    every parameter's gradient at rtol 1e-4 above a floor of 1e-5 of the tower's largest gradient (the
+    attention pool's key bias has a gradient of 0 in exact arithmetic, so its own scale is rounding
+    noise), and each group's advanced running stats at 1e-5."""
+    from clip_fsar_torch.models.builder import init_weights
+    from clip_fsar_torch.models.clip.arch import ARCHS
+    from clip_fsar_torch.models.clip.model import BatchNorm, build_vision_tower
+
+    g = torch.Generator().manual_seed(0)
+    towers = {}
+    for dev in ("cpu", cuda):
+        towers[dev] = build_vision_tower(ARCHS["RN-Tiny-Test"])
+        init_weights(towers[dev], torch.Generator().manual_seed(1))
+        towers[dev].to(dev)
+    x = torch.randn(4, 64, 64, 3, generator=g)
+    w = torch.randn(4, 32, generator=g)
+    out = {}
+    for dev, tower in towers.items():
+        y = tower(x.to(dev), groups)
+        (y * w.to(dev)).sum().backward()
+        out[dev] = y.detach().cpu()
+    torch.testing.assert_close(out[cuda], out["cpu"], atol=1e-4, rtol=1e-4)
+    ref = dict(towers["cpu"].named_parameters())
+    floor = 1e-5 * max(p.grad.abs().max().item() for p in ref.values())
+    for name, p in towers[cuda].named_parameters():
+        torch.testing.assert_close(p.grad.cpu(), ref[name].grad, atol=floor, rtol=1e-4, msg=lambda m, name=name: f"{name}: {m}")
+    for (name, a), b in zip(towers[cuda].named_modules(), towers["cpu"].modules()):
+        if isinstance(a, BatchNorm):
+            assert (a.step_stats is None) == (groups is None), name
+            if groups is not None:
+                torch.testing.assert_close(a.step_stats.cpu(), b.step_stats, atol=1e-5, rtol=1e-5, msg=lambda m, name=name: f"{name}: {m}")
 
 
 @pytest.mark.cuda

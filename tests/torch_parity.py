@@ -3,7 +3,8 @@
 Both packages get the same weights (the JAX variables, converted with
 ``clip_fsar_torch.models.clip.convert.params_from_jax``) and the same inputs
 (numpy arrays from a seed).  The tiny config is ViT-Tiny-Test at 64 px with
-4 frames in float32 and the synthetic decoder.
+4 frames in float32 and the synthetic decoder; ``backbone="RN-Tiny-Test"``
+gives the tiny RN tower instead, with random BatchNorm running stats.
 """
 
 from __future__ import annotations
@@ -41,30 +42,47 @@ def tiny_cfg(*extra):
     return load_config(CONFIG, TINY_OPTS + list(extra))
 
 
+def backbone_opts(backbone: str) -> list:
+    return [] if backbone == "ViT-Tiny-Test" else ["VIDEO.HEAD.BACKBONE_NAME", backbone]
+
+
+def random_batch_stats(tree, seed: int = 0):
+    """A batch_stats tree of the same shapes with random running means and
+    variances (flax starts them at 0 and 1, which would hide a swap)."""
+    rng = np.random.RandomState(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, x: (rng.uniform(0.5, 1.5, x.shape) if path[-1].key == "var" else rng.normal(0.0, 0.5, x.shape)).astype(np.float32), tree
+    )
+
+
 @functools.lru_cache(maxsize=None)
-def jax_tiny_clip():
+def jax_tiny_clip(backbone: str = "ViT-Tiny-Test"):
     """(cfg, arch, clip_vars): the JAX package's fresh CLIP weights for the
-    tiny config, drawn from its RANDOM_SEED as its builder draws them."""
+    tiny config, drawn from its RANDOM_SEED as its builder draws them (an RN
+    tower's running stats then drawn at random)."""
     from clip_fsar_tpu.models import builder
 
-    cfg = tiny_cfg()
+    cfg = tiny_cfg(*backbone_opts(backbone))
     arch, clip_vars = builder.load_or_init_clip(cfg, jax.random.PRNGKey(int(cfg.get("RANDOM_SEED", 0))), flow="test")
+    if "batch_stats" in clip_vars:
+        clip_vars = {**clip_vars, "batch_stats": random_batch_stats(jax.device_get(clip_vars["batch_stats"]))}
     return cfg, arch, clip_vars
 
 
 @functools.lru_cache(maxsize=None)
-def jax_tiny_model(layout: str = "split", pallas: bool = False):
+def jax_tiny_model(layout: str = "split", pallas: bool = False, backbone: str = "ViT-Tiny-Test"):
     """(cfg, arch, clip_vars, FewShotModel) of the JAX package for the tiny
     config, with TPU.ATTENTION_LAYOUT ``layout`` (fused runs the Pallas
     kernel in interpret mode on the CPU) and TPU.PALLAS_ATTENTION ``pallas``
-    (flash_mha; call inside ``pallas_interpret()``)."""
+    (flash_mha; call inside ``pallas_interpret()``), on the tiny ViT or
+    ``backbone``."""
     from unittest import mock
 
     from clip_fsar_tpu.models import builder
 
-    cfg = tiny_cfg("TPU.ATTENTION_LAYOUT", layout, "TPU.PALLAS_ATTENTION", str(pallas))
+    cfg = tiny_cfg("TPU.ATTENTION_LAYOUT", layout, "TPU.PALLAS_ATTENTION", str(pallas), *backbone_opts(backbone))
     rng = jax.random.PRNGKey(int(cfg.get("RANDOM_SEED", 0)))
-    _, arch, clip_vars = jax_tiny_clip()
+    _, arch, clip_vars = jax_tiny_clip(backbone)
     # the builder would draw the same CLIP weights again from the same key;
     # hand it the ones already drawn instead of paying for a second init
     with mock.patch.object(builder, "load_or_init_clip", return_value=(arch, clip_vars)):
@@ -116,7 +134,7 @@ def port_clip_state(clip_vars):
 
     params = jax.device_get(clip_vars["params"])
     sd = {}
-    convert._vision(sd, "backbone", params["visual"])
+    convert._vision(sd, "backbone", params["visual"], jax.device_get(clip_vars.get("batch_stats", {})).get("visual"))
     convert._text(sd, "text", params["text"])
     return sd
 

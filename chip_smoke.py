@@ -99,7 +99,30 @@ and read just after.  Phases:
    running stats that moved from their fresh values and between steps 4 and 8.
    Neither RN50 phase launches any kernel: the RN towers' convs, BatchNorm and
    attention pooling are cuDNN and plain torch, as they are XLA in the JAX
-   package (no Pallas kernel lies on that path).
+   package (no Pallas kernel lies on that path);
+12. remat against none at ViT-B/16: one train step (E = 4 in 2 chunks) with
+   TPU.REMAT False, True with policy nothing and True with policy dots, on
+   the fused and on the flash path, same weights, batch and generator; loss
+   and gradients against the step without remat, whether the bits are equal,
+   the forward kernel's launches (once more per layer under remat), and each
+   step's ms and peak memory;
+13. the kernels at the ViT-L/14@336px slice's shapes: K1 and K2 at the frame
+   chunk's [120, 577, 3072] bf16, K3, K4 and K5 at its head-split views
+   [120, 16, 577, 64], each against its plain version and timed beside it,
+   the library call (backward included) and the bound;
+14. the ViT-L/14@336px train slice through the CLI: the HMDB51 1-shot config
+   at 336 px with 16-frame clips (``VIT_L336_OPTS``: 24 layers of width 1024,
+   16 heads, N = 577), TPU.REMAT left at base.yaml's auto and 4 frame chunks;
+   E = 2 episodes per step in 2 chunks, BATCH_SIZE_PER_TASK 4, 4 steps (1 Adam
+   update), validation at step 4 on 2 episodes, the test protocol on 4
+   episodes from the step-4 checkpoint; checks finite losses, the update,
+   the tested checkpoint and K1 / K2 launches against the remat schedule
+   (three forwards per block per frame chunk per episode chunk per step, one
+   per block per frame chunk per eval step, one backward);
+15. frame chunks against none at that configuration: one train step at E = 1
+   with 4 frame chunks and with none (remat on in both), same weights,
+   batch and generator; loss, gradients, whether the bits are equal, ms and
+   peak memory of each.
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -127,7 +150,7 @@ import torch
 import torch.nn.functional as F
 
 # the test slice: HMDB51 1-shot config, ViT-B/16, synthetic decoder, 16 episodes in steps of 4
-from clip_fsar_torch.tools.profile_eval import CONFIG, PLAIN_OPTS, SLICE_OPTS, card
+from clip_fsar_torch.tools.profile_eval import CONFIG, PLAIN_OPTS, SLICE_OPTS, VIT_L336_OPTS, card
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # (B, N, H, Dh): the ViT-B/32, B/16, L/14, L/14@336px sequence lengths at
@@ -181,6 +204,26 @@ EARLIER_MS = {"clip_mha_fwd": {320: 3.7873, 480: 5.6240}, "flash_mha_fwd": {320:
 # step: each bf16 rounding is ~4e-3 relative, and the two paths round attention at different points
 # through 12 layers of backward
 GRAD_REL_TOL = 5e-2
+
+# the ViT-L/14@336px train slice: 24 layers, N = 577 (24 x 24 patches of 14 px and the class token), 16 heads of
+# 64; E = 2 episodes of 30 clips x 16 frames per step in 2 episode chunks of 480 frames, each in 4 frame chunks
+L336_LAYERS, L336_N, L336_HEADS, L336_FRAME_CHUNKS = 24, 577, 16, 4
+L336_EPISODES, L336_EP_CHUNKS, L336_STEPS, L336_VAL_EPISODES, L336_TEST_EPISODES = 2, 2, 4, 2, 4
+L336_CHUNK_FRAMES = L336_EPISODES // L336_EP_CHUNKS * 30 * 16 // L336_FRAME_CHUNKS  # 120 frames per frame chunk
+L336_TRAIN_OPTS = VIT_L336_OPTS + [
+    "TRAIN.ENABLE", "True",
+    "DATA.DECODER", "synthetic",
+    "TPU.EPISODES_PER_STEP", str(L336_EPISODES),
+    "TPU.EPISODE_CHUNKS", str(L336_EP_CHUNKS),
+    "TRAIN.BATCH_SIZE_PER_TASK", str(ACCUM),
+    "TRAIN.NUM_TRAIN_TASKS", str(L336_STEPS),
+    "TRAIN.VAL_FRE_ITER", str(L336_STEPS),
+    "TRAIN.NUM_VAL_TASKS", str(L336_VAL_EPISODES),
+    "TPU.EVAL_EPISODES_PER_STEP", str(L336_VAL_EPISODES),
+    "TRAIN.NUM_TEST_TASKS", str(L336_TEST_EPISODES),
+    "TEST.BATCH_SIZE", "2",
+    "LOG_PERIOD", "1",
+]
 
 # published peaks of one H100 SXM (dense): device memory, bf16 tensor cores, fp32 outside them
 PEAK_BYTES_PER_S, PEAK_BF16_FLOPS, PEAK_FP32_FLOPS = 3.35e12, 989e12, 67e12
@@ -939,12 +982,12 @@ def run_test_slice(extra_opts, out_dir: str, base_opts=SLICE_OPTS) -> dict:
     return stats
 
 
-def _check_test_stats(stats: dict) -> None:
+def _check_test_stats(stats: dict, episodes: int = 16) -> None:
     logits = stats["episode_logits"]
-    if logits.shape != (16, 5, 5):
-        raise AssertionError(f"expected logits for 16 episodes of 5 queries x 5 ways, got {logits.shape}")
-    if stats["episodes"] != 16:
-        raise AssertionError(f"expected metrics for 16 episodes, got {stats['episodes']}")
+    if logits.shape != (episodes, 5, 5):
+        raise AssertionError(f"expected logits for {episodes} episodes of 5 queries x 5 ways, got {logits.shape}")
+    if stats["episodes"] != episodes:
+        raise AssertionError(f"expected metrics for {episodes} episodes, got {stats['episodes']}")
     if not torch.isfinite(torch.from_numpy(logits)).all():
         raise AssertionError("non-finite logits")
 
@@ -1138,6 +1181,212 @@ def phase_train_step_paths() -> None:
                 raise AssertionError(f"gradient of {name} differs between the {path} and the plain path by {rel:.3e} (norm-relative)")
 
 
+def _timed_grad_step(model, cfg, batch, what: str, **want_launches) -> dict:
+    """One ``make_grad_fn`` step after a warm-up step, with the launches counted from 0 and held to
+    ``want_launches``: its loss, picked gradients (the first and last block's in-projection, the patch
+    embedding, the head's context transformer), CUDA-event ms and peak memory (GiB)."""
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.step import make_grad_fn
+
+    dev = batch.support_images.device
+    grad_fn = make_grad_fn(model.head, cfg, model.text_train, model.text_test)
+    grad_fn(batch, step_generator(cfg, 0, dev))  # warm-up: the allocator, the constants, the kernels' first launch
+    layers = model.head.arch.vision_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = grad_fn(batch, step_generator(cfg, 0, dev))
+    end.record()
+    torch.cuda.synchronize()
+    launches = _expect_launches(what, **want_launches)
+    named = dict(model.head.named_parameters())
+    picked = ("backbone.conv1.weight", "backbone.transformer.resblocks.0.attn.in_proj_weight",
+              f"backbone.transformer.resblocks.{layers - 1}.attn.in_proj_weight")
+    grads = {n: named[n].grad.float().clone() for n in picked}
+    grads["context2"] = torch.cat([p.grad.float().flatten() for n, p in named.items() if n.startswith("context2.")])
+    model.head.zero_grad(set_to_none=True)
+    return {"loss": metrics["loss"].item(), "grads": grads, "ms": start.elapsed_time(end), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches}
+
+
+def _compare_steps(what: str, got: dict, want: dict) -> None:
+    """Loss at 2e-2 and every picked gradient at GRAD_REL_TOL (norm-relative) against ``want``; prints both
+    steps' ms and peak memory and whether the gradients are the same bits."""
+    same = all(torch.equal(got["grads"][n], want["grads"][n]) for n in want["grads"])
+    print(f"{what}: loss {got['loss']:.6f} vs {want['loss']:.6f} (tol 2e-2); gradients bit-identical: {same}; "
+          f"{got['ms']:.1f} ms vs {want['ms']:.1f} ms per step, peak {got['peak_gib']:.3f} GiB vs {want['peak_gib']:.3f} GiB")
+    torch.testing.assert_close(torch.tensor(got["loss"]), torch.tensor(want["loss"]), atol=2e-2, rtol=2e-2)
+    for name, g in want["grads"].items():
+        rel = ((got["grads"][name] - g).norm() / g.norm()).item()
+        print(f"{what}: grad {name}: norm-relative difference {rel:.3e} (tol {GRAD_REL_TOL}); |grad| = {g.norm().item():.4e}")
+        if not rel <= GRAD_REL_TOL:
+            raise AssertionError(f"{what}: gradient of {name} differs by {rel:.3e} (norm-relative)")
+
+
+def phase_remat_vs_none() -> None:
+    """One ViT-B/16 train step (E = 4 in 2 chunks) with TPU.REMAT False, True (policy nothing) and True
+    (policy dots) on the fused and the flash path, same fresh weights, batch and generator: each remat
+    step against the step without remat."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.runs.run import load_config
+
+    dev = runtime.device("cuda")
+    batch = None
+    for path, path_opts, fwd, bwd in (("fused", ["TPU.ATTENTION_LAYOUT", "fused"], ("clip_mha_fwd",), ("clip_mha_bwd",)),
+                                      ("flash", FLASH_OPTS, ("flash_mha_fwd",), ("flash_mha_bwd_dq", "flash_mha_bwd_dkv"))):
+        runs = {}
+        for name, opts in (("off", ["TPU.REMAT", "False"]), ("nothing", ["TPU.REMAT", "True"]), ("dots", ["TPU.REMAT", "True", "TPU.REMAT_POLICY", "dots"])):
+            cfg = load_config(CONFIG, TRAIN_OPTS + path_opts + opts)
+            if batch is None:
+                with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=EPISODES) as loader:
+                    batch = next(iter(loader)).to(dev)
+            model = build_few_shot_model(cfg, flow="train", device=dev)
+            forwards = LAYERS * CHUNKS * (1 if name == "off" else 2)  # the recompute launches the forward again
+            runs[name] = _timed_grad_step(model, cfg, batch, f"a ViT-B/16 train step on the {path} path, remat {name}",
+                                          **{k: forwards for k in fwd}, **{k: LAYERS * CHUNKS for k in bwd})
+            del model
+            torch.cuda.empty_cache()
+        for name in ("nothing", "dots"):
+            _compare_steps(f"ViT-B/16 train step [{path}] remat {name} vs off", runs[name], runs["off"])
+
+
+def phase_vit_l336_kernels() -> dict:
+    """K1-K5 at the ViT-L/14@336px slice's frame chunk: K1 and K2 on [120, 577, 3072] bf16, K3-K5 on its
+    head-split views [120, 16, 577, 64]; each against its plain version, then timed beside it, the library
+    call (``scaled_dot_product_attention`` and its backward) and the bound.  Returns the timings by kernel."""
+    from clip_fsar_torch.ops.attention import split_heads
+    from clip_fsar_torch.ops.flash_attention import (
+        flash_mha_bwd_dkv_cuda,
+        flash_mha_bwd_dkv_reference,
+        flash_mha_bwd_dq_cuda,
+        flash_mha_bwd_dq_reference,
+        flash_mha_cuda,
+        flash_mha_reference,
+    )
+    from clip_fsar_torch.ops.fused_attention import _heads_split, clip_mha_bwd_cuda, clip_mha_bwd_reference, clip_mha_cuda, clip_mha_reference
+
+    b, n, h, dh = L336_CHUNK_FRAMES, L336_N, L336_HEADS, 64
+    tol = TOLERANCE[torch.bfloat16]
+    g = torch.Generator().manual_seed(6)
+    qkv = torch.randn(b, n, 3 * h * dh, generator=g).to("cuda", torch.bfloat16)
+    q, k, v = (split_heads(t, h) for t in qkv.chunk(3, dim=-1))
+    shape = f"[{b}, {n}, {3 * h * dh}]"
+    _check_forward(f"K1 clip_mha_fwd {shape} H={h} bf16", lambda: clip_mha_cuda(qkv, h), lambda: clip_mha_reference(qkv, h), tol)
+    _check_forward(f"K3 flash_mha_fwd [{b}, {h}, {n}, {dh}] bf16", lambda: flash_mha_cuda(q, k, v), lambda: flash_mha_reference(q, k, v), tol)
+    o, lse = clip_mha_cuda(qkv, h)
+    do = torch.randn(b, n, h * dh, generator=g).to("cuda", torch.bfloat16)
+    o3, lse3 = flash_mha_cuda(q, k, v)
+    do3 = torch.empty_like(o3).copy_(do.reshape(b, n, h, dh).transpose(1, 2))  # o's layout, as autograd hands it over
+    dq, delta = flash_mha_bwd_dq_cuda(q, k, v, o3, lse3, do3)
+    checks = (("K2 clip_mha_bwd", (clip_mha_bwd_cuda(qkv, o, lse, do, h),), (clip_mha_bwd_reference(qkv, o, lse, do, h),)),
+              ("K4 flash_mha_bwd_dq (dq, delta)", (dq, delta), flash_mha_bwd_dq_reference(q, k, v, o3, lse3, do3)),
+              ("K5 flash_mha_bwd_dkv (dk, dv)", flash_mha_bwd_dkv_cuda(q, k, v, lse3, delta, do3), flash_mha_bwd_dkv_reference(q, k, v, lse3, delta, do3)))
+    for what, got, want in checks:
+        errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(got, want)]
+        print(f"{what} at the ViT-L/14@336px frame chunk {shape} bf16: max|out-ref| {', '.join(f'{e:.3e}' for e in errs)} (tol {tol})")
+        for x, y in zip(got, want):
+            if not torch.isfinite(x.float()).all():
+                raise AssertionError(f"{what}: not finite")
+            torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
+    del checks, dq
+
+    timed = {}
+    leaf = qkv.detach().requires_grad_(True)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    bwd_library_ms = _sdpa_bwd_ms(leaves, do3)  # dq, dk and dv in one call: beside K4 and beside K5, to be held against their sum
+    cases = (("clip_mha_fwd", lambda: clip_mha_cuda(qkv, h), lambda: clip_mha_reference(qkv, h), _sdpa_ms(q, k, v), (3, 1, 1, 2)),
+             ("clip_mha_bwd", lambda: clip_mha_bwd_cuda(qkv, o, lse, do, h), lambda: clip_mha_bwd_reference(qkv, o, lse, do, h),
+              _sdpa_bwd_ms(_heads_split(leaf, h), do3, wrt=leaf), (5, 3, 1, 5)),
+             ("flash_mha_fwd", lambda: flash_mha_cuda(q, k, v), lambda: flash_mha_reference(q, k, v), _sdpa_ms(q, k, v), (3, 1, 1, 2)),
+             ("flash_mha_bwd_dq", lambda: flash_mha_bwd_dq_cuda(q, k, v, o3, lse3, do3), lambda: flash_mha_bwd_dq_reference(q, k, v, o3, lse3, do3),
+              bwd_library_ms, (5, 1, 2, 3)),
+             ("flash_mha_bwd_dkv", lambda: flash_mha_bwd_dkv_cuda(q, k, v, lse3, delta, do3),
+              lambda: flash_mha_bwd_dkv_reference(q, k, v, lse3, delta, do3), bwd_library_ms, (4, 2, 2, 4)))
+    for name, kernel, plain, library_ms, (t_in, t_out, rows, products) in cases:
+        ms, plain_ms, all_ms = _alternate(kernel, plain, iters=10)
+        bound = _attention_bound(b, n, h, dh, tensors_in=t_in, tensors_out=t_out, rows_fp32=rows, products=products)
+        print(f"{name} at the ViT-L/14@336px frame chunk {shape} H={h} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, "
+              f"plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, library {library_ms:.4f} ms (kernel / library = {ms / library_ms:.2f}), "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it reached)")
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
+    return timed
+
+
+def phase_vit_l336_train_slice(out_dir: str) -> dict:
+    """The ViT-L/14@336px train slice through the CLI on the fused path, launches counted from 0 against
+    the remat schedule."""
+    from clip_fsar_torch.models.builder import tower_execution
+    from clip_fsar_torch.runs.run import load_config, main
+
+    cfg = load_config(CONFIG, L336_TRAIN_OPTS)
+    if tower_execution(cfg) != (True, True) or cfg.TPU.REMAT != "auto":
+        raise AssertionError(f"TPU.REMAT {cfg.TPU.REMAT!r} and TPU.SCAN_LAYERS {cfg.TPU.SCAN_LAYERS!r} resolve to {tower_execution(cfg)}, "
+                             "not base.yaml's auto resolving to on for a 24-layer tower")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = main(["--cfg", CONFIG, *L336_TRAIN_OPTS, "OUTPUT_DIR", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_pass = L336_LAYERS * L336_FRAME_CHUNKS  # one launch per block per frame chunk
+    train_passes = L336_STEPS * L336_EP_CHUNKS
+    eval_steps = 1 + L336_TEST_EPISODES // 2  # one validation step of 2 episodes, two test steps of 2
+    # the forward, the whole chunk's recompute and the block's recompute in training; one forward per eval step
+    want_fwd, want_bwd = per_pass * (3 * train_passes + eval_steps), per_pass * train_passes
+    launches = _expect_launches(f"the ViT-L/14@336px train slice ({L336_LAYERS} layers x {L336_FRAME_CHUNKS} frame chunks x "
+                                f"{L336_EP_CHUNKS} episode chunks x {L336_STEPS} steps, then {eval_steps} eval steps)",
+                                clip_mha_fwd=want_fwd, clip_mha_bwd=want_bwd)
+    peak = torch.cuda.max_memory_allocated()
+    train, test = results["train_few_shot"], results["test_few_shot"]
+    losses = train["losses"]
+    print(f"ViT-L/14@336px train slice: losses per step {[round(x, 5) for x in losses]}; {train['updates']} optimizer update(s); "
+          f"best val top1 {train['best_val_top1']:.2f}")
+    if len(losses) != L336_STEPS or not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"expected {L336_STEPS} finite losses, got {losses}")
+    if train["updates"] != L336_STEPS // ACCUM:
+        raise AssertionError(f"expected {L336_STEPS // ACCUM} optimizer update, got {train['updates']}")
+    if not test["weights"].endswith(os.path.join("checkpoints", f"{L336_STEPS}.pt")):
+        raise AssertionError(f"test_few_shot tested {test['weights']}, not the step-{L336_STEPS} checkpoint")
+    _check_test_stats(test, L336_TEST_EPISODES)
+    step_seconds = train["seconds"] - train["val_seconds"]
+    eps = L336_STEPS * L336_EPISODES / step_seconds
+    print(f"ViT-L/14@336px train slice: {eps:.4f} train episodes/s ({L336_STEPS * L336_EPISODES} episodes, "
+          f"{L336_STEPS * L336_EPISODES * 480} frames of 336 px, in {step_seconds:.2f} s of steps, {step_seconds / L336_STEPS * 1e3:.1f} ms per step; "
+          f"the loop took {train['seconds']:.2f} s with {train['val_seconds']:.2f} s of validation and checkpoints); CLI wall {wall:.2f} s "
+          f"with the builds and the test of {test['weights']} ({L336_TEST_EPISODES / test['seconds']:.4f} episodes/s, top1 {test['top1_acc']:.2f}); "
+          f"peak memory {peak / 2**30:.3f} GiB; launches {launches}")
+    return {"launches": launches, "episodes_per_s": eps, "peak_gib": peak / 2**30, "step_ms": step_seconds / L336_STEPS * 1e3}
+
+
+def phase_frame_chunks_vs_none() -> None:
+    """One train step at the ViT-L/14@336px configuration with E = 1 (480 frames), the tower in 4 frame
+    chunks and in one call (remat on in both), same weights, batch and generator."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.runs.run import load_config
+
+    dev = runtime.device("cuda")
+    cfg = load_config(CONFIG, L336_TRAIN_OPTS + ["TPU.EPISODES_PER_STEP", "1", "TPU.EPISODE_CHUNKS", "1"])
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=1) as loader:
+        batch = next(iter(loader)).to(dev)
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    runs = {}
+    for chunks in (L336_FRAME_CHUNKS, 1):
+        model.head.frame_chunks = chunks  # the same weights, the tower's frames in 4 parts or in one
+        per_pass = L336_LAYERS * chunks
+        runs[chunks] = _timed_grad_step(model, cfg, batch, f"a ViT-L/14@336px train step in {chunks} frame chunk(s)",
+                                        clip_mha_fwd=per_pass * (3 if chunks > 1 else 2), clip_mha_bwd=per_pass)
+    del model, batch
+    torch.cuda.empty_cache()
+    _compare_steps(f"ViT-L/14@336px train step (480 frames), {L336_FRAME_CHUNKS} frame chunks vs 1", runs[L336_FRAME_CHUNKS], runs[1])
+
+
 def main() -> None:
     smi = phase_device()
     build_seconds = phase_build()
@@ -1154,11 +1403,16 @@ def main() -> None:
         train = {path: phase_train_slice(os.path.join(out_dir, f"train_{path}"), path) for path in TRAIN_PATHS}
         rn_test = phase_rn_test_slice(out_dir, smi)
     phase_train_step_paths()
+    phase_remat_vs_none()
+    l336_kernels = phase_vit_l336_kernels()
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        train["vit_l336"] = phase_vit_l336_train_slice(os.path.join(out_dir, "train_vit_l336"))
+    phase_frame_chunks_vs_none()
     from clip_fsar_torch.data.transforms import RESIZE_CALLS
 
     print(f"loader resize: clips resized in this run by each implementation: {RESIZE_CALLS}")
     print(f"summary on {smi}: build {build_seconds:.2f} s; "
-          + "; ".join(f"{path} train slice {t['episodes_per_s']:.3f} episodes/s, {t['step_ms']:.1f} ms per step, peak {t['peak_gib']:.3f} GiB"
+          + "; ".join(f"{path} train slice {t['episodes_per_s']:.4f} episodes/s, {t['step_ms']:.1f} ms per step, peak {t['peak_gib']:.3f} GiB"
                       for path, t in train.items())
           + f"; rn50 test slice {rn_test['episodes_per_s']:.3f} episodes/s, peak {rn_test['peak_gib']:.3f} GiB")
     kernels = [
@@ -1180,7 +1434,9 @@ def main() -> None:
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[path][name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "rn50_launches": train["rn50"]["launches"][name] + rn_test["launches"][name],
-                        **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t}})
+                        "vit_l336_launches": train["vit_l336"]["launches"][name],
+                        **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t},
+                        **({"at_vit_l336_chunk": l336_kernels[name]} if name in l336_kernels else {})})
         if not records[-1]["launches"] > 0:
             raise AssertionError(f"{name} was launched no time on the path that runs it")
     print(json.dumps({"kernels": records}))

@@ -1,19 +1,26 @@
 """Device-side train augmentation of the episodic stacks (counterpart of
-clip_fsar_tpu/data/augment.py:39-103, 274-439).
+clip_fsar_tpu/data/augment.py:39-103, 168-232, 274-439).
 
 ``fewshot_train_augment`` is the tail of the reference's episodic train
 stacks: ColorJitter (brightness, contrast, saturation, hue through
-RGB <-> HSV, random grayscale) then mean/std normalization.  Query clips are
-jittered unconditionally, support clips only under
+RGB <-> HSV, random grayscale), mean/std normalization, then RandomErasing.
+Query clips are jittered unconditionally, support clips only under
 ``AUGMENTATION.COLOR_AUG``.  As in the JAX package, one op order is drawn per
 call for the whole batch and one factor per clip (``CONSISTENT``) or per
-frame.
+frame.  ``AUGMENTATION.RANDOM_ERASING.ENABLE`` erases in both stacks, and
+``AUGMENTATION.NO_RANDOM_ERASE`` keeps the support clips clean: per clip,
+with probability PROB, COUNT rectangles of the same place in every frame
+(timm's geometry: of 10 attempts at an area in AREA_RANGE of the frame
+shared among the rectangles and an aspect within [MIN_ASPECT,
+1/MIN_ASPECT], the first that fits), filled with 0 (``const``), one N(0, 1)
+colour per rectangle (``rand``) or N(0, 1) per pixel (``pixel``), in
+normalized space; with NUM_SPLITS > 1 the first 1/NUM_SPLITS of the clips
+stay clean.
 
-Drawing and applying are split: ``draw_jitter`` takes every random number
-from a ``torch.Generator`` on the device, ``color_jitter_batch`` applies
-given draws, so a test can hand the port the JAX package's own draws.
-``AUGMENTATION.RANDOM_ERASING`` is not ported yet (off in base.yaml and in
-the shipped few-shot configs) and raises.
+Drawing and applying are split: ``draw_jitter`` and ``draw_erasing`` take
+every random number from a ``torch.Generator`` on the device,
+``color_jitter_batch`` and ``random_erasing_batch`` apply given draws, so a
+test can hand the port the JAX package's own draws.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,14 +82,6 @@ class JitterDraws:
     hue: torch.Tensor
     order: int
     gray: torch.Tensor
-
-
-def check_supported(cfg) -> None:
-    """Raise for augmentation the port does not have yet."""
-    aug = cfg.AUGMENTATION if "AUGMENTATION" in cfg else {}
-    erasing = aug.get("RANDOM_ERASING", {})
-    if hasattr(erasing, "get") and bool(erasing.get("ENABLE", False)):
-        raise NotImplementedError("AUGMENTATION.RANDOM_ERASING is not ported yet: ROADMAP Queue 1, train slice leftovers (random erasing)")
 
 
 def draw_jitter(generator: torch.Generator, host: np.random.Generator, n: int, t: int, jc: JitterConfig, device=None) -> JitterDraws:
@@ -181,6 +180,137 @@ def color_jitter_batch(clips: torch.Tensor, draws: JitterDraws, jc: JitterConfig
     return x.movedim(2, -1)
 
 
+@dataclasses.dataclass(frozen=True)
+class ErasingConfig:
+    """``AUGMENTATION.RANDOM_ERASING`` (base.yaml values; the JAX package's
+    fallbacks for a key set to a false value)."""
+
+    probability: float = 0.25
+    area_range: Tuple[float, float] = (0.02, 0.33)
+    min_aspect: float = 0.3
+    mode: str = "const"
+    count: Tuple[int, int] = (1, 1)
+    num_splits: int = 0
+
+    @classmethod
+    def from_cfg(cls, cfg) -> Optional["ErasingConfig"]:
+        """None unless RANDOM_ERASING.ENABLE."""
+        aug = cfg.AUGMENTATION if "AUGMENTATION" in cfg else {}
+        re = aug.get("RANDOM_ERASING", {})
+        if not (hasattr(re, "get") and bool(re.get("ENABLE", False))):
+            return None
+        mode = str(re.get("MODE", "const") or "const")
+        if mode not in ("const", "rand", "pixel"):
+            raise ValueError(f"AUGMENTATION.RANDOM_ERASING.MODE {mode!r}: const, rand or pixel")
+        lo, hi = (float(v) for v in re.get("AREA_RANGE", (0.02, 0.33)))
+        min_count, max_count = (int(v) for v in re.get("COUNT", (1, 1)))
+        return cls(
+            probability=float(re.get("PROB", 0.25) or 0.25),
+            area_range=(lo, hi),
+            min_aspect=float(re.get("MIN_ASPECT", 0.3) or 0.3),
+            mode=mode,
+            count=(min_count, max_count),
+            num_splits=int(re.get("NUM_SPLITS", 0) or 0),
+        )
+
+
+@dataclasses.dataclass
+class ErasingDraws:
+    """One call's random numbers for N clips and up to K = COUNT[1]
+    rectangles each: ``on`` [N] bool; per rectangle ``top``, ``left``,
+    ``height``, ``width`` [N, K] (int64) and ``use`` [N, K] bool (the
+    rectangle is one of the clip's drawn count and one of its 10 attempts
+    fit); ``fill`` None (const), [N, K, C] (rand) or [N, K, T, H, W, C]
+    (pixel), float32."""
+
+    on: torch.Tensor
+    top: torch.Tensor
+    left: torch.Tensor
+    height: torch.Tensor
+    width: torch.Tensor
+    use: torch.Tensor
+    fill: Optional[torch.Tensor]
+
+
+ERASE_ATTEMPTS = 10
+
+
+def erase_box_sizes(area: torch.Tensor, log_ratio: torch.Tensor, count: torch.Tensor, img_h: int, img_w: int) -> tuple:
+    """timm's rectangle geometry from the attempts' draws: ``area`` [..., 10]
+    (fractions of the frame, uniform in AREA_RANGE) shared among the clip's
+    ``count`` [...] rectangles, ``log_ratio`` [..., 10] (uniform in
+    [log MIN_ASPECT, -log MIN_ASPECT]).  Returns (height, width, fits), the
+    sizes of the first attempt that fits inside the frame (of the first
+    attempt where none does, as the JAX package picks) and whether one did,
+    in the JAX package's float32 arithmetic (augment.py:202-209)."""
+    target = area * float(img_h * img_w) / count.clamp_min(1)[..., None].float()
+    ratio = torch.exp(log_ratio)
+    hh = torch.round(torch.sqrt(target * ratio)).long()
+    ww = torch.round(torch.sqrt(target / ratio)).long()
+    valid = (ww < img_w) & (hh < img_h)
+    pick = valid.long().argmax(dim=-1, keepdim=True)  # the first attempt that fits (0 if none does)
+    return hh.gather(-1, pick)[..., 0], ww.gather(-1, pick)[..., 0], valid.any(dim=-1)
+
+
+def draw_erasing(generator: torch.Generator, shape: Sequence[int], ec: ErasingConfig, device=None) -> ErasingDraws:
+    """Every random number of one ``random_erasing_batch`` call on clips of
+    ``shape`` [N, T, H, W, C], from ``generator`` (on ``device``); nothing
+    is read back to the host."""
+    n, t, img_h, img_w, c = shape
+    min_count, max_count = ec.count
+    log_lo, log_hi = math.log(ec.min_aspect), math.log(1.0 / ec.min_aspect)
+
+    def unif(lo: float, hi: float, size) -> torch.Tensor:
+        return lo + (hi - lo) * torch.rand(size, generator=generator, device=device)
+
+    def place(room: torch.Tensor) -> torch.Tensor:  # uniform over [0, room), room >= 1, as the JAX package's randint
+        return (torch.rand(room.shape, generator=generator, device=device) * room).long().minimum(room - 1)
+
+    on = torch.rand(n, generator=generator, device=device) < ec.probability
+    if min_count == max_count:
+        count = torch.full((n,), min_count, dtype=torch.long, device=device)
+    else:
+        count = torch.randint(min_count, max_count + 1, (n,), generator=generator, device=device)
+    blocks = (n, max_count)
+    height, width, fits = erase_box_sizes(
+        unif(*ec.area_range, blocks + (ERASE_ATTEMPTS,)), unif(log_lo, log_hi, blocks + (ERASE_ATTEMPTS,)), count[:, None], img_h, img_w
+    )
+    top, left = place((img_h - height).clamp_min(1)), place((img_w - width).clamp_min(1))
+    use = fits & (torch.arange(max_count, device=device) < count[:, None])
+    fill = None
+    if ec.mode == "rand":
+        fill = torch.randn(blocks + (c,), generator=generator, device=device)
+    elif ec.mode == "pixel":
+        fill = torch.randn(blocks + (t, img_h, img_w, c), generator=generator, device=device)
+    return ErasingDraws(on, top, left, height, width, use, fill)
+
+
+def random_erasing_batch(x: torch.Tensor, draws: ErasingDraws, ec: ErasingConfig) -> torch.Tensor:
+    """Apply one call's draws to normalized clips [N, T, H, W, C]: each
+    drawn rectangle, in every frame, takes its fill (a later rectangle over
+    an earlier one where they overlap), on the clips drawn ``on``; with
+    NUM_SPLITS > 1 the first N // NUM_SPLITS clips are left as they are.
+    Selections only: the output holds input and fill values bit for bit."""
+    n, t, img_h, img_w, c = x.shape
+    rows = torch.arange(img_h, device=x.device)[None, None, :, None]
+    cols = torch.arange(img_w, device=x.device)[None, None, None, :]
+    d = draws
+    top, left, height, width = (v[..., None, None] for v in (d.top, d.left, d.height, d.width))
+    masks = (rows >= top) & (rows < top + height) & (cols >= left) & (cols < left + width) & d.use[..., None, None]  # [N, K, H, W]
+    fill = torch.zeros_like(x)
+    for blk in range(masks.shape[1]):
+        m = masks[:, blk, None, :, :, None]  # [N, 1, H, W, 1]
+        if ec.mode == "rand":
+            fill = torch.where(m, d.fill[:, blk, None, None, None, :], fill)
+        elif ec.mode == "pixel":
+            fill = torch.where(m, d.fill[:, blk], fill)
+    erased = torch.where(masks.any(dim=1)[:, None, :, :, None] & d.on[:, None, None, None, None], fill, x)
+    if ec.num_splits > 1:
+        clean = n // ec.num_splits
+        erased = torch.cat([x[:clean], erased[clean:]])
+    return erased
+
+
 def fewshot_train_augment(
     clips: torch.Tensor, cfg, mean: Sequence[float], std: Sequence[float], is_query: bool, generator: Optional[torch.Generator],
     host: Optional[np.random.Generator] = None,
@@ -191,11 +321,19 @@ def fewshot_train_augment(
     generator ``host``: a caller that jitters more than once with one
     ``generator`` makes ``host`` with ``host_generator`` and passes it to
     every call (without one, each call seeds its own from ``generator``'s
-    seed and so draws the same order).  A None generator only normalizes."""
-    check_supported(cfg)
+    seed and so draws the same order).  Then RandomErasing under its ENABLE,
+    on support clips unless AUGMENTATION.NO_RANDOM_ERASE, with draws from
+    ``generator`` after the jitter's.  A None generator only normalizes."""
     aug = cfg.AUGMENTATION if "AUGMENTATION" in cfg else {}
-    if generator is None or not (is_query or bool(aug.get("COLOR_AUG", False))):
+    if generator is None:
         return normalize_images(clips, mean, std)
-    jc = JitterConfig.from_cfg(cfg)
-    draws = draw_jitter(generator, host if host is not None else host_generator(generator), clips.shape[0], clips.shape[1], jc, device=clips.device)
-    return standardize(color_jitter_batch(clips.float() / 255.0, draws, jc), mean, std)
+    if is_query or bool(aug.get("COLOR_AUG", False)):
+        jc = JitterConfig.from_cfg(cfg)
+        draws = draw_jitter(generator, host if host is not None else host_generator(generator), clips.shape[0], clips.shape[1], jc, device=clips.device)
+        x = standardize(color_jitter_batch(clips.float() / 255.0, draws, jc), mean, std)
+    else:
+        x = normalize_images(clips, mean, std)
+    ec = ErasingConfig.from_cfg(cfg)
+    if ec is None or (not is_query and bool(aug.get("NO_RANDOM_ERASE", False))):
+        return x
+    return random_erasing_batch(x, draw_erasing(generator, x.shape, ec, device=x.device), ec)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -70,6 +70,32 @@ def _attention_backend_from_cfg(cfg, device: torch.device) -> str:
     if layout == "fused":
         return "fused"
     return "plain:bf16" if str(cfg.TPU.get("SOFTMAX_DTYPE", "float32")) == "bfloat16" else "plain"
+
+
+def _resolve_tower_execution(cfg, arch: Optional[CLIPArch]) -> Tuple[bool, bool]:
+    """(remat, scan_layers) for the vision tower, as the JAX builder resolves
+    them (builder.py:91-111): TPU.REMAT and TPU.SCAN_LAYERS take true, false
+    or "auto", which is on for towers of 24 or more layers (ViT-L and up;
+    an RN tower's layers are a tuple and never deep).  ``arch`` is the one
+    the tower is built at, TPU.VISION_DEPTH applied."""
+
+    def resolve(value, deep_default: bool) -> bool:
+        if isinstance(value, str) and value.lower() == "auto":
+            return deep_default
+        return bool(value)
+
+    layers = getattr(arch, "vision_layers", 0) if arch is not None else 0
+    deep = isinstance(layers, int) and layers >= 24
+    if "TPU" not in cfg:
+        return False, False
+    return resolve(cfg.TPU.get("REMAT", False), deep), resolve(cfg.TPU.get("SCAN_LAYERS", False), deep)
+
+
+def tower_execution(cfg) -> Tuple[bool, bool]:
+    """(remat, scan_layers) of the config's named backbone at its depth
+    (TPU.VISION_DEPTH applied), without building it."""
+    name = cfg.VIDEO.HEAD.BACKBONE_NAME
+    return _resolve_tower_execution(cfg, _adapt_vision_depth(cfg, ARCHS[name]) if name in ARCHS else None)
 
 
 def _clip_checkpoint_path(cfg) -> Optional[str]:
@@ -207,6 +233,27 @@ def encode_class_names(arch: CLIPArch, clip_sd, class_names, prompt: Optional[st
         return tower(toks)
 
 
+def make_head(cfg, arch: CLIPArch, device: torch.device) -> CLIPFSARHead:
+    """The CNN_OTAM_CLIPFSAR head of the config at ``arch``, its weights
+    left for the caller to fill: compute dtype, attention path, BatchNorm
+    mode and the tower's execution (TPU.REMAT, REMAT_POLICY, FRAME_CHUNKS;
+    JAX builder.py:240-252)."""
+    # the reference trains the whole model, so RN BatchNorm runs on batch statistics unless BN.FREEZE (JAX builder.py:341-352)
+    bn_freeze = bool(cfg.BN.get("FREEZE", False)) if "BN" in cfg else False
+    remat, _ = _resolve_tower_execution(cfg, arch)  # TPU.SCAN_LAYERS only shapes XLA's compile: train/loop.py reports it
+    remat_policy = str(cfg.TPU.get("REMAT_POLICY", "nothing")) if "TPU" in cfg else "nothing"
+    frame_chunks = int(cfg.TPU.get("FRAME_CHUNKS", 1) or 1) if "TPU" in cfg else 1
+    if remat and remat_policy == "dots" and frame_chunks > 1 and arch.is_vit:
+        # the per-block policy would keep every frame chunk's products from the forward until that chunk's
+        # backward, where the JAX package keeps one chunk's: recompute them instead (same numbers)
+        logger.info("TPU.REMAT_POLICY dots under TPU.FRAME_CHUNKS %d: the blocks recompute their products too", frame_chunks)
+        remat_policy = "nothing"
+    return CLIPFSARHead(
+        arch, CLIPFSARConfig.from_cfg(cfg), dtype=_dtype_from_cfg(cfg), attention_backend=_attention_backend_from_cfg(cfg, device),
+        train_backbone_bn=not bn_freeze, remat=remat, remat_policy=remat_policy, frame_chunks=frame_chunks,
+    )
+
+
 def build_few_shot_model(cfg, generator: Optional[torch.Generator] = None, flow: str = "auto", device=None) -> FewShotModel:
     """The CNN_OTAM_CLIPFSAR head on ``device`` (in train mode for the
     "train" flow) plus its text banks, fp32 constants: the text tower is
@@ -222,12 +269,7 @@ def build_few_shot_model(cfg, generator: Optional[torch.Generator] = None, flow:
         names = list(names)
         banks.append(encode_class_names(arch, clip_sd, names, prompt, device) if names else torch.zeros((1, arch.embed_dim), device=device))
 
-    # the reference trains the whole model, so RN BatchNorm runs on batch statistics unless BN.FREEZE (JAX builder.py:341-352)
-    bn_freeze = bool(cfg.BN.get("FREEZE", False)) if "BN" in cfg else False
-    head = CLIPFSARHead(
-        arch, CLIPFSARConfig.from_cfg(cfg), dtype=_dtype_from_cfg(cfg), attention_backend=_attention_backend_from_cfg(cfg, device),
-        train_backbone_bn=not bn_freeze,
-    )
+    head = make_head(cfg, arch, device)
     head.backbone.load_state_dict(_sub(clip_sd, "visual."))  # strict: an OpenAI RN file's BN running stats included
     init_weights(head.context2, g)
     head.to(device).train(flow == "train")

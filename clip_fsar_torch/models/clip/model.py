@@ -19,7 +19,15 @@ backend, goes through ``split_heads`` -> ``mha`` -> ``merge_heads``
 head-split views of the packed projection and write the layout
 ``merge_heads`` reads, so neither side copies).
 
-No remat and no scan over depth.
+Remat (``Transformer(remat=True)``, the vision tower only, as in the JAX
+package): each block runs under a non-reentrant checkpoint while autograd
+records, and its backward recomputes it; ``remat_policy`` ``nothing``
+recomputes everything, ``dots`` keeps the outputs of the 2-D products
+(``aten.mm`` / ``aten.addmm``: the Dense layers and the packed in-projection)
+as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does, and
+recomputes the rest, the batched products of the attention included.  The
+kernels' autograd Functions are recomputed too: their forward launches again.
+There is no scan over depth: eager torch runs the blocks as a loop either way.
 
 The RN towers (``ModifiedResNet``: RN50, RN101, RN50x4/x16/x64) keep
 OpenAI's names too (``visual.layer1.0.bn1.weight``, ``...downsample.0/1``,
@@ -36,11 +44,13 @@ reaches ``clip_mha`` or ``flash_mha``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn
 
 from clip_fsar_torch.models.clip.arch import CLIPArch
 from clip_fsar_torch.ops.attention import merge_heads, mha, split_heads
@@ -156,16 +166,40 @@ class ResidualAttentionBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+# the 2-D products whose outputs the ``dots`` policy keeps: an allow-list, so that no buffer a kernel
+# wrapper allocates (torch.empty, then written through ctypes) is ever cached and handed back
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialized(fn, *args, context_fn=noop_context_fn):
+    """``fn(*args)`` under a non-reentrant checkpoint while autograd records,
+    plainly otherwise.  The recompute draws nothing at random, so no RNG state
+    is stashed (that would cost a copy per call)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, context_fn=context_fn)
+
+
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, causal: bool = False, dtype: torch.dtype = torch.float32, attention_backend: str = "plain"):
+    def __init__(
+        self, width: int, layers: int, heads: int, causal: bool = False, dtype: torch.dtype = torch.float32, attention_backend: str = "plain",
+        remat: bool = False, remat_policy: str = "nothing",
+    ):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, causal=causal, dtype=dtype, attention_backend=attention_backend) for _ in range(layers)
         )
+        self.remat = remat
+        # any other value is "nothing", as in the JAX package (model.py:303-307)
+        self.context_fn = functools.partial(create_selective_checkpoint_contexts, _keep_products) if remat_policy == "dots" else noop_context_fn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.resblocks:
-            x = block(x)
+            x = rematerialized(block, x, context_fn=self.context_fn) if self.remat else block(x)
         return x
 
 
@@ -174,14 +208,14 @@ class VisionTransformer(nn.Module):
 
     def __init__(
         self, input_resolution: int, patch_size: int, width: int, layers: int, heads: int, output_dim: int,
-        dtype: torch.dtype = torch.float32, attention_backend: str = "plain",
+        dtype: torch.dtype = torch.float32, attention_backend: str = "plain", remat: bool = False, remat_policy: str = "nothing",
     ):
         super().__init__()
         self.conv1 = PatchEmbed(width, patch_size, dtype=dtype)
         self.class_embedding = _empty(width)
         self.positional_embedding = _empty((input_resolution // patch_size) ** 2 + 1, width)
         self.ln_pre = LayerNorm(width)
-        self.transformer = Transformer(width, layers, heads, dtype=dtype, attention_backend=attention_backend)
+        self.transformer = Transformer(width, layers, heads, dtype=dtype, attention_backend=attention_backend, remat=remat, remat_policy=remat_policy)
         self.ln_post = LayerNorm(width)
         self.proj = _empty(width, output_dim)
         self.dtype = dtype
@@ -419,13 +453,15 @@ class TextTransformer(nn.Module):
         return pooled @ self.text_projection.to(x.dtype)
 
 
-def build_vision_tower(arch: CLIPArch, dtype: torch.dtype = torch.float32, attention_backend: str = "plain") -> nn.Module:
+def build_vision_tower(
+    arch: CLIPArch, dtype: torch.dtype = torch.float32, attention_backend: str = "plain", remat: bool = False, remat_policy: str = "nothing",
+) -> nn.Module:
     """The CLIP vision tower of ``arch``: a VisionTransformer, or for the RN
-    archs a ModifiedResNet, which ignores ``attention_backend`` as the JAX
-    one does (model.py:652-661)."""
+    archs a ModifiedResNet, which ignores ``attention_backend`` and the remat
+    options as the JAX one does (model.py:652-661, clipfsar.py:91-114)."""
     if not arch.is_vit:
         return ModifiedResNet(arch.vision_layers, arch.embed_dim, arch.vision_heads, arch.image_resolution, arch.vision_width, dtype=dtype)
     return VisionTransformer(
         arch.image_resolution, arch.vision_patch_size, arch.vision_width, arch.vision_layers, arch.vision_heads,
-        arch.embed_dim, dtype=dtype, attention_backend=attention_backend,
+        arch.embed_dim, dtype=dtype, attention_backend=attention_backend, remat=remat, remat_policy=remat_policy,
     )

@@ -9,6 +9,16 @@ live BatchNorm (``train_backbone_bn``, BN.FREEZE off): as in the JAX head
 (clipfsar.py:126-156,192-199) support and target are encoded in two calls,
 support first, each over the E episodes with per-episode batch statistics.
 
+``frame_chunks`` c > 1 (TPU.FRAME_CHUNKS, ViT towers only, as in the JAX
+head, clipfsar.py:135-155) runs the tower call's frames in c sequential
+parts, each under a checkpoint of its own while autograd records (around the
+blocks' own when ``remat`` is on), so only one part's layer boundaries are
+alive at a time; the backward recomputes each part's tower forward once more.
+The JAX head tests (S+Q)*T % c per episode inside its vmap over E; the test
+here is the same, and each part then holds E*(S+Q)*T/c frames, the live size
+of the JAX scan.  Frames are independent, so the features are those of one
+call.
+
 Eval variants (gated by cfg.TRAIN keys, as in the reference): plain OTAM,
 ``EVAL_TEXT`` (zero-shot text matching), ``COMBINE`` (text^a *
 visual_softmax^(1-a) fusion), ``MERGE_BEFORE`` (class-mean before
@@ -28,7 +38,7 @@ from torch import nn
 
 from clip_fsar_torch.data.types import Episode
 from clip_fsar_torch.models.clip.arch import CLIPArch
-from clip_fsar_torch.models.clip.model import build_vision_tower
+from clip_fsar_torch.models.clip.model import build_vision_tower, rematerialized
 from clip_fsar_torch.models.heads.common import TransformerV1, class_mean, cos_sim
 from clip_fsar_torch.ops.otam import otam_distance
 
@@ -74,12 +84,14 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 class CLIPFSARHead(nn.Module):
     def __init__(
         self, arch: CLIPArch, head_cfg: CLIPFSARConfig, dtype: torch.dtype = torch.float32, attention_backend: str = "plain",
-        train_backbone_bn: bool = False,
+        train_backbone_bn: bool = False, remat: bool = False, remat_policy: str = "nothing", frame_chunks: int = 1,
     ):
         super().__init__()
         self.arch = arch
         self.head_cfg = head_cfg
-        self.backbone = build_vision_tower(arch, dtype=dtype, attention_backend=attention_backend)  # ViT, or ModifiedResNet for RN*
+        # ViT, or ModifiedResNet for RN* (which ignores the remat options)
+        self.backbone = build_vision_tower(arch, dtype=dtype, attention_backend=attention_backend, remat=remat, remat_policy=remat_policy)
+        self.frame_chunks = frame_chunks
         self.train_backbone_bn = train_backbone_bn  # RN towers: BatchNorm on batch statistics in the train branch
         mid = arch.embed_dim  # 1024 for RN50, 512 for ViT-B/16 (few_shot.py:2699-2713)
         self.context2 = TransformerV1(
@@ -88,9 +100,16 @@ class CLIPFSARHead(nn.Module):
         self.scale = nn.Parameter(torch.ones(1, dtype=torch.float32))
 
     def _encode(self, images: torch.Tensor, bn_groups: Optional[int] = None) -> torch.Tensor:
-        """[E, N, T, H, W, 3] -> float32 features [E, N, T, D] in one tower call."""
+        """[E, N, T, H, W, 3] -> float32 features [E, N, T, D] in one tower
+        call, or in ``frame_chunks`` sequential parts of it."""
         flat = images.reshape((-1,) + images.shape[3:])
-        feats = self.backbone(flat) if self.arch.is_vit else self.backbone(flat, bn_groups)
+        c = self.frame_chunks
+        if not self.arch.is_vit:
+            feats = self.backbone(flat, bn_groups)
+        elif c > 1 and (images.shape[1] * images.shape[2]) % c == 0:
+            feats = torch.cat([rematerialized(self.backbone, part) for part in flat.chunk(c)])
+        else:
+            feats = self.backbone(flat)
         return feats.float().reshape(images.shape[:3] + (-1,))
 
     def _text_logits(self, text_bank, ep: Episode, image_features: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Where the time of the few-shot test slice goes on a CUDA card.
 
-    python -m clip_fsar_torch.tools.profile_eval [--out chiprun_out/profile_eval.txt] [--backbone RN50]
+    python -m clip_fsar_torch.tools.profile_eval [--out profile_eval.txt] [--backbone RN50 | ViT-L/14@336px]
 
 The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with a ViT-B/16
 tower at full width (fresh weights from the seed), the synthetic decoder,
@@ -29,7 +29,9 @@ with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
 kernel); they run in the order fused, split, pallas, fused, split, pallas,
 so each is read twice with the others in between.
 
-``--backbone`` sets the tower (default ViT-B/16).  An RN tower runs no
+``--backbone`` sets the tower (default ViT-B/16).  ``ViT-L/14@336px`` runs
+the ViT-L/14@336px 16-frame configuration (``VIT_L336_OPTS``: 640 frames of
+336 px per step, the tower in 4 frame chunks).  An RN tower runs no
 attention path of the config (its attention pool is plain float32 softmax),
 so only ``split`` is read, and its ``kernels`` sets also print
 ``rn_split[...]``: the device time inside the convolutions (``aten::convolution``
@@ -59,6 +61,13 @@ SLICE_OPTS = [
     "TRAIN.NUM_TEST_TASKS", "16",
     "TEST.BATCH_SIZE", "4",
 ]
+# the ViT-L/14@336px 16-frame configuration (the JAX package's BASELINE.json configs[4], set up as its bench
+# builds it, __graft_entry__.py:21-35): the crop at 336 px with the scales raised so it fits (the shipped 256
+# times 336/224), TPU.REMAT as base.yaml has it (auto: on for this 24-layer tower) and the JAX package's 4 frame
+# chunks; added to a slice's options by ``--backbone ViT-L/14@336px``
+VIT_L336 = "ViT-L/14@336px"
+VIT_L336_OPTS = ["VIDEO.HEAD.BACKBONE_NAME", VIT_L336, "DATA.NUM_INPUT_FRAMES", "16", "DATA.TRAIN_CROP_SIZE", "336", "DATA.TEST_CROP_SIZE", "336",
+                 "DATA.TEST_SCALE", "384", "DATA.TRAIN_JITTER_SCALES", "[384, 384]", "TPU.FRAME_CHUNKS", "4"]
 # the plain attention path with the kernel's math (fp32 logits and softmax)
 PLAIN_OPTS = ["TPU.ATTENTION_LAYOUT", "split", "TPU.SOFTMAX_DTYPE", "float32"]
 PATHS = {"fused": ["TPU.ATTENTION_LAYOUT", "fused"], "split": PLAIN_OPTS, "pallas": ["TPU.PALLAS_ATTENTION", "True"]}
@@ -99,6 +108,11 @@ def slice_cfg(*extra: str):
 
 def is_rn(backbone: str) -> bool:
     return backbone.startswith("RN")
+
+
+def backbone_opts(backbone: str) -> list:
+    """The options that put a slice on ``backbone``: the ViT-L/14@336px configuration's, or the tower alone."""
+    return list(VIT_L336_OPTS) if backbone == VIT_L336 else ["VIDEO.HEAD.BACKBONE_NAME", backbone]
 
 
 @contextlib.contextmanager
@@ -229,11 +243,11 @@ def restore_resize() -> None:
     frameops.set_enabled(True)
 
 
-def time_loader(workers: int, steps: int = STEPS) -> None:
+def time_loader(workers: int, steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
     """The test loader alone with each resize variant in turn, twice."""
     from clip_fsar_torch.data.loader import build_few_shot_loader
 
-    cfg = slice_cfg("DATA_LOADER.NUM_WORKERS", str(workers))
+    cfg = slice_cfg("DATA_LOADER.NUM_WORKERS", str(workers), *backbone_opts(backbone))
     variants = resize_variants()
     for reading in (1, 2):
         for label, switch in variants:
@@ -256,7 +270,7 @@ def profile_path(path: str, reading: int, steps: int = STEPS, backbone: str = "V
     from clip_fsar_torch.train.step import make_eval_step
 
     dev = torch.device("cuda")
-    cfg = slice_cfg(*PATHS[path], "VIDEO.HEAD.BACKBONE_NAME", backbone)
+    cfg = slice_cfg(*PATHS[path], *backbone_opts(backbone))
     model = build_few_shot_model(cfg, flow="test", device=dev)
     eval_step = make_eval_step(model.head, cfg, model.text_train, model.text_test)
     with build_few_shot_loader(cfg, "test", num_steps=1, episodes_per_step=EPISODES_PER_STEP) as loader:
@@ -274,7 +288,7 @@ def profile_path(path: str, reading: int, steps: int = STEPS, backbone: str = "V
         end.record()
         torch.cuda.synchronize()
         readings.append(start.elapsed_time(end) / steps)
-    say(f"{tag}: batch resident, {EPISODES_PER_STEP * 80} frames, ms per step over {steps} steps: "
+    say(f"{tag}: batch resident, {EPISODES_PER_STEP * 10 * int(cfg.DATA.NUM_INPUT_FRAMES)} frames, ms per step over {steps} steps: "
         + " / ".join(f"{ms:.3f}" for ms in readings))
 
     with bn_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -308,7 +322,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also append every line to this file")
     ap.add_argument("--loader-only", action="store_true", help="time the host loader and stop")
-    ap.add_argument("--backbone", default="ViT-B/16", help="the CLIP tower (an RN tower reads the split path only)")
+    ap.add_argument("--backbone", default="ViT-B/16", help=f"the CLIP tower (an RN tower reads the split path only; {VIT_L336} its 16-frame configuration)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: torch sees no CUDA device; this script measures the card only")
@@ -316,7 +330,7 @@ def main(argv=None) -> None:
     say(card())
     say(f"torch {torch.__version__} cuda {torch.version.cuda} backbone {args.backbone}")
     for workers in (4, 8):
-        time_loader(workers)
+        time_loader(workers, backbone=args.backbone)
     if args.loader_only:
         return
     for reading in (1, 2):

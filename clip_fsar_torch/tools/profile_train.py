@@ -1,7 +1,7 @@
 """Where the time of the few-shot train slice goes on a CUDA card.
 
     python -m clip_fsar_torch.tools.profile_train [--out chiprun_out/profile_train.txt]
-        [--sections loader,step,loop] [--paths fused,pallas] [--loop-steps 18] [--backbone RN50]
+        [--sections loader,step,loop] [--paths fused,pallas] [--loop-steps 18] [--backbone RN50 | ViT-L/14@336px]
 
 The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with
 a ViT-B/16 tower at full width (fresh weights from the seed), the synthetic
@@ -35,7 +35,10 @@ kernels), run in the order fused, split, pallas, fused, split, pallas;
 ``--paths`` picks some of them and ``--loop-steps`` the loops' length.
 ``--sections`` picks the reading sets: ``loader``, ``step`` (with
 ``kernels``) and ``loop``.  ``--backbone`` sets the tower (default
-ViT-B/16); an RN tower reads the ``split`` path only (no attention path of
+ViT-B/16); ``ViT-L/14@336px`` runs the ViT-L/14@336px 16-frame configuration
+(``profile_eval.VIT_L336_OPTS``: the tower rematerialized in 4 frame chunks)
+with E = 2 episodes (960 frames of 336 px) in 2 chunks; an RN tower reads the
+``split`` path only (no attention path of
 the config reaches it) and adds ``rn_split[...]`` to each ``kernels`` set:
 device time in the convolutions, in the BatchNorm chain and in the rest
 (``profile_eval.report_split``).  Metrics are
@@ -53,7 +56,20 @@ import time
 import torch
 
 from clip_fsar_torch.tools import profile_eval
-from clip_fsar_torch.tools.profile_eval import CONFIG, PATHS, _busy_us, _device_events, _report_kernels, bn_ranges, card, is_rn, report_split, say
+from clip_fsar_torch.tools.profile_eval import (
+    CONFIG,
+    PATHS,
+    VIT_L336,
+    _busy_us,
+    _device_events,
+    _report_kernels,
+    backbone_opts,
+    bn_ranges,
+    card,
+    is_rn,
+    report_split,
+    say,
+)
 
 EPISODES = 4
 TRAIN_OPTS = [
@@ -70,26 +86,33 @@ STEPS = 4  # steps per timing
 SECTIONS = ("loader", "step", "loop")  # the reading sets, in the order they are taken
 
 
-def train_cfg(*extra: str):
+def train_cfg(*extra: str, backbone: str = "ViT-B/16"):
+    """The slice's config on ``backbone`` (the ViT-L/14@336px configuration at E = 2) with ``extra``."""
     from clip_fsar_torch.runs.run import load_config
 
-    return load_config(CONFIG, TRAIN_OPTS + list(extra))
+    episodes = ["TPU.EPISODES_PER_STEP", "2"] if backbone == VIT_L336 else []
+    return load_config(CONFIG, TRAIN_OPTS + backbone_opts(backbone) + episodes + list(extra))
 
 
-def time_loader(steps: int = STEPS) -> None:
+def frames_per_step(cfg) -> int:
+    return int(cfg.TPU.EPISODES_PER_STEP) * 30 * int(cfg.DATA.NUM_INPUT_FRAMES)
+
+
+def time_loader(steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
     from clip_fsar_torch.data.loader import build_few_shot_loader
 
-    cfg = train_cfg()
+    cfg = train_cfg(backbone=backbone)
     workers = int(cfg.DATA_LOADER.NUM_WORKERS)
+    episodes = int(cfg.TPU.EPISODES_PER_STEP)
     variants = profile_eval.resize_variants()
     for reading in (1, 2):
         for label, switch in variants:
             switch()
             t0 = time.perf_counter()
-            with build_few_shot_loader(cfg, "train", num_steps=steps, episodes_per_step=EPISODES) as loader:
+            with build_few_shot_loader(cfg, "train", num_steps=steps, episodes_per_step=episodes) as loader:
                 got = sum(1 for _ in loader)
             ms = (time.perf_counter() - t0) * 1e3
-            say(f"loader[train w={workers} {label} #{reading}]: {got} steps of {EPISODES} episodes ({EPISODES * 240} frames) "
+            say(f"loader[train w={workers} {label} #{reading}]: {got} steps of {episodes} episodes ({frames_per_step(cfg)} frames) "
                 f"in {ms:.1f} ms, {ms / got:.1f} ms per step (host only, {os.cpu_count()} cores)")
     profile_eval.restore_resize()
 
@@ -105,11 +128,11 @@ def profile_step(path: str, reading: int, steps: int = STEPS, backbone: str = "V
     from clip_fsar_torch.train.step import make_train_step
 
     dev = torch.device("cuda")
-    cfg = train_cfg(*PATHS[path], "VIDEO.HEAD.BACKBONE_NAME", backbone)
+    cfg = train_cfg(*PATHS[path], backbone=backbone)
     model = build_few_shot_model(cfg, flow="train", device=dev)
     state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
     train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
-    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=EPISODES) as loader:
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=int(cfg.TPU.EPISODES_PER_STEP)) as loader:
         batch = next(iter(loader)).to(dev)
     gen = step_generator(cfg, 0, dev)
     train_step(state, batch, 1e-6, gen)
@@ -127,7 +150,7 @@ def profile_step(path: str, reading: int, steps: int = STEPS, backbone: str = "V
         end.record()
         torch.cuda.synchronize()
         readings.append(start.elapsed_time(end) / steps)
-    say(f"{tag}: batch resident, {EPISODES * 240} frames in 2 chunks, ms per train step over {steps} steps: "
+    say(f"{tag}: batch resident, {frames_per_step(cfg)} frames in 2 chunks, ms per train step over {steps} steps: "
         + " / ".join(f"{ms:.3f}" for ms in readings) + "; the host queued a step in " + " / ".join(f"{ms:.3f}" for ms in queued) + " ms")
 
     with bn_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -150,19 +173,21 @@ def profile_loop(path: str, reading: int, steps: int = 6, backbone: str = "ViT-B
 
     tag = f"loop[{path} #{reading}]"
     with tempfile.TemporaryDirectory() as out_dir:
-        stats = train_few_shot(train_cfg(*PATHS[path], "VIDEO.HEAD.BACKBONE_NAME", backbone, "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir))
+        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir, backbone=backbone)
+        stats = train_few_shot(loop_cfg)
+    episodes = int(loop_cfg.TPU.EPISODES_PER_STEP)
     say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s without the profiler, "
-        f"{stats['steps'] * EPISODES / stats['seconds']:.3f} train episodes/s")
+        f"{stats['steps'] * episodes / stats['seconds']:.3f} train episodes/s")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
-        loop_cfg = train_cfg(*PATHS[path], "VIDEO.HEAD.BACKBONE_NAME", backbone, "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir)
+        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir, backbone=backbone)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             stats = train_few_shot(loop_cfg)
             torch.cuda.synchronize()
     busy_s = _busy_us(_device_events(prof)) / 1e6
     say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s under the profiler, "
-        f"{stats['steps'] * EPISODES / stats['seconds']:.3f} train episodes/s, device busy {busy_s:.3f} s, "
+        f"{stats['steps'] * episodes / stats['seconds']:.3f} train episodes/s, device busy {busy_s:.3f} s, "
         f"idle {(1 - busy_s / stats['seconds']) * 100:.1f} % of the loop; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     torch.cuda.empty_cache()
 
@@ -173,7 +198,7 @@ def main(argv=None) -> None:
     ap.add_argument("--sections", default=",".join(SECTIONS), help="comma-separated reading sets to take, of " + ", ".join(SECTIONS))
     ap.add_argument("--paths", default=",".join(PATHS), help="comma-separated attention paths to read, of " + ", ".join(PATHS))
     ap.add_argument("--loop-steps", type=int, default=6, help="steps of each train loop (two lengths tell the loop's start from its steady step)")
-    ap.add_argument("--backbone", default="ViT-B/16", help="the CLIP tower (an RN tower reads the split path only)")
+    ap.add_argument("--backbone", default="ViT-B/16", help=f"the CLIP tower (an RN tower reads the split path only; {VIT_L336} its 16-frame configuration)")
     args = ap.parse_args(argv)
     sections, paths = args.sections.split(","), (["split"] if is_rn(args.backbone) else args.paths.split(","))
     if set(sections) - set(SECTIONS) or set(paths) - set(PATHS):
@@ -190,7 +215,7 @@ def main(argv=None) -> None:
 
     _build.library()  # built before any reading, so no loop's seconds hold the compile
     if "loader" in sections:
-        time_loader()
+        time_loader(backbone=args.backbone)
     for reading in (1, 2):
         for path in paths:
             if "step" in sections:

@@ -24,7 +24,7 @@ import torch
 
 from clip_fsar_torch import runtime
 from clip_fsar_torch.data.loader import build_few_shot_loader
-from clip_fsar_torch.models.builder import FewShotModel, build_few_shot_model
+from clip_fsar_torch.models.builder import FewShotModel, build_few_shot_model, tower_execution
 from clip_fsar_torch.train.checkpoint import Checkpointer, auto_resume, load_checkpoint_file, load_test_weights
 from clip_fsar_torch.train.optimizer import Optimizer, epoch_for_iter, get_lr_at_epoch
 from clip_fsar_torch.train.state import TrainState
@@ -146,9 +146,12 @@ def check_run_cfg(cfg, training: bool) -> None:
     aside = [key for key, value in (("TPU.TRAIN_FRAME_BANK", training and cfg.TPU.get("TRAIN_FRAME_BANK", False)),
                                     ("TPU.EVAL_FRAME_BANK", cfg.TPU.get("EVAL_FRAME_BANK", False)),
                                     ("TPU.MESH.DATA", mesh is not None and int(mesh.get("DATA", -1) or -1) > 1)) if value]
+    reasons = ["the port has no frame bank and no device mesh yet, so this run takes the pixel path on one card"] if aside else []
+    if tower_execution(cfg)[1]:  # the JAX package's scan over depth (model.py:282-289) changes how XLA compiles it, not the math
+        aside.append("TPU.SCAN_LAYERS")
+        reasons.append("eager torch runs the tower's blocks as a loop either way")
     if aside:
-        logger.info("%s set: the port has no frame bank and no device mesh yet, so this run takes the pixel path on one card "
-                    "(same episodes and results, other speed)", ", ".join(aside))
+        logger.info("%s set: %s (same episodes and results, other speed)", ", ".join(aside), "; ".join(reasons))
 
 
 def train_few_shot(cfg, device=None) -> Dict[str, Any]:

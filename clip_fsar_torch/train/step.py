@@ -50,18 +50,11 @@ _UNPORTED_LOSSES = {
 }
 
 
-def _check_train_cfg(cfg, arch) -> None:
-    """Raise for what the train step does not have yet (the augmentation
-    checks its own config)."""
+def _check_train_cfg(cfg) -> None:
+    """Raise for the loss terms of heads the port does not have yet."""
     for key, what in _UNPORTED_LOSSES.items():
         if cfg.TRAIN.get(key, False):
             raise NotImplementedError(f"TRAIN.{key} ({what}) belongs to a head that is not ported yet: ROADMAP Queue 1, breadth")
-    if "TPU" in cfg:
-        # TPU.REMAT resolves as the JAX builder does (builder.py:91-111): auto = on for towers of 24+ layers
-        remat = cfg.TPU.get("REMAT", False)
-        deep = arch.is_vit and arch.vision_layers >= 24
-        if (deep if str(remat).lower() == "auto" else bool(remat)) or int(cfg.TPU.get("FRAME_CHUNKS", 1) or 1) > 1:
-            raise NotImplementedError("TPU.REMAT / TPU.FRAME_CHUNKS (rematerialized towers) are not ported yet: ROADMAP Queue 1, train slice leftovers")
 
 
 def _live_batch_norms(head) -> list:
@@ -104,7 +97,7 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
     dropout; None turns both off (normalization only).  With live
     BatchNorm, each BatchNorm's ``step_stats`` is left holding the step's
     new running (mean, var) [2, C] for ``BatchNorm.commit``."""
-    _check_train_cfg(cfg, head.arch)
+    _check_train_cfg(cfg)
     live_bn = _live_batch_norms(head)
     mean = tuple(float(x) for x in cfg.DATA.MEAN)
     std = tuple(float(x) for x in cfg.DATA.STD)

@@ -385,13 +385,21 @@ def test_bf16_flash_backward_kernels_refuse_unaligned_tensors(cuda):
         torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
 
 
+# the tiny towers' train options on the card
+TINY_TRAIN_OPTS = ["TRAIN.ENABLE", "True", "DATA.DECODER", "synthetic", "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "64",
+                   "DATA.TEST_CROP_SIZE", "64", "DATA.TEST_SCALE", "72", "DATA.TRAIN_JITTER_SCALES", "[72, 80]", "TPU.EPISODES_PER_STEP", "2"]
+REMAT_OPTS = ["TPU.REMAT", "True", "TPU.FRAME_CHUNKS", "2", "AUGMENTATION.RANDOM_ERASING.ENABLE", "True"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("backbone", ["ViT-Tiny-Test", "RN-Tiny-Test"])
-def test_train_steps_never_wait_for_the_card(cuda, backbone):
+@pytest.mark.parametrize("backbone, extra", [pytest.param("ViT-Tiny-Test", [], id="ViT-Tiny-Test"), pytest.param("RN-Tiny-Test", [], id="RN-Tiny-Test"),
+                                             pytest.param("ViT-Tiny-Test", REMAT_OPTS, id="ViT-Tiny-Test-remat")])
+def test_train_steps_never_wait_for_the_card(cuda, backbone, extra):
     """Two train steps of the tiny tower on the card (jitter and dropout on, an accumulation window of 2;
-    the RN tower with live BatchNorm and its running-stat update) with torch's sync debug mode on: no
-    operation inside them synchronises with the device (each one that did would be named here by the
-    python line that called it)."""
+    the RN tower with live BatchNorm and its running-stat update; the ViT tower also rematerialized in 2
+    frame chunks, with random erasing) with torch's sync debug mode on: no operation inside them
+    synchronises with the device (each one that did would be named here by the python line that called
+    it)."""
     import warnings
 
     from clip_fsar_torch.config.config import load_config
@@ -403,10 +411,10 @@ def test_train_steps_never_wait_for_the_card(cuda, backbone):
     from clip_fsar_torch.train.state import TrainState
     from clip_fsar_torch.train.step import make_train_step
 
-    cfg = load_config(CONFIG, ["VIDEO.HEAD.BACKBONE_NAME", backbone, "TRAIN.ENABLE", "True", "DATA.DECODER", "synthetic",
-                               "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "64", "DATA.TEST_CROP_SIZE", "64", "DATA.TEST_SCALE", "72",
-                               "DATA.TRAIN_JITTER_SCALES", "[72, 80]", "TPU.EPISODES_PER_STEP", "2", "TRAIN.BATCH_SIZE_PER_TASK", "2"])
+    cfg = load_config(CONFIG, ["VIDEO.HEAD.BACKBONE_NAME", backbone, *TINY_TRAIN_OPTS, "TRAIN.BATCH_SIZE_PER_TASK", "2", *extra])
     model = build_few_shot_model(cfg, flow="train", device=cuda)
+    if extra:
+        assert model.head.backbone.transformer.remat and model.head.frame_chunks == 2
     state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
     step = make_train_step(model.head, cfg, model.text_train, model.text_test)
     with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=2) as loader:
@@ -423,6 +431,41 @@ def test_train_steps_never_wait_for_the_card(cuda, backbone):
     assert sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)}) == []
     assert [bool(m["updated"]) for m in seen] == [True, False] and int(state.optimizer.mini_step) == 1  # the window closed on step 2 of 3
     assert all(torch.isfinite(m["loss"]).item() for m in seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [["TPU.ATTENTION_LAYOUT", "fused"], ["TPU.PALLAS_ATTENTION", "True"]], ids=["fused", "flash"])
+def test_remat_train_step_on_the_card_matches_none(cuda, path):
+    """One train step's gradients of the tiny ViT in float32 on the kernels (K1 + K2, or K3 + K4 + K5),
+    with TPU.REMAT off, on with policy nothing and on with policy dots: the same bits (the recompute
+    launches the same kernels on the same inputs), and the forward kernel launched once more per layer
+    under remat."""
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.ops import flash_attention
+    from clip_fsar_torch.tools.profile_eval import CONFIG
+    from clip_fsar_torch.train.step import make_grad_fn
+
+    def forward_launches() -> int:
+        return clip_mha_cuda.launches + flash_attention.LAUNCHES["flash_mha_fwd"]
+
+    grads, launches = [], []
+    for remat in ([], ["TPU.REMAT", "True"], ["TPU.REMAT", "True", "TPU.REMAT_POLICY", "dots"]):
+        cfg = load_config(CONFIG, ["VIDEO.HEAD.BACKBONE_NAME", "ViT-Tiny-Test", *TINY_TRAIN_OPTS, "TPU.COMPUTE_DTYPE", "float32", *path, *remat])
+        if not grads:
+            with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=2) as loader:
+                batch = next(iter(loader)).to(cuda)
+        model = build_few_shot_model(cfg, flow="train", device=cuda)
+        before = forward_launches()
+        make_grad_fn(model.head, cfg, model.text_train, model.text_test)(batch, None)
+        launches.append(forward_launches() - before)
+        grads.append({n: p.grad for n, p in model.head.named_parameters()})
+    layers = model.head.arch.vision_layers
+    assert launches == [layers, 2 * layers, 2 * layers]
+    for other in grads[1:]:
+        for name, g in grads[0].items():
+            assert torch.equal(other[name], g), name
 
 
 @pytest.mark.cuda

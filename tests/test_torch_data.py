@@ -9,7 +9,19 @@ import numpy as np
 import pytest
 import torch
 
-from clip_fsar_torch.data.augment import JitterConfig, JitterDraws, color_jitter_batch, draw_jitter, fewshot_train_augment, host_generator
+from clip_fsar_torch.data.augment import (
+    ErasingConfig,
+    ErasingDraws,
+    JitterConfig,
+    JitterDraws,
+    color_jitter_batch,
+    draw_erasing,
+    draw_jitter,
+    erase_box_sizes,
+    fewshot_train_augment,
+    host_generator,
+    random_erasing_batch,
+)
 from clip_fsar_torch.data.datasets import DATASET_REGISTRY
 from clip_fsar_torch.data.episodes import EpisodeLoader
 from clip_fsar_torch.data.transforms import normalize_images, standardize
@@ -46,14 +58,117 @@ def test_sampler_episodes_byte_identical_to_jax(split):
 
 
 def test_train_split_is_not_ported_yet():
-    """The one part of the train split's augmentation not ported yet,
-    random erasing (off in base.yaml and the shipped few-shot configs),
-    raises and names its ROADMAP item instead of being skipped."""
-    cfg = tiny_cfg()
-    cfg.AUGMENTATION.RANDOM_ERASING["ENABLE"] = True
-    clips = torch.zeros((2, 4, 8, 8, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="RANDOM_ERASING.*ROADMAP"):
-        fewshot_train_augment(clips, cfg, cfg.DATA.MEAN, cfg.DATA.STD, True, torch.Generator().manual_seed(0))
+    """Nothing of the train split's augmentation is left unported: random
+    erasing (off in base.yaml and the shipped few-shot configs) runs under
+    its ENABLE, on query clips always and on support clips unless
+    AUGMENTATION.NO_RANDOM_ERASE (augment.py:424-428), after the jitter and
+    normalization and with the same generator; without a generator the clips
+    are only normalized."""
+    cfg = tiny_cfg("AUGMENTATION.NO_RANDOM_ERASE", "True", "AUGMENTATION.RANDOM_ERASING.ENABLE", "True", "AUGMENTATION.RANDOM_ERASING.PROB", "1.0")
+    clips = torch.from_numpy(np.random.RandomState(3).randint(0, 256, size=(4, 2, 16, 16, 3)).astype(np.uint8))
+    mean, std = cfg.DATA.MEAN, cfg.DATA.STD
+    plain = normalize_images(clips, mean, std)
+    erased = fewshot_train_augment(clips, cfg, mean, std, True, torch.Generator().manual_seed(0))
+    unerased = fewshot_train_augment(clips, tiny_cfg(), mean, std, True, torch.Generator().manual_seed(0))
+    assert (erased == 0).any() and not (unerased == 0).any()
+    assert torch.equal(torch.where(erased == 0, unerased, erased), unerased)  # the jitter's draws came first, as without erasing
+    assert torch.equal(fewshot_train_augment(clips, cfg, mean, std, False, torch.Generator().manual_seed(0)), plain)
+    cfg.AUGMENTATION["NO_RANDOM_ERASE"] = False
+    assert (fewshot_train_augment(clips, cfg, mean, std, False, torch.Generator().manual_seed(0)) == 0).any()
+    assert torch.equal(fewshot_train_augment(clips, cfg, mean, std, True, None), plain)
+
+
+def _jax_erasing_draws(key, shape, ec: ErasingConfig) -> ErasingDraws:
+    """The draws the JAX package's random_erasing makes from ``key``, in the order and shapes of
+    augment.py:189-222 (one key per clip, then per rectangle; the geometry of the attempts taken
+    by the port's ``erase_box_sizes``, so a rule other than JAX's moves the rectangles)."""
+    import jax
+    import jax.numpy as jnp
+
+    n, t, img_h, img_w, c = shape
+    min_count, max_count = ec.count
+    log_lo, log_hi = np.log(ec.min_aspect), np.log(1.0 / ec.min_aspect)
+    fields = {k: [] for k in ("on", "top", "left", "height", "width", "use", "fill")}
+    for clip_key in jax.random.split(key, n):
+        k_on, k_cnt, k_geo, k_fill = jax.random.split(clip_key, 4)
+        count = min_count if min_count == max_count else int(jax.random.randint(k_cnt, (), min_count, max_count + 1))
+        fields["on"].append(bool(jax.random.uniform(k_on) < ec.probability))
+        rows = {k: [] for k in ("top", "left", "height", "width", "use", "fill")}
+        for blk, (geo, fill_key) in enumerate(zip(jax.random.split(k_geo, max_count), jax.random.split(k_fill, max_count))):
+            ka, kr, kt, kl = jax.random.split(geo, 4)
+            area = torch.from_numpy(np.array(jax.random.uniform(ka, (10,), jnp.float32, *ec.area_range)))
+            log_ratio = torch.from_numpy(np.array(jax.random.uniform(kr, (10,), jnp.float32, log_lo, log_hi)))
+            h, w, fits = (int(v) for v in erase_box_sizes(area, log_ratio, torch.tensor(count), img_h, img_w))
+            rows["top"].append(int(jax.random.randint(kt, (), 0, max(img_h - h, 1))))
+            rows["left"].append(int(jax.random.randint(kl, (), 0, max(img_w - w, 1))))
+            rows["height"].append(h), rows["width"].append(w), rows["use"].append(bool(fits) and blk < count)
+            fill_shape = {"rand": (c,), "pixel": (t, img_h, img_w, c)}.get(ec.mode)
+            rows["fill"].append(None if fill_shape is None else np.array(jax.random.normal(fill_key, fill_shape, jnp.float32)))
+        for k, v in rows.items():
+            fields[k].append(v)
+    draws = {k: torch.tensor(fields[k]) for k in ("on", "top", "left", "height", "width", "use")}
+    fill = None if ec.mode == "const" else torch.from_numpy(np.stack([np.stack(f) for f in fields["fill"]]))
+    return ErasingDraws(fill=fill, **draws)
+
+
+@pytest.mark.parametrize("mode, count, num_splits", [("const", (1, 1), 0), ("rand", (1, 3), 0), ("pixel", (2, 2), 2)])
+def test_random_erasing_matches_jax_with_its_draws(mode, count, num_splits):
+    """random_erasing of the JAX package on normalized clips against the
+    port's apply fed the JAX draws from the same key, for each fill mode,
+    with a count range (rectangles that overlap, a later one on top) and a
+    clean split: the same bits (the apply only selects input and fill
+    values)."""
+    import jax
+    import jax.numpy as jnp
+
+    from clip_fsar_tpu.data import augment as jaug
+
+    ec = ErasingConfig(probability=0.7, area_range=(0.05, 0.4), min_aspect=0.3, mode=mode, count=count, num_splits=num_splits)
+    x = np.random.RandomState(8).standard_normal((8, 3, 24, 20, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(21)
+    want = np.asarray(jaug.random_erasing(key, jnp.asarray(x), probability=ec.probability, area_range=ec.area_range,
+                                          min_aspect=ec.min_aspect, mode=mode, count=count, num_splits=num_splits))
+    draws = _jax_erasing_draws(key, x.shape, ec)
+    got = random_erasing_batch(torch.from_numpy(x), draws, ec).numpy()
+    assert (got != x).any() and draws.on.any() and not draws.on.all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["const", "rand", "pixel"])
+def test_random_erasing_own_draws_stay_in_range(mode):
+    """The port's draws from a generator: about PROB of the clips erased,
+    each rectangle inside the frame, the same in every frame, of an area
+    within AREA_RANGE of the frame shared among the clip's rectangles (up
+    to the rounding of its sides) and an aspect within [MIN_ASPECT,
+    1/MIN_ASPECT] (the same), its count within COUNT; nothing is read back
+    while drawing and applying."""
+    from tests.torch_parity import host_reads
+
+    ec = ErasingConfig(probability=0.5, area_range=(0.02, 0.33), min_aspect=0.3, mode=mode, count=(1, 2))
+    n, t, img_h, img_w = 400, 2, 32, 48
+    x = torch.randn(n, t, img_h, img_w, 3)
+    g = torch.Generator().manual_seed(4)
+    with host_reads() as reads:
+        draws = draw_erasing(g, x.shape, ec)
+        out = random_erasing_batch(x, draws, ec)
+    assert reads == []
+    assert 0.4 < draws.on.float().mean().item() < 0.6
+    changed = (out != x).any(dim=-1)  # [N, T, H, W]
+    assert torch.equal(changed[:, 0], changed[:, 1])  # the same rectangles in every frame
+    assert not changed[~draws.on].any()
+    count = draws.use.sum(dim=1)
+    assert (count <= 2).all() and (count[draws.on] >= 1).float().mean() > 0.95  # a rectangle fits in nearly every attempt set
+    h, w = draws.height[draws.use].double(), draws.width[draws.use].double()
+    top, left = draws.top[draws.use], draws.left[draws.use]
+    assert (top >= 0).all() and (left >= 0).all() and (top + h <= img_h).all() and (left + w <= img_w).all()
+    per_clip = draws.use.sum(dim=1, keepdim=True).expand_as(draws.use)[draws.use].double()
+    area = h * w * per_clip / (img_h * img_w)
+    slack = (h + w + 1) * per_clip / (img_h * img_w)  # the sides are rounded to whole pixels
+    assert ((area >= 0.02 - slack) & (area <= 0.33 + slack)).all()
+    aspect = h / w
+    assert ((aspect >= 0.3 * (1 - 1 / w) - 1 / w) & (aspect <= (1 + 1 / h) / 0.3 + 1 / w)).all()
+    if mode == "const":
+        assert (out[changed] == 0).all()
 
 
 @pytest.mark.parametrize("consistent", [True, False])

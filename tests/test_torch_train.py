@@ -54,7 +54,7 @@ def _jax_three_steps(pallas: bool = False):
         return _jax_steps(train_cfg("TPU.ATTENTION_LAYOUT", "split", "TPU.PALLAS_ATTENTION", str(pallas)))
 
 
-def _jax_steps(cfg):
+def _jax_steps(cfg, steps: int = 3):
     from clip_fsar_tpu.data.loader import build_few_shot_loader as jloader
     from clip_fsar_tpu.models import builder as jbuilder
     from clip_fsar_tpu.train import step as jstep
@@ -70,7 +70,7 @@ def _jax_steps(cfg):
         lambda g, s, p=None: (lambda u, s0: (u, (s0, g)))(*inner.update(g, s[0], p)),
     )
     state = build_state(cfg, model, tx)
-    with jloader(cfg, "train", num_steps=3, episodes_per_step=2) as loader:
+    with jloader(cfg, "train", num_steps=steps, episodes_per_step=2) as loader:
         batches = list(loader)
     losses, grads = [], []
     with mock.patch.object(fnn.Dropout, "__call__", lambda self, x, *a, **k: x), \
@@ -98,6 +98,12 @@ def test_three_train_steps_match_jax(backend):
     softmax ignores a shift of a whole row; measured worst 1.6e-4)."""
     cfg, arch, clip_vars, model, batches, want_losses, want_grads, want_params = _jax_three_steps(backend == "pallas")
     head = CLIPFSARHead(arch, CLIPFSARConfig.from_cfg(cfg), attention_backend=backend)
+    assert_steps_match_jax(head, cfg, clip_vars, model, batches, want_losses, want_grads, want_params)
+
+
+def port_steps(head, cfg, clip_vars, model, batches) -> tuple:
+    """Port train steps on the JAX run's converted weights and batches (jitter and dropout off).
+    Returns (start state, losses, gradients per step)."""
     start = {k: v for k, v in port_head_state(model, clip_vars).items() if not k.startswith("text.")}
     head.load_state_dict(start)
     state = TrainState.create(cfg, head, topt.Optimizer(cfg, head))
@@ -113,7 +119,13 @@ def test_three_train_steps_match_jax(backend):
     step = make_train_step(head, cfg, *text)
     losses = [step(state, _port_batch(b), topt.get_lr_at_epoch(cfg, topt.epoch_for_iter(cfg, i)), None)["loss"]
               for i, b in enumerate(batches)]
+    return start, losses, grads
 
+
+def assert_steps_match_jax(head, cfg, clip_vars, model, batches, want_losses, want_grads, want_params) -> tuple:
+    """``port_steps`` held to the JAX run's losses (1e-4), gradients (2e-4) and final parameters (atol 5e-4,
+    see test_three_train_steps_match_jax); returns the port's losses and gradients."""
+    start, losses, grads = port_steps(head, cfg, clip_vars, model, batches)
     np.testing.assert_allclose(losses, want_losses, atol=1e-4, rtol=1e-4)
     for got, want in zip(grads, want_grads):
         for name, g in got.items():
@@ -123,6 +135,7 @@ def test_three_train_steps_match_jax(backend):
         torch.testing.assert_close(p.detach(), want_params[name], atol=5e-4, rtol=0, msg=lambda m, name=name: f"param {name}: {m}")
         moved = max(moved, (p.detach() - start[name]).abs().max().item())
     assert moved > 1e-3  # the parameters did move
+    return losses, grads
 
 
 def test_lr_schedule_matches_jax():

@@ -1,5 +1,5 @@
-"""Drive the port's few-shot test and train paths, its layer_norm op and its clip_mha
-stage-ablation tool once on an NVIDIA GPU and check them.
+"""Drive the port's few-shot test and train paths (the CLIP-FSAR head, and the classic HyRSM++ and MoLo
+heads), its layer_norm op and its clip_mha stage-ablation tool once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -122,7 +122,17 @@ and read just after.  Phases:
 15. frame chunks against none at that configuration: one train step at E = 1
    with 4 frame chunks and with none (remat on in both), same weights,
    batch and generator; loss, gradients, whether the bits are equal, ms and
-   peak memory of each.
+   peak memory of each;
+16-17. the classic heads' slices: the shipped HyRSM++ HMDB51 5-shot and MoLo
+   HMDB51 1-shot configs as written (torchvision ResNet-50 at 224 px, fresh
+   weights, synthetic decoder) through the CLI: E = 4 in 2 chunks, 8 steps (2
+   Adam updates), validation at step 8, the test protocol on 8 episodes of the
+   step-8 checkpoint, then again in fp32 (bf16 logits against fp32 ones), one
+   train step in bf16 against fp32 (loss, picked gradients), the step timed
+   with its batch resident beside the host's time to queue it; checks finite
+   losses, 2 updates, no kernel launched anywhere (the classic heads reach no
+   Pallas kernel in the JAX package either), and the step-8 checkpoint's
+   running stats: the trunk's as fresh, MoLo's decoder's moved.
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -193,6 +203,43 @@ RN_BATCH_NORMS = 3 + 3 * (3 + 4 + 6 + 3) + 4  # stem, three per bottleneck, one 
 # bf16 test logits against fp32 ones on the same weights and episodes, absolute: this script read a largest
 # difference of 1.68e-2 on logits up to 7.87 in size (NVIDIA H100 80GB HBM3, 700.00 W)
 RN_LOGIT_TOL = 5e-2
+
+# the classic heads' slices: two shipped configs as written (a torchvision ResNet-50 trunk at 224 px, 8 frames,
+# 5-way), fresh weights from the seed, the synthetic decoder; E = 4 episodes a step in 2 episode chunks (HyRSM++
+# 5-shot: 4 x 40 clips x 8 frames = 1280 frames a step; MoLo 1-shot: 4 x 35 x 8 = 1120), BATCH_SIZE_PER_TASK 4 as
+# shipped, 8 steps (2 Adam updates), one validation at step 8, the test protocol on 8 episodes of the step-8 checkpoint
+CLASSIC_CONFIGS = {"hyrsm_pp_5shot": os.path.join("configs", "projects", "hyrsmplusplus", "hmdb51", "HyRSMplusplus_HMDB51_5shot_v1.yaml"),
+                   "molo_1shot": os.path.join("configs", "projects", "MoLo", "hmdb51", "MoLo_HMDB51_1shot_v1.yaml")}
+CLASSIC_STEPS, CLASSIC_TEST_EPISODES = 8, 8
+CLASSIC_OPTS = [
+    "DATA.DECODER", "synthetic",
+    "TPU.EPISODES_PER_STEP", str(EPISODES),
+    "TPU.EPISODE_CHUNKS", str(CHUNKS),
+    "TRAIN.BATCH_SIZE_PER_TASK", str(ACCUM),
+    "TRAIN.NUM_TRAIN_TASKS", str(CLASSIC_STEPS),
+    "TRAIN.VAL_FRE_ITER", str(CLASSIC_STEPS),
+    "TRAIN.NUM_VAL_TASKS", "4",
+    "TPU.EVAL_EPISODES_PER_STEP", "4",
+    "TRAIN.NUM_TEST_TASKS", str(CLASSIC_TEST_EPISODES),
+    "TEST.BATCH_SIZE", "4",
+    "LOG_PERIOD", "1",
+]
+# bf16 against fp32 on the same weights and episodes, stated before the first run on the card: the test logits
+# (negated Bi-MHM distances; near 0 on fresh weights, whose frame features are nearly parallel) to 5e-2 of the
+# largest fp32 logit; one train step's loss at 2e-2 and the trunk's last convolution's gradient at GRAD_REL_TOL by
+# norm, the tolerances of PERF.md section 2.  The other picked gradients at 2e-1: the head's layers see the
+# distances 1 - cos of those nearly parallel features, whose bf16 rounding their gradients magnify, and the trunk's
+# first convolution's comes back through all 16 bf16 blocks (a CPU rehearsal at 64 px, 4 frames read 8.4e-2 and
+# 7.5e-2).  The step runs in 4 episode chunks so that the fp32 activations of one chunk (280-320 frames of
+# ResNet-50) fit beside the weights
+CLASSIC_LOGIT_SHARE = 5e-2
+CLASSIC_HEAD_GRAD_TOL = 2e-1
+CLASSIC_GRAD_CHUNKS = 4
+# the gradients held against fp32: the trunk's first and last convolution, and the head's own layers
+CLASSIC_PICKED = {"hyrsm_pp_5shot": ("backbone.conv1.weight", "backbone.layer4.2.conv3.weight", "features.layer2.weight",
+                                     "features.temporal_atte.w_qs.weight", "features.classification_layer.weight"),
+                  "molo_1shot": ("backbone.conv1.weight", "backbone.layer4.2.conv3.weight", "motion_reduce.weight", "up3.conv.weight",
+                                 "temporal_atte_before.ff_fc1.weight", "class_token")}
 
 # ms per launch of the scalar-FMA kernels that the tensor-core kernels replaced, by kernel and frames: what this
 # script read on an NVIDIA H100 80GB HBM3 at 700.00 W (bf16, N = 197, 12 heads of 64) at commit 8f41df3 (the
@@ -1387,6 +1434,167 @@ def phase_frame_chunks_vs_none() -> None:
     _compare_steps(f"ViT-L/14@336px train step (480 frames), {L336_FRAME_CHUNKS} frame chunks vs 1", runs[L336_FRAME_CHUNKS], runs[1])
 
 
+def _classic_opts(name: str) -> list:
+    """The classic slice's options: the config read from this checkout (its ANNO_DIR made absolute), then CLASSIC_OPTS."""
+    from clip_fsar_torch.tools.profile_eval import config_opts
+
+    return config_opts(os.path.join(REPO, CLASSIC_CONFIGS[name])) + CLASSIC_OPTS
+
+
+def _classic_step(name: str, dtype: str, batch, picked) -> dict:
+    """One ``make_grad_fn`` step of the classic slice's fresh model (the same weights in either dtype) in
+    CLASSIC_GRAD_CHUNKS episode chunks: loss, the picked gradients (float32), launches (all 0)."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.step import make_grad_fn
+
+    dev = runtime.device("cuda")
+    cfg = load_config(os.path.join(REPO, CLASSIC_CONFIGS[name]), _classic_opts(name) + [
+        "TPU.COMPUTE_DTYPE", dtype, "TPU.EPISODE_CHUNKS", str(CLASSIC_GRAD_CHUNKS)])
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    _reset_launches()
+    metrics = make_grad_fn(model.head, cfg, model.text_train, model.text_test)(batch, step_generator(cfg, 0, dev))
+    _expect_launches(f"one {name} train step ({dtype})")
+    named = dict(model.head.named_parameters())
+    out = {"loss": metrics["loss"].item(), "grads": {n: named[n].grad.float().clone() for n in picked}}
+    del model, named
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resident_steps(name: str, batch, steps: int = 4) -> dict:
+    """The slice's bf16 train step with its batch resident on the card (``make_train_step``: augmentation,
+    forward and backward of both chunks, the optimizer's micro-step): after a warm-up step, ``steps`` steps
+    timed with CUDA events beside the host's ms to queue them (the step reads nothing back)."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    dev = runtime.device("cuda")
+    cfg = load_config(os.path.join(REPO, CLASSIC_CONFIGS[name]), _classic_opts(name))
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+    train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+    gen = step_generator(cfg, 0, dev)
+    train_step(state, batch, 1e-6, gen)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        train_step(state, batch, 1e-6, gen)
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    end.record()
+    torch.cuda.synchronize()
+    out = {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms}
+    del model, state, train_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_classic_slice(out_dir: str, name: str, card_line: str) -> dict:
+    """A classic head's shipped config through the CLI at full width: train (8 steps, validation, checkpoint)
+    then test (8 episodes) in bf16, the test again in fp32 on the step-8 checkpoint, one train step in bf16
+    against fp32, and the step timed with its batch resident; no kernel launched anywhere.  MoLo's checkpoint
+    holds decoder running stats that moved and trunk running stats that did not."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.runs.run import load_config, main
+
+    path = os.path.join(REPO, CLASSIC_CONFIGS[name])
+    cfg = load_config(path, _classic_opts(name))
+    if cfg.VIDEO.HEAD.BACKBONE_NAME != "resnet50":
+        raise AssertionError(f"{path} runs {cfg.VIDEO.HEAD.BACKBONE_NAME}, not resnet50")
+    frames = EPISODES * int(cfg.TRAIN.WAY) * (int(cfg.TRAIN.SHOT) + int(cfg.TRAIN.QUERY_PER_CLASS)) * int(cfg.DATA.NUM_INPUT_FRAMES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = main(["--cfg", path, *_classic_opts(name), "OUTPUT_DIR", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _expect_launches(f"the {name} slice (train, validation, test)")
+    peak = torch.cuda.max_memory_allocated()
+    train, test = results["train_few_shot"], results["test_few_shot"]
+    losses = train["losses"]
+    print(f"{name} slice: {cfg.VIDEO.HEAD.NAME} on resnet50; losses per step {[round(x, 5) for x in losses]}; {train['updates']} optimizer "
+          f"updates; best val top1 {train['best_val_top1']:.2f}")
+    if len(losses) != CLASSIC_STEPS or not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"expected {CLASSIC_STEPS} finite losses, got {losses}")
+    if train["updates"] != CLASSIC_STEPS // ACCUM:
+        raise AssertionError(f"expected {CLASSIC_STEPS // ACCUM} optimizer updates, got {train['updates']}")
+    if not test["weights"].endswith(os.path.join("checkpoints", f"{CLASSIC_STEPS}.pt")):
+        raise AssertionError(f"test_few_shot tested {test['weights']}, not the step-{CLASSIC_STEPS} checkpoint")
+    _check_test_stats(test, CLASSIC_TEST_EPISODES)
+    step_seconds = train["seconds"] - train["val_seconds"]
+    eps = CLASSIC_STEPS * EPISODES / step_seconds
+    test_eps = CLASSIC_TEST_EPISODES / test["seconds"]
+    print(f"{name} slice on {card_line}: {eps:.4f} train episodes/s ({frames} frames a step, {step_seconds / CLASSIC_STEPS * 1e3:.1f} ms a "
+          f"step over {CLASSIC_STEPS} steps with the loader; the loop took {train['seconds']:.2f} s with {train['val_seconds']:.2f} s of "
+          f"validation and checkpoints); test protocol {test_eps:.3f} episodes/s (top1 {test['top1_acc']:.2f}); CLI wall {wall:.2f} s; "
+          f"peak memory {peak / 2**30:.3f} GiB; launches {launches}")
+    _check_classic_running_stats(out_dir, name)
+
+    # the test protocol again in fp32 on the same checkpoint and episodes
+    _reset_launches()
+    fp32 = main(["--cfg", path, *_classic_opts(name), "TRAIN.ENABLE", "False", "TPU.COMPUTE_DTYPE", "float32", "OUTPUT_DIR", out_dir])["test_few_shot"]
+    _expect_launches(f"the {name} test protocol in fp32")
+    if fp32["weights"] != test["weights"]:
+        raise AssertionError(f"the fp32 test read {fp32['weights']}, the bf16 test {test['weights']}")
+    got, want = torch.from_numpy(test["episode_logits"]), torch.from_numpy(fp32["episode_logits"])
+    diff, scale = (got - want).abs().max().item(), want.abs().max().item()
+    print(f"{name} test logits bf16 vs fp32 (the step-{CLASSIC_STEPS} checkpoint, the same {CLASSIC_TEST_EPISODES} episodes): max abs diff "
+          f"{diff:.4e}, {diff / scale:.3e} of the largest fp32 logit {scale:.4f} (tol {CLASSIC_LOGIT_SHARE}); fp32 "
+          f"{CLASSIC_TEST_EPISODES / fp32['seconds']:.3f} episodes/s")
+    if not diff <= CLASSIC_LOGIT_SHARE * scale:
+        raise AssertionError(f"{name}: bf16 test logits differ from fp32 by {diff:.4e}, more than {CLASSIC_LOGIT_SHARE} of {scale:.4f}")
+
+    # one train step in bf16 against fp32, and the bf16 step timed with its batch resident
+    dev = runtime.device("cuda")
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=EPISODES) as loader:
+        batch = next(iter(loader)).to(dev)
+    got, want = (_classic_step(name, dtype, batch, CLASSIC_PICKED[name]) for dtype in ("bfloat16", "float32"))
+    what = f"{name} train step bf16 vs fp32 ({CLASSIC_GRAD_CHUNKS} episode chunks)"
+    print(f"{what}: loss {got['loss']:.6f} vs {want['loss']:.6f} (tol 2e-2)")
+    torch.testing.assert_close(torch.tensor(got["loss"]), torch.tensor(want["loss"]), atol=2e-2, rtol=2e-2)
+    for pname, g in want["grads"].items():
+        rel = ((got["grads"][pname] - g).norm() / g.norm()).item()
+        tol = GRAD_REL_TOL if pname == "backbone.layer4.2.conv3.weight" else CLASSIC_HEAD_GRAD_TOL
+        print(f"{what}: grad {pname}: norm-relative difference {rel:.3e} (tol {tol}); |grad| = {g.norm().item():.4e}")
+        if not rel <= tol:
+            raise AssertionError(f"{what}: gradient of {pname} differs by {rel:.3e} (norm-relative)")
+    timed = _resident_steps(name, batch)
+    print(f"{name} train step on {card_line}, batch resident ({frames} frames in {CHUNKS} chunks): {timed['step_ms']:.1f} ms a step "
+          f"(CUDA events, 4 steps); the host queued a step in {timed['host_ms']:.1f} ms")
+    del batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "episodes_per_s": eps, "test_episodes_per_s": test_eps, "peak_gib": peak / 2**30,
+            "step_ms": step_seconds / CLASSIC_STEPS * 1e3, "resident_step_ms": timed["step_ms"], "host_ms": timed["host_ms"]}
+
+
+def _check_classic_running_stats(out_dir: str, name: str) -> None:
+    """The step-8 checkpoint: every running stat finite; the trunk's as fresh (mean 0, var 1: it runs on its
+    running statistics, as the JAX heads build it); MoLo's three decoder BatchNorms' moved."""
+    head = torch.load(os.path.join(out_dir, "checkpoints", f"{CLASSIC_STEPS}.pt"), map_location="cpu", weights_only=True)["head"]
+    stats = {k: v for k, v in head.items() if k.endswith(("running_mean", "running_var"))}
+    if not all(torch.isfinite(v).all() for v in stats.values()):
+        raise AssertionError("non-finite running stats in the checkpoint")
+    fresh = {k: torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v) for k, v in stats.items()}
+    moved = sorted(k for k, v in stats.items() if not torch.equal(v, fresh[k]))
+    want = sorted(f"up{i}.bn.{k}" for i in (1, 2, 3) for k in ("running_mean", "running_var")) if name == "molo_1shot" else []
+    trunk = [k for k in stats if k.startswith("backbone.")]
+    if moved != want or len(trunk) != 2 * 53:
+        raise AssertionError(f"{name}: running stats that moved {moved}, expected {want}; {len(trunk)} trunk stats, expected 106")
+    print(f"{name} slice: step-{CLASSIC_STEPS} checkpoint holds {len(stats)} running stats, all finite; the trunk's 106 as fresh; moved: "
+          f"{moved or 'none'}")
+
+
 def main() -> None:
     smi = phase_device()
     build_seconds = phase_build()
@@ -1408,13 +1616,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         train["vit_l336"] = phase_vit_l336_train_slice(os.path.join(out_dir, "train_vit_l336"))
     phase_frame_chunks_vs_none()
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        classic = {name: phase_classic_slice(os.path.join(out_dir, name), name, smi) for name in CLASSIC_CONFIGS}
     from clip_fsar_torch.data.transforms import RESIZE_CALLS
 
     print(f"loader resize: clips resized in this run by each implementation: {RESIZE_CALLS}")
     print(f"summary on {smi}: build {build_seconds:.2f} s; "
           + "; ".join(f"{path} train slice {t['episodes_per_s']:.4f} episodes/s, {t['step_ms']:.1f} ms per step, peak {t['peak_gib']:.3f} GiB"
                       for path, t in train.items())
-          + f"; rn50 test slice {rn_test['episodes_per_s']:.3f} episodes/s, peak {rn_test['peak_gib']:.3f} GiB")
+          + f"; rn50 test slice {rn_test['episodes_per_s']:.3f} episodes/s, peak {rn_test['peak_gib']:.3f} GiB; "
+          + "; ".join(f"{name} slice {t['episodes_per_s']:.4f} train episodes/s, {t['resident_step_ms']:.1f} ms a resident step "
+                      f"(host {t['host_ms']:.1f} ms), test {t['test_episodes_per_s']:.3f} episodes/s, peak {t['peak_gib']:.3f} GiB"
+                      for name, t in classic.items()))
     kernels = [
         ("clip_mha_fwd", "fused", "clip_fsar_torch/csrc/clip_mha_fwd.cu", "clip_fsar_tpu/ops/fused_attention.py:71"),
         ("clip_mha_bwd", "fused", "clip_fsar_torch/csrc/clip_mha_bwd.cu", "clip_fsar_tpu/ops/fused_attention.py:97"),
@@ -1435,6 +1648,7 @@ def main() -> None:
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "rn50_launches": train["rn50"]["launches"][name] + rn_test["launches"][name],
                         "vit_l336_launches": train["vit_l336"]["launches"][name],
+                        "classic_launches": {slice_name: t["launches"][name] for slice_name, t in classic.items()},
                         **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t},
                         **({"at_vit_l336_chunk": l336_kernels[name]} if name in l336_kernels else {})})
         if not records[-1]["launches"] > 0:

@@ -27,6 +27,10 @@ class Episode:
     target_labels: [Q] episode-local labels
     real_target_labels: [Q] global class ids
     batch_class_list: [WAY] global class ids chosen for this episode
+    unlabeled_images: [U, T, H, W, 3] unlabeled clips of a semi-supervised
+        episode (CNN_HyRSM_plusplus_semi; the reference head reads
+        inputs["target_set_weakly"], few_shot.py:2348-2352), optional: no
+        sampler fills it, in either package
     """
 
     support_images: Any
@@ -36,6 +40,7 @@ class Episode:
     target_labels: Any
     real_target_labels: Any
     batch_class_list: Optional[Any] = None
+    unlabeled_images: Optional[Any] = None
 
     def replace(self, **changes) -> "Episode":
         return dataclasses.replace(self, **changes)

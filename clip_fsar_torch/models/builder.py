@@ -1,17 +1,21 @@
 """Model builder: config -> (head module, text banks) (counterpart of
-clip_fsar_tpu/models/builder.py:61-277, 341-358).
+clip_fsar_tpu/models/builder.py:61-363).
 
 Builds the CLIP towers from an OpenAI ``.pt`` when one is found (same
 search paths as the JAX package), otherwise from fresh weights drawn from
 an explicit ``torch.Generator`` with the flax initializer families (the
 values differ from JAX's; only the distributions match).  Precomputes the
-class-name text banks once, in float32, and assembles the CNN_OTAM_CLIPFSAR
-head.
+class-name text banks once, in float32, and assembles the head that
+``VIDEO.HEAD.NAME`` names in ``HEAD_REGISTRY``: CNN_OTAM_CLIPFSAR, or one of
+the classic heads and MoLo (``models/heads/fsheads.py``, ``molo.py``), whose
+torchvision ResNet trunk takes ImageNet weights from a torchvision state
+dict where one is found.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -34,14 +38,17 @@ from clip_fsar_torch.models.clip.model import (
     VisionTransformer,
     build_vision_tower,
 )
+from clip_fsar_torch.models.heads import fsheads, molo  # noqa: F401  (registers the classic heads and MoLo)
 from clip_fsar_torch.models.heads.clipfsar import CLIPFSARConfig, CLIPFSARHead
+from clip_fsar_torch.models.resnet import RESNET_SPECS, load_torchvision_resnet
 from clip_fsar_torch.utils.logging import get_logger
+from clip_fsar_torch.utils.registry import HEAD_REGISTRY
 
 logger = get_logger(__name__)
 
 
 class FewShotModel(NamedTuple):
-    head: CLIPFSARHead
+    head: nn.Module
     text_train: torch.Tensor
     text_test: torch.Tensor
 
@@ -161,8 +168,11 @@ def _lecun_normal_(p: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
 def init_weights(module: nn.Module, g: torch.Generator) -> None:
     """Fill every parameter of ``module`` with the flax initializer family
     the JAX package uses for it, drawing from ``g`` in module order, and
-    reset BatchNorm's running stats to flax's (mean 0, var 1)."""
+    reset BatchNorm's running stats to flax's (mean 0, var 1).  A module
+    with parameters of its own kind fills them in ``init_own_parameters``."""
     for m in module.modules():
+        if hasattr(m, "init_own_parameters"):
+            m.init_own_parameters(g)
         if isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
@@ -174,7 +184,9 @@ def init_weights(module: nn.Module, g: torch.Generator) -> None:
             _lecun_normal_(m.in_proj_weight, m.in_proj_weight.shape[1], g)
             m.in_proj_bias.zero_()
         elif isinstance(m, (PatchEmbed, Conv2d)):
-            _lecun_normal_(m.weight, m.weight[0].numel(), g)  # fan-in kh * kw * in
+            _lecun_normal_(m.weight, m.weight[0].numel(), g)  # fan-in kh * kw * in (kt * kh * kw * in in 3-D)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
@@ -254,23 +266,66 @@ def make_head(cfg, arch: CLIPArch, device: torch.device) -> CLIPFSARHead:
     )
 
 
-def build_few_shot_model(cfg, generator: Optional[torch.Generator] = None, flow: str = "auto", device=None) -> FewShotModel:
-    """The CNN_OTAM_CLIPFSAR head on ``device`` (in train mode for the
-    "train" flow) plus its text banks, fp32 constants: the text tower is
-    not trained."""
-    device = runtime.device(device)
-    if cfg.VIDEO.HEAD.NAME != "CNN_OTAM_CLIPFSAR":
-        raise NotImplementedError(f"head {cfg.VIDEO.HEAD.NAME!r} is not ported yet: ROADMAP Queue 1, breadth")
-    g = generator if generator is not None else torch.Generator().manual_seed(int(cfg.get("RANDOM_SEED", 0)))
-    arch, clip_sd = load_or_init_clip(cfg, g, flow)
-    prompt = cfg.TEST.get("PROMPT", None) if "TEST" in cfg else None
-    banks = []
-    for names in (cfg.TRAIN.get("CLASS_NAME", []) or [], cfg.TEST.get("CLASS_NAME", []) or []):
-        names = list(names)
-        banks.append(encode_class_names(arch, clip_sd, names, prompt, device) if names else torch.zeros((1, arch.embed_dim), device=device))
+@HEAD_REGISTRY.register(name="CNN_OTAM_CLIPFSAR")
+def _build_clipfsar_head(cfg, arch: CLIPArch, device: torch.device, **kw) -> CLIPFSARHead:
+    return make_head(cfg, arch, device)
 
-    head = make_head(cfg, arch, device)
-    head.backbone.load_state_dict(_sub(clip_sd, "visual."))  # strict: an OpenAI RN file's BN running stats included
-    init_weights(head.context2, g)
+
+def backbone_weights_path(cfg) -> Optional[str]:
+    """A torchvision state dict for a ResNet trunk: TRAIN.BACKBONE_WEIGHTS,
+    else the first ``{name}*.pth`` in torch hub's checkpoint cache or
+    ./weights (JAX builder.py:316-334)."""
+    path = str(cfg.TRAIN.get("BACKBONE_WEIGHTS", "") or "") if "TRAIN" in cfg else ""
+    if path:
+        return path
+    name = cfg.VIDEO.HEAD.BACKBONE_NAME
+    for root in (os.path.expanduser("~/.cache/torch/hub/checkpoints"), "./weights"):
+        hits = sorted(glob.glob(os.path.join(root, f"{name}*.pth")))
+        if hits:
+            return hits[0]
+    return None
+
+
+def _assemble_classic_head(cfg, head: nn.Module, g: torch.Generator, clip_sd) -> None:
+    """Fresh weights for a classic head from ``g``; then the CLIP visual
+    tower where the backbone is a CLIP arch (an RN tower's token projection,
+    which no CLIP file holds, stays fresh), or torchvision weights for a
+    ResNet trunk where a file is found (JAX builder.py:280-336)."""
+    init_weights(head, g)
+    if clip_sd is not None:
+        missing, unexpected = head.backbone.load_state_dict(_sub(clip_sd, "visual."), strict=False)
+        if unexpected or any(not k.startswith("attnpool.c_proj_tokens.") for k in missing):
+            raise KeyError(f"the CLIP visual weights do not fit the head's tower: missing {missing}, unexpected {unexpected}")
+        return
+    path = backbone_weights_path(cfg) if cfg.VIDEO.HEAD.BACKBONE_NAME in RESNET_SPECS else None
+    if path and os.path.exists(path):
+        load_torchvision_resnet(head.backbone, torch.load(path, map_location="cpu", weights_only=True))
+        logger.info("Loaded torchvision %s weights from %s", cfg.VIDEO.HEAD.BACKBONE_NAME, path)
+
+
+def build_few_shot_model(cfg, generator: Optional[torch.Generator] = None, flow: str = "auto", device=None) -> FewShotModel:
+    """The head that VIDEO.HEAD.NAME names on ``device`` (in train mode for
+    the "train" flow) plus its text banks, fp32 constants: the text tower is
+    not trained.  A head on a torchvision ResNet has no text tower; its
+    banks are [1, 1] zeros, as in the JAX package."""
+    device = runtime.device(device)
+    factory = HEAD_REGISTRY.get(cfg.VIDEO.HEAD.NAME)
+    g = generator if generator is not None else torch.Generator().manual_seed(int(cfg.get("RANDOM_SEED", 0)))
+    arch = clip_sd = None
+    banks = [torch.zeros((1, 1), device=device)] * 2
+    if cfg.VIDEO.HEAD.NAME == "CNN_OTAM_CLIPFSAR" or cfg.VIDEO.HEAD.BACKBONE_NAME in ARCHS:
+        arch, clip_sd = load_or_init_clip(cfg, g, flow)
+        prompt = cfg.TEST.get("PROMPT", None) if "TEST" in cfg else None
+        banks = []
+        for names in (cfg.TRAIN.get("CLASS_NAME", []) or [], cfg.TEST.get("CLASS_NAME", []) or []):
+            names = list(names)
+            banks.append(encode_class_names(arch, clip_sd, names, prompt, device) if names else torch.zeros((1, arch.embed_dim), device=device))
+
+    head = factory(cfg, arch=arch, dtype=_dtype_from_cfg(cfg), device=device)
+    if isinstance(head, CLIPFSARHead):
+        head.backbone.load_state_dict(_sub(clip_sd, "visual."))  # strict: an OpenAI RN file's BN running stats included
+        init_weights(head.context2, g)
+    else:
+        _assemble_classic_head(cfg, head, g, clip_sd)
     head.to(device).train(flow == "train")
     return FewShotModel(head=head, text_train=banks[0], text_test=banks[1])

@@ -11,12 +11,16 @@ tower under ``visual.`` — except that the text tower sits under ``text.``
 * ``q_proj`` / ``k_proj`` / ``v_proj`` -> one packed ``in_proj`` (q | k | v);
 * ``_PatchEmbed`` kernel (p, p, c, width) -> conv layout (width, c, p, p);
 * the ``LayerNorm_0`` child scope -> ``weight`` / ``bias``;
-* RN towers: conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw),
-  ``BatchNorm_0`` {scale, bias} -> ``weight`` / ``bias`` and the
-  ``batch_stats`` {mean, var} -> ``running_mean`` / ``running_var``,
-  ``layer{s}_{i}`` -> ``layer{s}.{i}``, ``downsample_conv`` /
-  ``downsample_bn`` -> ``downsample.0`` / ``downsample.1``;
-* embeddings, projections and the head ``scale`` as they are.
+* embeddings, projections and the head ``scale`` as they are;
+* the ResNets (CLIP's RN towers and the classic heads' torchvision trunk)
+  and every module of the classic heads and MoLo, by one mapping
+  (``_module``): conv ``kernel`` [kh, kw, in, out] or [kt, kh, kw, in, out]
+  -> ``weight`` [out, in, kh, kw] or [out, in, kt, kh, kw], ``BatchNorm_0``
+  {scale, bias} -> ``weight`` / ``bias`` and its ``batch_stats`` {mean, var}
+  -> ``running_mean`` / ``running_var``, a flax LayerNorm's ``scale`` ->
+  ``weight``, ``layer{s}_{i}`` -> ``layer{s}.{i}``, ``downsample_conv`` /
+  ``downsample_bn`` -> ``downsample.0`` / ``downsample.1``, class tokens and
+  temperatures as they are.
 """
 
 from __future__ import annotations
@@ -151,10 +155,6 @@ def _transformer(out: Dict, prefix: str, tree: Mapping) -> None:
         i += 1
 
 
-def _conv(out: Dict, name: str, tree: Mapping) -> None:
-    out[f"{name}.weight"] = _t(tree["kernel"]).permute(3, 2, 0, 1).contiguous()  # (kh, kw, in, out) -> (out, in, kh, kw)
-
-
 def _batch_norm(out: Dict, name: str, tree: Mapping, stats: Optional[Mapping]) -> None:
     _norm(out, name, tree["BatchNorm_0"])
     if stats is not None:
@@ -162,34 +162,47 @@ def _batch_norm(out: Dict, name: str, tree: Mapping, stats: Optional[Mapping]) -
         out[f"{name}.running_var"] = _t(stats["BatchNorm_0"]["var"])
 
 
-def _resnet(out: Dict, prefix: str, tree: Mapping, stats: Optional[Mapping]) -> None:
-    """ModifiedResNet params (and, when given, its batch_stats) -> OpenAI names."""
-    sub = lambda name: None if stats is None else stats[name]  # noqa: E731
-    for j in (1, 2, 3):
-        _conv(out, f"{prefix}.conv{j}", tree[f"conv{j}"])
-        _batch_norm(out, f"{prefix}.bn{j}", tree[f"bn{j}"], sub(f"bn{j}"))
-    for stage in (1, 2, 3, 4):
-        i = 0
-        while f"layer{stage}_{i}" in tree:
-            name, blk = f"layer{stage}_{i}", tree[f"layer{stage}_{i}"]
-            p = f"{prefix}.layer{stage}.{i}"
-            blk_stats = sub(name)
-            for j in (1, 2, 3):
-                _conv(out, f"{p}.conv{j}", blk[f"conv{j}"])
-                _batch_norm(out, f"{p}.bn{j}", blk[f"bn{j}"], None if blk_stats is None else blk_stats[f"bn{j}"])
-            if "downsample_conv" in blk:
-                _conv(out, f"{p}.downsample.0", blk["downsample_conv"])
-                _batch_norm(out, f"{p}.downsample.1", blk["downsample_bn"], None if blk_stats is None else blk_stats["downsample_bn"])
-            i += 1
-    pool = tree["attnpool"]
-    out[f"{prefix}.attnpool.positional_embedding"] = _t(pool["positional_embedding"])
-    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
-        _dense(out, f"{prefix}.attnpool.{name}", pool[name])
+# flax module names -> the port's (torchvision's and OpenAI's) where they differ
+_RENAMES = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
+def _port_name(name: str) -> str:
+    stage, _, index = name.partition("_")
+    if stage.startswith("layer") and index.isdigit():  # layer{s}_{i} -> layer{s}.{i}
+        return f"{stage}.{index}"
+    return _RENAMES.get(name, name)
+
+
+def _module(out: Dict, prefix: str, tree: Mapping, stats: Optional[Mapping]) -> None:
+    """Any flax module tree of the classic heads -> the port's names:
+    ``kernel`` leaves are a Dense (2-D, transposed) or a conv (flax
+    [k..., in, out] -> [out, in, k...]) with their ``bias``; a
+    ``BatchNorm_0`` child is a BatchNorm with its ``batch_stats``; a
+    {scale, bias} node is a LayerNorm; other leaves (class tokens,
+    temperatures) carry over as they are."""
+    if "kernel" in tree:
+        k = _t(tree["kernel"])
+        out[f"{prefix}.weight"] = (k.T if k.dim() == 2 else k.permute(k.dim() - 1, k.dim() - 2, *range(k.dim() - 2))).contiguous()
+        if "bias" in tree:
+            out[f"{prefix}.bias"] = _t(tree["bias"])
+        return
+    if "BatchNorm_0" in tree:
+        _batch_norm(out, prefix, tree, stats)
+        return
+    if set(tree) in ({"scale", "bias"}, {"LayerNorm_0"}):
+        _norm(out, prefix, tree)
+        return
+    for name, sub in tree.items():
+        p = f"{prefix}.{_port_name(name)}" if prefix else _port_name(name)
+        if isinstance(sub, Mapping):
+            _module(out, p, sub, None if stats is None else stats.get(name))
+        else:
+            out[p] = _t(sub)
 
 
 def _vision(out: Dict, prefix: str, tree: Mapping, stats: Optional[Mapping] = None) -> None:
-    if "attnpool" in tree:
-        _resnet(out, prefix, tree, stats)
+    if "transformer" not in tree:  # a ResNet: CLIP's (OpenAI names it as torchvision does) or torchvision's own
+        _module(out, prefix, tree, stats)
         return
     out[f"{prefix}.conv1.weight"] = _t(tree["conv1"]["kernel"]).permute(3, 2, 0, 1).contiguous()  # (p,p,c,w) -> (w,c,p,p)
     for name in ("class_embedding", "positional_embedding", "proj"):
@@ -219,18 +232,28 @@ def _context2(out: Dict, tree: Mapping) -> None:
 
 
 def params_from_jax(variables: Mapping, text_params: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
-    """The JAX FewShotModel variables ({"params": {"backbone", "context2",
-    "scale"}}, numpy leaves, and for the RN towers {"batch_stats":
-    {"backbone"}}) -> a CLIPFSARHead state dict; without batch_stats the RN
-    running stats are left out.  With ``text_params`` (the JAX CLIP's
-    ``params["text"]``) the text tower's entries are added under ``text.``,
-    the names of ``CLIP.text``."""
+    """The JAX FewShotModel variables ({"params": {...}}, numpy leaves, with
+    {"batch_stats": {...}} where BatchNorms have running stats) -> the port
+    head's state dict; without batch_stats the running stats are left out.
+
+    The backbone (a CLIP tower or a torchvision ResNet) under ``backbone.``.
+    CNN_OTAM_CLIPFSAR ({"backbone", "context2", "scale"}): with
+    ``text_params`` (the JAX CLIP's ``params["text"]``) the text tower's
+    entries under ``text.``, the names of ``CLIP.text``.  The classic heads
+    and MoLo: every other module through ``_module``."""
     params = variables["params"]
+    stats = variables.get("batch_stats") or {}
     out: Dict[str, torch.Tensor] = {}
-    _vision(out, "backbone", params["backbone"], (variables.get("batch_stats") or {}).get("backbone"))
-    _context2(out, params["context2"])
-    out["scale"] = _t(params["scale"])
-    if text_params is not None:
-        _text(out, "text", text_params)
+    backbone = params["backbone"]
+    if "transformer" not in backbone and "layer1_0" not in backbone:
+        raise KeyError("backbone/layer1_0")  # neither a ViT nor a ResNet (CLIP's or torchvision's)
+    _vision(out, "backbone", backbone, stats.get("backbone"))
+    if "context2" in params:
+        _context2(out, params["context2"])
+        out["scale"] = _t(params["scale"])
+        if text_params is not None:
+            _text(out, "text", text_params)
+        return out
+    _module(out, "", {k: v for k, v in params.items() if k != "backbone"}, {k: v for k, v in stats.items() if k != "backbone"})
     return out
 

@@ -220,30 +220,38 @@ class VisionTransformer(nn.Module):
         self.proj = _empty(width, output_dim)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_tokens: bool = False):
+        """With ``return_tokens``: (class token [B, out], patch tokens
+        [B, g*g, out]), every token through ln_post and the projection (JAX
+        model.py:398-400)."""
         dt = self.dtype
         x = self.conv1(x)  # [B, g*g, width]
         cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
         x = self.transformer(self.ln_pre(x))
+        if return_tokens:
+            tokens = self.ln_post(x) @ self.proj.to(dt)
+            return tokens[:, 0, :], tokens[:, 1:, :]
         return self.ln_post(x[:, 0, :]) @ self.proj.to(dt)
 
 
 class Conv2d(nn.Module):
-    """Bias-free 'same' convolution with a float32 weight cast to the
-    compute dtype at use (flax ``nn.Conv(use_bias=False)``).  ``weight`` is
-    torch's (out, in, kh, kw); it is handed to the conv as channels_last, as
-    the activations are."""
+    """'Same' convolution with a float32 weight cast to the compute dtype at
+    use (flax ``nn.Conv``; bias-free unless ``bias``).  ``weight`` is torch's
+    (out, in, kh, kw); it is handed to the conv as channels_last, as the
+    activations are."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dtype: torch.dtype = torch.float32):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dtype: torch.dtype = torch.float32, bias: bool = False):
         super().__init__()
         self.weight = _empty(cout, cin, k, k)
+        self.bias = _empty(cout) if bias else None
         self.stride = stride
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(dtype=self.dtype, memory_format=torch.channels_last)
-        return F.conv2d(x, w, None, self.stride, self.weight.shape[-1] // 2)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, w, b, self.stride, self.weight.shape[-1] // 2)
 
 
 class _BatchNormFn(torch.autograd.Function):
@@ -381,19 +389,26 @@ class AttentionPool2d(nn.Module):
     """QKV attention pooling (JAX model.py:504-534): the mean token plus the
     positional table; the query is the mean token alone."""
 
-    def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int, output_dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int, output_dim: int, dtype: torch.dtype = torch.float32, tokens: bool = False):
         super().__init__()
         self.positional_embedding = _empty(spacial_dim**2 + 1, embed_dim)
         self.q_proj, self.k_proj, self.v_proj = (Dense(embed_dim, embed_dim, dtype=dtype) for _ in range(3))
         self.c_proj = Dense(embed_dim, output_dim, dtype=dtype)
+        if tokens:  # the JAX module creates it at the first return_tokens call
+            self.c_proj_tokens = Dense(embed_dim, output_dim, dtype=dtype)
         self.num_heads = num_heads
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_tokens: bool = False):
+        """[B, C, H, W] -> pooled [B, out]; with ``return_tokens`` also the
+        spatial tokens [B, H*W, out], the ``c_proj_tokens`` projection of
+        their values (JAX model.py:527-534, the reference's spatial "v2")."""
         b, c, h, w = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
         x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1) + self.positional_embedding.to(x.dtype)  # [B, HW+1, C]
-        q, k, v = (split_heads(proj(t), self.num_heads) for proj, t in ((self.q_proj, x[:, :1]), (self.k_proj, x), (self.v_proj, x)))
-        return self.c_proj(merge_heads(mha(q, k, v)))[:, 0]  # plain float32 softmax whatever the config's attention path
+        values = self.v_proj(x)
+        q, k, v = (split_heads(t, self.num_heads) for t in (self.q_proj(x[:, :1]), self.k_proj(x), values))
+        pooled = self.c_proj(merge_heads(mha(q, k, v)))[:, 0]  # plain float32 softmax whatever the config's attention path
+        return (pooled, self.c_proj_tokens(values[:, 1:])) if return_tokens else pooled
 
 
 class ModifiedResNet(nn.Module):
@@ -401,7 +416,10 @@ class ModifiedResNet(nn.Module):
     [B, output_dim].  A 3-conv stem and an avgpool, four bottleneck stages,
     attention pooling.  ``bn_groups`` is every BatchNorm's ``groups``."""
 
-    def __init__(self, layers, output_dim: int, heads: int, input_resolution: int = 224, width: int = 64, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self, layers, output_dim: int, heads: int, input_resolution: int = 224, width: int = 64, dtype: torch.dtype = torch.float32,
+        tokens: bool = False,
+    ):
         super().__init__()
         half = width // 2
         self.conv1, self.bn1 = Conv2d(3, half, 3, stride=2, dtype=dtype), BatchNorm(half)
@@ -414,10 +432,10 @@ class ModifiedResNet(nn.Module):
                 stack.append(Bottleneck(inplanes, planes, stride if i == 0 else 1, dtype=dtype))
                 inplanes = planes * Bottleneck.EXPANSION
             self.add_module(f"layer{stage}", nn.ModuleList(stack))
-        self.attnpool = AttentionPool2d(input_resolution // 32, width * 32, heads, output_dim, dtype=dtype)
+        self.attnpool = AttentionPool2d(input_resolution // 32, width * 32, heads, output_dim, dtype=dtype, tokens=tokens)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, bn_groups: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_groups: Optional[int] = None, return_tokens: bool = False):
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW shape over the NHWC memory: channels_last, no copy
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)):
             x = F.relu(bn(conv(x), bn_groups))
@@ -425,7 +443,7 @@ class ModifiedResNet(nn.Module):
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
                 x = block(x, bn_groups)
-        return self.attnpool(x)
+        return self.attnpool(x, return_tokens)
 
 
 class TextTransformer(nn.Module):
@@ -455,12 +473,17 @@ class TextTransformer(nn.Module):
 
 def build_vision_tower(
     arch: CLIPArch, dtype: torch.dtype = torch.float32, attention_backend: str = "plain", remat: bool = False, remat_policy: str = "nothing",
+    tokens: bool = False,
 ) -> nn.Module:
     """The CLIP vision tower of ``arch``: a VisionTransformer, or for the RN
     archs a ModifiedResNet, which ignores ``attention_backend`` and the remat
-    options as the JAX one does (model.py:652-661, clipfsar.py:91-114)."""
+    options as the JAX one does (model.py:652-661, clipfsar.py:91-114).
+    ``tokens`` gives an RN tower's attention pool the ``c_proj_tokens``
+    projection that ``return_tokens`` needs (MoLo's token grid)."""
     if not arch.is_vit:
-        return ModifiedResNet(arch.vision_layers, arch.embed_dim, arch.vision_heads, arch.image_resolution, arch.vision_width, dtype=dtype)
+        return ModifiedResNet(
+            arch.vision_layers, arch.embed_dim, arch.vision_heads, arch.image_resolution, arch.vision_width, dtype=dtype, tokens=tokens
+        )
     return VisionTransformer(
         arch.image_resolution, arch.vision_patch_size, arch.vision_width, arch.vision_layers, arch.vision_heads,
         arch.embed_dim, dtype=dtype, attention_backend=attention_backend, remat=remat, remat_policy=remat_policy,

@@ -38,7 +38,7 @@ from torch import nn
 
 from clip_fsar_torch.data.types import Episode
 from clip_fsar_torch.models.clip.arch import CLIPArch
-from clip_fsar_torch.models.clip.model import build_vision_tower, rematerialized
+from clip_fsar_torch.models.clip.model import BatchNorm, build_vision_tower, rematerialized
 from clip_fsar_torch.models.heads.common import TransformerV1, class_mean, cos_sim
 from clip_fsar_torch.ops.otam import otam_distance
 
@@ -98,6 +98,12 @@ class CLIPFSARHead(nn.Module):
             mid, heads=8, dim_head_k=mid // 8, dropout_atte=0.2, depth=head_cfg.transformer_depth, dtype=dtype
         )
         self.scale = nn.Parameter(torch.ones(1, dtype=torch.float32))
+
+    def live_batch_norms(self) -> list:
+        """The BatchNorms that run on batch statistics in the train branch: an
+        RN tower's, unless BN.FREEZE."""
+        live = self.train_backbone_bn and not self.arch.is_vit
+        return [m for m in self.backbone.modules() if isinstance(m, BatchNorm)] if live else []
 
     def _encode(self, images: torch.Tensor, bn_groups: Optional[int] = None) -> torch.Tensor:
         """[E, N, T, H, W, 3] -> float32 features [E, N, T, D] in one tower

@@ -1,6 +1,7 @@
 """Where the time of the few-shot test slice goes on a CUDA card.
 
     python -m clip_fsar_torch.tools.profile_eval [--out profile_eval.txt] [--backbone RN50 | ViT-L/14@336px]
+        [--cfg configs/projects/hyrsmplusplus/hmdb51/HyRSMplusplus_HMDB51_5shot_v1.yaml]
 
 The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with a ViT-B/16
 tower at full width (fresh weights from the seed), the synthetic decoder,
@@ -37,7 +38,15 @@ so only ``split`` is read, and its ``kernels`` sets also print
 ``rn_split[...]``: the device time inside the convolutions (``aten::convolution``
 and its backward), inside BatchNorm (each module's forward under a profiler
 range, and its autograd backward) and the rest, from the profiler's
-per-op device totals.  Exits non-zero without a CUDA device.
+per-op device totals.
+
+``--cfg`` profiles another config as it is written (its head and backbone;
+``--backbone`` is not read), e.g. a shipped HyRSM++ or MoLo config on its
+torchvision ResNet-50 trunk: only ``split`` is read (no attention path of the
+config reaches a kernel), and its ``kernels`` sets print ``split[...]``: the
+device time in the convolutions, in the BatchNorm chain, inside the trunk's
+forward, inside MoLo's decoder forward, and the rest (the head).  Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -100,19 +109,71 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def slice_cfg(*extra: str):
+def config_opts(path: str) -> list:
+    """The options that read ``path`` as it is written, from any working directory: its ANNO_DIR made absolute."""
     from clip_fsar_torch.config.config import load_config
 
+    anno = str(load_config(path, []).DATA.ANNO_DIR)
+    return ["DATA.ANNO_DIR", anno if os.path.isabs(anno) else os.path.join(REPO, anno)]
+
+
+def slice_cfg(*extra: str, cfg_path: Optional[str] = None):
+    """The test slice's config: the CLIP-FSAR config (``extra`` sets the tower), or ``cfg_path`` as it is written."""
+    from clip_fsar_torch.config.config import load_config
+
+    if cfg_path:
+        return load_config(cfg_path, config_opts(cfg_path) + SLICE_OPTS[2:] + list(extra))
     return load_config(CONFIG, SLICE_OPTS + list(extra))
 
 
-def is_rn(backbone: str) -> bool:
-    return backbone.startswith("RN")
+def is_rn(backbone: Optional[str]) -> bool:
+    return backbone is not None and backbone.startswith("RN")
 
 
-def backbone_opts(backbone: str) -> list:
-    """The options that put a slice on ``backbone``: the ViT-L/14@336px configuration's, or the tower alone."""
+def backbone_opts(backbone: Optional[str]) -> list:
+    """The options that put a slice on ``backbone``: the ViT-L/14@336px configuration's, the tower alone, or none
+    (a config read as it is written)."""
+    if backbone is None:
+        return []
     return list(VIT_L336_OPTS) if backbone == VIT_L336 else ["VIDEO.HEAD.BACKBONE_NAME", backbone]
+
+
+@contextlib.contextmanager
+def classic_ranges():
+    """A classic head's torchvision trunk forward inside a profiler range named ``trunk`` and MoLo's decoder
+    forward inside ``decoder``, for ``report_classic_split``; the model's code is untouched."""
+    from unittest import mock
+
+    from clip_fsar_torch.models.heads.molo import MoLoHead
+    from clip_fsar_torch.models.resnet import TorchResNet
+
+    def ranged(fn, name):
+        def call(self, *args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(self, *args, **kwargs)
+
+        return call
+
+    with mock.patch.object(TorchResNet, "forward", ranged(TorchResNet.forward, "trunk")), \
+            mock.patch.object(MoLoHead, "_decode", ranged(MoLoHead._decode, "decoder")):
+        yield
+
+
+def report_classic_split(tag: str, prof, busy_ms: float) -> None:
+    """A classic head's step on the card: the convolutions (the trunk's and the decoder's), the BatchNorm chain,
+    the trunk's and the decoder's forward ranges (each holds its own convolutions and BatchNorms), and the rest."""
+    rows = {row.key: row for row in prof.key_averages()}
+    pick = lambda *names: sum(_device_total_ms(rows[n]) for n in names if n in rows)  # noqa: E731
+    conv_fwd, conv_bwd = pick("aten::convolution"), pick("aten::convolution_backward")
+    bn_fwd = pick("bn_chain")
+    bn_bwd = pick("_BatchNormFnBackward") or pick("autograd::engine::evaluate_function: _BatchNormFnBackward")
+    trunk, decoder = pick("trunk"), pick("decoder")
+    if not conv_fwd + bn_fwd:
+        say(f"{tag}: the profiler's op rows carry no device time; read the kernel groups above instead")
+        return
+    say(f"{tag}: convolutions {conv_fwd:.3f} ms forward + {conv_bwd:.3f} ms backward, BatchNorm chain {bn_fwd:.3f} ms forward + "
+        f"{bn_bwd:.3f} ms backward; trunk forward {trunk:.3f} ms, decoder forward {decoder:.3f} ms, the rest (the head; in a train "
+        f"step also every backward and the optimizer) {busy_ms - trunk - decoder:.3f} ms, of {busy_ms:.3f} ms device busy")
 
 
 @contextlib.contextmanager
@@ -243,11 +304,11 @@ def restore_resize() -> None:
     frameops.set_enabled(True)
 
 
-def time_loader(workers: int, steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
+def time_loader(workers: int, steps: int = STEPS, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None) -> None:
     """The test loader alone with each resize variant in turn, twice."""
     from clip_fsar_torch.data.loader import build_few_shot_loader
 
-    cfg = slice_cfg("DATA_LOADER.NUM_WORKERS", str(workers), *backbone_opts(backbone))
+    cfg = slice_cfg("DATA_LOADER.NUM_WORKERS", str(workers), *backbone_opts(backbone), cfg_path=cfg_path)
     variants = resize_variants()
     for reading in (1, 2):
         for label, switch in variants:
@@ -261,7 +322,7 @@ def time_loader(workers: int, steps: int = STEPS, backbone: str = "ViT-B/16") ->
     restore_resize()
 
 
-def profile_path(path: str, reading: int, steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
+def profile_path(path: str, reading: int, steps: int = STEPS, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from clip_fsar_torch.data.loader import build_few_shot_loader
@@ -270,7 +331,7 @@ def profile_path(path: str, reading: int, steps: int = STEPS, backbone: str = "V
     from clip_fsar_torch.train.step import make_eval_step
 
     dev = torch.device("cuda")
-    cfg = slice_cfg(*PATHS[path], *backbone_opts(backbone))
+    cfg = slice_cfg(*PATHS[path], *backbone_opts(backbone), cfg_path=cfg_path)
     model = build_few_shot_model(cfg, flow="test", device=dev)
     eval_step = make_eval_step(model.head, cfg, model.text_train, model.text_test)
     with build_few_shot_loader(cfg, "test", num_steps=1, episodes_per_step=EPISODES_PER_STEP) as loader:
@@ -288,17 +349,19 @@ def profile_path(path: str, reading: int, steps: int = STEPS, backbone: str = "V
         end.record()
         torch.cuda.synchronize()
         readings.append(start.elapsed_time(end) / steps)
-    say(f"{tag}: batch resident, {EPISODES_PER_STEP * 10 * int(cfg.DATA.NUM_INPUT_FRAMES)} frames, ms per step over {steps} steps: "
-        + " / ".join(f"{ms:.3f}" for ms in readings))
+    frames = batch.support_images.shape[:3].numel() + batch.target_images.shape[:3].numel()
+    say(f"{tag}: batch resident, {frames} frames, ms per step over {steps} steps: " + " / ".join(f"{ms:.3f}" for ms in readings))
 
-    with bn_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with bn_ranges(), classic_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             eval_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = _report_kernels(f"kernels[{path} #{reading}]", prof, wall_ms, 2)
-    if is_rn(backbone):
+    if cfg_path:
+        report_classic_split(f"split[{path} #{reading}]", prof, busy)
+    elif is_rn(backbone):
         report_split(f"rn_split[{path} #{reading}]", prof, busy)
 
     tag = f"loop[{path} #{reading}]"
@@ -323,19 +386,21 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None, help="also append every line to this file")
     ap.add_argument("--loader-only", action="store_true", help="time the host loader and stop")
     ap.add_argument("--backbone", default="ViT-B/16", help=f"the CLIP tower (an RN tower reads the split path only; {VIT_L336} its 16-frame configuration)")
+    ap.add_argument("--cfg", default=None, help="profile this config as it is written instead (its head and backbone; the split path only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: torch sees no CUDA device; this script measures the card only")
     set_out(args.out)
+    backbone = None if args.cfg else args.backbone
     say(card())
-    say(f"torch {torch.__version__} cuda {torch.version.cuda} backbone {args.backbone}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} " + (f"config {args.cfg}" if args.cfg else f"backbone {backbone}"))
     for workers in (4, 8):
-        time_loader(workers, backbone=args.backbone)
+        time_loader(workers, backbone=backbone, cfg_path=args.cfg)
     if args.loader_only:
         return
     for reading in (1, 2):
-        for path in ["split"] if is_rn(args.backbone) else PATHS:
-            profile_path(path, reading, backbone=args.backbone)
+        for path in ["split"] if (args.cfg or is_rn(backbone)) else PATHS:
+            profile_path(path, reading, backbone=backbone, cfg_path=args.cfg)
 
 
 if __name__ == "__main__":

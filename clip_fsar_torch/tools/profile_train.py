@@ -2,6 +2,7 @@
 
     python -m clip_fsar_torch.tools.profile_train [--out chiprun_out/profile_train.txt]
         [--sections loader,step,loop] [--paths fused,pallas] [--loop-steps 18] [--backbone RN50 | ViT-L/14@336px]
+        [--cfg configs/projects/MoLo/hmdb51/MoLo_HMDB51_1shot_v1.yaml]
 
 The slice, which ``chip_smoke.py`` also drives: the HMDB51 1-shot config with
 a ViT-B/16 tower at full width (fresh weights from the seed), the synthetic
@@ -41,7 +42,12 @@ with E = 2 episodes (960 frames of 336 px) in 2 chunks; an RN tower reads the
 ``split`` path only (no attention path of
 the config reaches it) and adds ``rn_split[...]`` to each ``kernels`` set:
 device time in the convolutions, in the BatchNorm chain and in the rest
-(``profile_eval.report_split``).  Metrics are
+(``profile_eval.report_split``).  ``--cfg`` profiles another config as it is
+written (its head, backbone and episode shape; ``--backbone`` is not read) at
+E = 4 in 2 episode chunks, e.g. a shipped HyRSM++ or MoLo config on its
+torchvision ResNet-50 trunk: the ``split`` path only, and each ``kernels`` set
+adds ``split[...]`` (``profile_eval.report_classic_split``: convolutions, the
+BatchNorm chain, the trunk's and MoLo's decoder's forward, the rest).  Metrics are
 never read inside a timed window: the train step returns them on the device
 and these readings do not fetch them.  Exits non-zero without a CUDA device.
 """
@@ -52,6 +58,7 @@ import argparse
 import os
 import tempfile
 import time
+from typing import Optional
 
 import torch
 
@@ -66,7 +73,10 @@ from clip_fsar_torch.tools.profile_eval import (
     backbone_opts,
     bn_ranges,
     card,
+    classic_ranges,
+    config_opts,
     is_rn,
+    report_classic_split,
     report_split,
     say,
 )
@@ -86,22 +96,26 @@ STEPS = 4  # steps per timing
 SECTIONS = ("loader", "step", "loop")  # the reading sets, in the order they are taken
 
 
-def train_cfg(*extra: str, backbone: str = "ViT-B/16"):
-    """The slice's config on ``backbone`` (the ViT-L/14@336px configuration at E = 2) with ``extra``."""
+def train_cfg(*extra: str, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None):
+    """The slice's config on ``backbone`` (the ViT-L/14@336px configuration at E = 2) with ``extra``, or
+    ``cfg_path`` as it is written at the slice's E = 4 in 2 chunks."""
     from clip_fsar_torch.runs.run import load_config
 
+    if cfg_path:
+        return load_config(cfg_path, config_opts(cfg_path) + TRAIN_OPTS[2:] + list(extra))
     episodes = ["TPU.EPISODES_PER_STEP", "2"] if backbone == VIT_L336 else []
     return load_config(CONFIG, TRAIN_OPTS + backbone_opts(backbone) + episodes + list(extra))
 
 
 def frames_per_step(cfg) -> int:
-    return int(cfg.TPU.EPISODES_PER_STEP) * 30 * int(cfg.DATA.NUM_INPUT_FRAMES)
+    t = cfg.TRAIN
+    return int(cfg.TPU.EPISODES_PER_STEP) * int(t.WAY) * (int(t.SHOT) + int(t.QUERY_PER_CLASS)) * int(cfg.DATA.NUM_INPUT_FRAMES)
 
 
-def time_loader(steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
+def time_loader(steps: int = STEPS, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None) -> None:
     from clip_fsar_torch.data.loader import build_few_shot_loader
 
-    cfg = train_cfg(backbone=backbone)
+    cfg = train_cfg(backbone=backbone, cfg_path=cfg_path)
     workers = int(cfg.DATA_LOADER.NUM_WORKERS)
     episodes = int(cfg.TPU.EPISODES_PER_STEP)
     variants = profile_eval.resize_variants()
@@ -117,7 +131,7 @@ def time_loader(steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
     profile_eval.restore_resize()
 
 
-def profile_step(path: str, reading: int, steps: int = STEPS, backbone: str = "ViT-B/16") -> None:
+def profile_step(path: str, reading: int, steps: int = STEPS, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from clip_fsar_torch.data.loader import build_few_shot_loader
@@ -128,7 +142,7 @@ def profile_step(path: str, reading: int, steps: int = STEPS, backbone: str = "V
     from clip_fsar_torch.train.step import make_train_step
 
     dev = torch.device("cuda")
-    cfg = train_cfg(*PATHS[path], backbone=backbone)
+    cfg = train_cfg(*PATHS[path], backbone=backbone, cfg_path=cfg_path)
     model = build_few_shot_model(cfg, flow="train", device=dev)
     state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
     train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
@@ -153,27 +167,29 @@ def profile_step(path: str, reading: int, steps: int = STEPS, backbone: str = "V
     say(f"{tag}: batch resident, {frames_per_step(cfg)} frames in 2 chunks, ms per train step over {steps} steps: "
         + " / ".join(f"{ms:.3f}" for ms in readings) + "; the host queued a step in " + " / ".join(f"{ms:.3f}" for ms in queued) + " ms")
 
-    with bn_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with bn_ranges(), classic_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             train_step(state, batch, 1e-6, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = _report_kernels(f"kernels[{path} #{reading}]", prof, wall_ms, 2)
-    if is_rn(backbone):
+    if cfg_path:
+        report_classic_split(f"split[{path} #{reading}]", prof, busy)
+    elif is_rn(backbone):
         report_split(f"rn_split[{path} #{reading}]", prof, busy)
     del model, state, train_step, batch
     torch.cuda.empty_cache()
 
 
-def profile_loop(path: str, reading: int, steps: int = 6, backbone: str = "ViT-B/16") -> None:
+def profile_loop(path: str, reading: int, steps: int = 6, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from clip_fsar_torch.train.loop import train_few_shot
 
     tag = f"loop[{path} #{reading}]"
     with tempfile.TemporaryDirectory() as out_dir:
-        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir, backbone=backbone)
+        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir, backbone=backbone, cfg_path=cfg_path)
         stats = train_few_shot(loop_cfg)
     episodes = int(loop_cfg.TPU.EPISODES_PER_STEP)
     say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s without the profiler, "
@@ -181,7 +197,7 @@ def profile_loop(path: str, reading: int, steps: int = 6, backbone: str = "ViT-B
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
-        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir, backbone=backbone)
+        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir, backbone=backbone, cfg_path=cfg_path)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             stats = train_few_shot(loop_cfg)
             torch.cuda.synchronize()
@@ -199,8 +215,10 @@ def main(argv=None) -> None:
     ap.add_argument("--paths", default=",".join(PATHS), help="comma-separated attention paths to read, of " + ", ".join(PATHS))
     ap.add_argument("--loop-steps", type=int, default=6, help="steps of each train loop (two lengths tell the loop's start from its steady step)")
     ap.add_argument("--backbone", default="ViT-B/16", help=f"the CLIP tower (an RN tower reads the split path only; {VIT_L336} its 16-frame configuration)")
+    ap.add_argument("--cfg", default=None, help="profile this config as it is written instead (its head and backbone; the split path only)")
     args = ap.parse_args(argv)
-    sections, paths = args.sections.split(","), (["split"] if is_rn(args.backbone) else args.paths.split(","))
+    backbone = None if args.cfg else args.backbone
+    sections, paths = args.sections.split(","), (["split"] if (args.cfg or is_rn(backbone)) else args.paths.split(","))
     if set(sections) - set(SECTIONS) or set(paths) - set(PATHS):
         ap.error(f"--sections takes {', '.join(SECTIONS)} and --paths {', '.join(PATHS)}")
     if not torch.cuda.is_available():
@@ -210,18 +228,18 @@ def main(argv=None) -> None:
 
     runtime.device("cuda")
     say(card())
-    say(f"torch {torch.__version__} cuda {torch.version.cuda} backbone {args.backbone}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} " + (f"config {args.cfg}" if args.cfg else f"backbone {backbone}"))
     from clip_fsar_torch.ops import _build
 
     _build.library()  # built before any reading, so no loop's seconds hold the compile
     if "loader" in sections:
-        time_loader(backbone=args.backbone)
+        time_loader(backbone=backbone, cfg_path=args.cfg)
     for reading in (1, 2):
         for path in paths:
             if "step" in sections:
-                profile_step(path, reading, backbone=args.backbone)
+                profile_step(path, reading, backbone=backbone, cfg_path=args.cfg)
             if "loop" in sections:
-                profile_loop(path, reading, args.loop_steps, backbone=args.backbone)
+                profile_loop(path, reading, args.loop_steps, backbone=backbone, cfg_path=args.cfg)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,11 @@ episodes (one tower call over E*(S+Q)*T frames, as the JAX vmap compiles to).
 
 Train loss, as the reference's few-shot loop (train_net_few_shot.py:108-152):
 CE(episode logits, target labels) + USE_CLASSIFICATION_VALUE *
-CE(video-text class logits, real support | real target labels), each a mean
+CE(class logits, real support | real target labels; repeated per frame
+under USE_LOCAL) + TEMPORAL_LOSS_WEIGHT * the HyRSM++ temporal regularizer
++ USE_CONTRASTIVE_COFF * CE of each of MoLo's four contrastive logits +
+RECONS_COFF * BATCH_SIZE * MoLo's reconstruction loss (USE_RECONS; the
+reference adds it undivided by BATCH_SIZE, JAX step.py:49-55), each a mean
 over the episode, then a mean over the E episodes.  ``TPU.EPISODE_CHUNKS``
 runs the E episodes as c sequential micro-batches whose gradients are summed
 and divided by c, so only E/c episodes' activations are alive at once.  A
@@ -18,14 +22,16 @@ nothing back to the host, so the caller can launch the next step (and copy
 its batch) while the card still works on this one, and fetches metrics only
 where it logs.
 
-RN towers with live BatchNorm (BN.FREEZE off) also update the running
-statistics, as the JAX step's mutable ``batch_stats`` do (:63-78,104-112,
-140-160,178-180): each episode starts from the step's running stats r0,
-its support call and then its target call each move them by flax's
-momentum (0.81 r0 + 0.09 m_support + 0.1 m_target), every chunk starts
-from r0 again, and the new stats are the mean over the E episodes.  They
-are written at the step's end where the loss is finite, on every micro-step
-of the accumulation window, on the device.
+The BatchNorms a head runs on batch statistics in its train branch (its
+``live_batch_norms``: an RN CLIP tower's unless BN.FREEZE, MoLo's decoder's)
+also update their running statistics, as the JAX step's mutable
+``batch_stats`` do (:63-78,104-112, 140-160,178-180): each episode starts
+from the step's running stats r0, its support call and then its target call
+each move them by flax's momentum (0.81 r0 + 0.09 m_support + 0.1
+m_target), every chunk starts from r0 again, and the new stats are the mean
+over the E episodes.  They are written at the step's end where the loss is
+finite, on every micro-step of the accumulation window, on the device.  A
+BatchNorm on its running statistics (a frozen trunk's) is never listed.
 """
 
 from __future__ import annotations
@@ -38,49 +44,51 @@ import torch.nn.functional as F
 from clip_fsar_torch.data import augment
 from clip_fsar_torch.data.transforms import normalize_images
 from clip_fsar_torch.data.types import Episode
-from clip_fsar_torch.models.clip.model import BatchNorm
 from clip_fsar_torch.train.state import TrainState
 
-# loss terms of heads that are not ported yet
-_UNPORTED_LOSSES = {
-    "USE_LOCAL": "the HyRSM local loss",
-    "TEMPORAL_LOSS_WEIGHT": "the temporal regularizer",
-    "USE_CONTRASTIVE": "the MoLo contrastive terms",
-    "USE_RECONS": "the MoLo reconstruction loss",
-}
+_CONTRASTIVE = ("logits_s2q", "logits_q2s", "logits_s2q_motion", "logits_q2s_motion")
 
 
-def _check_train_cfg(cfg) -> None:
-    """Raise for the loss terms of heads the port does not have yet."""
-    for key, what in _UNPORTED_LOSSES.items():
-        if cfg.TRAIN.get(key, False):
-            raise NotImplementedError(f"TRAIN.{key} ({what}) belongs to a head that is not ported yet: ROADMAP Queue 1, breadth")
-
-
-def _live_batch_norms(head) -> list:
-    """The BatchNorms whose running stats a train step updates: an RN tower's, unless BN.FREEZE."""
-    return [m for m in head.modules() if isinstance(m, BatchNorm)] if head.train_backbone_bn else []
+def _episode_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of logits [E, N, C] (float32) against labels [E, N], the mean per episode [E]."""
+    return F.cross_entropy(logits.float().flatten(0, 1), labels.long().flatten(), reduction="none").reshape(labels.shape).mean(dim=-1)
 
 
 def make_loss_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
     """loss_fn(batch, generator) -> (loss, metrics) for a normalized batch of
     episodes: the mean over episodes of the per-episode loss, and the
     per-step means of ``loss``, ``ce`` and ``top1`` as 0-dim tensors."""
-    use_cls = bool(cfg.TRAIN.get("USE_CLASSIFICATION", False))
-    cls_value = float(cfg.TRAIN.get("USE_CLASSIFICATION_VALUE", 1.0) or 1.0)
-    cls_only = bool(cfg.TRAIN.get("USE_CLASSIFICATION_ONLY", False))
+    t = cfg.TRAIN
+    use_cls = bool(t.get("USE_CLASSIFICATION", False))
+    cls_value = float(t.get("USE_CLASSIFICATION_VALUE", 1.0) or 1.0)
+    cls_only = bool(t.get("USE_CLASSIFICATION_ONLY", False))
+    use_local = bool(t.get("USE_LOCAL", False))
+    temporal_weight = float(t.get("TEMPORAL_LOSS_WEIGHT", 0.0) or 0.0)
+    use_contrastive = bool(t.get("USE_CONTRASTIVE", False))
+    contrastive_coff = float(t.get("USE_CONTRASTIVE_COFF", 1.0) or 1.0)
+    recons_coff = float(t.get("RECONS_COFF", 0.0) or 0.0) * float(t.get("BATCH_SIZE", 1) or 1) if t.get("USE_RECONS", False) else 0.0
+    num_frames = int(cfg.DATA.NUM_INPUT_FRAMES)
 
     def loss_fn(batch: Episode, generator: Optional[torch.Generator]):
         out = head(batch, text_train, text_test, train=True, generator=generator)
         logits = out["logits"]  # [E, Q, WAY]
         labels = batch.target_labels.long()
-        ep_ce = F.cross_entropy(logits.flatten(0, 1), labels.flatten(), reduction="none").reshape(labels.shape).mean(dim=-1)
+        ep_ce = _episode_ce(logits, labels)
         loss = ep_ce
         if use_cls:
-            real = torch.cat([batch.real_support_labels, batch.real_target_labels], dim=1).long()  # [E, S+Q]
-            cls_logits = out["class_logits"]
-            cls_ce = F.cross_entropy(cls_logits.flatten(0, 1), real.flatten(), reduction="none").reshape(real.shape).mean(dim=-1)
+            real = torch.cat([batch.real_support_labels, batch.real_target_labels], dim=1)  # [E, S+Q]
+            if use_local:  # per-frame class logits (train_net_few_shot.py:113-117): each label once per frame
+                real = real.repeat_interleave(num_frames, dim=1)
+            cls_ce = _episode_ce(out["class_logits"], real)
             loss = cls_value * cls_ce if cls_only else ep_ce + cls_value * cls_ce
+        if temporal_weight and out.get("loss_temporal_regular") is not None:
+            loss = loss + temporal_weight * out["loss_temporal_regular"]
+        if use_contrastive:  # MoLo's global <-> local terms (train_net_few_shot.py:120-131)
+            for key in _CONTRASTIVE:
+                if out.get(key) is not None:
+                    loss = loss + contrastive_coff * _episode_ce(out[key], labels)
+        if recons_coff and out.get("loss_recons") is not None:
+            loss = loss + recons_coff * out["loss_recons"]
         top1 = (logits.argmax(dim=-1) == labels).float().mean(dim=-1)
         return loss.mean(), {"loss": loss.mean().detach(), "ce": ep_ce.mean().detach(), "top1": top1.mean().detach()}
 
@@ -97,8 +105,7 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
     dropout; None turns both off (normalization only).  With live
     BatchNorm, each BatchNorm's ``step_stats`` is left holding the step's
     new running (mean, var) [2, C] for ``BatchNorm.commit``."""
-    _check_train_cfg(cfg)
-    live_bn = _live_batch_norms(head)
+    live_bn = head.live_batch_norms()
     mean = tuple(float(x) for x in cfg.DATA.MEAN)
     std = tuple(float(x) for x in cfg.DATA.STD)
     ep_chunks = int(cfg.TPU.get("EPISODE_CHUNKS", 1)) if "TPU" in cfg else 1
@@ -152,7 +159,7 @@ def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor
     BatchNorm the running stats take the step's new values where the loss
     is finite.  No value is read back to the host."""
     grad_fn = make_grad_fn(head, cfg, text_train, text_test)
-    live_bn = _live_batch_norms(head)
+    live_bn = head.live_batch_norms()
     ema_decay = float(cfg.MODEL.EMA.DECAY) if ("MODEL" in cfg and cfg.MODEL.EMA.get("ENABLE", False)) else None
 
     def train_step(state: TrainState, batch: Episode, lr: float, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:

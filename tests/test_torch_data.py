@@ -51,6 +51,9 @@ def test_sampler_episodes_byte_identical_to_jax(split):
         want, got = jsampler.sample_episode(), tsampler.sample_episode()
         for name in _FIELDS:
             a, b = getattr(got, name), getattr(want, name)
+            if a is None or b is None:  # unlabeled_images: no sampler fills it, in either package
+                assert a is None and b is None, name
+                continue
             assert a.dtype == b.dtype and a.shape == b.shape, name
             np.testing.assert_array_equal(a, b, err_msg=name)
     assert got.support_images.shape == (5, 4, 64, 64, 3) and got.support_images.dtype == np.uint8

@@ -137,7 +137,7 @@ def test_head_eval_matches_jax():
 
 
 def _port_batch(batch) -> Episode:
-    return Episode(**{f.name: torch.from_numpy(np.array(getattr(batch, f.name))) for f in dataclasses.fields(Episode)})
+    return Episode(**{f.name: torch.from_numpy(np.array(getattr(batch, f.name))) for f in dataclasses.fields(Episode) if getattr(batch, f.name) is not None})
 
 
 @contextlib.contextmanager

@@ -39,7 +39,7 @@ def train_cfg(*extra):
 
 
 def _port_batch(batch) -> Episode:
-    return Episode(**{f.name: torch.from_numpy(np.array(getattr(batch, f.name))) for f in dataclasses.fields(Episode)})
+    return Episode(**{f.name: torch.from_numpy(np.array(getattr(batch, f.name))) for f in dataclasses.fields(Episode) if getattr(batch, f.name) is not None})
 
 
 @functools.lru_cache(maxsize=None)

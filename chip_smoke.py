@@ -1,5 +1,6 @@
 """Drive the port's few-shot test and train paths (the CLIP-FSAR head, and the classic HyRSM++ and MoLo
-heads), its layer_norm op and its clip_mha stage-ablation tool once on an NVIDIA GPU and check them.
+heads, on pixels and off frame banks), its layer_norm op and its clip_mha stage-ablation tool once on an
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -132,7 +133,28 @@ and read just after.  Phases:
    with its batch resident beside the host's time to queue it; checks finite
    losses, 2 updates, no kernel launched anywhere (the classic heads reach no
    Pallas kernel in the JAX package either), and the step-8 checkpoint's
-   running stats: the trunk's as fresh, MoLo's decoder's moved.
+   running stats: the trunk's as fresh, MoLo's decoder's moved; and two train
+   steps of each run twice from one seed: the same loss bits and parameters;
+18. the frame banks against the pixel path, bit for bit, at ViT-B/16's widths:
+   12 cv2-written videos through ``cached_opencv`` with the bank grid equal to
+   its cache grid; the test protocol on 8 episodes through the CLI with and
+   without TPU.EVAL_FRAME_BANK (logits and metrics equal), 2 train steps on
+   pixels and off the train bank (loss bits and parameters equal), each step
+   also timed with its batch resident, the card's ms beside the host's;
+19. the eval bank at full size: the HMDB51 test split (1292 videos x 64 grid
+   frames at 224 px, 12.45 GB) built on the card (build and upload seconds);
+   the ViT-B/16 test slice over 48 episodes on pixels and off the bank in turn
+   (pixel, bank, bank, pixel), the bytes a step copies to the card, the card's
+   idle share under the profiler, the peak, the eval step resident, K1's
+   launches off the bank; then the shipped HyRSM++ 5-shot config's test loop
+   off the same bank (the same split and transform) the same way;
+20. the train bank: the ViT-B/16 train slice of phase 8 through the CLI off a
+   train bank of the HMDB51 train split (4280 videos x 8 grid frames at 256
+   px, 6.73 GB), validating and testing off eval banks; losses, updates, train
+   episodes/s against phase 8's fused reading, the peak beside both banks;
+21. a reference-framework ``.pyth`` (``model_state``, ``module.head.`` keys)
+   written from the fresh ViT-B/16 CLIP-FSAR head and tested through
+   TEST.CHECKPOINT_FILE_PATH: the same logits, bit for bit, as that head.
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -1466,34 +1488,15 @@ def _classic_step(name: str, dtype: str, batch, picked) -> dict:
 
 def _resident_steps(name: str, batch, steps: int = 4) -> dict:
     """The slice's bf16 train step with its batch resident on the card (``make_train_step``: augmentation,
-    forward and backward of both chunks, the optimizer's micro-step): after a warm-up step, ``steps`` steps
-    timed with CUDA events beside the host's ms to queue them (the step reads nothing back)."""
+    forward and backward of both chunks, the optimizer's micro-step), timed by ``_resident_train_ms``."""
     from clip_fsar_torch import runtime
     from clip_fsar_torch.models.builder import build_few_shot_model
     from clip_fsar_torch.runs.run import load_config
-    from clip_fsar_torch.train.loop import step_generator
-    from clip_fsar_torch.train.optimizer import Optimizer
-    from clip_fsar_torch.train.state import TrainState
-    from clip_fsar_torch.train.step import make_train_step
 
-    dev = runtime.device("cuda")
     cfg = load_config(os.path.join(REPO, CLASSIC_CONFIGS[name]), _classic_opts(name))
-    model = build_few_shot_model(cfg, flow="train", device=dev)
-    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
-    train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
-    gen = step_generator(cfg, 0, dev)
-    train_step(state, batch, 1e-6, gen)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        train_step(state, batch, 1e-6, gen)
-    host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    end.record()
-    torch.cuda.synchronize()
-    out = {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms}
-    del model, state, train_step
+    model = build_few_shot_model(cfg, flow="train", device=runtime.device("cuda"))
+    out = _resident_train_ms(model, cfg, batch, None, steps)
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -1569,6 +1572,7 @@ def phase_classic_slice(out_dir: str, name: str, card_line: str) -> dict:
         print(f"{what}: grad {pname}: norm-relative difference {rel:.3e} (tol {tol}); |grad| = {g.norm().item():.4e}")
         if not rel <= tol:
             raise AssertionError(f"{what}: gradient of {pname} differs by {rel:.3e} (norm-relative)")
+    _repeat_classic_steps(name, batch)
     timed = _resident_steps(name, batch)
     print(f"{name} train step on {card_line}, batch resident ({frames} frames in {CHUNKS} chunks): {timed['step_ms']:.1f} ms a step "
           f"(CUDA events, 4 steps); the host queued a step in {timed['host_ms']:.1f} ms")
@@ -1595,6 +1599,338 @@ def _check_classic_running_stats(out_dir: str, name: str) -> None:
           f"{moved or 'none'}")
 
 
+# the frame-bank phases.  Bit identity: cv2-written videos through the cached_opencv decoder, the bank grid equal to
+# its cache grid, at the ViT-B/16 slices' widths; 6 classes of 2 videos each (5-way episodes), 40 frames of 320 x 240
+BANK_CLASSES, BANK_VIDEOS_PER_CLASS, BANK_GRID = 6, 2, 16
+BANK_BITS_OPTS = ["DATA.DECODER", "cached_opencv", "DATA.FRAME_CACHE_FRAMES", str(BANK_GRID), "TRAIN.DATASET_FEW", "HMDB_few_shot",
+                  "TPU.EVAL_FRAME_BANK_FRAMES", "0", "TPU.TRAIN_FRAME_BANK_FRAMES", "0"]
+# the full-size banks: the HMDB51 splits of the shipped configs, 64 grid frames a video for the eval bank (the shipped
+# FRAME_CACHE_FRAMES), 8 for the train bank; the episodes of each timed test loop, in steps of 4
+BANK_EVAL_FRAMES, BANK_TRAIN_FRAMES, BANK_LOOP_EPISODES = 64, 8, 48
+HYRSM = "hyrsm_pp_5shot"
+
+
+def _write_bank_videos(root: str) -> None:
+    """The bit-identity phase's split: BANK_CLASSES x BANK_VIDEOS_PER_CLASS mp4 videos of moving noise, listed as the
+    train and the test split."""
+    import cv2
+
+    rels = []
+    for c in range(BANK_CLASSES):
+        for v in range(BANK_VIDEOS_PER_CLASS):
+            rel = f"videos/c{c}_v{v}.mp4"
+            os.makedirs(os.path.join(root, "videos"), exist_ok=True)
+            base = np.random.RandomState(c * 31 + v).randint(0, 255, (240, 320, 3)).astype(np.uint8)
+            writer = cv2.VideoWriter(os.path.join(root, rel), cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (320, 240))
+            if not writer.isOpened():
+                raise AssertionError("cv2 cannot write mp4v videos on this machine")
+            for i in range(36 + 4 * v):
+                writer.write(np.roll(base, (i * 5, i * 3), axis=(0, 1)))
+            writer.release()
+            rels.append((c, rel))
+    for split in ("train", "test"):  # the class id follows the split's name: train0//..., test0//...
+        with open(os.path.join(root, f"{split}_few_shot.txt"), "w") as f:
+            f.write("".join(f"{split}{c}//{rel}\n" for c, rel in rels))
+
+
+def _bank_bits_opts(root: str) -> list:
+    return BANK_BITS_OPTS + ["DATA.ANNO_DIR", root, "DATA.DATA_ROOT_DIR", root, "DATA.FRAME_CACHE_DIR", os.path.join(root, "cache")]
+
+
+def _resident_train_ms(model, cfg, batch, bank, steps: int = 4) -> dict:
+    """``make_train_step`` with its batch resident (pixels, or bank rows with ``bank``): after a warm-up step, ``steps``
+    steps timed with CUDA events beside the host's ms to queue them."""
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    dev = batch.support_images.device
+    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+    step = make_train_step(model.head, cfg, model.text_train, model.text_test, bank)
+    step(state, batch, 1e-6, step_generator(cfg, 0, dev))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(state, batch, 1e-6, step_generator(cfg, i, dev))
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    end.record()
+    torch.cuda.synchronize()
+    return {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms}
+
+
+def phase_bank_bits(out_dir: str, card_line: str) -> dict:
+    """The frame banks against the pixel path, bit for bit, at the ViT-B/16 slices' widths: the test protocol on 8
+    episodes through the CLI with and without TPU.EVAL_FRAME_BANK (equal logits and metrics), then 2 train steps (E = 4
+    in 2 chunks, jitter and dropout on, one Adam update each) on pixels and off the train bank (equal loss bits and
+    parameters), each step also timed with its batch resident, host against card.  K1 runs in every layer of every
+    eval step and every chunk, with or without a bank."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data import frame_bank
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.runs.run import load_config, main
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    root = os.path.join(out_dir, "bank_videos")
+    _write_bank_videos(root)
+    opts = _bank_bits_opts(root)
+    runs, launches = {}, {}
+    for mode, extra in (("pixel", []), ("bank", ["TPU.EVAL_FRAME_BANK", "True"])):
+        _reset_launches()
+        runs[mode] = main(["--cfg", CONFIG, *SLICE_OPTS, *opts, "TRAIN.NUM_TEST_TASKS", "8", *extra,
+                           "OUTPUT_DIR", os.path.join(out_dir, f"bank_bits_{mode}")])["test_few_shot"]
+        launches[f"eval_{mode}"] = _expect_launches(f"the {mode} test protocol (8 episodes, {LAYERS} layers x 2 steps)", clip_mha_fwd=LAYERS * 2)
+        _check_test_stats(runs[mode], 8)
+    pixel, bank = runs["pixel"], runs["bank"]
+    same = np.array_equal(pixel["episode_logits"], bank["episode_logits"]) and all(
+        pixel[k] == bank[k] for k in ("top1_acc", "top5_acc", "loss", "episodes"))
+    print(f"bank bits: test protocol on 8 episodes (cached_opencv, {BANK_GRID}-frame grid): top1 {pixel['top1_acc']:.2f} / "
+          f"{bank['top1_acc']:.2f}, loss {pixel['loss']!r} / {bank['loss']!r}; logits and metrics bit-identical: {same}; "
+          f"{bank['h2d_bytes_per_step']} bytes a step to the card against {pixel['h2d_bytes_per_step']}")
+    if not same:
+        raise AssertionError("the bank-mode test protocol differs from the pixel path")
+
+    dev = runtime.device("cuda")
+    cfg = load_config(CONFIG, TRAIN_OPTS + opts + ["TPU.TRAIN_FRAME_BANK", "True"])
+    bank = frame_bank.build_train_frame_bank(cfg, dev)
+    batches = {}
+    for mode, wrap in (("pixel", None), ("bank", lambda s: frame_bank.TrainIndexEpisodeSampler(s, bank.table))):
+        with build_few_shot_loader(cfg, "train", num_steps=2, episodes_per_step=EPISODES, sampler_wrap=wrap) as loader:
+            batches[mode] = [b.to(dev) for b in loader]
+    steps = {}
+    for mode in ("pixel", "bank"):
+        model = build_few_shot_model(cfg, flow="train", device=dev)
+        state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+        step = make_train_step(model.head, cfg, model.text_train, model.text_test, bank.pixels if mode == "bank" else None)
+        _reset_launches()
+        losses = torch.stack([step(state, b, 1e-3, step_generator(cfg, i, dev))["loss"] for i, b in enumerate(batches[mode])])
+        launches[f"train_{mode}"] = _expect_launches(f"2 {mode} train steps ({LAYERS} layers x {CHUNKS} chunks)",
+                                                     clip_mha_fwd=2 * LAYERS * CHUNKS, clip_mha_bwd=2 * LAYERS * CHUNKS)
+        steps[mode] = (losses.cpu(), {k: v.detach().clone() for k, v in model.head.state_dict().items()})
+        del model, state, step
+        torch.cuda.empty_cache()
+    (lp, sp), (lb, sb) = steps["pixel"], steps["bank"]
+    differ = sorted(k for k in sp if not torch.equal(sp[k], sb[k]))
+    print(f"bank bits: 2 train steps (E = {EPISODES} in {CHUNKS} chunks, jitter and dropout on): losses pixel {lp.tolist()} bank "
+          f"{lb.tolist()}; loss bits equal: {torch.equal(lp, lb)}; parameters that differ: {differ[:5] or 'none'}")
+    if not (torch.isfinite(lp).all() and torch.equal(lp, lb)) or differ:
+        raise AssertionError("the bank train steps differ from the pixel path's")
+
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    timed = {}
+    for mode in ("pixel", "bank", "bank", "pixel"):
+        got = _resident_train_ms(model, cfg, batches[mode][0], bank.pixels if mode == "bank" else None)
+        timed.setdefault(mode, []).append(got)
+    del model
+    torch.cuda.empty_cache()
+    for mode, readings in timed.items():
+        print(f"bank bits: ViT-B/16 train step on {card_line}, batch resident ({mode}; {EPISODES * 30 * 8} frames in {CHUNKS} chunks): "
+              + " / ".join(f"{t['step_ms']:.1f} ms on the card, queued by the host in {t['host_ms']:.1f} ms" for t in readings))
+    return {"launches": launches, "resident": timed}
+
+
+def _bank_loop(cfg, model, bank, what: str, card_line: str, episodes: int = BANK_LOOP_EPISODES) -> dict:
+    """``evaluate`` over ``episodes`` in steps of 4 on pixels and off ``bank`` in turn (pixel, bank, bank, pixel),
+    then each once under the profiler for the card's idle share; K1 launches counted from 0 over the bank runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clip_fsar_torch.tools.profile_eval import _busy_us, _device_events
+    from clip_fsar_torch.train.loop import evaluate
+
+    dev = torch.device("cuda")
+    evaluate(cfg, model, 4, 4, device=dev)  # warm-up: the kernels' first launch, the allocator
+    readings, peak, k1 = {"pixel": [], "bank": []}, {}, 0
+    for mode in ("pixel", "bank", "bank", "pixel"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        stats = evaluate(cfg, model, episodes, 4, device=dev, bank=bank if mode == "bank" else None)
+        if mode == "bank":
+            k1 += _launches()["clip_mha_fwd"]
+        readings[mode].append(stats)
+        peak[mode] = max(peak.get(mode, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+        _check_test_stats(stats, episodes)
+    idle = {}
+    for mode in ("pixel", "bank"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = evaluate(cfg, model, episodes // 2, 4, device=dev, bank=bank if mode == "bank" else None)
+            torch.cuda.synchronize()
+        idle[mode] = 1.0 - _busy_us(_device_events(prof)) / 1e6 / traced["seconds"]
+    eps = {mode: [episodes / r["seconds"] for r in rs] for mode, rs in readings.items()}
+    h2d = {mode: rs[0]["h2d_bytes_per_step"] for mode, rs in readings.items()}
+    resident = _resident_eval_ms(cfg, model, bank)
+    print(f"{what} on {card_line}: test episodes/s pixel {eps['pixel'][0]:.3f} / {eps['pixel'][1]:.3f}, bank {eps['bank'][0]:.3f} / "
+          f"{eps['bank'][1]:.3f} (pixel, bank, bank, pixel; {episodes} episodes each); host-to-device bytes a step: pixel {h2d['pixel']}, "
+          f"bank {h2d['bank']}; the card idle {100 * idle['pixel']:.1f} % pixel, {100 * idle['bank']:.1f} % bank "
+          f"(under the profiler, {episodes // 2} episodes); peak {peak['pixel']:.3f} GiB pixel, {peak['bank']:.3f} GiB with the bank; "
+          f"the eval step with its batch resident: " + ", ".join(f"{mode} {t['step_ms']:.2f} ms on the card, queued by the host in {t['host_ms']:.2f} ms"
+                                                              for mode, t in resident.items()))
+    return {"episodes_per_s": eps, "h2d_bytes": h2d, "idle": idle, "peak_gib": peak, "k1_launches": k1, "resident": resident}
+
+
+def _resident_eval_ms(cfg, model, bank, steps: int = 8) -> dict:
+    """The eval step with one batch resident on the card, pixels and bank rows: ``steps`` steps timed with CUDA events
+    beside the host's ms to queue them (the step reads nothing back)."""
+    from clip_fsar_torch.data.frame_bank import IndexEpisodeSampler
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.train.step import make_eval_step
+
+    dev = bank.pixels.device
+    out = {}
+    for mode, wrap in (("pixel", None), ("bank", lambda s: IndexEpisodeSampler(s, bank.table))):
+        with build_few_shot_loader(cfg, "test", num_steps=1, episodes_per_step=4, sampler_wrap=wrap) as loader:
+            batch = next(iter(loader)).to(dev)
+        step = make_eval_step(model.head, cfg, model.text_train, model.text_test, bank.pixels if mode == "bank" else None)
+        step(batch)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(batch)
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        end.record()
+        torch.cuda.synchronize()
+        out[mode] = {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms}
+    return out
+
+
+def phase_eval_bank_full(card_line: str) -> dict:
+    """The eval bank at full size: the HMDB51 test split (1292 videos, 64 grid frames, 224 px: 12.45 GB) built once on
+    the card for the ViT-B/16 test slice, whose test loop runs on pixels and off the bank in turn; then the shipped
+    HyRSM++ 5-shot config's test loop off the same bank (the same split file, TEST_SCALE and crop)."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data import frame_bank
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.tools.profile_eval import slice_cfg
+
+    dev = runtime.device("cuda")
+    cfg = slice_cfg("TPU.EVAL_FRAME_BANK_FRAMES", str(BANK_EVAL_FRAMES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = frame_bank.build_eval_frame_bank(cfg, "test", dev)
+    wall = time.perf_counter() - t0
+    videos = len(bank.table.row_of_path)
+    print(f"eval bank on {card_line}: {videos} videos x {BANK_EVAL_FRAMES} grid frames x {bank.pixels.shape[1]}x{bank.pixels.shape[2]} px = "
+          f"{bank.nbytes / 1e9:.2f} GB; host build {bank.build_seconds:.2f} s, upload {bank.upload_seconds:.2f} s "
+          f"({bank.nbytes / 1e9 / max(bank.upload_seconds, 1e-9):.2f} GB/s), {wall:.2f} s in all")
+    crop = int(cfg.DATA.TEST_CROP_SIZE)
+    if videos != 1292 or bank.pixels.shape != (1292 * BANK_EVAL_FRAMES, crop, crop, 3):
+        raise AssertionError(f"the HMDB51 test bank has {videos} videos and shape {tuple(bank.pixels.shape)}")
+    out = {"build_seconds": bank.build_seconds, "upload_seconds": bank.upload_seconds, "gb": bank.nbytes / 1e9}
+    model = build_few_shot_model(cfg, flow="test", device=dev)
+    out["vit"] = _bank_loop(cfg, model, bank, "ViT-B/16 test slice, eval bank", card_line)
+    if out["vit"]["k1_launches"] != 2 * LAYERS * BANK_LOOP_EPISODES // 4:
+        raise AssertionError(f"K1 launched {out['vit']['k1_launches']} times in the two bank loops")
+    del model
+    torch.cuda.empty_cache()
+    path = os.path.join(REPO, CLASSIC_CONFIGS[HYRSM])
+    hcfg = load_config(path, _classic_opts(HYRSM) + ["TRAIN.ENABLE", "False", "TPU.EVAL_FRAME_BANK_FRAMES", str(BANK_EVAL_FRAMES)])
+    model = build_few_shot_model(hcfg, flow="test", device=dev)
+    out["hyrsm"] = _bank_loop(hcfg, model, bank, "HyRSM++ 5-shot test slice, eval bank", card_line)
+    del model, bank
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_bank_full(out_dir: str, card_line: str, pixel: dict) -> dict:
+    """The ViT-B/16 train slice through the CLI off a train bank of the HMDB51 train split (4280 videos, 8 grid frames,
+    256 px: 6.73 GB), its validations off one val bank (the val split reads test_few_shot.txt, as in the JAX package:
+    1292 videos, 64 grid frames, 12.45 GB) and its test off a test bank: losses, updates, train episodes/s against the
+    pixel path's (``pixel``, the fused train slice of this run), the peak with the train and val banks beside the
+    train step, the banks' build and upload seconds."""
+    from clip_fsar_torch.runs.run import main
+
+    banks = ["TPU.TRAIN_FRAME_BANK", "True", "TPU.TRAIN_FRAME_BANK_FRAMES", str(BANK_TRAIN_FRAMES), "TPU.EVAL_FRAME_BANK", "True",
+             "TPU.EVAL_FRAME_BANK_FRAMES", str(BANK_EVAL_FRAMES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    results = main(["--cfg", CONFIG, *TRAIN_OPTS, *banks, "OUTPUT_DIR", out_dir])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_bwd = LAYERS * TRAIN_STEPS * CHUNKS
+    launches = _expect_launches("the train slice off the banks", clip_mha_fwd=want_bwd + LAYERS * (TRAIN_STEPS // VAL_EVERY + TEST_EPISODES // 4),
+                                clip_mha_bwd=want_bwd)
+    train, test = results["train_few_shot"], results["test_few_shot"]
+    losses = train["losses"]
+    if len(losses) != TRAIN_STEPS or not all(torch.isfinite(torch.tensor(losses))) or train["updates"] != TRAIN_STEPS // ACCUM:
+        raise AssertionError(f"the bank train slice: losses {losses}, {train['updates']} updates")
+    _check_test_stats(test)
+    eps = TRAIN_STEPS * EPISODES / (train["seconds"] - train["val_seconds"])
+    b = {**train["frame_banks"], "test": test["frame_bank"]}
+    print(f"train bank on {card_line}: losses {[round(x, 5) for x in losses]}; {eps:.4f} train episodes/s off the banks against "
+          f"{pixel['episodes_per_s']:.4f} on pixels (the fused train slice above); peak {peak:.3f} GiB with the train and val banks "
+          f"({pixel['peak_gib']:.3f} GiB on pixels); banks: "
+          + "; ".join(f"{name} {v['gb']:.2f} GB built in {v['build_seconds']:.2f} s, uploaded in {v['upload_seconds']:.2f} s" for name, v in b.items())
+          + f"; test off the bank {TEST_EPISODES / test['seconds']:.3f} episodes/s; launches {launches}")
+    if train["frame_banks"]["train"]["gb"] < 6.7:
+        raise AssertionError(f"the train bank is {train['frame_banks']['train']['gb']:.2f} GB, not the HMDB51 train split's 6.73")
+    return {"launches": launches, "episodes_per_s": eps, "peak_gib": peak, "banks": b}
+
+
+def phase_reference_checkpoint(out_dir: str) -> dict:
+    """A reference-format ``.pyth`` (``model_state``, ``module.head.`` keys, the reference's context2 names) written from
+    the fresh ViT-B/16 CLIP-FSAR head, tested through TEST.CHECKPOINT_FILE_PATH: its test logits equal those of the head
+    it was written from (fresh weights, no checkpoint) bit for bit."""
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.models.convert_reference import reference_state_dict
+    from clip_fsar_torch.runs.run import main
+    from clip_fsar_torch.tools.profile_eval import slice_cfg
+
+    head = build_few_shot_model(slice_cfg(), flow="test", device="cpu").head
+    path = os.path.join(out_dir, "checkpoint_epoch_00010.pyth")
+    torch.save({"epoch": 10, "model_state": reference_state_dict(head.state_dict())}, path)
+    runs = {}
+    for name, extra in (("fresh", []), ("pyth", ["TEST.CHECKPOINT_FILE_PATH", path])):
+        _reset_launches()
+        runs[name] = main(["--cfg", CONFIG, *SLICE_OPTS, "TRAIN.NUM_TEST_TASKS", "8", *extra, "OUTPUT_DIR", os.path.join(out_dir, f"ref_{name}")])["test_few_shot"]
+        launches = _expect_launches(f"the test protocol ({name})", clip_mha_fwd=LAYERS * 2)
+        _check_test_stats(runs[name], 8)
+    same = np.array_equal(runs["fresh"]["episode_logits"], runs["pyth"]["episode_logits"])
+    print(f"reference checkpoint: {os.path.basename(path)} ({os.path.getsize(path) / 1e6:.1f} MB) tested as {runs['pyth']['weights']!r}; logits "
+          f"bit-identical to the head it was written from ({runs['fresh']['weights']}): {same}")
+    if runs["pyth"]["weights"] != path or not same:
+        raise AssertionError("the .pyth checkpoint did not give its head's logits")
+    return {"launches": launches}
+
+
+def _repeat_classic_steps(name: str, batch) -> None:
+    """Two train steps of the classic slice's fresh model, run twice from one seed: the same loss bits and the same
+    parameters and running stats (F5: MoLo's decoder upsampling once added its gradient with atomics)."""
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    dev = batch.support_images.device
+    cfg = load_config(os.path.join(REPO, CLASSIC_CONFIGS[name]), _classic_opts(name) + ["TRAIN.BATCH_SIZE_PER_TASK", "1"])
+    runs = []
+    for _ in range(2):
+        model = build_few_shot_model(cfg, flow="train", device=dev)
+        state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+        step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+        losses = torch.stack([step(state, batch, 1e-3, step_generator(cfg, i, dev))["loss"] for i in range(2)]).cpu()
+        runs.append((losses, {k: v.detach().clone() for k, v in model.head.state_dict().items()}))
+        del model, state, step
+        torch.cuda.empty_cache()
+    (la, sa), (lb, sb) = runs
+    differ = sorted(k for k in sa if not torch.equal(sa[k], sb[k]))
+    print(f"{name}: 2 train steps (2 Adam updates) run twice from one seed: losses {la.tolist()} / {lb.tolist()}; loss bits equal: "
+          f"{torch.equal(la, lb)}; entries that differ: {differ[:5] or 'none'}")
+    if not torch.equal(la, lb) or differ:
+        raise AssertionError(f"{name}: two runs of the same train steps differ")
+
+
 def main() -> None:
     smi = phase_device()
     build_seconds = phase_build()
@@ -1618,6 +1954,15 @@ def main() -> None:
     phase_frame_chunks_vs_none()
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         classic = {name: phase_classic_slice(os.path.join(out_dir, name), name, smi) for name in CLASSIC_CONFIGS}
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        bank_bits = phase_bank_bits(out_dir, smi)
+        eval_bank = phase_eval_bank_full(smi)
+        train_bank = phase_train_bank_full(os.path.join(out_dir, "train_bank"), smi, train["fused"])
+        reference = phase_reference_checkpoint(out_dir)
+    # each kernel's launches in the bank phases' bank runs, counted from 0 in each
+    bank_runs = [bank_bits["launches"]["eval_bank"], bank_bits["launches"]["train_bank"], train_bank["launches"],
+                 {"clip_mha_fwd": eval_bank["vit"]["k1_launches"]}]
+    bank_launches = {name: sum(run.get(name, 0) for run in bank_runs) for name in _launches()}
     from clip_fsar_torch.data.transforms import RESIZE_CALLS
 
     print(f"loader resize: clips resized in this run by each implementation: {RESIZE_CALLS}")
@@ -1627,7 +1972,13 @@ def main() -> None:
           + f"; rn50 test slice {rn_test['episodes_per_s']:.3f} episodes/s, peak {rn_test['peak_gib']:.3f} GiB; "
           + "; ".join(f"{name} slice {t['episodes_per_s']:.4f} train episodes/s, {t['resident_step_ms']:.1f} ms a resident step "
                       f"(host {t['host_ms']:.1f} ms), test {t['test_episodes_per_s']:.3f} episodes/s, peak {t['peak_gib']:.3f} GiB"
-                      for name, t in classic.items()))
+                      for name, t in classic.items())
+          + f"; eval bank {eval_bank['gb']:.2f} GB built in {eval_bank['build_seconds']:.2f} s, uploaded in {eval_bank['upload_seconds']:.2f} s: "
+          + "; ".join(f"{what} test episodes/s {min(r['episodes_per_s']['pixel']):.3f}-{max(r['episodes_per_s']['pixel']):.3f} pixel, "
+                      f"{min(r['episodes_per_s']['bank']):.3f}-{max(r['episodes_per_s']['bank']):.3f} bank, idle {100 * r['idle']['pixel']:.1f} / "
+                      f"{100 * r['idle']['bank']:.1f} %, peak {r['peak_gib']['bank']:.3f} GiB" for what, r in (("ViT-B/16", eval_bank["vit"]), ("HyRSM++", eval_bank["hyrsm"])))
+          + f"; train bank slice {train_bank['episodes_per_s']:.4f} train episodes/s (pixel {train['fused']['episodes_per_s']:.4f}), "
+          f"peak {train_bank['peak_gib']:.3f} GiB")
     kernels = [
         ("clip_mha_fwd", "fused", "clip_fsar_torch/csrc/clip_mha_fwd.cu", "clip_fsar_tpu/ops/fused_attention.py:71"),
         ("clip_mha_bwd", "fused", "clip_fsar_torch/csrc/clip_mha_bwd.cu", "clip_fsar_tpu/ops/fused_attention.py:97"),
@@ -1649,6 +2000,7 @@ def main() -> None:
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "rn50_launches": train["rn50"]["launches"][name] + rn_test["launches"][name],
                         "vit_l336_launches": train["vit_l336"]["launches"][name],
                         "classic_launches": {slice_name: t["launches"][name] for slice_name, t in classic.items()},
+                        "bank_launches": bank_launches[name], "pyth_launches": reference["launches"][name],
                         **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t},
                         **({"at_vit_l336_chunk": l336_kernels[name]} if name in l336_kernels else {})})
         if not records[-1]["launches"] > 0:

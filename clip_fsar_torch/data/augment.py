@@ -20,7 +20,9 @@ stay clean.
 Drawing and applying are split: ``draw_jitter`` and ``draw_erasing`` take
 every random number from a ``torch.Generator`` on the device,
 ``color_jitter_batch`` and ``random_erasing_batch`` apply given draws, so a
-test can hand the port the JAX package's own draws.
+test can hand the port the JAX package's own draws, and the train step can
+draw for all the episodes of a step and apply the draws one episode chunk at
+a time (``draw_train_augment`` / ``apply_train_augment``).
 """
 
 from __future__ import annotations
@@ -285,12 +287,14 @@ def draw_erasing(generator: torch.Generator, shape: Sequence[int], ec: ErasingCo
     return ErasingDraws(on, top, left, height, width, use, fill)
 
 
-def random_erasing_batch(x: torch.Tensor, draws: ErasingDraws, ec: ErasingConfig) -> torch.Tensor:
+def random_erasing_batch(x: torch.Tensor, draws: ErasingDraws, ec: ErasingConfig, first: int = 0, total: Optional[int] = None) -> torch.Tensor:
     """Apply one call's draws to normalized clips [N, T, H, W, C]: each
     drawn rectangle, in every frame, takes its fill (a later rectangle over
     an earlier one where they overlap), on the clips drawn ``on``; with
-    NUM_SPLITS > 1 the first N // NUM_SPLITS clips are left as they are.
-    Selections only: the output holds input and fill values bit for bit."""
+    NUM_SPLITS > 1 the first ``total`` // NUM_SPLITS clips of the call are
+    left as they are (``x`` holds the call's clips [first, first + N) of
+    ``total``, all of them by default).  Selections only: the output holds
+    input and fill values bit for bit."""
     n, t, img_h, img_w, c = x.shape
     rows = torch.arange(img_h, device=x.device)[None, None, :, None]
     cols = torch.arange(img_w, device=x.device)[None, None, None, :]
@@ -306,9 +310,71 @@ def random_erasing_batch(x: torch.Tensor, draws: ErasingDraws, ec: ErasingConfig
             fill = torch.where(m, d.fill[:, blk], fill)
     erased = torch.where(masks.any(dim=1)[:, None, :, :, None] & d.on[:, None, None, None, None], fill, x)
     if ec.num_splits > 1:
-        clean = n // ec.num_splits
+        clean = min(max((n if total is None else total) // ec.num_splits - first, 0), n)
         erased = torch.cat([x[:clean], erased[clean:]])
     return erased
+
+
+@dataclasses.dataclass
+class AugmentDraws:
+    """Every random number of one ``fewshot_train_augment`` call on N clips:
+    the jitter's (None where the clips are not jittered) and the erasing's
+    (None where they are not erased)."""
+
+    jitter: Optional[JitterDraws]
+    erasing: Optional[ErasingDraws]
+    clips: int
+
+    def take(self, lo: int, hi: int) -> "AugmentDraws":
+        """The draws of clips [lo, hi)."""
+
+        def cut(draws):
+            if draws is None:
+                return None
+            return dataclasses.replace(draws, **{f.name: v[lo:hi] for f in dataclasses.fields(draws)
+                                                 if isinstance(v := getattr(draws, f.name), torch.Tensor)})
+
+        return AugmentDraws(cut(self.jitter), cut(self.erasing), hi - lo)
+
+
+def draw_train_augment(
+    cfg, shape: Sequence[int], is_query: bool, generator: torch.Generator, host: Optional[np.random.Generator] = None, device=None,
+) -> AugmentDraws:
+    """The draws of ``fewshot_train_augment`` on clips of ``shape`` [N, T, H, W, 3]:
+    the jitter's on query clips always and on support clips under
+    AUGMENTATION.COLOR_AUG, then the erasing's under its ENABLE, on support clips
+    unless AUGMENTATION.NO_RANDOM_ERASE; from ``generator``, and the jitter's
+    op order from ``host``.  Depends on the shape only, so a step can draw for
+    all its episodes and apply the draws chunk by chunk."""
+    aug = cfg.AUGMENTATION if "AUGMENTATION" in cfg else {}
+    n, t = int(shape[0]), int(shape[1])
+    jitter = None
+    if is_query or bool(aug.get("COLOR_AUG", False)):
+        jitter = draw_jitter(generator, host if host is not None else host_generator(generator), n, t, JitterConfig.from_cfg(cfg), device=device)
+    ec = ErasingConfig.from_cfg(cfg)
+    erasing = None
+    if ec is not None and (is_query or not bool(aug.get("NO_RANDOM_ERASE", False))):
+        erasing = draw_erasing(generator, tuple(int(v) for v in shape), ec, device=device)
+    return AugmentDraws(jitter, erasing, n)
+
+
+def apply_train_augment(
+    clips: torch.Tensor, draws: Optional[AugmentDraws], cfg, mean: Sequence[float], std: Sequence[float], first: int = 0,
+    total: Optional[int] = None,
+) -> torch.Tensor:
+    """uint8 clips [N, T, H, W, 3] -> normalized float32 with ``draws`` (their
+    clips, already cut to these N); ``first`` and ``total`` place these clips in
+    the call that drew (random erasing's NUM_SPLITS counts over the call).
+    None draws only normalize."""
+    if draws is None:
+        return normalize_images(clips, mean, std)
+    if draws.jitter is not None:
+        x = standardize(color_jitter_batch(clips.float() / 255.0, draws.jitter, JitterConfig.from_cfg(cfg)), mean, std)
+    else:
+        x = normalize_images(clips, mean, std)
+    if draws.erasing is None:
+        return x
+    return random_erasing_batch(x, draws.erasing, ErasingConfig.from_cfg(cfg), first, total)
 
 
 def fewshot_train_augment(
@@ -323,17 +389,8 @@ def fewshot_train_augment(
     every call (without one, each call seeds its own from ``generator``'s
     seed and so draws the same order).  Then RandomErasing under its ENABLE,
     on support clips unless AUGMENTATION.NO_RANDOM_ERASE, with draws from
-    ``generator`` after the jitter's.  A None generator only normalizes."""
-    aug = cfg.AUGMENTATION if "AUGMENTATION" in cfg else {}
+    ``generator`` after the jitter's.  A None generator only normalizes.
+    ``draw_train_augment`` then ``apply_train_augment``."""
     if generator is None:
         return normalize_images(clips, mean, std)
-    if is_query or bool(aug.get("COLOR_AUG", False)):
-        jc = JitterConfig.from_cfg(cfg)
-        draws = draw_jitter(generator, host if host is not None else host_generator(generator), clips.shape[0], clips.shape[1], jc, device=clips.device)
-        x = standardize(color_jitter_batch(clips.float() / 255.0, draws, jc), mean, std)
-    else:
-        x = normalize_images(clips, mean, std)
-    ec = ErasingConfig.from_cfg(cfg)
-    if ec is None or (not is_query and bool(aug.get("NO_RANDOM_ERASE", False))):
-        return x
-    return random_erasing_batch(x, draw_erasing(generator, x.shape, ec, device=x.device), ec)
+    return apply_train_augment(clips, draw_train_augment(cfg, clips.shape, is_query, generator, host, device=clips.device), cfg, mean, std)

@@ -1,5 +1,5 @@
 """Episodic train and eval transforms on the host and normalization on the
-device (counterpart of clip_fsar_tpu/data/transforms.py:75-113, 148-158, 184-220).
+device (counterpart of clip_fsar_tpu/data/transforms.py:75-113, 148-220).
 
 The fused resize + crop + flip runs the native C++ pass
 (``clip_fsar_torch/native/frameops``) where it builds, and the numpy
@@ -92,6 +92,22 @@ def fewshot_train_transform(frames: np.ndarray, cfg, rng: np.random.Generator, i
     y = int(rng.integers(0, max(nh - size, 1)))
     x = int(rng.integers(0, max(nw - size, 1)))
     return _fused_resize_crop(frames, nh, nw, y, x, size, flip)
+
+
+def fewshot_train_stretch(frames: np.ndarray, cfg) -> np.ndarray:
+    """The fixed-size stretch of ``fewshot_train_transform`` without its crop
+    and flip: uint8 [T, H, W, 3] -> [T, nh, nw, 3] at TRAIN_JITTER_SCALES
+    (JAX transforms.py:161-181).  The fixed-point taps are computed in
+    destination coordinates, so rows [y, y + size) and columns [x, x + size)
+    of this frame are bit for bit the fused resize + crop at (y, x): the
+    train frame bank stores this and crops on the device
+    (data/frame_bank.py)."""
+    nh, nw = _stretch_dims(cfg.DATA.TRAIN_JITTER_SCALES)
+    if frameops.available():
+        RESIZE_CALLS["native"] += 1
+        return frameops.resize_crop_flip(frames, nh, nw, 0, 0, nh, nw, False)
+    RESIZE_CALLS["numpy"] += 1
+    return _np_resize_crop_flip(frames, nh, nw, 0, 0, nh, False, size_w=nw)
 
 
 def fewshot_test_transform(frames: np.ndarray, cfg) -> np.ndarray:

@@ -29,8 +29,10 @@ train step, which commits their running stats.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -57,12 +59,36 @@ class Conv3d(Conv2d):
         return F.conv3d(x, w, self.bias.to(self.dtype), 1, self.weight.shape[-1] // 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[n_out, n_in] weights of a bilinear resize along one axis: the triangle
+    kernel at half-pixel centres, widened by the factor where it shrinks
+    (antialiased), each row normalized; jax.image's ``compute_weight_mat``
+    in its float32 arithmetic.  Made once per size, dtype and device (every
+    caller gets the same tensor: read it, never write to it)."""
+    inv_scale = np.float32(n_in / n_out)
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1), 0)
+    w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(w.T)).to(device=device, dtype=dtype)
+
+
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     """``jax.image.resize(..., "bilinear")`` of an NCHW-shaped map: half-pixel
-    centres, antialiased where it shrinks (a whole-factor upscale is
-    ``F.interpolate``'s bilinear)."""
-    shrink = size[0] < x.shape[-2] or size[1] < x.shape[-1]
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False, antialias=shrink)
+    centres, antialiased where it shrinks.  Written as jax.image computes it,
+    one fixed weight matrix per axis applied by a matrix product, whose
+    backward is a matrix product too: the backward of ``F.interpolate``'s
+    bilinear mode adds into its input gradient with atomics on a card, in an
+    order that changes from run to run."""
+    out_h, out_w = int(size[0]), int(size[1])
+    if out_h != x.shape[-2]:
+        x = torch.matmul(_resize_matrix(x.shape[-2], out_h, x.dtype, x.device), x)
+    if out_w != x.shape[-1]:
+        x = torch.matmul(x, _resize_matrix(x.shape[-1], out_w, x.dtype, x.device).T)
+    return x
 
 
 class TransformerV2Block(nn.Module):

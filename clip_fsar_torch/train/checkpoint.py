@@ -10,14 +10,19 @@ dict alone.  Loading a checkpoint FILE (TEST/TRAIN.CHECKPOINT_FILE_PATH) is
 non-strict as in the JAX package: entries whose name and shape match the head
 are taken, the rest are skipped with a log line.
 
-Two formats are read: the port's own ``.pt`` files, and the JAX package's
+Three formats are read: the port's own ``.pt`` files, the JAX package's
 ``.npz`` weight archives (``clip_fsar_tpu.train.pretrain.save_weights_npz``:
 flat "/"-keyed numpy arrays), which is the route for weights the JAX package
-trained.  A path that does not exist is logged and the search goes on, as in
-the JAX package; a path that exists in a format the port cannot read (an
-orbax checkpoint directory, a reference-framework ``.pyth`` / ``.pth`` file,
-a file in which nothing matches the head) raises, so that a run never tests
-or finetunes fresh weights where a checkpoint was named.
+trained, and the reference framework's ``.pyth`` / ``.pth`` files of a
+CNN_OTAM_CLIPFSAR head (models/convert_reference.py).  A torch file is told
+apart by its content, not its suffix: a ``model_state`` entry or the
+reference's ``module.`` / ``head.`` prefixes make it a reference file (the
+JAX package also reads a reference ``.pt``, pretrain.py:217-221), which
+raises for any other head.  A path that does not exist is logged and the
+search goes on, as in the JAX package; a path that exists in a format the
+port cannot read (an orbax checkpoint directory, a file in which nothing
+matches the head) raises, so that a run never tests or finetunes fresh
+weights where a checkpoint was named.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import torch
 from torch import nn
 
 from clip_fsar_torch.models.clip.convert import params_from_jax
+from clip_fsar_torch.models.convert_reference import is_reference_checkpoint, reference_head_state
+from clip_fsar_torch.models.heads.clipfsar import CLIPFSARHead
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.utils.logging import get_logger
 
@@ -72,23 +79,29 @@ def _load_npz(path: str) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{path} is not a weight archive of the JAX package's few-shot model: it has no entry {e}") from e
 
 
-def load_checkpoint_file(path: str, head: nn.Module) -> bool:
-    """Non-strict load of a checkpoint file into ``head``: the port's own
-    ``.pt`` or a JAX-package ``.npz`` weight archive.  False when the path
-    does not exist; raises when it exists and cannot be read into the head."""
+def load_checkpoint_file(path: str, head: nn.Module, head_name: str = "") -> bool:
+    """Non-strict load of a checkpoint file into ``head`` (``head_name``, the
+    config's VIDEO.HEAD.NAME, for the messages): the port's own ``.pt``, a
+    JAX-package ``.npz`` weight archive or a reference ``.pyth`` / ``.pth`` of
+    a CNN_OTAM_CLIPFSAR head.  False when the path does not exist; raises when
+    it exists and cannot be read into the head."""
     if not os.path.exists(path):
         logger.info("checkpoint path %s not found", path)
         return False
     if os.path.isdir(path):
         raise ValueError(f"checkpoint path {path} is a directory (an orbax checkpoint of the JAX package?), which the port does not read: {_NPZ_ROUTE}")
-    if path.endswith((".pyth", ".pth")):
-        raise NotImplementedError(f"checkpoint path {path} is in the reference framework's format, which the port does not read yet "
-                                  f"(ROADMAP Queue 1, checkpoint files): {_NPZ_ROUTE}")
     if path.endswith(".npz"):
         sd = _load_npz(path)
     else:
         raw = torch.load(path, map_location="cpu", weights_only=True)
-        sd = raw.get("head", raw)
+        if is_reference_checkpoint(raw):
+            if not isinstance(head, CLIPFSARHead):
+                raise NotImplementedError(
+                    f"checkpoint path {path} is a reference-framework checkpoint, which the port reads for CNN_OTAM_CLIPFSAR "
+                    f"heads only, not for {head_name or type(head).__name__} (the JAX package's mapping covers CLIP-FSAR only)")
+            sd = reference_head_state(raw, head.arch, path)
+        else:
+            sd = raw.get("head", raw)
     own = head.state_dict()
     take = {k: v for k, v in sd.items() if k in own and own[k].shape == v.shape}
     skipped = sorted(set(sd) - set(take))
@@ -184,7 +197,8 @@ def load_test_weights(cfg, head: nn.Module) -> str:
     one the head now holds."""
     test_path = str(cfg.TEST.get("CHECKPOINT_FILE_PATH", "") or "") if "TEST" in cfg else ""
     train_path = str(cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") or "") if "TRAIN" in cfg else ""
-    if test_path and load_checkpoint_file(test_path, head):
+    head_name = cfg.VIDEO.HEAD.NAME
+    if test_path and load_checkpoint_file(test_path, head, head_name):
         logger.info("testing with TEST.CHECKPOINT_FILE_PATH: %s", test_path)
         return test_path
     ckpt = Checkpointer(cfg.get("OUTPUT_DIR", None) or ".")
@@ -193,7 +207,7 @@ def load_test_weights(cfg, head: nn.Module) -> str:
         head.load_state_dict(ckpt.load(step)["head"])
         logger.info("testing with the last OUTPUT_DIR checkpoint (step %d)", step)
         return ckpt.path(step)
-    if train_path and load_checkpoint_file(train_path, head):
+    if train_path and load_checkpoint_file(train_path, head, head_name):
         logger.info("testing with TRAIN.CHECKPOINT_FILE_PATH: %s", train_path)
         return train_path
     logger.info("no checkpoint found — testing with freshly built weights")

@@ -9,6 +9,13 @@ The train loop reads metrics back from the device only where it logs,
 validates or ends (one read for all the steps since the last), so the host
 runs ahead of the card between those steps and the next batch's copy is
 started while the card still works on the step before.
+
+``TPU.EVAL_FRAME_BANK`` runs the test protocol, and the interleaved
+validations, off a card-resident bank of the split's frames, and
+``TPU.TRAIN_FRAME_BANK`` trains off one (data/frame_bank.py): the loader
+then ships int32 bank rows instead of pixels.  As in the JAX package
+(loop.py:63-83, 225-238, 253-263), the val bank is built once and serves
+every interleaved validation.
 """
 
 from __future__ import annotations
@@ -23,6 +30,13 @@ import numpy as np
 import torch
 
 from clip_fsar_torch import runtime
+from clip_fsar_torch.data.frame_bank import (
+    FrameBank,
+    IndexEpisodeSampler,
+    TrainIndexEpisodeSampler,
+    build_eval_frame_bank,
+    build_train_frame_bank,
+)
 from clip_fsar_torch.data.loader import build_few_shot_loader
 from clip_fsar_torch.models.builder import FewShotModel, build_few_shot_model, tower_execution
 from clip_fsar_torch.train.checkpoint import Checkpointer, auto_resume, load_checkpoint_file, load_test_weights
@@ -30,21 +44,38 @@ from clip_fsar_torch.train.optimizer import Optimizer, epoch_for_iter, get_lr_at
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.train.step import make_eval_step, make_train_step
 from clip_fsar_torch.utils.logging import get_logger, log_json_stats, setup_logging
+from clip_fsar_torch.utils.misc import log_model_info
 
 logger = get_logger(__name__)
 
 
-def evaluate(cfg, model: FewShotModel, num_tasks: int, episodes_per_step: int, split: str = "test", device=None) -> Dict[str, Any]:
+def _bank_info(bank: FrameBank) -> Dict[str, float]:
+    return {"gb": bank.nbytes / 1e9, "build_seconds": bank.build_seconds, "upload_seconds": bank.upload_seconds}
+
+
+def evaluate(
+    cfg, model: FewShotModel, num_tasks: int, episodes_per_step: int, split: str = "test", device=None, bank: Optional[FrameBank] = None,
+) -> Dict[str, Any]:
     """Episode-sampled evaluation: top-1/top-5 over exactly ``num_tasks``
     episodes plus per-class top-1 (reference test_net_few_shot.py:35-224).
 
+    With ``bank`` the episodes are gathered from that eval frame bank; without
+    one, TPU.EVAL_FRAME_BANK builds the split's bank on ``device`` first (a
+    caller that evaluates repeatedly builds it once and passes it).
+
     Returns the JAX package's stats (top1_acc, top5_acc, loss, episodes)
-    plus ``episode_logits`` [num_tasks, Q, WAY] and ``seconds``, the wall
-    time of the episode loop (data included, model build excluded)."""
+    plus ``episode_logits`` [num_tasks, Q, WAY], ``seconds``, the wall time
+    of the episode loop (data included, model and bank builds excluded),
+    ``h2d_bytes_per_step``, the bytes of one batch the host copies to the
+    device, and, where a bank served, ``frame_bank`` (its GB and the seconds
+    of its build and upload)."""
     device = runtime.device(device)
     e = episodes_per_step
     num_steps = max(-(-num_tasks // e), 1)  # surplus episodes of the last step are not counted
-    eval_step = make_eval_step(model.head, cfg, model.text_train, model.text_test)
+    if bank is None and "TPU" in cfg and bool(cfg.TPU.get("EVAL_FRAME_BANK", False)):
+        bank = build_eval_frame_bank(cfg, split, device)
+    sampler_wrap = None if bank is None else (lambda sampler: IndexEpisodeSampler(sampler, bank.table))
+    eval_step = make_eval_step(model.head, cfg, model.text_train, model.text_test, None if bank is None else bank.pixels)
 
     top1 = top5 = count = 0
     loss_sum = 0.0
@@ -70,9 +101,11 @@ def evaluate(cfg, model: FewShotModel, num_tasks: int, episodes_per_step: int, s
 
     log_every = 50
     pending: Optional[Dict[str, torch.Tensor]] = None
+    h2d_bytes = 0
     t0 = time.perf_counter()
-    with build_few_shot_loader(cfg, split, num_steps=num_steps, episodes_per_step=e) as loader:
+    with build_few_shot_loader(cfg, split, num_steps=num_steps, episodes_per_step=e, sampler_wrap=sampler_wrap) as loader:
         for steps_done, batch in enumerate(loader):
+            h2d_bytes = _batch_bytes(batch)
             # launch step N before fetching step N-1, so host-side metric
             # accounting overlaps the device's next batch
             fut = eval_step(batch.to(device, non_blocking=True))
@@ -107,7 +140,15 @@ def evaluate(cfg, model: FewShotModel, num_tasks: int, episodes_per_step: int, s
     }
     log_json_stats({"_type": f"eval_{split}", **stats}, logger)
     log_json_stats({"_type": "eval_per_class", **per_class_acc}, logger)
-    return {**stats, "episode_logits": np.concatenate(logits_kept), "seconds": seconds}
+    out = {**stats, "episode_logits": np.concatenate(logits_kept), "seconds": seconds, "h2d_bytes_per_step": h2d_bytes}
+    if bank is not None:
+        out["frame_bank"] = _bank_info(bank)
+    return out
+
+
+def _batch_bytes(batch) -> int:
+    """Bytes of a host batch's arrays: what one step copies to the device."""
+    return sum(v.nbytes for v in vars(batch).values() if v is not None)
 
 
 def step_generator(cfg, step: int, device) -> torch.Generator:
@@ -143,10 +184,8 @@ def check_run_cfg(cfg, training: bool) -> None:
     if "TPU" not in cfg:
         return
     mesh = cfg.TPU.get("MESH", None)
-    aside = [key for key, value in (("TPU.TRAIN_FRAME_BANK", training and cfg.TPU.get("TRAIN_FRAME_BANK", False)),
-                                    ("TPU.EVAL_FRAME_BANK", cfg.TPU.get("EVAL_FRAME_BANK", False)),
-                                    ("TPU.MESH.DATA", mesh is not None and int(mesh.get("DATA", -1) or -1) > 1)) if value]
-    reasons = ["the port has no frame bank and no device mesh yet, so this run takes the pixel path on one card"] if aside else []
+    aside = ["TPU.MESH.DATA"] if mesh is not None and int(mesh.get("DATA", -1) or -1) > 1 else []
+    reasons = ["the port has no device mesh yet, so this run takes one card"] if aside else []
     if tower_execution(cfg)[1]:  # the JAX package's scan over depth (model.py:282-289) changes how XLA compiles it, not the math
         aside.append("TPU.SCAN_LAYERS")
         reasons.append("eager torch runs the tower's blocks as a loop either way")
@@ -163,30 +202,39 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     the optimizer updates made, whether TRAIN.CHECKPOINT_FILE_PATH gave the
     start weights (``init_weights``: that path or "fresh"; a resumed run says
     "resumed"), the wall seconds of the step loop (data
-    included, model build excluded), the part of them spent validating and
-    checkpointing, and the steps this call ran.  Runs on the card unless
-    ``device`` names the CPU."""
+    included, model and bank builds excluded), the part of them spent
+    validating and checkpointing, the steps this call ran, and, where frame
+    banks served (TPU.TRAIN_FRAME_BANK; TPU.EVAL_FRAME_BANK for the
+    validations), ``frame_banks``: each one's GB and the seconds of its build
+    and upload.  Logs the model_info line under LOG_MODEL_INFO.  Runs on the
+    card unless ``device`` names the CPU."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
     check_run_cfg(cfg, training=True)
     device = runtime.device(device)
     e = int(cfg.TPU.get("EPISODES_PER_STEP", 1))
     model = build_few_shot_model(cfg, flow="train", device=device)
     state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+    if cfg.get("LOG_MODEL_INFO", False):
+        log_model_info(model.head, label=f"{cfg.VIDEO.HEAD.NAME}/{cfg.VIDEO.HEAD.BACKBONE_NAME}", device=device)
     ckpt = Checkpointer(cfg.OUTPUT_DIR)
     start_iter = auto_resume(cfg, ckpt, state) or 0
     init_weights = "resumed" if start_iter else "fresh"
     if start_iter:
         logger.info("auto-resumed at iteration %d", start_iter)
-    elif cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") and load_checkpoint_file(str(cfg.TRAIN.CHECKPOINT_FILE_PATH), model.head):
+    elif cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") and load_checkpoint_file(str(cfg.TRAIN.CHECKPOINT_FILE_PATH), model.head, cfg.VIDEO.HEAD.NAME):
         init_weights = str(cfg.TRAIN.CHECKPOINT_FILE_PATH)
         if state.ema is not None:
             state.ema = {n: p.detach().clone() for n, p in model.head.named_parameters()}
-    train_step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+    train_bank = build_train_frame_bank(cfg, device) if bool(cfg.TPU.get("TRAIN_FRAME_BANK", False)) else None
+    train_wrap = None if train_bank is None else (lambda sampler: TrainIndexEpisodeSampler(sampler, train_bank.table))
+    train_step = make_train_step(model.head, cfg, model.text_train, model.text_test, None if train_bank is None else train_bank.pixels)
 
     num_train_tasks = int(cfg.TRAIN.NUM_TRAIN_TASKS)
     val_every = int(cfg.TRAIN.get("VAL_FRE_ITER", 0) or 0)
     num_val_tasks = int(cfg.TRAIN.get("NUM_VAL_TASKS", 500))
     e_val = int(cfg.TPU.get("EVAL_EPISODES_PER_STEP", 0) or e)
+    # interleaved validation runs on the val split (reference train_net_few_shot.py:78-82); one bank serves them all
+    val_bank = build_eval_frame_bank(cfg, "val", device) if val_every and bool(cfg.TPU.get("EVAL_FRAME_BANK", False)) else None
     log_period = int(cfg.get("LOG_PERIOD", 10))
     window = collections.deque(maxlen=log_period)
     best = {"top1_acc": 0.0}
@@ -208,7 +256,7 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     remaining = max(num_train_tasks - start_iter, 0)
     logger.info("train loop: %d iterations x %d episodes/step on %s", remaining, e, device)
     t0 = time.perf_counter()
-    with build_few_shot_loader(cfg, "train", num_steps=remaining, episodes_per_step=e, start_step=start_iter) as loader:
+    with build_few_shot_loader(cfg, "train", num_steps=remaining, episodes_per_step=e, start_step=start_iter, sampler_wrap=train_wrap) as loader:
         cur_iter = start_iter
         t_last, iters_last = time.perf_counter(), cur_iter
         for batch in loader:
@@ -235,12 +283,12 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
                     fetch()
                 t_val = time.perf_counter()
                 ckpt.save(cur_iter, state)
-                stats = evaluate(cfg, model, num_val_tasks, e_val, split="val", device=device)
+                stats = evaluate(cfg, model, num_val_tasks, e_val, split="val", device=device, bank=val_bank)
                 if stats["top1_acc"] >= best["top1_acc"]:
                     best = stats
                 if state.ema is not None:
                     with _weights(model.head, state.ema_variables()):
-                        evaluate(cfg, model, num_val_tasks, e_val, split="val", device=device)
+                        evaluate(cfg, model, num_val_tasks, e_val, split="val", device=device, bank=val_bank)
                 val_seconds += time.perf_counter() - t_val
                 t_last, iters_last = time.perf_counter(), cur_iter  # keep validation out of the rate window
     if pending:
@@ -250,6 +298,7 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     seconds = time.perf_counter() - t0
     ckpt.save(max(num_train_tasks, 1), state)
     logger.info("training done at iter %d; best interleaved top1=%.3f", num_train_tasks, best["top1_acc"])
+    banks = {name: _bank_info(b) for name, b in (("train", train_bank), ("val", val_bank)) if b is not None}
     return {
         "best_val_top1": best["top1_acc"],
         "final_iter": num_train_tasks,
@@ -259,6 +308,7 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
         "seconds": seconds,
         "val_seconds": val_seconds,
         "steps": len(losses),
+        **({"frame_banks": banks} if banks else {}),
     }
 
 

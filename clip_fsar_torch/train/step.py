@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from clip_fsar_torch.data import augment
+from clip_fsar_torch.data.frame_bank import assemble_train_clips, gather_eval_clips
 from clip_fsar_torch.data.transforms import normalize_images
 from clip_fsar_torch.data.types import Episode
 from clip_fsar_torch.train.state import TrainState
@@ -95,39 +96,64 @@ def make_loss_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
     return loss_fn
 
 
-def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
+def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, bank: Optional[torch.Tensor] = None) -> Callable:
     """grad_fn(batch, generator) -> metrics (0-dim tensors on the batch's
-    device, nothing is read back): augment and
-    normalize the uint8 batch, then forward and backward over the
-    TPU.EPISODE_CHUNKS micro-batches, leaving the gradient of the mean loss
-    over the E episodes in the parameters' ``.grad``.  ``generator`` (a
-    torch.Generator on the batch's device) drives the jitter draws and
-    dropout; None turns both off (normalization only).  With live
+    device, nothing is read back): forward and backward over the
+    TPU.EPISODE_CHUNKS micro-batches, each augmented and normalized from its
+    uint8 clips just before its forward, leaving the gradient of the mean
+    loss over the E episodes in the parameters' ``.grad``.  The random draws
+    of the augmentation are taken for all E episodes first (support clips,
+    then target clips), so they do not depend on the chunking.
+    ``generator`` (a torch.Generator on the batch's device) drives the jitter
+    draws and dropout; None turns both off (normalization only).  With live
     BatchNorm, each BatchNorm's ``step_stats`` is left holding the step's
-    new running (mean, var) [2, C] for ``BatchNorm.commit``."""
+    new running (mean, var) [2, C] for ``BatchNorm.commit``.
+
+    With ``bank`` (the train frame bank, uint8 [V*F, nh, nw, 3] on the
+    device) the batch's images are int32 [E, N, T + 3] bank rows and crops
+    (data/frame_bank.py), and each chunk's clips are assembled from the bank
+    inside the chunk loop: only one chunk's uint8 pixels are alive at a
+    time."""
     live_bn = head.live_batch_norms()
     mean = tuple(float(x) for x in cfg.DATA.MEAN)
     std = tuple(float(x) for x in cfg.DATA.STD)
     ep_chunks = int(cfg.TPU.get("EPISODE_CHUNKS", 1)) if "TPU" in cfg else 1
+    num_frames, crop = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TRAIN_CROP_SIZE)
     loss_fn = make_loss_fn(head, cfg, text_train, text_test)
 
-    def aug(images: torch.Tensor, is_query: bool, generator: Optional[torch.Generator], host) -> torch.Tensor:
+    def clips(images: torch.Tensor) -> torch.Tensor:
+        """A field of the batch as uint8 clips [E, N, T, H, W, 3]."""
+        return images if bank is None else assemble_train_clips(bank, images, num_frames, crop)
+
+    def clip_shape(images: torch.Tensor) -> tuple:
+        """The flattened clips' shape [E*N, T, H, W, 3] of a batch field."""
         e, n = images.shape[:2]
-        out = augment.fewshot_train_augment(images.flatten(0, 1), cfg, mean, std, is_query, generator, host)
+        return (e * n,) + (tuple(images.shape[2:]) if bank is None else (num_frames, crop, crop, 3))
+
+    def aug(images: torch.Tensor, draws: Optional[augment.AugmentDraws], first: int, total: int) -> torch.Tensor:
+        e, n = images.shape[:2]
+        chunk_draws = None if draws is None else draws.take(first, first + e * n)
+        out = augment.apply_train_augment(images.flatten(0, 1), chunk_draws, cfg, mean, std, first, total)
         return out.reshape((e, n) + out.shape[1:])
 
     def grad_fn(batch: Episode, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        host = None if generator is None else augment.host_generator(generator)  # the step's host draws (the jitter's op orders)
-        batch = batch.replace(
-            support_images=aug(batch.support_images, False, generator, host),
-            target_images=aug(batch.target_images, True, generator, host),
-        )
-        e = batch.support_images.shape[0]
+        draws = (None, None)
+        if generator is not None:
+            host = augment.host_generator(generator)  # the step's host draws (the jitter's op orders)
+            device = batch.support_images.device
+            draws = tuple(augment.draw_train_augment(cfg, clip_shape(images), is_query, generator, host, device=device)
+                          for images, is_query in ((batch.support_images, False), (batch.target_images, True)))
+        e, s, q = batch.support_images.shape[0], batch.support_images.shape[1], batch.target_images.shape[1]
         c = ep_chunks if (ep_chunks > 1 and e % ep_chunks == 0) else 1
         head.zero_grad(set_to_none=True)
         chunk_metrics, stats = [], None
         for i in range(c):
-            chunk = batch.map(lambda x, i=i: x[i * (e // c) : (i + 1) * (e // c)])
+            lo, hi = i * (e // c), (i + 1) * (e // c)
+            chunk = batch.map(lambda x: x[lo:hi])
+            chunk = chunk.replace(
+                support_images=aug(clips(chunk.support_images), draws[0], lo * s, e * s),
+                target_images=aug(clips(chunk.target_images), draws[1], lo * q, e * q),
+            )
             for bn in live_bn:
                 bn.step_stats = None  # every chunk's episodes start from the step's running stats
             loss, metrics = loss_fn(chunk, generator)
@@ -140,14 +166,14 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -
             for p in head.parameters():
                 if p.grad is not None:
                     p.grad.div_(c)
-        for bn, s in zip(live_bn, stats or []):
-            bn.step_stats = s / c
+        for bn, st in zip(live_bn, stats or []):
+            bn.step_stats = st / c
         return {k: torch.stack([m[k] for m in chunk_metrics]).mean() for k in chunk_metrics[0]}
 
     return grad_fn
 
 
-def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable:
+def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, bank: Optional[torch.Tensor] = None) -> Callable:
     """train_step(state, batch, lr, generator) -> metrics (0-dim tensors on
     the device: ``loss``, ``ce``, ``top1``, ``updated`` (bool) and
     ``nan_skipped`` (0. or 1.)), updating ``state`` in place:
@@ -157,8 +183,9 @@ def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor
     (on every step, from whatever the parameters then are; it covers the
     parameters only, the running stats are kept as trained).  With live
     BatchNorm the running stats take the step's new values where the loss
-    is finite.  No value is read back to the host."""
-    grad_fn = make_grad_fn(head, cfg, text_train, text_test)
+    is finite.  No value is read back to the host.  With ``bank`` the batch
+    holds train frame bank rows and crops (``make_grad_fn``)."""
+    grad_fn = make_grad_fn(head, cfg, text_train, text_test, bank)
     live_bn = head.live_batch_norms()
     ema_decay = float(cfg.MODEL.EMA.DECAY) if ("MODEL" in cfg and cfg.MODEL.EMA.get("ENABLE", False)) else None
 
@@ -178,7 +205,12 @@ def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor
     return train_step
 
 
-def make_eval_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor) -> Callable[[Episode], Dict[str, torch.Tensor]]:
+def make_eval_step(
+    head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, bank: Optional[torch.Tensor] = None,
+) -> Callable[[Episode], Dict[str, torch.Tensor]]:
+    """eval_step(batch) -> per-episode metrics.  With ``bank`` (the eval frame
+    bank, uint8 [V*F, crop, crop, 3] on the device) the batch's images are
+    int32 [E, N, T] bank rows, gathered on the device (data/frame_bank.py)."""
     mean = tuple(float(x) for x in cfg.DATA.MEAN)
     std = tuple(float(x) for x in cfg.DATA.STD)
 
@@ -187,9 +219,10 @@ def make_eval_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor)
         """Per-episode metrics, each with a leading [E] axis: top-1 / top-5
         correct counts, query count, mean CE, and per-query real labels and
         correctness (for the per-class report), plus the logits."""
+        clips = (lambda rows: rows) if bank is None else (lambda rows: gather_eval_clips(bank, rows))
         batch = batch.replace(
-            support_images=normalize_images(batch.support_images, mean, std),
-            target_images=normalize_images(batch.target_images, mean, std),
+            support_images=normalize_images(clips(batch.support_images), mean, std),
+            target_images=normalize_images(clips(batch.target_images), mean, std),
         )
         logits = head(batch, text_train, text_test, train=False)["logits"]  # [E, Q, WAY]
         labels = batch.target_labels.long()

@@ -8,6 +8,8 @@ Skips without a CUDA device (the kernels have no CPU mode).  On the card:
 Imports no JAX, so it also runs where only torch is installed.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -668,3 +670,39 @@ def test_fa_decomp_kernel_refuses_what_it_does_not_take(cuda):
         fa_decomp.fa_decomp_cuda(torch.zeros(1, 8, 3 * 2 * 64, device=cuda), 2, "softmax")
     with pytest.raises(TypeError):
         fa_decomp.fa_decomp_cuda(torch.zeros(1, 8, 3 * 2 * 64, device=cuda, dtype=torch.float16), 2, "exp")
+
+
+MOLO_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "projects", "MoLo", "hmdb51",
+                           "MoLo_HMDB51_1shot_v1.yaml")
+
+
+@pytest.mark.cuda
+def test_molo_train_steps_are_the_same_bits_on_a_second_run(cuda):
+    """Two MoLo train steps on the card (resnet18 trunk, 4 frames at 112 px, E = 2, an Adam update on each,
+    jitter and dropout on), run twice from one seed: the same loss bits and the same parameters and
+    running stats bit for bit.  The decoder's bilinear upsampling used to go through ``F.interpolate``,
+    whose backward adds into the input gradient with atomics in an order that changes between runs."""
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    cfg = load_config(MOLO_CONFIG, ["VIDEO.HEAD.BACKBONE_NAME", "resnet18", "DATA.DECODER", "synthetic", "DATA.NUM_INPUT_FRAMES", "4",
+                                    "DATA.TRAIN_CROP_SIZE", "112", "DATA.TEST_CROP_SIZE", "112", "DATA.TRAIN_JITTER_SCALES", "[128, 128]",
+                                    "TPU.EPISODES_PER_STEP", "2", "TRAIN.BATCH_SIZE_PER_TASK", "1"])
+    with build_few_shot_loader(cfg, "train", num_steps=2, episodes_per_step=2) as loader:
+        batches = [b.to(cuda) for b in loader]
+
+    def run():
+        model = build_few_shot_model(cfg, flow="train", device=cuda)
+        state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+        step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+        losses = torch.stack([step(state, b, 1e-3, step_generator(cfg, i, cuda))["loss"] for i, b in enumerate(batches)])
+        return losses.cpu(), {k: v.detach().clone() for k, v in model.head.state_dict().items()}
+
+    (a, first), (b, second) = run(), run()
+    assert torch.isfinite(a).all() and torch.equal(a, b), (a.tolist(), b.tolist())
+    assert sorted(k for k in first if not torch.equal(first[k], second[k])) == []

@@ -70,13 +70,13 @@ def test_scan_layers_is_reported_with_the_speed_only_keys(caplog):
         with caplog.at_level(logging.INFO, logger="clip_fsar_torch"):
             for opts, named in ((["VIDEO.HEAD.BACKBONE_NAME", "ViT-L/14@336px"], True), ([], False),
                                 (["VIDEO.HEAD.BACKBONE_NAME", "ViT-L/14", "TPU.VISION_DEPTH", "12"], False),
-                                (["VIDEO.HEAD.BACKBONE_NAME", "ViT-L/14", "TPU.EVAL_FRAME_BANK", "True"], True)):
+                                (["VIDEO.HEAD.BACKBONE_NAME", "ViT-L/14", "TPU.MESH.DATA", "4"], True)):
                 caplog.clear()
                 check_run_cfg(tiny_cfg(*opts), training=True)
                 lines = [r.getMessage() for r in caplog.records if "TPU.SCAN_LAYERS" in r.getMessage()]
                 assert len(lines) == int(named), opts
-                if "TPU.EVAL_FRAME_BANK" in opts:  # one line for every speed-only key
-                    assert "TPU.EVAL_FRAME_BANK" in lines[0] and "pixel path on one card" in lines[0]
+                if "TPU.MESH.DATA" in opts:  # one line for every speed-only key
+                    assert "TPU.MESH.DATA" in lines[0] and "takes one card" in lines[0]
     finally:
         package_logger.removeHandler(caplog.handler)
 

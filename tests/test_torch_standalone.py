@@ -42,7 +42,8 @@ def test_the_import_scan_sees_the_whole_port():
     """The list above is taken at collection: it holds the package's modules, the new ones included."""
     rel = {os.path.relpath(p, REPO) for p in PORT_FILES}
     for must in ("chip_smoke.py", "clip_fsar_torch/config/config.py", "clip_fsar_torch/native/frameops.py",
-                 "clip_fsar_torch/ops/fused_layernorm.py", "clip_fsar_torch/tools/fa_decomp.py", "clip_fsar_torch/runs/run.py"):
+                 "clip_fsar_torch/ops/fused_layernorm.py", "clip_fsar_torch/tools/fa_decomp.py", "clip_fsar_torch/runs/run.py",
+                 "clip_fsar_torch/data/frame_bank.py", "clip_fsar_torch/models/convert_reference.py", "clip_fsar_torch/utils/misc.py"):
         assert must in rel
     assert list(_imports(os.path.join(REPO, "tests", "torch_parity.py")))  # and the scan does find imports: this file has jax
 
@@ -192,3 +193,50 @@ def test_transforms_count_which_resize_they_took(gxx):
     np.testing.assert_array_equal(native, replica)
     assert native.shape == (5, 64, 64, 3)
     assert transforms.RESIZE_CALLS == {"native": before["native"] + 1, "numpy": before["numpy"] + 1}
+
+
+_BANKS_NO_JAX = """
+import sys
+for name in ("clip_fsar_tpu", "jax", "jaxlib", "flax", "optax", "orbax"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import torch
+from clip_fsar_torch.runs.run import main
+from clip_fsar_torch.utils import misc
+out = main(sys.argv[1:])
+train, test = out["train_few_shot"], out["test_few_shot"]
+assert set(train["frame_banks"]) == {"train", "val"} and train["steps"] == 2, train
+assert test["frame_bank"]["gb"] > 0 and test["episodes"] == 4, test
+head = torch.load(test["weights"], weights_only=True)["head"]
+reference = {"model_state": {"module.head." + k: v for k, v in head.items()}}
+torch.save(reference, sys.argv[-1] + "/reference.pyth")
+print("BANKS_OK", misc.params_count(torch.nn.Linear(2, 3)))
+"""
+
+
+def test_banks_and_model_info_run_with_jax_blocked(tmp_path):
+    """The new modules stand alone too: the CLI trains off a train frame bank, validates and tests off eval
+    frame banks (2 grid frames a video), logs the model_info line (utils/misc.py) and writes a
+    reference-format copy of its checkpoint, with clip_fsar_tpu, jax, jaxlib, flax, optax and orbax
+    unimportable; then the test protocol reads that copy through TEST.CHECKPOINT_FILE_PATH
+    (models/convert_reference.py), still without them."""
+    import subprocess
+    import sys
+
+    from torch_parity import TINY_OPTS
+
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    banks = ["TPU.EVAL_FRAME_BANK", "True", "TPU.EVAL_FRAME_BANK_FRAMES", "2", "TPU.TRAIN_FRAME_BANK", "True", "TPU.TRAIN_FRAME_BANK_FRAMES", "2"]
+    train = ["TRAIN.ENABLE", "True", "TRAIN.NUM_TRAIN_TASKS", "2", "TRAIN.BATCH_SIZE_PER_TASK", "2", "TPU.EPISODES_PER_STEP", "2",
+             "TRAIN.VAL_FRE_ITER", "2", "TRAIN.NUM_VAL_TASKS", "2"]
+    out = str(tmp_path / "run")
+    proc = subprocess.run([sys.executable, "-c", _BANKS_NO_JAX, "--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, *train, *banks, "OUTPUT_DIR", out],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "BANKS_OK 9" in proc.stdout and '"_type": "model_info"' in proc.stdout
+    blocked = "import sys\nfor m in ('clip_fsar_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n    sys.modules[m] = None\n" \
+              "from clip_fsar_torch.runs.run import main\nprint('WEIGHTS', main(sys.argv[1:])['test_few_shot']['weights'])"
+    pyth = os.path.join(out, "reference.pyth")
+    proc = subprocess.run([sys.executable, "-c", blocked, "--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TEST.CHECKPOINT_FILE_PATH", pyth,
+                           "OUTPUT_DIR", str(tmp_path / "test")], cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert f"WEIGHTS {pyth}" in proc.stdout

@@ -119,3 +119,30 @@ def test_ema_weights_are_kept_validated_and_checkpointed(tmp_path):
     again = Checkpointer(str(tmp_path)).load()
     for name, e1 in saved["ema"].items():
         torch.testing.assert_close(again["ema"][name], 0.5 * e1 + 0.5 * again["head"][name], atol=1e-6, rtol=1e-6)
+
+
+def test_model_info_line_is_logged_with_the_jax_parameter_count(tmp_path, caplog):
+    """LOG_MODEL_INFO (true in base.yaml, so in every shipped config): train_few_shot logs one
+    ``model_info`` JSON line, labelled head/backbone, whose parameter count is the JAX package's
+    ``params_count`` of its model for the same tiny config; on the CPU the line has no memory entries,
+    as the JAX package's has none where the backend reports no memory stats."""
+    import json
+    import logging
+
+    from clip_fsar_tpu.utils.misc import params_count
+    from clip_fsar_torch.utils.misc import device_mem_usage
+    from tests.torch_parity import jax_tiny_model
+
+    package_logger = logging.getLogger("clip_fsar_torch")  # it does not propagate to the root logger caplog listens on
+    package_logger.addHandler(caplog.handler)
+    cfg = tiny_cfg(*LOOP_OPTS, "TRAIN.NUM_TRAIN_TASKS", "1", "OUTPUT_DIR", str(tmp_path))
+    assert cfg.LOG_MODEL_INFO
+    try:
+        with caplog.at_level(logging.INFO, logger="clip_fsar_torch"):
+            train_few_shot(cfg, device="cpu")
+    finally:
+        package_logger.removeHandler(caplog.handler)
+    lines = [json.loads(r.getMessage().split("json_stats: ", 1)[1]) for r in caplog.records if '"_type": "model_info"' in r.getMessage()]
+    assert len(lines) == 1
+    assert lines[0] == {"_type": "model_info", "label": "CNN_OTAM_CLIPFSAR/ViT-Tiny-Test", "params": params_count(jax_tiny_model()[3].variables["params"])}
+    assert device_mem_usage("cpu") is None

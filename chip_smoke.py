@@ -1,6 +1,6 @@
 """Drive the port's few-shot test and train paths (the CLIP-FSAR head, and the classic HyRSM++ and MoLo
-heads, on pixels and off frame banks), its layer_norm op and its clip_mha stage-ablation tool once on an
-NVIDIA GPU and check them.
+heads, on pixels and off frame banks, with no process group and as data-parallel ranks), its layer_norm op
+and its clip_mha stage-ablation tool once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -154,7 +154,18 @@ and read just after.  Phases:
    episodes/s against phase 8's fused reading, the peak beside both banks;
 21. a reference-framework ``.pyth`` (``model_state``, ``module.head.`` keys)
    written from the fresh ViT-B/16 CLIP-FSAR head and tested through
-   TEST.CHECKPOINT_FILE_PATH: the same logits, bit for bit, as that head.
+   TEST.CHECKPOINT_FILE_PATH: the same logits, bit for bit, as that head;
+22. data parallel, world 1 over NCCL: the ViT-B/16 train slice of phase 8
+   cut to 4 steps (dropout off), validation, the test protocol on 8 episodes,
+   through the CLI with no process group and then as the one rank of an NCCL
+   group: the same loss bits, trained weights, step-4 checkpoint and test
+   logits; the train step with its batch resident timed in the group and
+   without, and the gradient all-reduce of one step alone; K1 / K2 launches;
+23. data parallel, world 2 over gloo on the one card: the same slice as two
+   processes (``chip_smoke.py --dp-worker``), both ranks on card 0, 2 episodes
+   a rank: losses, the first step's gradient, the step-4 weights and the test
+   logits against phase 22's run without a group at the bf16 tolerances, the
+   two ranks' weights bit for bit; each rank under a timeout.
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -1488,14 +1499,16 @@ def _classic_step(name: str, dtype: str, batch, picked) -> dict:
 
 def _resident_steps(name: str, batch, steps: int = 4) -> dict:
     """The slice's bf16 train step with its batch resident on the card (``make_train_step``: augmentation,
-    forward and backward of both chunks, the optimizer's micro-step), timed by ``_resident_train_ms``."""
+    forward and backward of both chunks, the optimizer's micro-step), timed by ``profile_train.resident_step_ms``."""
     from clip_fsar_torch import runtime
     from clip_fsar_torch.models.builder import build_few_shot_model
     from clip_fsar_torch.runs.run import load_config
 
     cfg = load_config(os.path.join(REPO, CLASSIC_CONFIGS[name]), _classic_opts(name))
     model = build_few_shot_model(cfg, flow="train", device=runtime.device("cuda"))
-    out = _resident_train_ms(model, cfg, batch, None, steps)
+    from clip_fsar_torch.tools.profile_train import resident_step_ms
+
+    out = resident_step_ms(model, cfg, batch, steps=steps)
     del model
     torch.cuda.empty_cache()
     return out
@@ -1637,30 +1650,6 @@ def _bank_bits_opts(root: str) -> list:
     return BANK_BITS_OPTS + ["DATA.ANNO_DIR", root, "DATA.DATA_ROOT_DIR", root, "DATA.FRAME_CACHE_DIR", os.path.join(root, "cache")]
 
 
-def _resident_train_ms(model, cfg, batch, bank, steps: int = 4) -> dict:
-    """``make_train_step`` with its batch resident (pixels, or bank rows with ``bank``): after a warm-up step, ``steps``
-    steps timed with CUDA events beside the host's ms to queue them."""
-    from clip_fsar_torch.train.loop import step_generator
-    from clip_fsar_torch.train.optimizer import Optimizer
-    from clip_fsar_torch.train.state import TrainState
-    from clip_fsar_torch.train.step import make_train_step
-
-    dev = batch.support_images.device
-    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
-    step = make_train_step(model.head, cfg, model.text_train, model.text_test, bank)
-    step(state, batch, 1e-6, step_generator(cfg, 0, dev))
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for i in range(steps):
-        step(state, batch, 1e-6, step_generator(cfg, i, dev))
-    host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    end.record()
-    torch.cuda.synchronize()
-    return {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms}
-
-
 def phase_bank_bits(out_dir: str, card_line: str) -> dict:
     """The frame banks against the pixel path, bit for bit, at the ViT-B/16 slices' widths: the test protocol on 8
     episodes through the CLI with and without TPU.EVAL_FRAME_BANK (equal logits and metrics), then 2 train steps (E = 4
@@ -1676,6 +1665,7 @@ def phase_bank_bits(out_dir: str, card_line: str) -> dict:
     from clip_fsar_torch.train.optimizer import Optimizer
     from clip_fsar_torch.train.state import TrainState
     from clip_fsar_torch.train.step import make_train_step
+    from clip_fsar_torch.tools.profile_train import resident_step_ms
 
     root = os.path.join(out_dir, "bank_videos")
     _write_bank_videos(root)
@@ -1725,7 +1715,7 @@ def phase_bank_bits(out_dir: str, card_line: str) -> dict:
     model = build_few_shot_model(cfg, flow="train", device=dev)
     timed = {}
     for mode in ("pixel", "bank", "bank", "pixel"):
-        got = _resident_train_ms(model, cfg, batches[mode][0], bank.pixels if mode == "bank" else None)
+        got = resident_step_ms(model, cfg, batches[mode][0], bank.pixels if mode == "bank" else None)
         timed.setdefault(mode, []).append(got)
     del model
     torch.cuda.empty_cache()
@@ -1902,6 +1892,207 @@ def phase_reference_checkpoint(out_dir: str) -> dict:
     return {"launches": launches}
 
 
+# the data-parallel phases: the ViT-B/16 train slice of phase 8 (E = 4 episodes a step in 2 chunks, the fused path)
+# cut to 4 steps (one Adam update), validation at step 4 on 4 episodes, the test protocol on 8 episodes of the step-4
+# checkpoint; dropout off in every run (each rank draws its own masks, as each chunk does)
+DP_STEPS, DP_TEST_EPISODES = 4, 8
+DP_OPTS = TRAIN_OPTS + ["TRAIN.NUM_TRAIN_TASKS", str(DP_STEPS), "TRAIN.VAL_FRE_ITER", str(DP_STEPS), "TRAIN.NUM_TEST_TASKS", str(DP_TEST_EPISODES)]
+DP_PICKED = ("backbone.transformer.resblocks.0.attn.in_proj_weight", f"backbone.transformer.resblocks.{LAYERS - 1}.attn.in_proj_weight")
+DP_TIMEOUT_S = 600  # each rank of the world-2 phase, and its process group's collectives
+# per rank and run: every chunk of every step, then one validation step and the test's steps, at E / world episodes
+DP_LAUNCHES = {"clip_mha_fwd": LAYERS * (DP_STEPS * CHUNKS + 1 + DP_TEST_EPISODES // 4), "clip_mha_bwd": LAYERS * DP_STEPS * CHUNKS}
+
+
+def _dp_run(out_dir: str) -> dict:
+    """The data-parallel phases' slice through the CLI in this process, under its process group if it is in one,
+    with dropout off: losses, the test's stats and logits, the gradient the optimizer saw at the first step (picked:
+    the first and last block's in-projection, the head's context transformer), a digest of the trained head's
+    weights, its step-4 checkpoint's path, K1 / K2 launches counted from 0 and the loop's step seconds."""
+    import hashlib
+
+    from clip_fsar_torch.models.heads import common
+    from clip_fsar_torch.runs.run import main
+    from clip_fsar_torch.train import loop
+    from clip_fsar_torch.train.optimizer import Optimizer
+
+    built, grads = [], {}
+    build, opt_step, dropout = loop.build_few_shot_model, Optimizer.step, common.dropout
+
+    def capture_build(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    def capture_step(self, lr, ok=None):
+        if not grads:
+            named = dict(built[0].head.named_parameters())
+            grads.update({n: named[n].grad.float().cpu() for n in DP_PICKED})
+            grads["context2"] = torch.cat([p.grad.float().flatten() for n, p in named.items() if n.startswith("context2.")]).cpu()
+        return opt_step(self, lr, ok)
+
+    loop.build_few_shot_model, Optimizer.step, common.dropout = capture_build, capture_step, (lambda x, rate, generator: x)
+    try:
+        _reset_launches()
+        results = main(["--cfg", CONFIG, *DP_OPTS, "OUTPUT_DIR", out_dir])
+        torch.cuda.synchronize()
+        launches = _launches()
+    finally:
+        loop.build_few_shot_model, Optimizer.step, common.dropout = build, opt_step, dropout
+    train, test = results["train_few_shot"], results["test_few_shot"]
+    digest = hashlib.sha256()
+    for v in built[0].head.state_dict().values():
+        digest.update(v.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return {"losses": train["losses"], "updates": train["updates"], "step_seconds": train["seconds"] - train["val_seconds"],
+            "logits": test["episode_logits"], "episodes": test["episodes"], "top1_acc": test["top1_acc"], "weights": test["weights"],
+            "grads": grads, "digest": digest.hexdigest(), "checkpoint": os.path.join(out_dir, "checkpoints", f"{DP_STEPS}.pt"),
+            "launches": {name: launches[name] for name in DP_LAUNCHES}}
+
+
+def _check_dp_run(what: str, run: dict) -> None:
+    """A data-parallel phase's run: finite losses of every step, the update, the step-4 checkpoint tested, the test's
+    episodes, K1 / K2 launched on every chunk, validation and test step of this process's episodes."""
+    if len(run["losses"]) != DP_STEPS or not all(np.isfinite(run["losses"])) or run["updates"] != DP_STEPS // ACCUM:
+        raise AssertionError(f"{what}: expected {DP_STEPS} finite losses and {DP_STEPS // ACCUM} update, got {run['losses']}, {run['updates']}")
+    if run["weights"] != run["checkpoint"]:
+        raise AssertionError(f"{what}: the test protocol tested {run['weights']}, not {run['checkpoint']}")
+    _check_test_stats({"episode_logits": run["logits"], "episodes": run["episodes"]}, DP_TEST_EPISODES)
+    if run["launches"] != DP_LAUNCHES:
+        raise AssertionError(f"{what}: launched {run['launches']}, expected {DP_LAUNCHES} per rank")
+
+
+def _nccl_world1(store: str) -> None:
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S),
+                            device_id=torch.device("cuda", 0))
+
+
+def phase_dp_world1(out_dir: str, card_line: str) -> dict:
+    """World 1 over NCCL: the slice through the CLI without a process group and then as the one rank of an NCCL group
+    (gradient, metric and running-stat all-reduces, the eval gathers, rank-0 checkpoints and their barriers all run):
+    the same loss bits, the same trained weights and step-4 checkpoint bit for bit, the same test logits.  Then the
+    train step with its batch resident, timed without the group and in it, and the gradient all-reduce of one step alone."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.parallel import mesh
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.tools.profile_train import resident_step_ms
+
+    alone = _dp_run(os.path.join(out_dir, "alone"))
+    _check_dp_run("the slice without a process group", alone)
+    dev = runtime.device("cuda")
+    cfg = load_config(CONFIG, DP_OPTS)
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=EPISODES) as loader:
+        batch = next(iter(loader)).to(dev)
+    timed = {"alone": resident_step_ms(model, cfg, batch)}
+    _nccl_world1(os.path.join(out_dir, "nccl_store"))
+    try:
+        timed["nccl"] = resident_step_ms(model, cfg, batch)
+        del model, batch
+        torch.cuda.empty_cache()
+        grouped = _dp_run(os.path.join(out_dir, "nccl"))
+    finally:
+        mesh.destroy()
+    _check_dp_run("the slice as the one rank of an NCCL group", grouped)
+    want, got = torch.load(alone["checkpoint"], weights_only=True)["head"], torch.load(grouped["checkpoint"], weights_only=True)["head"]
+    same = {"losses": grouped["losses"] == alone["losses"], "weights": grouped["digest"] == alone["digest"],
+            "checkpoint": all(torch.equal(got[k], v) for k, v in want.items()), "logits": np.array_equal(grouped["logits"], alone["logits"])}
+    a, g = timed["alone"], timed["nccl"]
+    print(f"data parallel, world 1 over NCCL on {card_line}: the same bits as without a process group: {same}; losses {grouped['losses']}; "
+          f"resident train step {g['step_ms']:.3f} ms in the group (host {g['host_ms']:.3f} ms) against {a['step_ms']:.3f} ms without "
+          f"(host {a['host_ms']:.3f} ms); the gradient all-reduce alone {g['all_reduce_ms']:.3f} ms a step for {g['all_reduce_mb']:.1f} MB; "
+          f"the CLI's loop {DP_STEPS * EPISODES / grouped['step_seconds']:.4f} train episodes/s in the group, "
+          f"{DP_STEPS * EPISODES / alone['step_seconds']:.4f} without; launches {grouped['launches']}")
+    if not all(same.values()):
+        raise AssertionError(f"world 1 over NCCL differs from the run without a process group: {same}")
+    return {"alone": alone, "launches": grouped["launches"], "step_ms": g["step_ms"], "alone_step_ms": a["step_ms"], "all_reduce_ms": g["all_reduce_ms"]}
+
+
+def dp_worker(rank: int, store: str, out_dir: str) -> None:
+    """One rank of the world-2 phase: joins a two-rank gloo group on card 0 and runs ``_dp_run`` in ``out_dir`` (the
+    ranks share it: rank 0 writes the checkpoints both test), then saves what it saw to ``out_dir/rank<r>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from clip_fsar_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        run = _dp_run(out_dir)
+    finally:
+        mesh.destroy()
+    torch.save(run, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def phase_dp_world2(out_dir: str, card_line: str, world1: dict) -> dict:
+    """World 2 over gloo on the one card: two processes, both ranks on card 0 (NCCL refuses two ranks on one card;
+    gloo reduces and gathers CUDA tensors through the host), the same slice at the same global E = 4 (2 episodes a
+    rank, in 2 chunks of 1) and eval E = 4.  Against world 1 without a group: losses at 2e-2 (the bf16 reduction-order
+    tolerance of tests/test_multihost.py:141), the first step's gradient at GRAD_REL_TOL by norm and the step-4
+    weights at atol = rtol 2e-2 (PERF.md section 2's train tolerances), the test's episode count exact and its logits at
+    2e-2; the two ranks' weights bit-identical.  Each rank has DP_TIMEOUT_S; one that fails fails the phase."""
+    import subprocess
+    import sys
+
+    run_dir = os.path.join(out_dir, "gloo")
+    os.makedirs(run_dir)
+    env = {k: v for k, v in os.environ.items() if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    logs = [open(os.path.join(out_dir, f"gloo_rank{r}.log"), "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", str(r), os.path.join(out_dir, "gloo_store"), run_dir],
+                              cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        while any(p.poll() is None for p in procs) and time.perf_counter() - t0 < DP_TIMEOUT_S:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # a rank failed: its peer would wait for it until the group's timeout
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out_dir, f"gloo_rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"world 2 over gloo: rank {r} exited with {p.returncode} after {wall:.0f} s:\n{tail}")
+    ranks = [torch.load(os.path.join(run_dir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    for r, run in enumerate(ranks):
+        _check_dp_run(f"world 2 over gloo, rank {r}", run)
+    one = world1["alone"]
+    got, want = torch.load(ranks[0]["checkpoint"], weights_only=True)["head"], torch.load(one["checkpoint"], weights_only=True)["head"]
+    weight_err = max((got[k].float() - v.float()).abs().max().item() for k, v in want.items())
+    loss_err = max(abs(a - b) for a, b in zip(ranks[0]["losses"], one["losses"]))
+    logit_err = float(np.abs(ranks[0]["logits"] - one["logits"]).max())
+    grad_rel = {n: ((ranks[0]["grads"][n] - g).norm() / g.norm()).item() for n, g in one["grads"].items()}
+    print(f"data parallel, world 2 over gloo on one card ({card_line}): ranks bit-identical: {ranks[0]['digest'] == ranks[1]['digest']}; "
+          f"losses {ranks[0]['losses']} against world 1's {one['losses']} (max diff {loss_err:.3e}, tol 2e-2); first step's gradient "
+          f"by norm {', '.join(f'{n} {e:.3e}' for n, e in grad_rel.items())} (tol {GRAD_REL_TOL}); step-4 weights max diff {weight_err:.3e} "
+          f"(tol 2e-2); test logits max diff {logit_err:.3e} (tol 2e-2), {ranks[0]['episodes']} episodes; the ranks' loops "
+          f"{DP_STEPS * EPISODES / max(r['step_seconds'] for r in ranks):.4f} train episodes/s; {wall:.1f} s with the processes' start; "
+          f"launches per rank {ranks[0]['launches']}")
+    if ranks[0]["digest"] != ranks[1]["digest"] or ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("world 2 over gloo: the two ranks hold different weights")
+    torch.testing.assert_close(torch.tensor(ranks[0]["losses"]), torch.tensor(one["losses"]), atol=2e-2, rtol=2e-2)
+    for n, e in grad_rel.items():
+        if not e <= GRAD_REL_TOL:
+            raise AssertionError(f"world 2 over gloo: the first step's gradient of {n} differs from world 1's by {e:.3e} (norm-relative)")
+    for k, v in want.items():
+        torch.testing.assert_close(got[k].float(), v.float(), atol=2e-2, rtol=2e-2, msg=lambda m, k=k: f"world 2 weights {k}: {m}")
+    if ranks[0]["episodes"] != one["episodes"]:
+        raise AssertionError(f"world 2 tested {ranks[0]['episodes']} episodes, world 1 {one['episodes']}")
+    torch.testing.assert_close(torch.from_numpy(ranks[0]["logits"]), torch.from_numpy(one["logits"]), atol=2e-2, rtol=2e-2)
+    return {"launches": {name: sum(r["launches"][name] for r in ranks) for name in DP_LAUNCHES}, "seconds": wall}
+
+
 def _repeat_classic_steps(name: str, batch) -> None:
     """Two train steps of the classic slice's fresh model, run twice from one seed: the same loss bits and the same
     parameters and running stats (F5: MoLo's decoder upsampling once added its gradient with atomics)."""
@@ -1932,6 +2123,11 @@ def _repeat_classic_steps(name: str, batch) -> None:
 
 
 def main() -> None:
+    import sys
+
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of the world-2 phase, started by phase_dp_world2
+        dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     smi = phase_device()
     build_seconds = phase_build()
     timings = {"clip_mha_fwd": phase_fwd_vs_plain(), "clip_mha_bwd": phase_bwd_vs_plain(), "flash_mha_fwd": phase_flash_fwd_vs_plain()}
@@ -1959,6 +2155,12 @@ def main() -> None:
         eval_bank = phase_eval_bank_full(smi)
         train_bank = phase_train_bank_full(os.path.join(out_dir, "train_bank"), smi, train["fused"])
         reference = phase_reference_checkpoint(out_dir)
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        torch.cuda.empty_cache()
+        dp1 = phase_dp_world1(out_dir, smi)
+        torch.cuda.empty_cache()
+        dp2 = phase_dp_world2(out_dir, smi, dp1)
+    dp_launches = {name: {"nccl_world1": dp1["launches"].get(name, 0), "gloo_world2": dp2["launches"].get(name, 0)} for name in _launches()}
     # each kernel's launches in the bank phases' bank runs, counted from 0 in each
     bank_runs = [bank_bits["launches"]["eval_bank"], bank_bits["launches"]["train_bank"], train_bank["launches"],
                  {"clip_mha_fwd": eval_bank["vit"]["k1_launches"]}]
@@ -1978,7 +2180,9 @@ def main() -> None:
                       f"{min(r['episodes_per_s']['bank']):.3f}-{max(r['episodes_per_s']['bank']):.3f} bank, idle {100 * r['idle']['pixel']:.1f} / "
                       f"{100 * r['idle']['bank']:.1f} %, peak {r['peak_gib']['bank']:.3f} GiB" for what, r in (("ViT-B/16", eval_bank["vit"]), ("HyRSM++", eval_bank["hyrsm"])))
           + f"; train bank slice {train_bank['episodes_per_s']:.4f} train episodes/s (pixel {train['fused']['episodes_per_s']:.4f}), "
-          f"peak {train_bank['peak_gib']:.3f} GiB")
+          f"peak {train_bank['peak_gib']:.3f} GiB"
+          + f"; data parallel: the resident train step {dp1['step_ms']:.1f} ms as one NCCL rank against {dp1['alone_step_ms']:.1f} ms "
+          f"without a group, its gradient all-reduce {dp1['all_reduce_ms']:.3f} ms; two gloo ranks on the card {dp2['seconds']:.1f} s")
     kernels = [
         ("clip_mha_fwd", "fused", "clip_fsar_torch/csrc/clip_mha_fwd.cu", "clip_fsar_tpu/ops/fused_attention.py:71"),
         ("clip_mha_bwd", "fused", "clip_fsar_torch/csrc/clip_mha_bwd.cu", "clip_fsar_tpu/ops/fused_attention.py:97"),
@@ -2000,7 +2204,7 @@ def main() -> None:
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "rn50_launches": train["rn50"]["launches"][name] + rn_test["launches"][name],
                         "vit_l336_launches": train["vit_l336"]["launches"][name],
                         "classic_launches": {slice_name: t["launches"][name] for slice_name, t in classic.items()},
-                        "bank_launches": bank_launches[name], "pyth_launches": reference["launches"][name],
+                        "bank_launches": bank_launches[name], "pyth_launches": reference["launches"][name], "dp_launches": dp_launches[name],
                         **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t},
                         **({"at_vit_l336_chunk": l336_kernels[name]} if name in l336_kernels else {})})
         if not records[-1]["launches"] > 0:

@@ -13,7 +13,7 @@ keeps [E, ...] uint8 batches ready in step order.
 from __future__ import annotations
 
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -110,12 +110,21 @@ class EpisodeLoader:
     stream is the same for any worker count.  Errors in a worker are
     re-raised by the iterator.  Steps are the global indices
     [start_step, start_step + num_steps): a resumed run continues the
-    (seed, step) episode stream instead of replaying it."""
+    (seed, step) episode stream instead of replaying it.  With
+    ``episode_range`` (lo, hi) each batch holds slots [lo, hi) of the step's
+    ``episodes_per_step``: the same episodes a loader of the whole batch puts
+    at those rows (each slot is seeded by (seed, step, slot)), so the ranks of
+    a data-parallel run sample only their own slots; (0, 0) gives [0, ...]
+    batches."""
 
     def __init__(
-        self, sampler_factory, episodes_per_step: int, num_steps: int, num_workers: int = 4, prefetch: int = 2, start_step: int = 0
+        self, sampler_factory, episodes_per_step: int, num_steps: int, num_workers: int = 4, prefetch: int = 2, start_step: int = 0,
+        episode_range: Optional[Tuple[int, int]] = None,
     ):
         self.episodes_per_step = episodes_per_step
+        self.episode_range = (0, episodes_per_step) if episode_range is None else (int(episode_range[0]), int(episode_range[1]))
+        self._start_step = int(start_step)
+        self._empty: Optional[Episode] = None
         self.num_steps = int(start_step) + int(num_steps)
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
@@ -128,6 +137,14 @@ class EpisodeLoader:
         self._threads = [threading.Thread(target=self._worker, args=(s,), daemon=True) for s in self._samplers]
         for th in self._threads:
             th.start()
+
+    def _empty_batch(self, sampler: EpisodeSampler) -> Episode:
+        """A [0, ...] batch with the trailing shapes and dtypes of a step's,
+        cut from one episode sampled once (slot 0 of the first step)."""
+        if self._empty is None:
+            sampler.reseed_for_slot(self._start_step, 0)
+            self._empty = stack_episodes([sampler.sample_episode()]).map(lambda x: x[:0])
+        return self._empty
 
     def _claim(self) -> Optional[int]:
         with self._cond:
@@ -145,11 +162,12 @@ class EpisodeLoader:
         try:
             while (step := self._claim()) is not None:
                 eps = []
-                for slot in range(self.episodes_per_step):
+                for slot in range(*self.episode_range):
                     sampler.reseed_for_slot(step, slot)
                     eps.append(sampler.sample_episode())
+                batch = stack_episodes(eps) if eps else self._empty_batch(sampler)
                 with self._cond:
-                    self._buffer[step] = stack_episodes(eps)
+                    self._buffer[step] = batch
                     self._cond.notify_all()
         except BaseException as e:  # noqa: BLE001 — re-raised in __iter__
             with self._cond:

@@ -32,7 +32,11 @@ quantizes frame indices that the pixel path would not: the build warns.
 The bank is allocated on the run's device at once, so a bank that does not
 fit fails there with torch's out-of-memory error; the build warns first when
 the bank alone is more than half of the card.  The host fills it in slices
-of videos, so it never holds the whole bank.  Gathers and crops are torch
+of videos, so it never holds the whole bank.  Under a process group every
+rank holds a copy on its own card (the JAX package replicates the bank over
+its mesh, frame_bank.py:302-345): each rank allocates its copy, the host's
+first rank decodes the split and fills its own, and sends it and the table
+to the host's other ranks.  Gathers and crops are torch
 indexing: the JAX package's bank has no Pallas kernel either
 (frame_bank.py:285-291, 376-389).
 """
@@ -52,6 +56,7 @@ from clip_fsar_torch.data.decode import CachedVideoDecoder
 from clip_fsar_torch.data.episodes import EpisodeSampler
 from clip_fsar_torch.data.sampling import sample_indices_for_cfg
 from clip_fsar_torch.data.transforms import _stretch_dims, fewshot_test_transform, fewshot_train_stretch
+from clip_fsar_torch.parallel import mesh
 from clip_fsar_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -159,7 +164,30 @@ def _build_bank(cfg, split: str, bank_frames: int, out_hw, transform: Callable, 
                 "TPU.TRAIN_FRAME_BANK_FRAMES / TPU.EVAL_FRAME_BANK_FRAMES.", nbytes / 1e9, total / 1e9,
             )
     # allocated whole: a bank that does not fit fails here, before the build's host work
-    bank = torch.empty((v * bank_frames, out_h, out_w, 3), dtype=torch.uint8, device=device)
+    shape = (v * bank_frames, out_h, out_w, 3)
+    bank = mesh.retry_transient(lambda: torch.empty(shape, dtype=torch.uint8, device=device), f"{label} allocation")
+    if mesh.host_leader():
+        table, build_seconds, upload_seconds = _fill(cfg, bank, decoder, paths, bank_frames, transform)
+    else:
+        table, build_seconds, upload_seconds = None, 0.0, 0.0
+    if mesh.distributed():  # decoded once per host, sent to the host's other ranks
+        t0 = time.perf_counter()
+        table = mesh.broadcast_from_host_leader(bank, table)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        upload_seconds += time.perf_counter() - t0
+    logger.info("frame bank built (%s): %d videos x %d grid frames x %dx%dpx = %.2f GB uint8 in %.1f s of host work",
+                label, v, bank_frames, out_h, out_w, nbytes / 1e9, build_seconds)
+    logger.info("frame bank on %s: %.2f GB in %.1f s", device, nbytes / 1e9, upload_seconds)
+    return FrameBank(pixels=bank, table=table, build_seconds=build_seconds, upload_seconds=upload_seconds)
+
+
+def _fill(cfg, bank: torch.Tensor, decoder, paths: list, bank_frames: int, transform: Callable) -> Tuple[FrameBankTable, float, float]:
+    """Decode and transform every video of ``paths`` into its rows of ``bank``
+    in slices of SLICE_VIDEOS; returns the table and the seconds of host work
+    and of copying to the device."""
+    v, out_h, out_w = len(paths), bank.shape[1], bank.shape[2]
+    device = bank.device
     orig_idx = np.zeros((v, bank_frames), np.int64)
     nframes = np.zeros(v, np.int32)
     length = np.zeros(v, np.int64)
@@ -192,13 +220,9 @@ def _build_bank(cfg, split: str, bank_frames: int, out_hw, transform: Callable, 
             upload_seconds += time.perf_counter() - t1
             if (lo // SLICE_VIDEOS + 1) % 8 == 0:
                 logger.info("frame bank: %d/%d videos", min(lo + SLICE_VIDEOS, v), v)
-
-    logger.info("frame bank built (%s): %d videos x %d grid frames x %dx%dpx = %.2f GB uint8 in %.1f s of host work",
-                label, v, bank_frames, out_h, out_w, nbytes / 1e9, build_seconds)
-    logger.info("frame bank on %s: %.2f GB in %.1f s", device, nbytes / 1e9, upload_seconds)
     table = FrameBankTable(orig_idx=orig_idx, nframes=nframes, length=length, fps=fps,
                            row_of_path={p: i for i, p in enumerate(paths)}, frames_per_video=bank_frames)
-    return FrameBank(pixels=bank, table=table, build_seconds=build_seconds, upload_seconds=upload_seconds)
+    return table, build_seconds, upload_seconds
 
 
 def _snap_rows(table: FrameBankTable, row: int, indices) -> np.ndarray:

@@ -4,6 +4,17 @@
 
 Runs on the CUDA card and fails without one; ``--device cpu`` (before the
 overrides) asks for the CPU, where the kernels' plain versions run.
+
+Data parallel over N cards of a host (or N CPU processes with ``--device
+cpu``), one process per card, through torchrun:
+
+    torchrun --nproc_per_node=N -m clip_fsar_torch.runs.run --cfg ... [--device cpu] [KEY.SUB value ...]
+
+The ranks join one process group before the runners (NCCL on cards, gloo on
+the CPU; parallel/mesh.py) and leave it after them.  TPU.EPISODES_PER_STEP,
+TPU.EVAL_EPISODES_PER_STEP and TEST.BATCH_SIZE are global episode counts,
+each rank runs its slice of every step, and the results are those of one
+process running them all.
 Dispatches on TASK_TYPE and queues the runs in the JAX package's order.
 The few-shot runners are ported (``TRAIN.ENABLE True`` trains, then tests
 the last checkpoint); every other runner raises NotImplementedError before
@@ -17,6 +28,7 @@ from typing import Any, Dict, List, Optional
 
 from clip_fsar_torch import runtime
 from clip_fsar_torch.config.config import load_config, parse_args
+from clip_fsar_torch.parallel import mesh
 from clip_fsar_torch.train.loop import test_few_shot, train_few_shot
 from clip_fsar_torch.utils.logging import get_logger, setup_logging
 
@@ -66,22 +78,27 @@ def _run_list(cfg) -> List[tuple]:
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Run the queued runners; returns each runner's result by name."""
     args = parse_args(argv)
-    device = runtime.device(args.device)  # no card and no --device cpu: raises here, before any work
+    runtime.device(args.device)  # no card and no --device cpu: raises here, before any work
     cfg = load_config(args.cfg_file, args.opts)
-    setup_logging(cfg.get("OUTPUT_DIR", None))
-    logger.info("TASK_TYPE=%s OUTPUT_DIR=%s", cfg.get("TASK_TYPE"), cfg.get("OUTPUT_DIR"))
-    if cfg.get("LOG_CONFIG_INFO", True) and cfg.get("OUTPUT_DIR", None):
-        cfg.dump(os.path.join(cfg.OUTPUT_DIR, str(cfg.get("OUTPUT_CFG_FILE", "configuration.log"))))
-
     runs = _run_list(cfg)
     for _, name in runs:  # refuse before any work starts, never skip silently
         if name in _NOT_PORTED:
             raise NotImplementedError(f"runner {name!r} is not ported yet: {_NOT_PORTED[name]}")
-    results = {}
-    for run_cfg, name in runs:
-        logger.info("=== run: %s ===", name)
-        results[name] = _RUNNERS[name](run_cfg, device=device)
-    return results
+    joined = mesh.maybe_init_distributed(cfg, mesh.backend_for(args.device))
+    try:
+        device = runtime.device(args.device)  # under a process group: this rank's card
+        setup_logging(cfg.get("OUTPUT_DIR", None))
+        logger.info("TASK_TYPE=%s OUTPUT_DIR=%s", cfg.get("TASK_TYPE"), cfg.get("OUTPUT_DIR"))
+        if cfg.get("LOG_CONFIG_INFO", True) and cfg.get("OUTPUT_DIR", None) and mesh.rank() == 0:
+            cfg.dump(os.path.join(cfg.OUTPUT_DIR, str(cfg.get("OUTPUT_CFG_FILE", "configuration.log"))))
+        results = {}
+        for run_cfg, name in runs:
+            logger.info("=== run: %s ===", name)
+            results[name] = _RUNNERS[name](run_cfg, device=device)
+        return results
+    finally:
+        if joined:
+            mesh.destroy()
 
 
 if __name__ == "__main__":

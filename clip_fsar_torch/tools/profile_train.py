@@ -25,6 +25,11 @@ with the tag of its reading set:
   kernel / backward kernels (``clip_mha_bwd``, or ``flash_mha_bwd_dq``, which
   in bf16 forms delta itself, and ``flash_mha_bwd_dkv``) / GEMM / softmax /
   memcpy / other, the wall time, and the busy share of the wall;
+- ``dp[<path> #i]``: the cost of data parallelism to a step, on one card: the
+  step with its batch resident (CUDA events) without a process group and
+  then as the one rank of an NCCL process group, and under the group the
+  gradient all-reduce of one step alone (``parallel.mesh.all_reduce_grads``:
+  its flat buckets, CUDA events); more than one card is not measured here;
 - ``loop[<path> #i]``: ``train_few_shot`` over 6 steps (no validation), first
   as it runs for a user (wall seconds of the step loop and train episodes/s),
   then under the profiler: wall seconds, device busy time (the union of
@@ -35,7 +40,7 @@ with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
 kernels), run in the order fused, split, pallas, fused, split, pallas;
 ``--paths`` picks some of them and ``--loop-steps`` the loops' length.
 ``--sections`` picks the reading sets: ``loader``, ``step`` (with
-``kernels``) and ``loop``.  ``--backbone`` sets the tower (default
+``kernels``), ``dp`` and ``loop``.  ``--backbone`` sets the tower (default
 ViT-B/16); ``ViT-L/14@336px`` runs the ViT-L/14@336px 16-frame configuration
 (``profile_eval.VIT_L336_OPTS``: the tower rematerialized in 4 frame chunks)
 with E = 2 episodes (960 frames of 336 px) in 2 chunks; an RN tower reads the
@@ -93,7 +98,7 @@ TRAIN_OPTS = [
     "LOG_PERIOD", "100",
 ]
 STEPS = 4  # steps per timing
-SECTIONS = ("loader", "step", "loop")  # the reading sets, in the order they are taken
+SECTIONS = ("loader", "step", "dp", "loop")  # the reading sets, in the order they are taken
 
 
 def train_cfg(*extra: str, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None):
@@ -182,6 +187,73 @@ def profile_step(path: str, reading: int, steps: int = STEPS, backbone: Optional
     torch.cuda.empty_cache()
 
 
+def resident_step_ms(model, cfg, batch, bank=None, steps: int = STEPS) -> dict:
+    """``make_train_step`` with its batch resident (pixels, or train bank rows with ``bank``), under the caller's
+    process group if there is one: CUDA-event ms a step over ``steps`` steps after a warm-up step, and the host's
+    ms to queue one; under a group also the gradient all-reduce of one step alone (``all_reduce_grads`` on the
+    gradients a step leaves, CUDA events over ``steps`` repeats) and the megabytes it reduces."""
+    from clip_fsar_torch.parallel import mesh
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_grad_fn, make_train_step
+
+    dev = batch.support_images.device
+    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+    step = make_train_step(model.head, cfg, model.text_train, model.text_test, bank)
+    step(state, batch, 1e-6, step_generator(cfg, 0, dev))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(state, batch, 1e-6, step_generator(cfg, i, dev))
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    end.record()
+    torch.cuda.synchronize()
+    out = {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms}
+    if mesh.distributed():
+        make_grad_fn(model.head, cfg, model.text_train, model.text_test, bank)(batch, step_generator(cfg, 0, dev))
+        grads = [p.grad for p in model.head.parameters() if p.grad is not None]
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(steps):
+            mesh.all_reduce_grads(model.head.parameters())
+        end.record()
+        torch.cuda.synchronize()
+        out.update(all_reduce_ms=start.elapsed_time(end) / steps, all_reduce_mb=sum(g.numel() * g.element_size() for g in grads) / 1e6)
+        model.head.zero_grad(set_to_none=True)
+    return out
+
+
+def profile_dp(path: str, reading: int, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None) -> None:
+    import torch.distributed as dist
+
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    cfg = train_cfg(*PATHS[path], backbone=backbone, cfg_path=cfg_path)
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=int(cfg.TPU.EPISODES_PER_STEP)) as loader:
+        batch = next(iter(loader)).to(dev)
+    alone = resident_step_ms(model, cfg, batch)
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store, "store"), 1), rank=0, world_size=1,
+                                timeout=mesh.TIMEOUT, device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            grouped = resident_step_ms(model, cfg, batch)
+        finally:
+            mesh.destroy()
+    say(f"dp[{path} #{reading}]: batch resident, ms per train step over {STEPS} steps: {alone['step_ms']:.3f} without a process group "
+        f"(host {alone['host_ms']:.3f}), {grouped['step_ms']:.3f} as the one rank of an NCCL group (host {grouped['host_ms']:.3f}); "
+        f"the gradient all-reduce alone {grouped['all_reduce_ms']:.3f} ms for {grouped['all_reduce_mb']:.1f} MB "
+        f"(buckets of at most {mesh.BUCKET_BYTES >> 20} MiB)")
+    del model, batch
+    torch.cuda.empty_cache()
+
+
 def profile_loop(path: str, reading: int, steps: int = 6, backbone: Optional[str] = "ViT-B/16", cfg_path: Optional[str] = None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,6 +310,8 @@ def main(argv=None) -> None:
         for path in paths:
             if "step" in sections:
                 profile_step(path, reading, backbone=backbone, cfg_path=args.cfg)
+            if "dp" in sections:
+                profile_dp(path, reading, backbone=backbone, cfg_path=args.cfg)
             if "loop" in sections:
                 profile_loop(path, reading, args.loop_steps, backbone=backbone, cfg_path=args.cfg)
 

@@ -5,7 +5,8 @@ clip_fsar_tpu/train/pretrain.py:247-301).
 ``Checkpointer(OUTPUT_DIR)`` writes ``OUTPUT_DIR/checkpoints/<step>.pt``
 (``torch.save`` of the step, the head's state dict with an RN tower's
 BatchNorm running stats, the optimizer with its accumulation window, and the
-EMA parameters), atomically, keeping the newest five.  A head checkpoint file (``save_checkpoint``) holds the head's state
+EMA parameters), atomically, keeping the newest five; under a process group
+rank 0 writes and every rank waits for the file.  A head checkpoint file (``save_checkpoint``) holds the head's state
 dict alone.  Loading a checkpoint FILE (TEST/TRAIN.CHECKPOINT_FILE_PATH) is
 non-strict as in the JAX package: entries whose name and shape match the head
 are taken, the rest are skipped with a log line.
@@ -38,6 +39,7 @@ from torch import nn
 from clip_fsar_torch.models.clip.convert import params_from_jax
 from clip_fsar_torch.models.convert_reference import is_reference_checkpoint, reference_head_state
 from clip_fsar_torch.models.heads.clipfsar import CLIPFSARHead
+from clip_fsar_torch.parallel import mesh
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.utils.logging import get_logger
 
@@ -54,7 +56,11 @@ def _atomic_save(obj, path: str) -> None:
 
 
 def save_checkpoint(path: str, head: nn.Module) -> None:
-    _atomic_save({"head": head.state_dict()}, path)
+    """The head's state dict to ``path``, written by rank 0 (every rank holds
+    the same weights); every rank returns once the file is whole."""
+    if mesh.rank() == 0:
+        _atomic_save({"head": head.state_dict()}, path)
+    mesh.barrier()
 
 
 _NPZ_ROUTE = ("export the weights with clip_fsar_tpu.train.pretrain.save_weights_npz(path, variables) where the JAX package "
@@ -134,19 +140,23 @@ class Checkpointer:
         return os.path.join(self.dir, f"{step}.pt")
 
     def save(self, step: int, state: TrainState) -> str:
-        cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
-        _atomic_save(
-            {
-                "step": state.step,
-                "head": cpu(state.model_variables()),
-                "optimizer": state.optimizer.state_dict(),
-                "ema": None if state.ema is None else cpu(state.ema),
-            },
-            self.path(step),
-        )
-        for old in self.steps()[: -self.max_to_keep]:
-            os.unlink(self.path(old))
-        logger.info("Saved checkpoint at step %d", step)
+        """Written by rank 0 (every rank holds the same state); every rank
+        returns once the file is whole."""
+        if mesh.rank() == 0:
+            cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+            _atomic_save(
+                {
+                    "step": state.step,
+                    "head": cpu(state.model_variables()),
+                    "optimizer": state.optimizer.state_dict(),
+                    "ema": None if state.ema is None else cpu(state.ema),
+                },
+                self.path(step),
+            )
+            for old in self.steps()[: -self.max_to_keep]:
+                os.unlink(self.path(old))
+            logger.info("Saved checkpoint at step %d", step)
+        mesh.barrier()
         return self.path(step)
 
     def load(self, step: Optional[int] = None) -> Optional[dict]:
@@ -186,6 +196,7 @@ def auto_resume(cfg, checkpointer: Checkpointer, state: TrainState) -> Optional[
     (reference checkpoint.py:532-577); returns the step or None."""
     if not bool(cfg.TRAIN.get("AUTO_RESUME", True)):
         return None
+    mesh.barrier()  # no rank reads while another may still be writing
     return checkpointer.restore(state)
 
 
@@ -194,7 +205,9 @@ def load_test_weights(cfg, head: nn.Module) -> str:
     pretrain.py:279-301): TEST.CHECKPOINT_FILE_PATH -> the latest
     checkpoint in OUTPUT_DIR/checkpoints (the trained weights, not EMA) ->
     TRAIN.CHECKPOINT_FILE_PATH -> the freshly built weights.  Returns which
-    one the head now holds."""
+    one the head now holds.  Every rank of a process group reads the same
+    file."""
+    mesh.barrier()  # no rank reads while another may still be writing
     test_path = str(cfg.TEST.get("CHECKPOINT_FILE_PATH", "") or "") if "TEST" in cfg else ""
     train_path = str(cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") or "") if "TRAIN" in cfg else ""
     head_name = cfg.VIDEO.HEAD.NAME

@@ -29,7 +29,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from clip_fsar_torch import runtime
 from clip_fsar_torch.data.frame_bank import (
     FrameBank,
     IndexEpisodeSampler,
@@ -39,6 +38,7 @@ from clip_fsar_torch.data.frame_bank import (
 )
 from clip_fsar_torch.data.loader import build_few_shot_loader
 from clip_fsar_torch.models.builder import FewShotModel, build_few_shot_model, tower_execution
+from clip_fsar_torch.parallel import mesh
 from clip_fsar_torch.train.checkpoint import Checkpointer, auto_resume, load_checkpoint_file, load_test_weights
 from clip_fsar_torch.train.optimizer import Optimizer, epoch_for_iter, get_lr_at_epoch
 from clip_fsar_torch.train.state import TrainState
@@ -63,14 +63,22 @@ def evaluate(
     one, TPU.EVAL_FRAME_BANK builds the split's bank on ``device`` first (a
     caller that evaluates repeatedly builds it once and passes it).
 
+    Under a process group ``episodes_per_step`` is rounded up to a multiple
+    of the ranks (as the JAX package rounds it to its data mesh), each rank
+    runs its slots of every step, and the per-episode outputs are gathered
+    in global episode order before they are counted: every rank returns the
+    same stats.
+
     Returns the JAX package's stats (top1_acc, top5_acc, loss, episodes)
-    plus ``episode_logits`` [num_tasks, Q, WAY], ``seconds``, the wall time
-    of the episode loop (data included, model and bank builds excluded),
-    ``h2d_bytes_per_step``, the bytes of one batch the host copies to the
-    device, and, where a bank served, ``frame_bank`` (its GB and the seconds
-    of its build and upload)."""
-    device = runtime.device(device)
-    e = episodes_per_step
+    plus ``per_class`` (top-1 per real class, by class name), ``episode_logits``
+    [num_tasks, Q, WAY], ``seconds``, the wall time of the episode loop (data
+    included, model and bank builds excluded), ``h2d_bytes_per_step``, the
+    bytes of one batch the host copies to this rank's device, and, where a
+    bank served, ``frame_bank`` (its GB and the seconds of its build and
+    upload)."""
+    data = mesh.build_mesh(cfg, device)
+    device = data.device
+    e = mesh.round_to_data_mesh(episodes_per_step, data)
     num_steps = max(-(-num_tasks // e), 1)  # surplus episodes of the last step are not counted
     if bank is None and "TPU" in cfg and bool(cfg.TPU.get("EVAL_FRAME_BANK", False)):
         bank = build_eval_frame_bank(cfg, split, device)
@@ -103,12 +111,14 @@ def evaluate(
     pending: Optional[Dict[str, torch.Tensor]] = None
     h2d_bytes = 0
     t0 = time.perf_counter()
-    with build_few_shot_loader(cfg, split, num_steps=num_steps, episodes_per_step=e, sampler_wrap=sampler_wrap) as loader:
+    with build_few_shot_loader(cfg, split, num_steps=num_steps, episodes_per_step=e, sampler_wrap=sampler_wrap,
+                               episode_range=mesh.local_episode_range(e, data)) as loader:
         for steps_done, batch in enumerate(loader):
             h2d_bytes = _batch_bytes(batch)
-            # launch step N before fetching step N-1, so host-side metric
-            # accounting overlaps the device's next batch
-            fut = eval_step(batch.to(device, non_blocking=True))
+            # launch step N (and its gather) before fetching step N-1, so
+            # host-side metric accounting overlaps the device's next batch
+            out = eval_step(mesh.retry_transient(lambda: batch.to(device, non_blocking=True), "eval batch upload"))  # noqa: B023
+            fut = {k: mesh.all_gather_rows(v) for k, v in out.items()}
             if pending is not None:
                 consume(pending)
                 if steps_done % log_every == 0:
@@ -140,10 +150,23 @@ def evaluate(
     }
     log_json_stats({"_type": f"eval_{split}", **stats}, logger)
     log_json_stats({"_type": "eval_per_class", **per_class_acc}, logger)
-    out = {**stats, "episode_logits": np.concatenate(logits_kept), "seconds": seconds, "h2d_bytes_per_step": h2d_bytes}
+    out = {**stats, "per_class": per_class_acc, "episode_logits": np.concatenate(logits_kept), "seconds": seconds,
+           "h2d_bytes_per_step": h2d_bytes}
     if bank is not None:
         out["frame_bank"] = _bank_info(bank)
     return out
+
+
+def _episodes_per_step(e: int, data: mesh.Mesh) -> int:
+    """``e`` rounded up to a multiple of the data ranks, with the JAX
+    package's log lines (loop.py:184-195)."""
+    rounded = mesh.round_to_data_mesh(e, data)
+    if rounded != e:
+        logger.info("TPU.EPISODES_PER_STEP=%d is not divisible by the %d-device data mesh — rounding up to %d episodes/step",
+                    e, mesh.data_axis_size(data), rounded)
+    mesh.check_batch_divisible(rounded, data)
+    logger.info("mesh: %d devices on axis 'data'; %d episodes/step", data.world, rounded)
+    return rounded
 
 
 def _batch_bytes(batch) -> int:
@@ -172,8 +195,11 @@ def _weights(head: torch.nn.Module, state_dict: Dict[str, torch.Tensor]):
 
 def check_run_cfg(cfg, training: bool) -> None:
     """Before any work: refuse the config keys that would change the weights
-    and that this port does not act on yet, and say in one log line which
+    or the run's layout and that this port does not act on yet (TPU.MESH
+    beyond data parallelism over the process group's ranks:
+    ``parallel.mesh.check_mesh_cfg``), and say in one log line which
     speed-only keys it leaves aside (the results are the same without them)."""
+    mesh.check_mesh_cfg(cfg, mesh.world_size())
     if training:
         pre_process = cfg.TRAIN.get("CHECKPOINT_PRE_PROCESS", None)
         on = [key for key, value in (("TRAIN.CHECKPOINT_PRE_PROCESS.ENABLE", pre_process is not None and pre_process.get("ENABLE", False)),
@@ -183,14 +209,9 @@ def check_run_cfg(cfg, training: bool) -> None:
                                       "preprocessing, 2D -> 3D inflation) are not ported yet: ROADMAP Queue 1, breadth")
     if "TPU" not in cfg:
         return
-    mesh = cfg.TPU.get("MESH", None)
-    aside = ["TPU.MESH.DATA"] if mesh is not None and int(mesh.get("DATA", -1) or -1) > 1 else []
-    reasons = ["the port has no device mesh yet, so this run takes one card"] if aside else []
     if tower_execution(cfg)[1]:  # the JAX package's scan over depth (model.py:282-289) changes how XLA compiles it, not the math
-        aside.append("TPU.SCAN_LAYERS")
-        reasons.append("eager torch runs the tower's blocks as a loop either way")
-    if aside:
-        logger.info("%s set: %s (same episodes and results, other speed)", ", ".join(aside), "; ".join(reasons))
+        logger.info("TPU.SCAN_LAYERS set: eager torch runs the tower's blocks as a loop either way (same episodes and results, "
+                    "other speed)")
 
 
 def train_few_shot(cfg, device=None) -> Dict[str, Any]:
@@ -207,11 +228,20 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     banks served (TPU.TRAIN_FRAME_BANK; TPU.EVAL_FRAME_BANK for the
     validations), ``frame_banks``: each one's GB and the seconds of its build
     and upload.  Logs the model_info line under LOG_MODEL_INFO.  Runs on the
-    card unless ``device`` names the CPU."""
+    card unless ``device`` names the CPU.
+
+    Joins the process group the environment describes (torchrun;
+    ``parallel.mesh.maybe_init_distributed``) or runs under the caller's:
+    TPU.EPISODES_PER_STEP is then the global E, rounded up to a multiple of
+    the ranks, each rank samples its slots of every step, the start weights
+    are rank 0's, and every step is the global one (train/step.py); rank 0
+    logs and writes the checkpoints, and every rank returns the same stats."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
+    mesh.maybe_init_distributed(cfg, mesh.backend_for(device))
+    data = mesh.build_mesh(cfg, device)
     check_run_cfg(cfg, training=True)
-    device = runtime.device(device)
-    e = int(cfg.TPU.get("EPISODES_PER_STEP", 1))
+    device = data.device
+    e = _episodes_per_step(int(cfg.TPU.get("EPISODES_PER_STEP", 1)), data)
     model = build_few_shot_model(cfg, flow="train", device=device)
     state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
     if cfg.get("LOG_MODEL_INFO", False):
@@ -225,6 +255,7 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
         init_weights = str(cfg.TRAIN.CHECKPOINT_FILE_PATH)
         if state.ema is not None:
             state.ema = {n: p.detach().clone() for n, p in model.head.named_parameters()}
+    mesh.broadcast_module(model.head)
     train_bank = build_train_frame_bank(cfg, device) if bool(cfg.TPU.get("TRAIN_FRAME_BANK", False)) else None
     train_wrap = None if train_bank is None else (lambda sampler: TrainIndexEpisodeSampler(sampler, train_bank.table))
     train_step = make_train_step(model.head, cfg, model.text_train, model.text_test, None if train_bank is None else train_bank.pixels)
@@ -256,12 +287,14 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     remaining = max(num_train_tasks - start_iter, 0)
     logger.info("train loop: %d iterations x %d episodes/step on %s", remaining, e, device)
     t0 = time.perf_counter()
-    with build_few_shot_loader(cfg, "train", num_steps=remaining, episodes_per_step=e, start_step=start_iter, sampler_wrap=train_wrap) as loader:
+    with build_few_shot_loader(cfg, "train", num_steps=remaining, episodes_per_step=e, start_step=start_iter, sampler_wrap=train_wrap,
+                               episode_range=mesh.local_episode_range(e, data)) as loader:
         cur_iter = start_iter
         t_last, iters_last = time.perf_counter(), cur_iter
         for batch in loader:
             lr = get_lr_at_epoch(cfg, epoch_for_iter(cfg, cur_iter))
-            pending.append(train_step(state, batch.to(device, non_blocking=True), lr, step_generator(cfg, cur_iter, device)))
+            on_device = mesh.retry_transient(lambda: batch.to(device, non_blocking=True), "train batch upload")  # noqa: B023
+            pending.append(train_step(state, on_device, lr, step_generator(cfg, cur_iter, device)))
             cur_iter += 1
             if cur_iter % log_period == 0 or cur_iter == num_train_tasks:
                 top1 = fetch()
@@ -317,13 +350,17 @@ def test_few_shot(cfg, device=None) -> Dict[str, Any]:
     (checkpoint search), run TRAIN.NUM_TEST_TASKS episodes in steps of
     TEST.BATCH_SIZE episodes.  The stats say which weights were tested
     (``weights``: a checkpoint path or "fresh").  Runs on the card unless
-    ``device`` names the CPU."""
+    ``device`` names the CPU; under a process group as ``train_few_shot``
+    says, every rank testing rank 0's weights on its slots of each step."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
+    mesh.maybe_init_distributed(cfg, mesh.backend_for(device))
+    data = mesh.build_mesh(cfg, device)
     check_run_cfg(cfg, training=False)
-    device = runtime.device(device)
+    device = data.device
     model = build_few_shot_model(cfg, flow="test", device=device)
     weights = load_test_weights(cfg, model.head)
+    mesh.broadcast_module(model.head)
     num_tasks = int(cfg.TRAIN.get("NUM_TEST_TASKS", 10000))
-    e = int(cfg.TEST.get("BATCH_SIZE", cfg.TPU.get("EPISODES_PER_STEP", 1)))
+    e = _episodes_per_step(int(cfg.TEST.get("BATCH_SIZE", cfg.TPU.get("EPISODES_PER_STEP", 1))), data)
     logger.info("few-shot test: %d episodes, %d per step, on %s", num_tasks, e, device)
     return {**evaluate(cfg, model, num_tasks, e, device=device), "weights": weights}

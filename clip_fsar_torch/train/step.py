@@ -32,6 +32,16 @@ m_target), every chunk starts from r0 again, and the new stats are the mean
 over the E episodes.  They are written at the step's end where the loss is
 finite, on every micro-step of the accumulation window, on the device.  A
 BatchNorm on its running statistics (a frozen trunk's) is never listed.
+
+Under a process group (parallel/mesh.py) the batch is the rank's slice of
+the step's global E episodes, and the step is the global one, as the JAX
+step over a sharded batch is: the augmentation is drawn for the global E and
+sliced at the rank's offset, and after the episode-chunk loop the gradient,
+the metrics and the new running statistics are all-reduced to their means
+over the ranks, once a step.  The per-episode batch statistics stay local,
+as in the JAX package and the reference (no SyncBN).  The NaN guard reads
+the reduced loss, so one rank's non-finite loss skips the update on every
+rank.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from clip_fsar_torch.data import augment
 from clip_fsar_torch.data.frame_bank import assemble_train_clips, gather_eval_clips
 from clip_fsar_torch.data.transforms import normalize_images
 from clip_fsar_torch.data.types import Episode
+from clip_fsar_torch.parallel import mesh
 from clip_fsar_torch.train.state import TrainState
 
 _CONTRASTIVE = ("logits_s2q", "logits_q2s", "logits_s2q_motion", "logits_q2s_motion")
@@ -101,9 +112,10 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, b
     device, nothing is read back): forward and backward over the
     TPU.EPISODE_CHUNKS micro-batches, each augmented and normalized from its
     uint8 clips just before its forward, leaving the gradient of the mean
-    loss over the E episodes in the parameters' ``.grad``.  The random draws
+    loss over the E episodes in the parameters' ``.grad`` (under a process
+    group, over the global E: see the module docstring).  The random draws
     of the augmentation are taken for all E episodes first (support clips,
-    then target clips), so they do not depend on the chunking.
+    then target clips), so they do not depend on the chunking or the ranks.
     ``generator`` (a torch.Generator on the batch's device) drives the jitter
     draws and dropout; None turns both off (normalization only).  With live
     BatchNorm, each BatchNorm's ``step_stats`` is left holding the step's
@@ -125,9 +137,9 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, b
         """A field of the batch as uint8 clips [E, N, T, H, W, 3]."""
         return images if bank is None else assemble_train_clips(bank, images, num_frames, crop)
 
-    def clip_shape(images: torch.Tensor) -> tuple:
-        """The flattened clips' shape [E*N, T, H, W, 3] of a batch field."""
-        e, n = images.shape[:2]
+    def clip_shape(images: torch.Tensor, e: int) -> tuple:
+        """The flattened clips' shape [E*N, T, H, W, 3] of a batch field of ``e`` episodes."""
+        n = images.shape[1]
         return (e * n,) + (tuple(images.shape[2:]) if bank is None else (num_frames, crop, crop, 3))
 
     def aug(images: torch.Tensor, draws: Optional[augment.AugmentDraws], first: int, total: int) -> torch.Tensor:
@@ -137,13 +149,15 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, b
         return out.reshape((e, n) + out.shape[1:])
 
     def grad_fn(batch: Episode, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        e, s, q = batch.support_images.shape[0], batch.support_images.shape[1], batch.target_images.shape[1]
+        # under a process group the batch is this rank's slice [first, first + e) of the global e_all episodes
+        e_all, first = e * mesh.world_size(), e * mesh.rank()
         draws = (None, None)
         if generator is not None:
             host = augment.host_generator(generator)  # the step's host draws (the jitter's op orders)
             device = batch.support_images.device
-            draws = tuple(augment.draw_train_augment(cfg, clip_shape(images), is_query, generator, host, device=device)
+            draws = tuple(augment.draw_train_augment(cfg, clip_shape(images, e_all), is_query, generator, host, device=device)
                           for images, is_query in ((batch.support_images, False), (batch.target_images, True)))
-        e, s, q = batch.support_images.shape[0], batch.support_images.shape[1], batch.target_images.shape[1]
         c = ep_chunks if (ep_chunks > 1 and e % ep_chunks == 0) else 1
         head.zero_grad(set_to_none=True)
         chunk_metrics, stats = [], None
@@ -151,8 +165,8 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, b
             lo, hi = i * (e // c), (i + 1) * (e // c)
             chunk = batch.map(lambda x: x[lo:hi])
             chunk = chunk.replace(
-                support_images=aug(clips(chunk.support_images), draws[0], lo * s, e * s),
-                target_images=aug(clips(chunk.target_images), draws[1], lo * q, e * q),
+                support_images=aug(clips(chunk.support_images), draws[0], (first + lo) * s, e_all * s),
+                target_images=aug(clips(chunk.target_images), draws[1], (first + lo) * q, e_all * q),
             )
             for bn in live_bn:
                 bn.step_stats = None  # every chunk's episodes start from the step's running stats
@@ -166,9 +180,15 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, b
             for p in head.parameters():
                 if p.grad is not None:
                     p.grad.div_(c)
-        for bn, st in zip(live_bn, stats or []):
-            bn.step_stats = st / c
-        return {k: torch.stack([m[k] for m in chunk_metrics]).mean() for k in chunk_metrics[0]}
+        stats = [st / c for st in stats or []]
+        names = list(chunk_metrics[0])
+        values = torch.stack([torch.stack([m[k] for m in chunk_metrics]).mean() for k in names])
+        if mesh.distributed():  # the means over the global E: once a step, after the chunks' local sums
+            mesh.all_reduce_grads(head.parameters())
+            mesh.all_reduce_mean([values] + stats)
+        for bn, st in zip(live_bn, stats):
+            bn.step_stats = st
+        return dict(zip(names, values.unbind()))
 
     return grad_fn
 

@@ -23,6 +23,15 @@ def is_primary() -> bool:
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
+class _PrimaryOnly(logging.Filter):
+    """Passes records on the primary process only, asked at each record: a
+    logger set up before the process group was joined goes quiet on the
+    other ranks once it is."""
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        return is_primary()
+
+
 def setup_logging(output_dir: Optional[str] = None) -> logging.Logger:
     """Configure the package logger once: stdout on the primary process,
     plus ``<output_dir>/stdout.log`` when an output dir is given."""
@@ -38,11 +47,13 @@ def setup_logging(output_dir: Optional[str] = None) -> logging.Logger:
         return logger
     sh = logging.StreamHandler(sys.stdout)
     sh.setFormatter(fmt)
+    sh.addFilter(_PrimaryOnly())
     logger.addHandler(sh)
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
         fh = logging.FileHandler(os.path.join(output_dir, "stdout.log"))
         fh.setFormatter(fmt)
+        fh.addFilter(_PrimaryOnly())
         logger.addHandler(fh)
         atexit.register(fh.close)
     return logger

@@ -132,23 +132,26 @@ def test_checkpoint_surgery_keys_raise_before_training(tmp_path, opts, key):
                                                 (["TPU.TRAIN_FRAME_BANK", "True"], "TPU.TRAIN_FRAME_BANK", False),
                                                 (["TPU.MESH.DATA", "4"], "TPU.MESH.DATA", True)])
 def test_speed_only_keys_are_reported_in_one_log_line(caplog, opts, key, in_test):
-    """The data mesh changes speed and not results: the run goes on, on one
-    card, and says so once (in the test protocol too).  The frame banks are
-    no longer such keys: the port builds them (data/frame_bank.py), so no
-    line reports them."""
+    """No key of these is left aside any more, so no line reports one.  The
+    frame banks are built (data/frame_bank.py).  The data mesh is the
+    process group's ranks (parallel/mesh.py): TPU.MESH.DATA above them (one
+    process: one rank) is refused before any work, in training and in the
+    test protocol, as the JAX package refuses a mesh larger than its devices
+    (mesh.py:86-87), where the port once ran on one card and said so."""
     package_logger = logging.getLogger("clip_fsar_torch")  # it does not propagate to the root logger caplog listens on
     package_logger.addHandler(caplog.handler)
-    reported = key == "TPU.MESH.DATA"
+    refused = key == "TPU.MESH.DATA"
     try:
         with caplog.at_level(logging.INFO, logger="clip_fsar_torch"):
             check_run_cfg(tiny_cfg(), training=True)
-            assert not [r for r in caplog.records if "takes one card" in r.getMessage()]
-            check_run_cfg(tiny_cfg(*opts), training=True)
-            lines = [r.getMessage() for r in caplog.records if key in r.getMessage()]
-            assert len(lines) == int(reported) and all("takes one card" in line for line in lines)
-            caplog.clear()
-            check_run_cfg(tiny_cfg(*opts), training=False)
-            assert bool([r for r in caplog.records if key in r.getMessage()]) == (in_test and reported)
+            for training in (True, False):
+                caplog.clear()
+                if refused:
+                    with pytest.raises(ValueError, match="TPU.MESH.DATA=4 but only 1 devices present"):
+                        check_run_cfg(tiny_cfg(*opts), training=training)
+                else:
+                    check_run_cfg(tiny_cfg(*opts), training=training)
+                assert not [r for r in caplog.records if key in r.getMessage()]
     finally:
         package_logger.removeHandler(caplog.handler)
 

@@ -393,15 +393,9 @@ TINY_TRAIN_OPTS = ["TRAIN.ENABLE", "True", "DATA.DECODER", "synthetic", "DATA.NU
 REMAT_OPTS = ["TPU.REMAT", "True", "TPU.FRAME_CHUNKS", "2", "AUGMENTATION.RANDOM_ERASING.ENABLE", "True"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("backbone, extra", [pytest.param("ViT-Tiny-Test", [], id="ViT-Tiny-Test"), pytest.param("RN-Tiny-Test", [], id="RN-Tiny-Test"),
-                                             pytest.param("ViT-Tiny-Test", REMAT_OPTS, id="ViT-Tiny-Test-remat")])
-def test_train_steps_never_wait_for_the_card(cuda, backbone, extra):
-    """Two train steps of the tiny tower on the card (jitter and dropout on, an accumulation window of 2;
-    the RN tower with live BatchNorm and its running-stat update; the ViT tower also rematerialized in 2
-    frame chunks, with random erasing) with torch's sync debug mode on: no operation inside them
-    synchronises with the device (each one that did would be named here by the python line that called
-    it)."""
+def _two_steps_never_wait(cuda, backbone, extra) -> None:
+    """Two train steps of the tiny tower after a first one, under torch's sync debug mode: fails naming every
+    python line inside them that synchronised with the device."""
     import warnings
 
     from clip_fsar_torch.config.config import load_config
@@ -433,6 +427,39 @@ def test_train_steps_never_wait_for_the_card(cuda, backbone, extra):
     assert sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)}) == []
     assert [bool(m["updated"]) for m in seen] == [True, False] and int(state.optimizer.mini_step) == 1  # the window closed on step 2 of 3
     assert all(torch.isfinite(m["loss"]).item() for m in seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone, extra", [pytest.param("ViT-Tiny-Test", [], id="ViT-Tiny-Test"), pytest.param("RN-Tiny-Test", [], id="RN-Tiny-Test"),
+                                             pytest.param("ViT-Tiny-Test", REMAT_OPTS, id="ViT-Tiny-Test-remat")])
+def test_train_steps_never_wait_for_the_card(cuda, backbone, extra):
+    """Two train steps of the tiny tower on the card (jitter and dropout on, an accumulation window of 2;
+    the RN tower with live BatchNorm and its running-stat update; the ViT tower also rematerialized in 2
+    frame chunks, with random erasing) with torch's sync debug mode on: no operation inside them
+    synchronises with the device (each one that did would be named here by the python line that called
+    it)."""
+    _two_steps_never_wait(cuda, backbone, extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["ViT-Tiny-Test", "RN-Tiny-Test"])
+def test_train_steps_under_a_process_group_never_wait_for_the_card(cuda, tmp_path, backbone):
+    """The same two steps as one rank of a one-rank NCCL process group: the gradient, metric and
+    running-stat all-reduces of each step are queued on the device like the rest of it, and nothing
+    waits for the card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from clip_fsar_torch.parallel import mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120), device_id=cuda if cuda.index is not None else torch.device("cuda", 0))
+    try:
+        assert mesh.distributed() and mesh.build_mesh(None, "cuda").backend == "nccl"
+        _two_steps_never_wait(cuda, backbone, [])
+    finally:
+        mesh.destroy()
 
 
 @pytest.mark.cuda

@@ -62,21 +62,26 @@ def test_tower_execution_resolves_as_in_jax(depth):
 
 
 def test_scan_layers_is_reported_with_the_speed_only_keys(caplog):
-    """TPU.SCAN_LAYERS on (auto on a 24-layer tower) joins the one log line
-    of speed-only keys; off (auto on a shallow or cut tower) it is not named."""
+    """TPU.SCAN_LAYERS on (auto on a 24-layer tower) is named in one log line
+    of speed-only keys; off (auto on a shallow or cut tower) it is not named.
+    A TPU.MESH.DATA above the ranks of the run (one process: one rank) is no
+    speed-only key: the run is refused before any line, as the JAX package
+    refuses a mesh larger than its devices."""
     package_logger = setup_logging()  # as a run configures it: the package logger does not propagate
     package_logger.addHandler(caplog.handler)
     try:
         with caplog.at_level(logging.INFO, logger="clip_fsar_torch"):
             for opts, named in ((["VIDEO.HEAD.BACKBONE_NAME", "ViT-L/14@336px"], True), ([], False),
                                 (["VIDEO.HEAD.BACKBONE_NAME", "ViT-L/14", "TPU.VISION_DEPTH", "12"], False),
-                                (["VIDEO.HEAD.BACKBONE_NAME", "ViT-L/14", "TPU.MESH.DATA", "4"], True)):
+                                (["VIDEO.HEAD.BACKBONE_NAME", "ViT-L/14", "TPU.MESH.DATA", "4"], False)):
                 caplog.clear()
-                check_run_cfg(tiny_cfg(*opts), training=True)
+                if "TPU.MESH.DATA" in opts:
+                    with pytest.raises(ValueError, match="TPU.MESH.DATA=4 but only 1 devices present"):
+                        check_run_cfg(tiny_cfg(*opts), training=True)
+                else:
+                    check_run_cfg(tiny_cfg(*opts), training=True)
                 lines = [r.getMessage() for r in caplog.records if "TPU.SCAN_LAYERS" in r.getMessage()]
                 assert len(lines) == int(named), opts
-                if "TPU.MESH.DATA" in opts:  # one line for every speed-only key
-                    assert "TPU.MESH.DATA" in lines[0] and "takes one card" in lines[0]
     finally:
         package_logger.removeHandler(caplog.handler)
 

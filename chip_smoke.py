@@ -1,6 +1,7 @@
 """Drive the port's few-shot test and train paths (the CLIP-FSAR head, and the classic HyRSM++ and MoLo
-heads, on pixels and off frame banks, with no process group and as data-parallel ranks), its layer_norm op
-and its clip_mha stage-ablation tool once on an NVIDIA GPU and check them.
+heads, on pixels and off frame banks, with no process group and as data-parallel ranks), its classification
+task (every video backbone preset), its layer_norm op and its clip_mha stage-ablation tool once on an NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -165,7 +166,24 @@ and read just after.  Phases:
    processes (``chip_smoke.py --dp-worker``), both ranks on card 0, 2 episodes
    a rank: losses, the first step's gradient, the step-4 weights and the test
    logits against phase 22's run without a group at the bf16 tolerances, the
-   two ranks' weights bit for bit; each rank under a timeout.
+   two ranks' weights bit for bit; each rank under a timeout;
+24. classification through the CLI at full width: TAda2D-R50 on Kinetics-400
+   (``configs/classification/TAda2D_K400.yaml``, 16 frames at 224 px, global batch
+   8, 400 classes, fresh weights, synthetic videos): one epoch of 8 steps on 64
+   videos, validation, the checkpoint, the test of that checkpoint on 16 videos
+   and the automatic multi-scale re-test at 10 views x 3 crops (480 clips);
+   finite losses, 8 updates, top-1 / top-5, 30 clips a video, no kernel
+   launched; then on one batch bf16 against fp32 (train-mode logits, one step's
+   loss and gradients) and the bf16 train step with its batch resident: CUDA-event
+   ms, the host's ms to queue it, the card's busy ms, any synchronisation with the
+   device inside it (the script fails on one), train and test clips/s, peak;
+25. every other backbone preset at full width (R2D3D, R(2+1)D, irCSN-152, S3D-G,
+   SlowFast 4x16 and 8x8 at their 32 frames, TimeSformer, ViViT, the ViViT
+   factorized encoder; 16 frames at 224 px otherwise): batch 2, the eval forward's
+   logits in bf16 against fp32, one bf16 train step timed, its peak;
+26. classification under a process group: the TAda2D run cut to 2 steps and an 8-video
+   test through the CLI with no group and as the one rank of an NCCL group: the
+   same loss bits, checkpoint and test scores.
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -2122,6 +2140,284 @@ def _repeat_classic_steps(name: str, batch) -> None:
         raise AssertionError(f"{name}: two runs of the same train steps differ")
 
 
+# --- the classification task (phases 24-26) ---------------------------------------------------------------------------
+CLS_CONFIG = os.path.join("configs", "classification", "TAda2D_K400.yaml")
+CLS_TRAIN_VIDEOS, CLS_TEST_VIDEOS = 64, 16  # one epoch of 8 steps at the preset's global batch of 8; 16 test videos
+CLS_VIEWS = 30  # the multi-scale re-test on Kinetics: 10 views x 3 spatial crops
+# bf16 against fp32 on the same weights and clips (fresh TAda2D-R50: logits of a few hundredths, fc init std 0.01):
+# train-mode logits within CLS_LOGIT_SHARE of the largest fp32 logit, as the classic heads' (PERF.md 2); the step's loss
+# at 2e-2 and the gradients by norm-relative error, the last conv at GRAD_REL_TOL and the stem conv and the classifier,
+# whose inputs carry the rounding of every layer before them, at CLASSIC_HEAD_GRAD_TOL
+CLS_LOGIT_SHARE = 5e-2
+CLS_PICKED = {"backbone.conv5.res_3.conv_branch.c.weight": GRAD_REL_TOL, "backbone.conv1.a.weight": CLASSIC_HEAD_GRAD_TOL,
+              "head.out.weight": CLASSIC_HEAD_GRAD_TOL}
+CLS_PRESETS = ["r2d3ds", "r2p1d", "csn", "s3dg", "slowfast_4x16", "slowfast_8x8", "timesformer", "vivit", "vivit_fac_enc"]
+# bf16 eval logits (before the softmax, which fresh SlowFast weights saturate: logits in the hundreds) against fp32, a
+# share of the largest fp32 logit, as the classic heads' test logits (PERF.md 2)
+CLS_PRESET_EVAL_SHARE = 5e-2
+CLS_DP_OPTS = ["TEST.AUTOMATIC_MULTI_SCALE_TEST", "False"]
+
+
+def _cls_lists(root: str, train: int = CLS_TRAIN_VIDEOS, test: int = CLS_TEST_VIDEOS) -> str:
+    """Kinetics-400 list files of synthetic videos (the synthetic decoder keys its frames off the path)."""
+    os.makedirs(root, exist_ok=True)
+    for split, n in (("train", train), ("test", test)):
+        with open(os.path.join(root, f"kinetics400_{split}_list.txt"), "w") as f:
+            for i in range(n):
+                f.write(f"{split}/video_{i:04d}.mp4 {(i * 37) % 400}\n")
+    return root
+
+
+def _cls_opts(out_dir: str, lists: str) -> list:
+    return ["DATA.DECODER", "synthetic", "DATA.ANNO_DIR", lists, "SOLVER.MAX_EPOCH", "1", "TRAIN.EVAL_PERIOD", "1", "OUTPUT_DIR", out_dir]
+
+
+def _with_dtype(model, dtype: torch.dtype):
+    """A copy of a video model (the same weights) that computes in ``dtype``: its modules' compute dtypes replaced."""
+    import copy
+
+    twin = copy.deepcopy(model)
+    for m in twin.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+    return twin
+
+
+def _cls_batch(cfg, dev, seed: int = 0) -> tuple:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, t, crop = int(cfg.TRAIN.BATCH_SIZE), int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TRAIN_CROP_SIZE)
+    videos = torch.randint(0, 256, (b, t, crop, crop, 3), generator=g, device=dev, dtype=torch.uint8)
+    return videos, torch.randint(0, int(cfg.VIDEO.HEAD.NUM_CLASSES), (b,), generator=g, device=dev, dtype=torch.int32)
+
+
+def _cls_loss_and_grads(model, cfg, videos, labels) -> tuple:
+    """One train-mode forward and backward without the optimizer: the loss (softmax cross-entropy) and the picked
+    gradients in float32."""
+    from clip_fsar_torch.data.transforms import normalize_images
+
+    logits = model(normalize_images(videos, cfg.DATA.MEAN, cfg.DATA.STD), train=True)[0]
+    loss = F.cross_entropy(logits.float(), labels.long())
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters() if n in CLS_PICKED}
+    model.zero_grad(set_to_none=True)
+    return logits.detach().float(), loss.item(), grads
+
+
+def _cls_resident(model, cfg, videos, labels, steps: int = 6) -> dict:
+    """The bf16 train step (``make_classification_train_step``: jitter and erasing off as the preset has them, the
+    optimizer's update) with its batch resident: CUDA-event ms a step over ``steps`` after a warm-up step, the host's ms
+    to queue one, the card's busy ms a step under the profiler, and any synchronisation with the device inside the
+    timed steps (torch's sync debug mode; the step must read nothing back)."""
+    import warnings
+
+    from clip_fsar_torch.tools.profile_eval import _busy_us, _device_events
+    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    dev = videos.device
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    step = make_classification_train_step(model, cfg)
+    step(state, videos, labels, 1e-6, step_generator(cfg, 0, 0, dev))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            start.record()
+            t0 = time.perf_counter()
+            metrics = [step(state, videos, labels, 1e-6, step_generator(cfg, 0, i, dev)) for i in range(1, steps + 1)]
+            host_ms = (time.perf_counter() - t0) * 1e3 / steps
+            end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    waits = sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)})
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(2):
+            step(state, videos, labels, 1e-6, step_generator(cfg, 1, i, dev))
+        torch.cuda.synchronize()
+    busy = _busy_us(_device_events(prof)) / 1e3 / 2
+    return {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms, "busy_ms": busy, "waits": waits,
+            "finite": all(bool(torch.isfinite(m["loss"])) for m in metrics)}
+
+
+def phase_classification(out_dir: str, card_line: str) -> dict:
+    """Phase 24: TAda2D-R50 on Kinetics-400 (configs/classification/TAda2D_K400.yaml: the reference framework's
+    tada2d backbone preset and from_scratch_large run preset, 16 frames at 224 px, global batch 8, 400 classes) through
+    the CLI at full width: one epoch of 8 steps on 64 synthetic videos, validation, the checkpoint, the test of that
+    checkpoint on 16 videos and the automatic multi-scale re-test (10 views x 3 crops, 480 clips); no kernel launched.
+    Then bf16 against fp32 on one batch (train-mode logits, one step's loss and gradients) and the resident bf16 step."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.runs.run import load_config, main
+
+    lists = _cls_lists(os.path.join(out_dir, "lists"))
+    opts = _cls_opts(os.path.join(out_dir, "run"), lists)
+    cfg = load_config(os.path.join(REPO, CLS_CONFIG), opts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = main(["--cfg", os.path.join(REPO, CLS_CONFIG), *opts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _expect_launches("the TAda2D classification run (train, validation, test, multi-scale re-test)")
+    peak = torch.cuda.max_memory_allocated()
+    train, (single, multi) = results["train"], results["test"]
+    batch = int(cfg.TRAIN.BATCH_SIZE)
+    print(f"classification TAda2D-R50 K400 through the CLI: losses per step {[round(x, 5) for x in train['losses']]}; {train['updates']} updates; "
+          f"val top1 {train['best_top1']:.3f}; test top1 {single['top1_acc']:.3f} top5 {single['top5_acc']:.3f} ({single['clips_per_video']} clip a "
+          f"video); multi-scale re-test top1 {multi['top1_acc']:.3f} top5 {multi['top5_acc']:.3f} ({multi['clips_per_video']} clips a video)")
+    steps = CLS_TRAIN_VIDEOS // batch
+    if len(train["losses"]) != steps or not np.isfinite(train["losses"]).all() or train["updates"] != steps:
+        raise AssertionError(f"expected {steps} finite losses and updates, got {train['losses']}, {train['updates']} updates")
+    if not single["weights"].endswith(os.path.join("checkpoints", "1.pt")) or multi["weights"] != single["weights"]:
+        raise AssertionError(f"the tests read {single['weights']} and {multi['weights']}, not the epoch-1 checkpoint")
+    if single["clips_per_video"] != 1 or multi["clips_per_video"] != CLS_VIEWS or multi["clips"] != CLS_TEST_VIDEOS * CLS_VIEWS:
+        raise AssertionError(f"the tests saw {single['clips_per_video']} and {multi['clips_per_video']} clips a video ({multi['clips']} clips)")
+    for r in (single, multi):
+        if not all(np.isfinite(r[k]) for k in ("top1_acc", "top5_acc")):
+            raise AssertionError(f"non-finite test result {r}")
+    print(f"classification on {card_line}: train {train['clips_per_s']:.3f} clips/s ({steps} steps of {batch} clips x 16 frames, loader "
+          f"included); test {single['clips_per_s']:.3f} clips/s ({single['clips']} clips), multi-scale re-test {multi['clips_per_s']:.3f} clips/s "
+          f"({multi['clips']} clips); CLI wall {wall:.2f} s; peak {peak / 2**30:.3f} GiB; launches {launches}")
+
+    dev = runtime.device("cuda")
+    videos, labels = _cls_batch(cfg, dev)
+    fp32 = build_video_model(cfg, dtype=torch.float32, device=dev)
+    bf16 = _with_dtype(fp32, torch.bfloat16)
+    want, got = _cls_loss_and_grads(fp32, cfg, videos, labels), _cls_loss_and_grads(bf16, cfg, videos, labels)
+    diff, scale = (got[0] - want[0]).abs().max().item(), want[0].abs().max().item()
+    print(f"TAda2D-R50 bf16 vs fp32 (one batch of {batch} x 16 frames at 224 px): train-mode logits max abs diff {diff:.4e}, {diff / scale:.3e} of "
+          f"the largest fp32 logit {scale:.4e} (tol {CLS_LOGIT_SHARE}); loss {got[1]:.6f} vs {want[1]:.6f} (tol 2e-2)")
+    if not diff <= CLS_LOGIT_SHARE * scale:
+        raise AssertionError(f"TAda2D bf16 logits differ from fp32 by {diff:.4e}, more than {CLS_LOGIT_SHARE} of {scale:.4e}")
+    torch.testing.assert_close(torch.tensor(got[1]), torch.tensor(want[1]), atol=2e-2, rtol=2e-2)
+    for name, tol in CLS_PICKED.items():
+        g = want[2][name]
+        rel = ((got[2][name] - g).norm() / g.norm()).item()
+        print(f"TAda2D-R50 bf16 vs fp32: grad {name}: norm-relative difference {rel:.3e} (tol {tol}); |grad| = {g.norm().item():.4e}")
+        if not rel <= tol:
+            raise AssertionError(f"TAda2D: the gradient of {name} differs by {rel:.3e} (norm-relative)")
+    del fp32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed = _cls_resident(bf16, cfg, videos, labels)
+    step_peak = torch.cuda.max_memory_allocated()
+    print(f"TAda2D-R50 train step on {card_line}, batch resident ({batch} clips x 16 frames at 224 px, bf16): {timed['step_ms']:.1f} ms a step "
+          f"(CUDA events, 6 steps); the host queued a step in {timed['host_ms']:.1f} ms; the card busy {timed['busy_ms']:.1f} ms a step "
+          f"(profiler); {batch / timed['step_ms'] * 1e3:.2f} clips/s; peak {step_peak / 2**30:.3f} GiB; synchronisations inside the steps: "
+          f"{timed['waits'] or 'none'}")
+    if timed["waits"] or not timed["finite"]:
+        raise AssertionError(f"the classification train step waited for the card at {timed['waits']} or lost its loss")
+    del bf16, videos, labels
+    torch.cuda.empty_cache()
+    return {"launches": launches, "train_clips_per_s": train["clips_per_s"], "test_clips_per_s": single["clips_per_s"],
+            "retest_clips_per_s": multi["clips_per_s"], "peak_gib": peak / 2**30, **timed}
+
+
+def _preset_cfg(preset: str, out_dir: str):
+    """The preset at full width over from_scratch_large.yaml, with the preset's own DATA where it has one."""
+    import yaml
+
+    from clip_fsar_torch.runs.run import load_config
+
+    path = os.path.join(out_dir, f"{preset}.yaml")
+    with open(path, "w") as f:
+        f.write(f"_BASE_RUN: {os.path.join(REPO, 'configs', 'pool', 'run', 'training', 'from_scratch_large.yaml')}\n"
+                f"_BASE_MODEL: {os.path.join(REPO, 'configs', 'pool', 'backbone', preset + '.yaml')}\n"
+                "TASK_TYPE: classification\nTRAIN:\n  BATCH_SIZE: 2\nVIDEO:\n  HEAD:\n    NUM_CLASSES: 400\n")
+    with open(os.path.join(REPO, "configs", "pool", "backbone", f"{preset}.yaml")) as f:
+        data = yaml.safe_load(f).get("DATA", {})
+    return load_config(path, [x for k, v in data.items() for x in (f"DATA.{k}", str(v))])
+
+
+def phase_presets(out_dir: str, card_line: str) -> dict:
+    """Phase 25: every other backbone preset at full width on the card: batch 2, one eval forward in bf16 against fp32
+    on the same weights and clips (its logits; its softmax finite), one bf16 train step (draws from its generator)
+    timed after a warm-up, its peak."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.transforms import normalize_images
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    dev = runtime.device("cuda")
+    _reset_launches()
+    out = {}
+    for preset in CLS_PRESETS:
+        cfg = _preset_cfg(preset, out_dir)
+        videos, labels = _cls_batch(cfg, dev, seed=1)
+        fp32 = build_video_model(cfg, dtype=torch.float32, device=dev)
+        bf16 = _with_dtype(fp32, torch.bfloat16)
+        x = normalize_images(videos, cfg.DATA.MEAN, cfg.DATA.STD)
+        with torch.no_grad():  # the eval forward before its softmax: BatchNorm never trains, dropout needs a generator
+            want, got = fp32(x, train=True)[0], bf16(x, train=True)[0].float()
+            eval_ok = bool(torch.isfinite(bf16(x, train=False)[0]).all())
+        del fp32
+        torch.cuda.empty_cache()
+        diff, scale = (got - want).abs().max().item(), want.abs().max().item()
+        torch.cuda.reset_peak_memory_stats()
+        state = TrainState.create(cfg, bf16, Optimizer(cfg, bf16, name_prefix=""))
+        step = make_classification_train_step(bf16, cfg)
+        step(state, videos, labels, 1e-6, step_generator(cfg, 0, 0, dev))
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = [step(state, videos, labels, 1e-6, step_generator(cfg, 0, i, dev)) for i in (1, 2)]
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = start.elapsed_time(end) / 2
+        finite = all(bool(torch.isfinite(m["loss"])) for m in metrics) and bool(torch.isfinite(got).all()) and eval_ok
+        print(f"preset {preset} ({cfg.VIDEO.BACKBONE.META_ARCH}, {cfg.DATA.NUM_INPUT_FRAMES} frames at {cfg.DATA.TRAIN_CROP_SIZE} px, batch 2) on "
+              f"{card_line}: bf16 eval logits vs fp32 max abs diff {diff:.4e}, {diff / scale:.3e} of the largest {scale:.4e} (tol "
+              f"{CLS_PRESET_EVAL_SHARE}); bf16 train step {ms:.1f} ms (CUDA events, 2 steps), loss {float(metrics[-1]['loss']):.5f}; peak "
+              f"{peak / 2**30:.3f} GiB")
+        if not finite or not diff <= CLS_PRESET_EVAL_SHARE * scale:
+            raise AssertionError(f"preset {preset}: finite {finite}, bf16 eval logits differ from fp32 by {diff:.4e} of {scale:.4e}")
+        out[preset] = {"step_ms": ms, "peak_gib": peak / 2**30, "eval_share": diff / scale}
+        del bf16, state, step, videos, labels, x
+        torch.cuda.empty_cache()
+    return {"launches": _expect_launches("the backbone presets"), "presets": out}
+
+
+def _cls_dp_run(out_dir: str, lists: str) -> dict:
+    from clip_fsar_torch.runs.run import main
+
+    opts = _cls_opts(out_dir, lists) + CLS_DP_OPTS
+    results = main(["--cfg", os.path.join(REPO, CLS_CONFIG), *opts])
+    ckpt = torch.load(os.path.join(out_dir, "checkpoints", "1.pt"), map_location="cpu", weights_only=True)["head"]
+    return {"losses": results["train"]["losses"], "state": ckpt, "preds": results["test"]["meter"].video_preds}
+
+
+def phase_classification_dp(out_dir: str, card_line: str) -> dict:
+    """Phase 26: the TAda2D classification run (2 steps on 16 videos, validation, checkpoint, the test on 8 videos)
+    through the CLI with no process group and then as the one rank of an NCCL group (its gradient and metric
+    all-reduces, the eval gathers and the rank-0 checkpoint all run): the same loss bits, checkpoint and test scores."""
+    from clip_fsar_torch.parallel import mesh
+
+    lists = _cls_lists(os.path.join(out_dir, "lists"), train=16, test=8)
+    _reset_launches()
+    alone = _cls_dp_run(os.path.join(out_dir, "alone"), lists)
+    _nccl_world1(os.path.join(out_dir, "nccl_store"))
+    try:
+        grouped = _cls_dp_run(os.path.join(out_dir, "nccl"), lists)
+    finally:
+        mesh.destroy()
+    launches = _expect_launches("the classification runs with and without a process group")
+    same = {"losses": grouped["losses"] == alone["losses"], "checkpoint": all(torch.equal(grouped["state"][k], v) for k, v in alone["state"].items()),
+            "test_scores": np.array_equal(grouped["preds"], alone["preds"])}
+    print(f"classification data parallel, world 1 over NCCL on {card_line}: the same bits as without a process group: {same}; losses {grouped['losses']}")
+    if not all(same.values()):
+        raise AssertionError(f"classification under a one-rank NCCL group differs from the run without one: {same}")
+    return {"launches": launches}
+
+
 def main() -> None:
     import sys
 
@@ -2161,6 +2457,13 @@ def main() -> None:
         torch.cuda.empty_cache()
         dp2 = phase_dp_world2(out_dir, smi, dp1)
     dp_launches = {name: {"nccl_world1": dp1["launches"].get(name, 0), "gloo_world2": dp2["launches"].get(name, 0)} for name in _launches()}
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        torch.cuda.empty_cache()
+        cls = phase_classification(out_dir, smi)
+        presets = phase_presets(out_dir, smi)
+        cls_dp = phase_classification_dp(out_dir, smi)
+    classification_launches = {name: {"tada2d_k400_cli": cls["launches"][name], "presets": presets["launches"][name],
+                                      "nccl_world1": cls_dp["launches"][name]} for name in _launches()}
     # each kernel's launches in the bank phases' bank runs, counted from 0 in each
     bank_runs = [bank_bits["launches"]["eval_bank"], bank_bits["launches"]["train_bank"], train_bank["launches"],
                  {"clip_mha_fwd": eval_bank["vit"]["k1_launches"]}]
@@ -2182,7 +2485,11 @@ def main() -> None:
           + f"; train bank slice {train_bank['episodes_per_s']:.4f} train episodes/s (pixel {train['fused']['episodes_per_s']:.4f}), "
           f"peak {train_bank['peak_gib']:.3f} GiB"
           + f"; data parallel: the resident train step {dp1['step_ms']:.1f} ms as one NCCL rank against {dp1['alone_step_ms']:.1f} ms "
-          f"without a group, its gradient all-reduce {dp1['all_reduce_ms']:.3f} ms; two gloo ranks on the card {dp2['seconds']:.1f} s")
+          f"without a group, its gradient all-reduce {dp1['all_reduce_ms']:.3f} ms; two gloo ranks on the card {dp2['seconds']:.1f} s"
+          f"; classification TAda2D-R50: train {cls['train_clips_per_s']:.3f} clips/s, test {cls['test_clips_per_s']:.3f} and re-test "
+          f"{cls['retest_clips_per_s']:.3f} clips/s, resident step {cls['step_ms']:.1f} ms (host {cls['host_ms']:.1f} ms, card busy "
+          f"{cls['busy_ms']:.1f} ms), peak {cls['peak_gib']:.3f} GiB; presets: "
+          + ", ".join(f"{p} {r['step_ms']:.1f} ms / {r['peak_gib']:.2f} GiB" for p, r in presets["presets"].items()))
     kernels = [
         ("clip_mha_fwd", "fused", "clip_fsar_torch/csrc/clip_mha_fwd.cu", "clip_fsar_tpu/ops/fused_attention.py:71"),
         ("clip_mha_bwd", "fused", "clip_fsar_torch/csrc/clip_mha_bwd.cu", "clip_fsar_tpu/ops/fused_attention.py:97"),
@@ -2205,6 +2512,7 @@ def main() -> None:
                         "vit_l336_launches": train["vit_l336"]["launches"][name],
                         "classic_launches": {slice_name: t["launches"][name] for slice_name, t in classic.items()},
                         "bank_launches": bank_launches[name], "pyth_launches": reference["launches"][name], "dp_launches": dp_launches[name],
+                        "classification_launches": classification_launches[name],
                         **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t},
                         **({"at_vit_l336_chunk": l336_kernels[name]} if name in l336_kernels else {})})
         if not records[-1]["launches"] > 0:

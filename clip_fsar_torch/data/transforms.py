@@ -1,5 +1,6 @@
-"""Episodic train and eval transforms on the host and normalization on the
-device (counterpart of clip_fsar_tpu/data/transforms.py:75-113, 148-220).
+"""Episodic and classification train and eval transforms on the host and
+normalization on the device (counterpart of
+clip_fsar_tpu/data/transforms.py:69-220).
 
 The fused resize + crop + flip runs the native C++ pass
 (``clip_fsar_torch/native/frameops``) where it builds, and the numpy
@@ -60,6 +61,56 @@ def _fused_resize_crop(frames: np.ndarray, nh: int, nw: int, y: int, x: int, siz
         return frameops.resize_crop_flip(frames, nh, nw, y, x, size, size, flip)
     RESIZE_CALLS["numpy"] += 1
     return _np_resize_crop_flip(frames, nh, nw, y, x, size, flip)
+
+
+def _short_side_dims(h: int, w: int, short: int) -> Tuple[int, int]:
+    if h <= w:
+        return short, int(round(w * short / h))
+    return int(round(h * short / w)), short
+
+
+def train_crop_params(h: int, w: int, cfg, rng: np.random.Generator) -> tuple:
+    """The random part of ``train_transform`` for [h, w] frames, drawn from
+    ``rng`` in the JAX package's order (jitter scale, flip, y, x): (nh, nw,
+    y, x, size, flip).  A loader rank that skips a clip of another rank
+    draws these alone, so that its generator stays where decoding it would
+    have left it."""
+    lo, hi = int(cfg.DATA.TRAIN_JITTER_SCALES[0]), int(cfg.DATA.TRAIN_JITTER_SCALES[1])
+    short = lo if lo == hi else int(rng.integers(lo, hi + 1))
+    flip = bool(rng.random() < 0.5)
+    size = int(cfg.DATA.TRAIN_CROP_SIZE)
+    nh, nw = _short_side_dims(h, w, short)
+    y = int(rng.integers(0, nh - size + 1))
+    x = int(rng.integers(0, nw - size + 1))
+    return nh, nw, y, x, size, flip
+
+
+def train_transform(frames: np.ndarray, cfg, rng: np.random.Generator) -> np.ndarray:
+    """Classification train augmentation, uint8 [T, H, W, 3] -> [T, crop, crop,
+    3]: short-side jitter resize to TRAIN_JITTER_SCALES, random crop,
+    horizontal flip, fused."""
+    return _fused_resize_crop(frames, *train_crop_params(frames.shape[1], frames.shape[2], cfg, rng))
+
+
+def test_transform(frames: np.ndarray, cfg, spatial_idx: int = -1) -> np.ndarray:
+    """Classification eval transform: short-side resize to TEST_SCALE, then
+    the centre crop, or with NUM_SPATIAL_CROPS > 1 crop ``spatial_idx`` of
+    that many spread evenly along the long side."""
+    scale = cfg.DATA.TEST_SCALE
+    short = int(scale[0]) if isinstance(scale, (list, tuple)) else int(scale)
+    size = int(cfg.DATA.TEST_CROP_SIZE)
+    num_crops = int(cfg.TEST.get("NUM_SPATIAL_CROPS", 1))
+    _, h, w, _ = frames.shape
+    nh, nw = _short_side_dims(h, w, short)
+    if num_crops == 1 or spatial_idx == -1:
+        y, x = (nh - size) // 2, (nw - size) // 2
+    else:
+        frac = spatial_idx / max(num_crops - 1, 1)
+        if nh >= nw:
+            y, x = int((nh - size) * frac), (nw - size) // 2
+        else:
+            y, x = (nh - size) // 2, int((nw - size) * frac)
+    return _fused_resize_crop(frames, nh, nw, y, x, size, flip=False)
 
 
 def _stretch_dims(cfg_scale) -> Tuple[int, int]:

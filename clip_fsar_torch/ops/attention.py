@@ -23,12 +23,18 @@ def mha(
     mask: Optional[torch.Tensor] = None,
     backend: str = "plain",
     causal: bool = False,
+    prob_dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention: q [B, H, Nq, Dh], k/v [B, H, Nk, Dh]
     -> [B, H, Nq, Dh] in q's dtype.  ``mask`` is additive, broadcastable to
     [B, H, Nq, Nk] (-inf where disallowed); ``causal`` masks keys after the
-    query."""
-    if backend == "pallas":
+    query.  With a ``generator`` and ``prob_dropout_rate`` > 0 the softmaxed
+    probabilities are dropped out (a Bernoulli keep mask, kept ones scaled
+    by 1 / keep), as the JAX ``mha`` does with a dropout key; that call
+    always takes the plain path."""
+    dropping = prob_dropout_rate > 0.0 and generator is not None
+    if backend == "pallas" and not dropping:
         from clip_fsar_torch.ops.flash_attention import flash_mha
 
         return flash_mha(q, k, v, mask=mask, causal=causal)
@@ -43,6 +49,9 @@ def mha(
     if mask is not None:
         logits = logits + mask.to(smax_dtype)
     probs = torch.softmax(logits, dim=-1)
+    if dropping:
+        keep = 1.0 - prob_dropout_rate
+        probs = probs * (torch.rand(probs.shape, generator=generator, device=probs.device) < keep).to(probs.dtype) / keep
     return torch.matmul(probs.to(dtype), v)
 
 

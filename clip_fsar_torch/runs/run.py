@@ -15,10 +15,12 @@ the CPU; parallel/mesh.py) and leave it after them.  TPU.EPISODES_PER_STEP,
 TPU.EVAL_EPISODES_PER_STEP and TEST.BATCH_SIZE are global episode counts,
 each rank runs its slice of every step, and the results are those of one
 process running them all.
-Dispatches on TASK_TYPE and queues the runs in the JAX package's order.
-The few-shot runners are ported (``TRAIN.ENABLE True`` trains, then tests
-the last checkpoint); every other runner raises NotImplementedError before
-any work starts.
+Dispatches on TASK_TYPE and queues the runs in the JAX package's order:
+few-shot training and the few-shot test protocol; classification training,
+its test, the automatic multi-scale re-test (TEST.AUTOMATIC_MULTI_SCALE_TEST:
+10 views, and 3 spatial crops on Kinetics and EPIC) and the EPIC submission
+test.  The localization runners and self-supervised pretraining raise
+NotImplementedError before any work starts.
 """
 
 from __future__ import annotations
@@ -29,26 +31,48 @@ from typing import Any, Dict, List, Optional
 from clip_fsar_torch import runtime
 from clip_fsar_torch.config.config import load_config, parse_args
 from clip_fsar_torch.parallel import mesh
+from clip_fsar_torch.train import classification
 from clip_fsar_torch.train.loop import test_few_shot, train_few_shot
 from clip_fsar_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger(__name__)
 
-_RUNNERS = {"train_few_shot": train_few_shot, "test_few_shot": test_few_shot}
+_RUNNERS = {"train_few_shot": train_few_shot, "test_few_shot": test_few_shot, "train": classification.train, "test": classification.test,
+            "submission_classification": classification.submission_test}
 # runners not ported yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    "train": "classification / pretrain (ROADMAP Queue 1, breadth)",
-    "test": "classification (ROADMAP Queue 1, breadth)",
-    "submission_classification": "classification (ROADMAP Queue 1, breadth)",
-    "train_localization": "localization (ROADMAP Queue 1, breadth)",
-    "test_epic_localization": "localization (ROADMAP Queue 1, breadth)",
-    "submission_test": "localization (ROADMAP Queue 1, breadth)",
+    "train_localization": "localization (ROADMAP Queue 1 #7)",
+    "test_epic_localization": "localization (ROADMAP Queue 1 #7)",
+    "submission_test": "localization (ROADMAP Queue 1 #7)",
 }
+
+
+def _multi_scale_cfg(cfg):
+    """The second, automatically queued classification test (JAX run.py:39-58):
+    10 ensemble views x 1 crop, 3 spatial crops on Kinetics and EPIC,
+    1 x 3 on ImageNet (outside pretraining) and SSv2."""
+    ms = cfg.deep_copy()
+    ms.LOG_MODEL_INFO = False
+    ms.LOG_CONFIG_INFO = False
+    ms.TEST.NUM_ENSEMBLE_VIEWS = 10
+    ms.TEST.NUM_SPATIAL_CROPS = 1
+    dataset = str(ms.TEST.get("DATASET", ms.TRAIN.get("DATASET", ""))).lower()
+    if "kinetics" in dataset or "epickitchen" in dataset:
+        ms.TEST.NUM_SPATIAL_CROPS = 3
+    if "imagenet" in dataset and not ms.get("PRETRAIN", {}).get("ENABLE", False):
+        ms.TEST.NUM_ENSEMBLE_VIEWS = 1
+        ms.TEST.NUM_SPATIAL_CROPS = 3
+    if "ssv2" in dataset:
+        ms.TEST.NUM_ENSEMBLE_VIEWS = 1
+        ms.TEST.NUM_SPATIAL_CROPS = 3
+    ms.TEST.LOG_FILE = f"val_{ms.TEST.NUM_ENSEMBLE_VIEWS}clipsx{ms.TEST.NUM_SPATIAL_CROPS}crops.log"
+    return ms
 
 
 def _run_list(cfg) -> List[tuple]:
     """[(cfg, runner_name)], each with its own copy of the config (the JAX
-    run list without the multi-scale re-test, which is classification-only)."""
+    run list, run.py:61-99).  The pretrain task queues the classification
+    trainer with PRETRAIN.ENABLE, which raises before any work."""
     task = cfg.get("TASK_TYPE", "classification")
     runs: List[tuple] = []
     if task == "few_shot_action":
@@ -60,8 +84,14 @@ def _run_list(cfg) -> List[tuple]:
             runs.append((cfg.deep_copy(), "train"))
         if cfg.TEST.get("ENABLE", False):
             runs.append((cfg.deep_copy(), "test"))
+            if cfg.TEST.get("AUTOMATIC_MULTI_SCALE_TEST", False):
+                runs.append((_multi_scale_cfg(cfg), "test"))
         if cfg.get("SUBMISSION", {}).get("ENABLE", False):
-            runs.append((cfg.deep_copy(), "submission_classification"))
+            sub = cfg.deep_copy()
+            sub.LOG_MODEL_INFO = False
+            sub.TEST.NUM_ENSEMBLE_VIEWS = 10
+            sub.TEST.NUM_SPATIAL_CROPS = 3
+            runs.append((sub, "submission_classification"))
     elif task == "localization":
         if cfg.TRAIN.get("ENABLE", False):
             runs.append((cfg.deep_copy(), "train_localization"))
@@ -76,14 +106,19 @@ def _run_list(cfg) -> List[tuple]:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Run the queued runners; returns each runner's result by name."""
+    """Run the queued runners; returns each runner's result by name (a list
+    where a runner ran more than once: the classification test and its
+    multi-scale re-test)."""
     args = parse_args(argv)
     runtime.device(args.device)  # no card and no --device cpu: raises here, before any work
     cfg = load_config(args.cfg_file, args.opts)
     runs = _run_list(cfg)
-    for _, name in runs:  # refuse before any work starts, never skip silently
+    for run_cfg, name in runs:  # refuse before any work starts, never skip silently
         if name in _NOT_PORTED:
             raise NotImplementedError(f"runner {name!r} is not ported yet: {_NOT_PORTED[name]}")
+        if name == "train" and bool(run_cfg.get("PRETRAIN", {}).get("ENABLE", False)):
+            raise NotImplementedError(f"TASK_TYPE {cfg.get('TASK_TYPE')} with PRETRAIN.ENABLE: self-supervised pretraining is not ported yet: "
+                                      "ROADMAP Queue 1 #8")
     joined = mesh.maybe_init_distributed(cfg, mesh.backend_for(args.device))
     try:
         device = runtime.device(args.device)  # under a process group: this rank's card
@@ -91,10 +126,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         logger.info("TASK_TYPE=%s OUTPUT_DIR=%s", cfg.get("TASK_TYPE"), cfg.get("OUTPUT_DIR"))
         if cfg.get("LOG_CONFIG_INFO", True) and cfg.get("OUTPUT_DIR", None) and mesh.rank() == 0:
             cfg.dump(os.path.join(cfg.OUTPUT_DIR, str(cfg.get("OUTPUT_CFG_FILE", "configuration.log"))))
-        results = {}
+        results: Dict[str, Any] = {}
         for run_cfg, name in runs:
             logger.info("=== run: %s ===", name)
-            results[name] = _RUNNERS[name](run_cfg, device=device)
+            result = _RUNNERS[name](run_cfg, device=device)
+            results[name] = [results[name], result] if name in results else result
         return results
     finally:
         if joined:

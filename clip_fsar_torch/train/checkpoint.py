@@ -85,11 +85,13 @@ def _load_npz(path: str) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{path} is not a weight archive of the JAX package's few-shot model: it has no entry {e}") from e
 
 
-def load_checkpoint_file(path: str, head: nn.Module, head_name: str = "") -> bool:
+def load_checkpoint_file(path: str, head: nn.Module, head_name: str = "", cfg=None, pre_process: bool = False, inflation: bool = False) -> bool:
     """Non-strict load of a checkpoint file into ``head`` (``head_name``, the
     config's VIDEO.HEAD.NAME, for the messages): the port's own ``.pt``, a
     JAX-package ``.npz`` weight archive or a reference ``.pyth`` / ``.pth`` of
-    a CNN_OTAM_CLIPFSAR head.  False when the path does not exist; raises when
+    a CNN_OTAM_CLIPFSAR head.  ``pre_process`` and ``inflation`` apply
+    ``cfg``'s checkpoint surgery to the loaded entries first
+    (train/pretrain.py).  False when the path does not exist; raises when
     it exists and cannot be read into the head."""
     if not os.path.exists(path):
         logger.info("checkpoint path %s not found", path)
@@ -109,6 +111,10 @@ def load_checkpoint_file(path: str, head: nn.Module, head_name: str = "") -> boo
         else:
             sd = raw.get("head", raw)
     own = head.state_dict()
+    if pre_process or inflation:
+        from clip_fsar_torch.train.pretrain import surgery
+
+        sd = surgery(cfg, sd, own, pre_process, inflation)
     take = {k: v for k, v in sd.items() if k in own and own[k].shape == v.shape}
     skipped = sorted(set(sd) - set(take))
     if not take:

@@ -41,6 +41,7 @@ from clip_fsar_torch.models.builder import FewShotModel, build_few_shot_model, t
 from clip_fsar_torch.parallel import mesh
 from clip_fsar_torch.train.checkpoint import Checkpointer, auto_resume, load_checkpoint_file, load_test_weights
 from clip_fsar_torch.train.optimizer import Optimizer, epoch_for_iter, get_lr_at_epoch
+from clip_fsar_torch.train.pretrain import surgery_flags
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.train.step import make_eval_step, make_train_step
 from clip_fsar_torch.utils.logging import get_logger, log_json_stats, setup_logging
@@ -194,19 +195,12 @@ def _weights(head: torch.nn.Module, state_dict: Dict[str, torch.Tensor]):
 
 
 def check_run_cfg(cfg, training: bool) -> None:
-    """Before any work: refuse the config keys that would change the weights
-    or the run's layout and that this port does not act on yet (TPU.MESH
-    beyond data parallelism over the process group's ranks:
+    """Before any work: refuse the config keys that would change the run's
+    layout and that this port does not act on yet (TPU.MESH beyond data
+    parallelism over the process group's ranks:
     ``parallel.mesh.check_mesh_cfg``), and say in one log line which
     speed-only keys it leaves aside (the results are the same without them)."""
     mesh.check_mesh_cfg(cfg, mesh.world_size())
-    if training:
-        pre_process = cfg.TRAIN.get("CHECKPOINT_PRE_PROCESS", None)
-        on = [key for key, value in (("TRAIN.CHECKPOINT_PRE_PROCESS.ENABLE", pre_process is not None and pre_process.get("ENABLE", False)),
-                                     ("TRAIN.CHECKPOINT_INFLATE", cfg.TRAIN.get("CHECKPOINT_INFLATE", False))) if value]
-        if on:
-            raise NotImplementedError(f"{' and '.join(on)} (checkpoint surgery of the classification models: position-embedding and tubelet "
-                                      "preprocessing, 2D -> 3D inflation) are not ported yet: ROADMAP Queue 1, breadth")
     if "TPU" not in cfg:
         return
     if tower_execution(cfg)[1]:  # the JAX package's scan over depth (model.py:282-289) changes how XLA compiles it, not the math
@@ -251,7 +245,8 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
     init_weights = "resumed" if start_iter else "fresh"
     if start_iter:
         logger.info("auto-resumed at iteration %d", start_iter)
-    elif cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") and load_checkpoint_file(str(cfg.TRAIN.CHECKPOINT_FILE_PATH), model.head, cfg.VIDEO.HEAD.NAME):
+    elif cfg.TRAIN.get("CHECKPOINT_FILE_PATH", "") and load_checkpoint_file(str(cfg.TRAIN.CHECKPOINT_FILE_PATH), model.head, cfg.VIDEO.HEAD.NAME,
+                                                                            cfg, *surgery_flags(cfg)):
         init_weights = str(cfg.TRAIN.CHECKPOINT_FILE_PATH)
         if state.ema is not None:
             state.ema = {n: p.detach().clone() for n, p in model.head.named_parameters()}

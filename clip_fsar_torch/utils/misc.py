@@ -1,5 +1,6 @@
-"""Model statistics and device memory in the log (counterpart of
-clip_fsar_tpu/utils/misc.py:23-85, reference utils/misc.py:40-165).
+"""Model statistics and device memory in the log, and the classification
+trainer's eval and checkpoint cadence (counterpart of
+clip_fsar_tpu/utils/misc.py:23-111, reference utils/misc.py:40-180).
 
 The JAX package also reports XLA's cost analysis of the compiled step
 (``compiled_stats``); eager torch compiles nothing, so the line holds the
@@ -53,3 +54,30 @@ def log_model_info(module: torch.nn.Module, label: str = "model", device=None) -
         info.update(mem)
     log_json_stats(info, logger)
     return info
+
+
+def _pretraining(cfg) -> bool:
+    return bool(cfg.PRETRAIN.get("ENABLE", False)) if "PRETRAIN" in cfg else False
+
+
+def is_eval_epoch(cfg, cur_epoch: int) -> bool:
+    """Evaluate after epoch ``cur_epoch`` (0-based) when cur_epoch + 1 is a
+    multiple of TRAIN.EVAL_PERIOD, or in the last 10 epochs outside
+    pretraining; never with EVAL_PERIOD 0 (JAX misc.py:88-99)."""
+    period = int(cfg.TRAIN.get("EVAL_PERIOD", 0) or 0)
+    if period == 0:
+        return False
+    if cur_epoch + 1 >= int(cfg.SOLVER.MAX_EPOCH) - 10 and not _pretraining(cfg):
+        return True
+    return (cur_epoch + 1) % period == 0
+
+
+def is_checkpoint_epoch(cfg, cur_epoch: int) -> bool:
+    """Checkpoint after epoch ``cur_epoch`` on TRAIN.CHECKPOINT_PERIOD
+    multiples, at the last epoch, and in the last 10 epochs outside
+    pretraining (JAX misc.py:102-111)."""
+    max_epoch = int(cfg.SOLVER.MAX_EPOCH)
+    if cur_epoch + 1 >= max_epoch - 10 and not _pretraining(cfg):
+        return True
+    period = int(cfg.TRAIN.get("CHECKPOINT_PERIOD", 10) or 10)
+    return (cur_epoch + 1) % period == 0 or cur_epoch + 1 == max_epoch

@@ -6,6 +6,7 @@ would change the weights raise, and speed-only keys are reported in one log
 line.  ViT-Tiny-Test, float32, on the CPU."""
 
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ import torch
 from clip_fsar_torch.models.builder import build_few_shot_model
 from clip_fsar_torch.train.checkpoint import load_checkpoint_file, load_test_weights, save_checkpoint
 from clip_fsar_torch.train.loop import check_run_cfg, test_few_shot as run_test_protocol, train_few_shot
-from tests.torch_parity import tiny_cfg
+from tests.torch_parity import CONFIG as CONFIG_PATH, tiny_cfg
 
 torch.set_num_threads(2)
 
@@ -119,13 +120,47 @@ def test_train_start_weights_come_from_the_named_checkpoint_or_raise(tmp_path, j
 
 @pytest.mark.parametrize("opts, key", [(["TRAIN.CHECKPOINT_PRE_PROCESS.ENABLE", "True"], "TRAIN.CHECKPOINT_PRE_PROCESS.ENABLE"),
                                        (["TRAIN.CHECKPOINT_INFLATE", "True"], "TRAIN.CHECKPOINT_INFLATE")])
-def test_checkpoint_surgery_keys_raise_before_training(tmp_path, opts, key):
-    """The two keys change the weights a run starts from (JAX:
-    load_train_checkpoint_file): the port has neither, so it refuses."""
-    cfg = tiny_cfg(*TRAIN_OPTS, *opts, "OUTPUT_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match=key):
-        train_few_shot(cfg, device="cpu")
-    check_run_cfg(cfg, training=False)  # the test protocol loads no such checkpoint
+def test_checkpoint_surgery_keys_raise_before_training(tmp_path, head, jax_archive, opts, key):
+    """The two keys change the weights a run starts from, and the few-shot
+    trainer applies them as the JAX package does (loop.py:216-218,
+    load_train_checkpoint_file): from the JAX tiny model's archive the port's
+    head takes the weights the JAX package's load gives (the few-shot model
+    has no position table, tubelet kernel or 3-D kernel for the surgery to
+    act on) and training starts from the archive.  A POS_EMBED mode then
+    raises KeyError before the first step in both packages, as there is no
+    backbone pos_embd entry to act on."""
+    import jax
+
+    from clip_fsar_tpu.config.config import load_config as jax_load_config
+    from clip_fsar_tpu.train.pretrain import load_train_checkpoint_file as jax_load
+    from clip_fsar_torch.models.clip.convert import params_from_jax
+    from clip_fsar_torch.train.pretrain import surgery_flags
+    from tests.torch_parity import TINY_OPTS, jax_tiny_model
+
+    path, _ = jax_archive
+    _, _, _, model = jax_tiny_model("split")
+    cfg = tiny_cfg(*TRAIN_OPTS, *opts, "TRAIN.CHECKPOINT_FILE_PATH", path, "OUTPUT_DIR", str(tmp_path))
+    jcfg = jax_load_config(CONFIG_PATH, TINY_OPTS + TRAIN_OPTS + opts + ["TRAIN.CHECKPOINT_FILE_PATH", path])
+    template = jax.tree_util.tree_map(lambda v: np.zeros_like(np.asarray(v)), jax.device_get(model.variables))
+    loaded, ok = jax_load(jcfg, template)
+    want = params_from_jax(jax.device_get(loaded))
+    assert ok and surgery_flags(cfg) == tuple(k == key for k in ("TRAIN.CHECKPOINT_PRE_PROCESS.ENABLE", "TRAIN.CHECKPOINT_INFLATE"))
+    own = {k: v.clone() for k, v in head.state_dict().items()}
+    try:
+        assert load_checkpoint_file(path, head, cfg.VIDEO.HEAD.NAME, cfg, *surgery_flags(cfg))
+        got = head.state_dict()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+    finally:
+        head.load_state_dict(own)
+    assert train_few_shot(cfg, device="cpu")["init_weights"] == path
+    mode = ["TRAIN.CHECKPOINT_PRE_PROCESS.ENABLE", "True", "TRAIN.CHECKPOINT_PRE_PROCESS.POS_EMBED", "repeat"]
+    with pytest.raises(KeyError, match="pos_embd"):
+        jax_load(jax_load_config(CONFIG_PATH, TINY_OPTS + TRAIN_OPTS + opts + mode + ["TRAIN.CHECKPOINT_FILE_PATH", path]), template)
+    with pytest.raises(KeyError, match="pos_embd"):
+        train_few_shot(tiny_cfg(*TRAIN_OPTS, *opts, *mode, "TRAIN.CHECKPOINT_FILE_PATH", path, "OUTPUT_DIR", str(tmp_path / "b")), device="cpu")
+    assert not os.path.exists(tmp_path / "b" / "checkpoints")
+    check_run_cfg(cfg, training=False)
 
 
 @pytest.mark.parametrize("opts, key, in_test", [(["TPU.EVAL_FRAME_BANK", "True"], "TPU.EVAL_FRAME_BANK", True),

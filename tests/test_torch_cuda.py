@@ -733,3 +733,63 @@ def test_molo_train_steps_are_the_same_bits_on_a_second_run(cuda):
     (a, first), (b, second) = run(), run()
     assert torch.isfinite(a).all() and torch.equal(a, b), (a.tolist(), b.tolist())
     assert sorted(k for k in first if not torch.equal(first[k], second[k])) == []
+
+
+_CLS_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "classification", "TAda2D_K400.yaml")
+# a small TAda2D (26-bottleneck, narrow) at 8 frames of 64 px; jitter, erasing, elem-mode mixup / cutmix and EMA on
+_CLS_OPTS = ["VIDEO.BACKBONE.DEPTH", "26", "VIDEO.BACKBONE.NUM_FILTERS", "[16, 32, 64, 64, 128]", "VIDEO.HEAD.NUM_CLASSES", "10",
+             "DATA.NUM_INPUT_FRAMES", "8", "DATA.TRAIN_CROP_SIZE", "64", "DATA.TEST_CROP_SIZE", "64", "AUGMENTATION.COLOR_AUG", "True",
+             "AUGMENTATION.RANDOM_ERASING.ENABLE", "True", "AUGMENTATION.MIXUP.ENABLE", "True", "AUGMENTATION.MIXUP.MODE", "elem",
+             "AUGMENTATION.CUTMIX.ENABLE", "True", "AUGMENTATION.CUTMIX.ALPHA", "1.0", "MODEL.EMA.ENABLE", "True"]
+
+
+@pytest.mark.cuda
+def test_classification_train_steps_never_wait_for_the_card(cuda):
+    """Two classification train steps (bf16) after a first one, under torch's sync debug mode: no operation
+    inside them synchronises with the device (the mixup draws and the jitter's op order come from the host,
+    the NaN guard and the metrics stay on the card)."""
+    import warnings
+
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    cfg = load_config(_CLS_CONFIG, _CLS_OPTS)
+    model = build_video_model(cfg, dtype=torch.bfloat16, device=cuda)
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    step = make_classification_train_step(model, cfg)
+    videos = torch.randint(0, 256, (4, 8, 64, 64, 3), dtype=torch.uint8, device=cuda)
+    labels = torch.arange(4, dtype=torch.int32, device=cuda)
+    step(state, videos, labels, 1e-3, step_generator(cfg, 0, 0, cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            seen = [step(state, videos, labels, 1e-3, step_generator(cfg, 0, i, cuda)) for i in (1, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)}) == []
+    assert all(bool(m["updated"]) and torch.isfinite(m["loss"]).item() for m in seen)
+
+
+@pytest.mark.cuda
+def test_classification_bf16_eval_matches_fp32(cuda):
+    """The small TAda2D's eval predictions (softmax over 10 classes) in bf16 against fp32 on the same weights
+    and clips: within 2e-2 (bf16 rounds every conv's operands; measured on the card in chip_smoke.py's phase
+    24 at full width), and both finite."""
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.data.transforms import normalize_images
+    from clip_fsar_torch.models.video.model import build_video_model
+
+    cfg = load_config(_CLS_CONFIG, _CLS_OPTS)
+    fp32 = build_video_model(cfg, dtype=torch.float32, device=cuda)
+    bf16 = build_video_model(cfg, dtype=torch.bfloat16, device=cuda)
+    bf16.load_state_dict(fp32.state_dict())
+    x = normalize_images(torch.randint(0, 256, (4, 8, 64, 64, 3), dtype=torch.uint8, device=cuda), cfg.DATA.MEAN, cfg.DATA.STD)
+    with torch.no_grad():
+        want, got = fp32(x, train=False)[0], bf16(x, train=False)[0]
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)

@@ -262,17 +262,26 @@ def test_semi_head_with_unlabeled_clips_matches_jax(threshold):
 
 def test_heads_register_the_jax_names():
     """The port's registry holds every few-shot head the JAX package
-    registers (its builder, fsheads.py and molo.py; other JAX modules that a
-    test process imports register the classification heads too)."""
+    registers (its builder, fsheads.py and molo.py) and, since PR 13, every
+    classification head of its video models (models/video/*: the MoSI heads
+    registered to raise), and no other."""
     import clip_fsar_tpu.models.builder  # noqa: F401
+    import clip_fsar_tpu.models.video.model  # noqa: F401
     from clip_fsar_tpu.utils.registry import HEAD_REGISTRY as JREG
 
     import clip_fsar_torch.models.builder  # noqa: F401
+    import clip_fsar_torch.models.video.model  # noqa: F401
     from clip_fsar_torch.utils.registry import HEAD_REGISTRY
 
-    few_shot = ("clip_fsar_tpu.models.builder", "clip_fsar_tpu.models.heads.fsheads", "clip_fsar_tpu.models.heads.molo")
-    want = {name for name in JREG.keys() if JREG.get(name).__module__ in few_shot}
-    assert want == set(HEAD_REGISTRY.keys()) and len(want) == 11
+    def names(registry, package, modules):
+        return {name for name in registry.keys() if registry.get(name).__module__ in tuple(f"{package}.{m}" for m in modules)}
+
+    few_shot = ("models.builder", "models.heads.fsheads", "models.heads.molo")
+    video = ("models.video.blocks", "models.video.model")
+    want = names(JREG, "clip_fsar_tpu", few_shot)
+    assert want == names(HEAD_REGISTRY, "clip_fsar_torch", few_shot) and len(want) == 11
+    assert names(JREG, "clip_fsar_tpu", video) == names(HEAD_REGISTRY, "clip_fsar_torch", video)
+    assert set(HEAD_REGISTRY.keys()) == want | names(JREG, "clip_fsar_tpu", video)
 
 
 _GATED = ("way", "num_frames", "five_shot", "window_size", "temporal_balance", "balance_coefficient", "use_classification", "use_pe",

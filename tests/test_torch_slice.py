@@ -218,10 +218,13 @@ def test_profile_eval_busy_time_and_refusal():
 
 
 def test_cli_refuses_runners_not_ported(tmp_path):
-    """Classification training is not ported: the CLI raises before any work
-    instead of skipping it."""
-    with pytest.raises(NotImplementedError, match="'train'"):
-        main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TASK_TYPE", "classification", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
+    """The localization runners and self-supervised pretraining are not
+    ported (classification is, since PR 13): the CLI raises before any work
+    instead of skipping them."""
+    with pytest.raises(NotImplementedError, match="'train_localization'"):
+        main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TASK_TYPE", "localization", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="pretraining is not ported"):
+        main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TASK_TYPE", "pretrain", "PRETRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
     assert not os.path.exists(os.path.join(tmp_path, "checkpoints"))
 
 

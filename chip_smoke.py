@@ -1,7 +1,7 @@
 """Drive the port's few-shot test and train paths (the CLIP-FSAR head, and the classic HyRSM++ and MoLo
 heads, on pixels and off frame banks, with no process group and as data-parallel ranks), its classification
-task (every video backbone preset), its layer_norm op and its clip_mha stage-ablation tool once on an NVIDIA
-GPU and check them.
+task (every video backbone preset), its localization task and MoSI pretraining, its layer_norm op and its
+clip_mha stage-ablation tool once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -183,7 +183,27 @@ and read just after.  Phases:
    logits in bf16 against fp32, one bf16 train step timed, its peak;
 26. classification under a process group: the TAda2D run cut to 2 steps and an 8-video
    test through the CLI with no group and as the one rank of an NCCL group: the
-   same loss bits, checkpoint and test scores.
+   same loss bits, checkpoint and test scores;
+27. localization through the CLI at full width: BMN on EPIC-Kitchens-100 features
+   (``configs/localization/BMN_EPIC100.yaml``: T = D = 200 windows of 2304 channels,
+   N = 32 samples a proposal, the regression and the 97 verb / 300 noun maps; fresh
+   weights, synthetic features), one epoch at 8 windows a step, the sliding-window
+   test of its checkpoint (mAP of the action, verb and noun streams) and the EPIC
+   submission JSON; the mask's build time on the host, finite losses, moved
+   parameters, no kernel launched; the card's fp32 forward and loss against the
+   CPU's on 2 windows; the train step with its batch resident (CUDA-event ms, the
+   host's ms, the card's busy ms, any synchronisation: the script fails on one),
+   train and test windows/s, peak;
+28. MoSI pretraining through the CLI at full width: R-2D3D-18 on HMDB51
+   (``configs/pretrain/MoSI_R2D3D_HMDB51.yaml``: 9 pseudo-motion clips of 16 frames at
+   112 px a video, 10 videos a step, bf16), one epoch of 4 steps and the SSL
+   validation; on one batch bf16 against fp32 (logits, loss, picked gradients); the
+   resident bf16 step as in phase 27, clips/s, peak; one step under LARS; the run
+   again without a group and as the one rank of an NCCL group: the first step's loss
+   and the gathered SSL validation of the same weights bit for bit, the losses and
+   weights within the spread of two runs without a group (MaxPool3d's backward adds
+   with atomics on the card, so MoSI's steps do not repeat bit for bit), and the
+   step's operations that have no deterministic CUDA implementation.
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -2204,22 +2224,15 @@ def _cls_loss_and_grads(model, cfg, videos, labels) -> tuple:
     return logits.detach().float(), loss.item(), grads
 
 
-def _cls_resident(model, cfg, videos, labels, steps: int = 6) -> dict:
-    """The bf16 train step (``make_classification_train_step``: jitter and erasing off as the preset has them, the
-    optimizer's update) with its batch resident: CUDA-event ms a step over ``steps`` after a warm-up step, the host's ms
-    to queue one, the card's busy ms a step under the profiler, and any synchronisation with the device inside the
-    timed steps (torch's sync debug mode; the step must read nothing back)."""
+def _resident(run, steps: int = 4) -> dict:
+    """``run(i)`` (one train step with its batch resident on the card, returning its loss) after a warm-up step: CUDA-event
+    ms a step over ``steps``, the host's ms to queue one, the card's busy ms a step under the profiler, any synchronisation
+    with the device inside the timed steps (torch's sync debug mode), and whether every loss was finite."""
     import warnings
 
     from clip_fsar_torch.tools.profile_eval import _busy_us, _device_events
-    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
-    from clip_fsar_torch.train.optimizer import Optimizer
-    from clip_fsar_torch.train.state import TrainState
 
-    dev = videos.device
-    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
-    step = make_classification_train_step(model, cfg)
-    step(state, videos, labels, 1e-6, step_generator(cfg, 0, 0, dev))
+    run(0)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.set_sync_debug_mode("warn")
@@ -2228,7 +2241,7 @@ def _cls_resident(model, cfg, videos, labels, steps: int = 6) -> dict:
             warnings.simplefilter("always")
             start.record()
             t0 = time.perf_counter()
-            metrics = [step(state, videos, labels, 1e-6, step_generator(cfg, 0, i, dev)) for i in range(1, steps + 1)]
+            losses = [run(i) for i in range(1, steps + 1)]
             host_ms = (time.perf_counter() - t0) * 1e3 / steps
             end.record()
     finally:
@@ -2237,11 +2250,23 @@ def _cls_resident(model, cfg, videos, labels, steps: int = 6) -> dict:
     waits = sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)})
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
         for i in range(2):
-            step(state, videos, labels, 1e-6, step_generator(cfg, 1, i, dev))
+            run(steps + 1 + i)
         torch.cuda.synchronize()
-    busy = _busy_us(_device_events(prof)) / 1e3 / 2
-    return {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms, "busy_ms": busy, "waits": waits,
-            "finite": all(bool(torch.isfinite(m["loss"])) for m in metrics)}
+    return {"step_ms": start.elapsed_time(end) / steps, "host_ms": host_ms, "busy_ms": _busy_us(_device_events(prof)) / 1e3 / 2, "waits": waits,
+            "finite": all(bool(torch.isfinite(v)) for v in losses)}
+
+
+def _cls_resident(model, cfg, videos, labels, steps: int = 6) -> dict:
+    """The bf16 train step (``make_classification_train_step``: jitter and erasing off as the preset has them, the
+    optimizer's update) with its batch resident, timed by ``_resident``."""
+    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    dev = videos.device
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    step = make_classification_train_step(model, cfg)
+    return _resident(lambda i: step(state, videos, labels, 1e-6, step_generator(cfg, 0, i, dev))["loss"], steps)
 
 
 def phase_classification(out_dir: str, card_line: str) -> dict:
@@ -2418,6 +2443,303 @@ def phase_classification_dp(out_dir: str, card_line: str) -> dict:
     return {"launches": launches}
 
 
+# --- the localization task and MoSI pretraining (phases 27-28) ---------------------------------------------------------
+BMN_CONFIG = os.path.join("configs", "localization", "BMN_EPIC100.yaml")
+# the preset's TRAIN.BATCH_SIZE 64 and TEST.BATCH_SIZE 128 are over its NUM_GPUS 8: 8 windows a step on the one card
+BMN_BATCH = 8
+BMN_OPTS = ["DATA.DECODER", "synthetic", "TRAIN.BATCH_SIZE", str(BMN_BATCH), "TEST.BATCH_SIZE", str(BMN_BATCH), "SOLVER.MAX_EPOCH", "1",
+            "LOG_PERIOD", "1"]
+# the card's float32 forward (TF32 off) against the same model's on the CPU, on the first BMN_CPU_WINDOWS windows (a
+# full-width CPU forward of 8 windows would take the CPU most of a minute): the maps at 1e-4 absolute (sigmoid outputs
+# and logits of fresh weights, sums of up to 8192 products in another order), the loss at 1e-4 relative
+BMN_CPU_WINDOWS, BMN_MAP_ATOL, BMN_LOSS_RTOL = 2, 1e-4, 1e-4
+MOSI_CONFIG = os.path.join("configs", "pretrain", "MoSI_R2D3D_HMDB51.yaml")
+MOSI_TRAIN_VIDEOS, MOSI_TEST_VIDEOS = 40, 20  # one epoch of 4 steps of 10 videos (90 clips each); a validation of 2 batches
+MOSI_CLIPS = 9  # 5 speeds per axis, decoupled: 4 x-speeds, 4 y-speeds and the static clip
+MOSI_OPTS: list = []  # overrides of the preset (none: full width)
+# bf16 against fp32 on the same weights and clips, as the classification phase holds TAda2D: the logits to a share of the
+# largest fp32 logit, the loss at 2e-2, the last conv's gradient at GRAD_REL_TOL and the first conv's and the head's at
+# CLASSIC_HEAD_GRAD_TOL (norm-relative)
+MOSI_LOGIT_SHARE = 5e-2
+# the run as one NCCL rank against the run without a group: the per-step losses and the SSL validation loss relative,
+# the largest parameter difference as a multiple of that between two runs without a group (two runs of the same
+# code read 1e-4 relative apart on the losses from the third step on)
+MOSI_GROUP_RTOL, MOSI_GROUP_PARAMS = 1e-3, 4.0
+
+
+def _nondeterministic_ops(cfg, videos, labels, dev) -> list:
+    """One train step of ``cfg``'s model under torch.use_deterministic_algorithms(True, warn_only=True): the
+    operations torch warns have no deterministic CUDA implementation."""
+    import warnings
+
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    model = build_video_model(cfg, device=dev)
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    step = make_classification_train_step(model, cfg)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(state, videos, labels, 1e-6, step_generator(cfg, 0, 0, dev))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0] for w in caught if "deterministic" in str(w.message)})
+
+
+def phase_localization(out_dir: str, card_line: str) -> dict:
+    """Phase 27: BMN on EPIC-Kitchens-100 features at full width (configs/localization/BMN_EPIC100.yaml: T = D = 200,
+    2304 channels, N = 32 samples, the regression and 97 / 300 verb / noun maps; synthetic features, fresh weights) through
+    the CLI: one epoch at 8 windows a step, the test of its checkpoint (mAP of three streams) and the submission of it;
+    no kernel launched.  Then the card's fp32 forward and loss against the CPU's on the same windows, and the train step
+    with its batch resident."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.tal_features import TalFeatureDataset, duration_scale
+    from clip_fsar_torch.models.heads import bmn
+    from clip_fsar_torch.runs.run import load_config, main
+    from clip_fsar_torch.train import localization as loc
+    from clip_fsar_torch.train.localization_losses import pem_reg_draws
+    from clip_fsar_torch.train.losses import calculate_loss
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    path = os.path.join(REPO, BMN_CONFIG)
+    opts = BMN_OPTS + ["OUTPUT_DIR", os.path.join(out_dir, "bmn")]
+    cfg = load_config(path, opts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = main(["--cfg", path, *opts])
+    sub = main(["--cfg", path, *opts, "TASK_TYPE", "submission"])["submission_test"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _expect_launches("the BMN runs (train, test, submission)")
+    peak = torch.cuda.max_memory_allocated()
+    train, test = results["train_localization"], results["test_epic_localization"]
+    h = cfg.VIDEO.HEAD
+    key = (int(cfg.DATA.TEMPORAL_SCALE), duration_scale(cfg), int(h.NUM_SAMPLE), int(h.NUM_SAMPLE_PERBIN), float(h.BOUNDARY_RATIO))
+    ds = TalFeatureDataset(cfg, "train")
+    steps = -(-len(ds) // BMN_BATCH)
+    stats = {k: v for k, v in test.items() if "/mAP" in k}
+    with open(sub["path"]) as f:
+        sub_json = json.load(f)
+    ckpt = torch.load(train["checkpoint"], map_location="cpu", weights_only=True)["head"]
+    fresh = loc.build_bmn_model(cfg).state_dict()
+    moved = {n: float((ckpt[n] - fresh[n]).abs().max()) for n in ("backbone.conv_0.weight", "head.x_3d_p.weight", "head.x_2d_p_conv4.weight")}
+    print(f"BMN EPIC-100 through the CLI: mask [{key[0]}, {key[2]} x {key[1]} x {key[0]}] built in {bmn.MASK_BUILD_SECONDS[key]:.3f} s on the host; "
+          f"{len(ds)} train "
+          f"windows, losses per step {[round(x, 5) for x in train['losses']]}; parameters moved by {moved}; test of {test['weights']} on "
+          f"{test['windows']} windows: {', '.join(f'{k} {v:.4f}' for k, v in stats.items() if k.endswith('mAP_avg'))}; submission "
+          f"{len(sub_json['results'])} videos, {sum(len(v) for v in sub_json['results'].values())} detections")
+    if len(train["losses"]) != steps or not np.isfinite(train["losses"]).all() or not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"expected {steps} finite losses and moved parameters, got {train['losses']}, {moved}")
+    if not test["weights"].endswith(os.path.join("checkpoints", "1.pt")) or sub["weights"] != test["weights"]:
+        raise AssertionError(f"the test and the submission read {test['weights']} and {sub['weights']}, not the epoch-1 checkpoint")
+    if len(stats) != 18 or not all(0.0 <= v <= 1.0 for v in stats.values()):
+        raise AssertionError(f"malformed mAP dict {stats}")
+    if sub_json.get("version") != "0.2" or set(sub_json["results"]) != set(TalFeatureDataset(cfg, "val").annotations):
+        raise AssertionError(f"malformed submission JSON: {sorted(sub_json)}, videos {sorted(sub_json.get('results', {}))}")
+    print(f"BMN on {card_line}: train {train['windows_per_s']:.3f} windows/s (loader included), test {test['windows_per_s']:.3f} windows/s "
+          f"(proposal parsing, soft-NMS and mAP on the host included); CLI wall {wall:.2f} s; peak {peak / 2**30:.3f} GiB; launches {launches}")
+
+    dev = runtime.device("cuda")
+    feats, maps, _ = next(loc._batches(ds, BMN_CPU_WINDOWS, False, 0))
+    draws = pem_reg_draws(maps["iou_map"].shape, torch.Generator().manual_seed(0))
+    outs, losses = [], []
+    for device in (dev, torch.device("cpu")):
+        model = loc.build_bmn_model(cfg, device)
+        model.load_state_dict(ckpt)
+        with torch.no_grad():
+            preds = model(torch.from_numpy(feats).to(device))
+            loss, _ = calculate_loss(cfg, preds, None, {"supervised": {k: torch.from_numpy(v).to(device) for k, v in maps.items()}},
+                                     draws=tuple(d.to(device) for d in draws))
+        outs.append({k: v.cpu() for k, v in preds.items()})
+        losses.append(float(loss))
+        del model, preds
+    diffs = {k: float((outs[0][k] - outs[1][k]).abs().max()) for k in outs[0]}
+    print(f"BMN fp32 on the card against the CPU ({BMN_CPU_WINDOWS} windows, the epoch-1 weights): max abs diff by map {diffs} (tol "
+          f"{BMN_MAP_ATOL}); loss {losses[0]:.7f} vs {losses[1]:.7f} (rtol {BMN_LOSS_RTOL})")
+    if not all(d <= BMN_MAP_ATOL for d in diffs.values()) or not abs(losses[0] - losses[1]) <= BMN_LOSS_RTOL * abs(losses[1]):
+        raise AssertionError(f"BMN on the card differs from the CPU: {diffs}, losses {losses}")
+    torch.cuda.empty_cache()
+    feats, maps, _ = next(loc._batches(ds, BMN_BATCH, False, 0))
+    x, y = torch.from_numpy(feats).to(dev), {k: torch.from_numpy(v).to(dev) for k, v in maps.items()}
+    model = loc.build_bmn_model(cfg, dev)
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    step = loc.make_localization_train_step(model, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    timed = _resident(lambda i: step(state, x, y, 1e-4, loc.step_generator(cfg, 0, i, dev))[0])
+    step_peak = torch.cuda.max_memory_allocated()
+    print(f"BMN train step on {card_line}, batch resident ({BMN_BATCH} windows, fp32): {timed['step_ms']:.1f} ms a step (CUDA events, 4 steps); "
+          f"the host queued a step in {timed['host_ms']:.1f} ms; the card busy {timed['busy_ms']:.1f} ms a step (profiler); "
+          f"{BMN_BATCH / timed['step_ms'] * 1e3:.2f} windows/s; peak {step_peak / 2**30:.3f} GiB; synchronisations inside the steps: "
+          f"{timed['waits'] or 'none'}")
+    if timed["waits"] or not timed["finite"]:
+        raise AssertionError(f"the BMN train step waited for the card at {timed['waits']} or lost its loss")
+    del model, state, step, x, y
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mask_s": bmn.MASK_BUILD_SECONDS[key], "train_windows_per_s": train["windows_per_s"],
+            "test_windows_per_s": test["windows_per_s"], "peak_gib": peak / 2**30, "step_peak_gib": step_peak / 2**30, **timed}
+
+
+def _mosi_lists(root: str) -> str:
+    """HMDB51 list files of synthetic videos (the synthetic decoder keys its frames off the path)."""
+    os.makedirs(root, exist_ok=True)
+    for split, n in (("train", MOSI_TRAIN_VIDEOS), ("test", MOSI_TEST_VIDEOS)):
+        with open(os.path.join(root, f"hmdb51_{split}_list.txt"), "w") as f:
+            for i in range(n):
+                f.write(f"{split}/video_{i:04d}.avi {i % 51}\n")
+    return root
+
+
+def _mosi_run(out_dir: str, lists: str) -> dict:
+    from clip_fsar_torch.runs.run import main
+
+    opts = ["DATA.DECODER", "synthetic", "DATA.ANNO_DIR", lists, "SOLVER.MAX_EPOCH", "1", "TRAIN.EVAL_PERIOD", "1", "LOG_PERIOD", "1",
+            "OUTPUT_DIR", out_dir] + MOSI_OPTS
+    train = main(["--cfg", os.path.join(REPO, MOSI_CONFIG), *opts])["train"]
+    return {**train, "state": torch.load(os.path.join(out_dir, "checkpoints", "1.pt"), map_location="cpu", weights_only=True)["head"]}
+
+
+def phase_pretrain(out_dir: str, card_line: str) -> dict:
+    """Phase 28: MoSI pretraining of R-2D3D-18 at full width (configs/pretrain/MoSI_R2D3D_HMDB51.yaml: 9 pseudo-motion
+    clips of 16 frames at 112 px a video, 10 videos a step, the preset's colour jitter and dropout, bf16) through the CLI:
+    one epoch of 4 steps and the SSL validation; no kernel launched.  Then bf16 against fp32 on one batch, the resident
+    bf16 step, one step under SOLVER.OPTIM_METHOD lars, and the run again without a group and as the one rank of an NCCL
+    group."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.classification import build_classification_loader
+    from clip_fsar_torch.data.transforms import normalize_images
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.parallel import mesh
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.train.classification import _eval_epoch_ssl, _to_device, make_classification_train_step, step_generator
+    from clip_fsar_torch.train.losses import calculate_loss
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    lists = _mosi_lists(os.path.join(out_dir, "lists"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    alone = _mosi_run(os.path.join(out_dir, "alone"), lists)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _expect_launches("the MoSI pretraining run (train, SSL validation)")
+    peak = torch.cuda.max_memory_allocated()
+    steps = MOSI_TRAIN_VIDEOS // 10
+    print(f"MoSI R-2D3D-18 HMDB51 through the CLI: losses per step {[round(x, 5) for x in alone['losses']]}; {alone['updates']} updates; "
+          f"SSL validation {alone['ssl_val']}")
+    if len(alone["losses"]) != steps or not np.isfinite(alone["losses"]).all() or alone["updates"] != steps:
+        raise AssertionError(f"expected {steps} finite losses and updates, got {alone['losses']}, {alone['updates']} updates")
+    if not np.isfinite(alone["ssl_val"]["loss"]) or "acc_move_joint" not in alone["ssl_val"]:
+        raise AssertionError(f"malformed SSL validation {alone['ssl_val']}")
+    print(f"MoSI on {card_line}: train {alone['clips_per_s'] * MOSI_CLIPS:.3f} clips/s ({alone['clips_per_s']:.3f} videos/s, loader and "
+          f"generator included); CLI wall {wall:.2f} s; peak {peak / 2**30:.3f} GiB; launches {launches}")
+
+    dev = runtime.device("cuda")
+    opts = ["DATA.DECODER", "synthetic", "DATA.ANNO_DIR", lists] + MOSI_OPTS
+    cfg = load_config(os.path.join(REPO, MOSI_CONFIG), opts)
+    videos_host, labels_host, _ = next(iter(build_classification_loader(cfg, "train")))
+    videos, labels = _to_device(videos_host, dev), _to_device(labels_host, dev)
+    want_shape = (int(cfg.TRAIN.BATCH_SIZE), MOSI_CLIPS, int(cfg.PRETRAIN.NUM_FRAMES), int(cfg.DATA.TRAIN_CROP_SIZE), int(cfg.DATA.TRAIN_CROP_SIZE), 3)
+    if tuple(videos.shape) != want_shape:
+        raise AssertionError(f"the MoSI batch is {tuple(videos.shape)}")
+    fp32 = build_video_model(cfg, dtype=torch.float32, device=dev)
+    bf16 = _with_dtype(fp32, torch.bfloat16)
+    convs = [n for n, p in fp32.named_parameters() if p.dim() == 5]
+    picked = {convs[-1]: GRAD_REL_TOL, convs[0]: CLASSIC_HEAD_GRAD_TOL, "net.head.out_move_joint.weight": CLASSIC_HEAD_GRAD_TOL}
+
+    def loss_and_grads(model):
+        preds, logits = model(normalize_images(videos, cfg.DATA.MEAN, cfg.DATA.STD), train=True)
+        loss, _ = calculate_loss(cfg, preds, logits, {"self-supervised": labels})
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = {n: p.grad.float().clone() for n, p in model.named_parameters() if n in picked}
+        model.zero_grad(set_to_none=True)
+        return preds["move_joint"].detach().float(), loss.item(), grads
+
+    want, got = loss_and_grads(fp32), loss_and_grads(bf16)
+    diff, scale = (got[0] - want[0]).abs().max().item(), want[0].abs().max().item()
+    print(f"MoSI R-2D3D-18 bf16 vs fp32 (one batch of 10 x {MOSI_CLIPS} clips x 16 frames at 112 px): train-mode logits max abs diff "
+          f"{diff:.4e}, {diff / scale:.3e} of the largest fp32 logit {scale:.4e} (tol {MOSI_LOGIT_SHARE}); loss {got[1]:.6f} vs {want[1]:.6f} (tol 2e-2)")
+    if not diff <= MOSI_LOGIT_SHARE * scale or not abs(got[1] - want[1]) <= 2e-2 * (1 + abs(want[1])):
+        raise AssertionError(f"MoSI bf16 differs from fp32: logits {diff:.4e} of {scale:.4e}, losses {got[1]} vs {want[1]}")
+    for name, tol in picked.items():
+        g = want[2][name]
+        rel = ((got[2][name] - g).norm() / g.norm()).item()
+        print(f"MoSI bf16 vs fp32: grad {name}: norm-relative difference {rel:.3e} (tol {tol}); |grad| = {g.norm().item():.4e}")
+        if not rel <= tol:
+            raise AssertionError(f"MoSI: the gradient of {name} differs by {rel:.3e} (norm-relative)")
+    del fp32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed = _cls_resident(bf16, cfg, videos, labels, steps=4)
+    step_peak = torch.cuda.max_memory_allocated()
+    print(f"MoSI train step on {card_line}, batch resident (10 x {MOSI_CLIPS} clips x 16 frames at 112 px, bf16): {timed['step_ms']:.1f} ms a "
+          f"step (CUDA events, 4 steps); the host queued a step in {timed['host_ms']:.1f} ms; the card busy {timed['busy_ms']:.1f} ms a step "
+          f"(profiler); {10 * MOSI_CLIPS / timed['step_ms'] * 1e3:.2f} clips/s; peak {step_peak / 2**30:.3f} GiB; synchronisations inside "
+          f"the steps: {timed['waits'] or 'none'}")
+    if timed["waits"] or not timed["finite"]:
+        raise AssertionError(f"the MoSI train step waited for the card at {timed['waits']} or lost its loss")
+    del bf16
+    torch.cuda.empty_cache()
+
+    lars_cfg = load_config(os.path.join(REPO, MOSI_CONFIG), opts + ["SOLVER.OPTIM_METHOD", "lars"])
+    model = build_video_model(lars_cfg, dtype=torch.bfloat16, device=dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = TrainState.create(lars_cfg, model, Optimizer(lars_cfg, model, name_prefix=""))
+    metrics = make_classification_train_step(model, lars_cfg)(state, videos, labels, 0.1, step_generator(lars_cfg, 0, 0, dev))
+    moved = max(float((p.detach() - before[n]).abs().max()) for n, p in model.named_parameters())
+    print(f"MoSI one LARS step (lr 0.1): loss {float(metrics['loss']):.5f}, updated {bool(metrics['updated'])}, largest parameter change {moved:.4e}")
+    if not (bool(torch.isfinite(metrics["loss"])) and bool(metrics["updated"]) and moved > 0):
+        raise AssertionError("the LARS step did not update the parameters")
+    del model, state, before, videos, labels
+    torch.cuda.empty_cache()
+
+    # MoSI's steps do not repeat bit for bit on the card even without a group (MaxPool3d's CUDA backward adds with
+    # atomics, below): the group's run is held to the run without one where the bits must agree (the first step's
+    # loss, the gathered SSL validation of the same weights) and elsewhere within MOSI_GROUP_RTOL of it, beside the
+    # spread between two runs without a group
+    again = _mosi_run(os.path.join(out_dir, "again"), lists)
+    model = build_video_model(cfg, device=dev)
+    model.load_state_dict(alone["state"])
+    val_alone = _eval_epoch_ssl(cfg, model, mesh.build_mesh(cfg, "cuda"))
+    _reset_launches()
+    _nccl_world1(os.path.join(out_dir, "nccl_store"))
+    try:
+        grouped = _mosi_run(os.path.join(out_dir, "nccl"), lists)
+        val_grouped = _eval_epoch_ssl(cfg, model, mesh.build_mesh(cfg, "cuda"))
+    finally:
+        mesh.destroy()
+    _expect_launches("the MoSI pretraining run under a process group")
+    del model
+    torch.cuda.empty_cache()
+
+    def spread(a: dict, b: dict) -> dict:
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"] + [a["ssl_val"]["loss"]], b["losses"] + [b["ssl_val"]["loss"]]))
+        return {"loss_rel": rel, "param_abs": max(float((a["state"][k].float() - v.float()).abs().max()) for k, v in b["state"].items())}
+
+    group, runs = spread(grouped, alone), spread(again, alone)
+    same = {"first_loss": grouped["losses"][0] == alone["losses"][0], "ssl_val_same_weights": val_grouped == val_alone}
+    print(f"MoSI pretraining, world 1 over NCCL on {card_line}: the same bits {same}; against the run without a group: losses and SSL "
+          f"validation loss within {group['loss_rel']:.3e} relative, parameters within {group['param_abs']:.3e}; two runs without a group: "
+          f"{runs['loss_rel']:.3e}, {runs['param_abs']:.3e} (tol {MOSI_GROUP_RTOL} relative on the losses, parameters within "
+          f"{MOSI_GROUP_PARAMS} x the two runs' difference)")
+    if not all(same.values()) or not group["loss_rel"] <= MOSI_GROUP_RTOL or not group["param_abs"] <= MOSI_GROUP_PARAMS * max(runs["param_abs"], 1e-6):
+        raise AssertionError(f"MoSI pretraining under a one-rank NCCL group differs from the run without one: {same}, {group} (two runs without: {runs})")
+    nondet = _nondeterministic_ops(cfg, _to_device(videos_host, dev), _to_device(labels_host, dev), dev)
+    print(f"MoSI train step: operations without a deterministic CUDA implementation (torch.use_deterministic_algorithms, warn only): {nondet}")
+    return {"launches": launches, "train_clips_per_s": alone["clips_per_s"] * MOSI_CLIPS, "peak_gib": peak / 2**30, "step_peak_gib": step_peak / 2**30,
+            **timed}
+
+
 def main() -> None:
     import sys
 
@@ -2462,6 +2784,10 @@ def main() -> None:
         cls = phase_classification(out_dir, smi)
         presets = phase_presets(out_dir, smi)
         cls_dp = phase_classification_dp(out_dir, smi)
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        torch.cuda.empty_cache()
+        bmn = phase_localization(out_dir, smi)
+        mosi = phase_pretrain(out_dir, smi)
     classification_launches = {name: {"tada2d_k400_cli": cls["launches"][name], "presets": presets["launches"][name],
                                       "nccl_world1": cls_dp["launches"][name]} for name in _launches()}
     # each kernel's launches in the bank phases' bank runs, counted from 0 in each
@@ -2489,7 +2815,11 @@ def main() -> None:
           f"; classification TAda2D-R50: train {cls['train_clips_per_s']:.3f} clips/s, test {cls['test_clips_per_s']:.3f} and re-test "
           f"{cls['retest_clips_per_s']:.3f} clips/s, resident step {cls['step_ms']:.1f} ms (host {cls['host_ms']:.1f} ms, card busy "
           f"{cls['busy_ms']:.1f} ms), peak {cls['peak_gib']:.3f} GiB; presets: "
-          + ", ".join(f"{p} {r['step_ms']:.1f} ms / {r['peak_gib']:.2f} GiB" for p, r in presets["presets"].items()))
+          + ", ".join(f"{p} {r['step_ms']:.1f} ms / {r['peak_gib']:.2f} GiB" for p, r in presets["presets"].items())
+          + f"; BMN EPIC-100: mask {bmn['mask_s']:.2f} s, train {bmn['train_windows_per_s']:.3f} and test {bmn['test_windows_per_s']:.3f} "
+          f"windows/s, resident step {bmn['step_ms']:.1f} ms (host {bmn['host_ms']:.1f} ms, card busy {bmn['busy_ms']:.1f} ms), peak "
+          f"{bmn['step_peak_gib']:.3f} GiB; MoSI R-2D3D-18: train {mosi['train_clips_per_s']:.3f} clips/s, resident step {mosi['step_ms']:.1f} ms "
+          f"(host {mosi['host_ms']:.1f} ms, card busy {mosi['busy_ms']:.1f} ms), peak {mosi['step_peak_gib']:.3f} GiB")
     kernels = [
         ("clip_mha_fwd", "fused", "clip_fsar_torch/csrc/clip_mha_fwd.cu", "clip_fsar_tpu/ops/fused_attention.py:71"),
         ("clip_mha_bwd", "fused", "clip_fsar_torch/csrc/clip_mha_bwd.cu", "clip_fsar_tpu/ops/fused_attention.py:97"),
@@ -2512,7 +2842,8 @@ def main() -> None:
                         "vit_l336_launches": train["vit_l336"]["launches"][name],
                         "classic_launches": {slice_name: t["launches"][name] for slice_name, t in classic.items()},
                         "bank_launches": bank_launches[name], "pyth_launches": reference["launches"][name], "dp_launches": dp_launches[name],
-                        "classification_launches": classification_launches[name],
+                        "classification_launches": classification_launches[name], "localization_launches": bmn["launches"][name],
+                        "pretrain_launches": mosi["launches"][name],
                         **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t},
                         **({"at_vit_l336_chunk": l336_kernels[name]} if name in l336_kernels else {})})
         if not records[-1]["launches"] > 0:

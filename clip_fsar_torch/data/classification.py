@@ -14,10 +14,16 @@ partial batch dropped in training and padded at test (copies of its last
 clip with clip_id -1), and NUM_FOLDS shuffles per training epoch.  At the
 same NUM_WORKERS and seed its batches are the JAX loader's, byte for byte.
 
+Under PRETRAIN.ENABLE the registered SSL generator (PRETRAIN.GENERATOR,
+data/mosi.py) takes each decoded clip and its draws come after the
+decoder's: a sample is then the generator's clips uint8 [S, F, crop, crop,
+3] and its labels, a dict of per-axis targets [S], batched to [b, S].
+
 Under a process group each rank keeps rows ``row_range`` of every global
 batch: a worker still draws every row's random numbers in order (the frame
-indices and the crop) but decodes and transforms only the rank's rows, so
-the ranks' slices put together are the one-process batch.
+indices and the crop, or the generator's on frames of the decoded shape)
+but decodes and transforms only the rank's rows, so the ranks' slices put
+together are the one-process batch.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from clip_fsar_torch.data.decode import SyntheticDecoder, build_decoder
 from clip_fsar_torch.data.sampling import sample_indices_for_cfg
 from clip_fsar_torch.data.transforms import test_transform, train_crop_params, train_transform
 from clip_fsar_torch.utils.logging import get_logger
-from clip_fsar_torch.utils.registry import DATASET_REGISTRY
+from clip_fsar_torch.utils.registry import DATASET_REGISTRY, SSL_GENERATOR_REGISTRY
 
 logger = get_logger(__name__)
 
@@ -45,8 +51,6 @@ class ClassificationDataset:
     list_format = "space"  # "space": "<path> <label>" lines; "ssv2_json"
 
     def __init__(self, cfg, split: str):
-        if "PRETRAIN" in cfg and cfg.PRETRAIN.get("ENABLE", False):
-            raise NotImplementedError("PRETRAIN.ENABLE (the MoSI clip generator) is not ported yet: ROADMAP Queue 1 #8")
         self.cfg = cfg
         self.split = split
         self.data_root = cfg.DATA.DATA_ROOT_DIR
@@ -55,6 +59,11 @@ class ClassificationDataset:
             self._num_clips = int(cfg.TEST.get("NUM_ENSEMBLE_VIEWS", 1)) * int(cfg.TEST.get("NUM_SPATIAL_CROPS", 1))
         else:
             self._num_clips = 1
+        self.ssl_generator = None
+        if "PRETRAIN" in cfg and cfg.PRETRAIN.get("ENABLE", False):
+            from clip_fsar_torch.data import mosi as _mosi  # noqa: F401  (registers the generator)
+
+            self.ssl_generator = SSL_GENERATOR_REGISTRY.get(str(cfg.PRETRAIN.get("GENERATOR", "MoSIGenerator")))(cfg, split)
         self._load_list()
 
     def _list_name(self) -> str:
@@ -88,6 +97,8 @@ class ClassificationDataset:
         return len(self.samples) * self._num_clips
 
     def label(self, index: int):
+        if self.ssl_generator is not None:
+            return self.ssl_generator.labels
         return self.samples[index // self._num_clips][1]
 
     def _path(self, rel: str) -> str:
@@ -107,6 +118,12 @@ class ClassificationDataset:
             self.cfg, self.split, length, fps, rng,
             clip_idx=clip_in_video // spatial_crops if test else -1, num_clips=self._num_clips // spatial_crops,
         )
+        if self.ssl_generator is not None:
+            # the generator replaces the transform; its draws depend on the frames' shape only
+            frames = self.decoder.read(path, indices) if decode else np.broadcast_to(
+                np.zeros((1, 1, 1, 3), np.uint8), (len(indices), *self._frame_hw(path, indices), 3))
+            clips, ssl_labels = self.ssl_generator(frames, rng)
+            return (clips if decode else None), ssl_labels, index
         if not decode:
             if self.split == "train":
                 train_crop_params(*self._frame_hw(path, indices), self.cfg, rng)
@@ -146,7 +163,8 @@ Ssv2 = _register("Ssv2", "ssv2_json", "something-something-v2-{}-with-label.json
 class ClassificationLoader:
     """Thread-pooled epoch loader yielding (videos uint8 [b, T, H, W, 3],
     labels int32 [b] (EPIC [b, 2]), clip_ids int64 [b]) of a fixed global
-    batch size, b its ``row_range`` rows (all of them by default)."""
+    batch size, b its ``row_range`` rows (all of them by default); under
+    PRETRAIN.ENABLE videos [b, S, F, H, W, 3] and labels {axis: [b, S]}."""
 
     def __init__(self, dataset: ClassificationDataset, batch_size: int, shuffle: bool, num_workers: int = 4, prefetch: int = 2,
                  seed: int = 0, drop_last: bool = True, folds: int = 1, row_range: Optional[Tuple[int, int]] = None):
@@ -191,6 +209,8 @@ class ClassificationLoader:
             vids += [last] * len(pad_rows)
             labels += [self.ds.label(int(idxs[-1]))] * len(pad_rows)
             clip_ids += [-1] * len(pad_rows)
+        if isinstance(labels[0], dict):  # SSL generator labels: per-axis targets [S] -> [b, S]
+            return np.stack(vids), {k: np.stack([lab[k] for lab in labels]).astype(np.int32) for k in labels[0]}, np.asarray(clip_ids, np.int64)
         return np.stack(vids), np.asarray(labels, np.int32), np.asarray(clip_ids, np.int64)
 
     def __iter__(self) -> Iterator:

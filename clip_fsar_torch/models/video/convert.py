@@ -7,8 +7,14 @@ mapping is per leaf:
 
 * a conv ``kernel`` [kt, kh, kw, in / groups, out] -> ``weight`` [out,
   in / groups, kt, kh, kw] (grouped convs, CSN and RouteFuncMLP, keep flax's
-  per-group input axis, which is torch's);
-* a Dense ``kernel`` (in, out) -> ``weight`` (out, in);
+  per-group input axis, which is torch's), and so for every rank: the
+  localization task's grouped Conv1d [k, in / groups, out] -> [out,
+  in / groups, k] (SimpleLocalizationConv, BaseBMN's 1-D convs), BaseBMN's
+  (N, 1, 1) Conv3d and its 2-D convs HWIO -> OIHW (the confidence,
+  regression and verb / noun branches; train/localization.py's BMNModel
+  names them ``backbone.conv_<i>`` and ``head.x_*`` as flax does);
+* a Dense ``kernel`` (in, out) -> ``weight`` (out, in) (the classifiers,
+  MoSINet's ``net.head.out_<axis>`` among them);
 * the JAX package's BatchNorm (``BatchNorm_0/{scale, bias}`` and
   ``batch_stats/.../BatchNorm_0/{mean, var}``) and flax's own ``nn.BatchNorm``
   (``b_avgpool_bn``: {scale, bias} and {mean, var} one level higher) ->
@@ -50,8 +56,10 @@ def _walk(out: Dict[str, torch.Tensor], prefix: str, tree: Mapping, stats: Optio
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """{"params": ..., "batch_stats": ...} of the JAX ``build_video_model``
-    (numpy leaves) -> the port's ``BaseVideoModel`` state dict; without
-    ``batch_stats`` the running statistics are left out."""
+    (numpy leaves) -> the port's ``BaseVideoModel`` (or MoSINet) state dict,
+    and {"params": ...} of the JAX localization ``BMNModel`` -> the port's
+    ``BMNModel`` one; without ``batch_stats`` the running statistics are
+    left out."""
     out: Dict[str, torch.Tensor] = {}
     _walk(out, "", variables["params"], variables.get("batch_stats"))
     return out

@@ -3,8 +3,8 @@ clip_fsar_tpu/models/video/meta.py): ResNet3D, Inception3D (S3D / S3D-G),
 Identity and Slowfast, on NCDHW video activations.  Each backbone says what
 it hands the head in ``out_channels`` (a list of two for SlowFast).
 
-SimpleLocalizationConv, the localization task's backbone, is registered but
-raises: that task is not ported (ROADMAP Queue 1 #7).
+SimpleLocalizationConv is the localization task's backbone: grouped temporal
+convs over window features [B, C, T].
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from clip_fsar_torch.models.video.blocks import Base3DResStage, bn, conv3d
+from clip_fsar_torch.models.init import lecun_normal_
 from clip_fsar_torch.models.video.branches import SelfGating
 from clip_fsar_torch.utils.registry import BACKBONE_REGISTRY, BRANCH_REGISTRY, STEM_REGISTRY
 
@@ -147,8 +148,32 @@ class Inception3D(nn.Module):
 
 @BACKBONE_REGISTRY.register(name="SimpleLocalizationConv")
 class SimpleLocalizationConv(nn.Module):
+    """VIDEO.BACKBONE_LAYER grouped temporal convs (k = 3, padding 1,
+    VIDEO.BACKBONE_GROUPS_NUM groups, VIDEO.DIM1D wide), each followed by a
+    ReLU, over window features [B, C, T] (the localization task's backbone;
+    float32, as in the JAX package)."""
+
     def __init__(self, cfg, dtype: torch.dtype = torch.float32):
-        raise NotImplementedError("SimpleLocalizationConv belongs to the localization task, which is not ported yet: ROADMAP Queue 1 #7")
+        super().__init__()
+        hidden = int(cfg.VIDEO.DIM1D)
+        self.layers = int(cfg.VIDEO.BACKBONE_LAYER)
+        groups = int(cfg.VIDEO.BACKBONE_GROUPS_NUM)
+        cin = int(cfg.DATA.NUM_INPUT_CHANNELS)
+        for i in range(self.layers):
+            self.add_module(f"conv_{i}", nn.Conv1d(cin if i == 0 else hidden, hidden, 3, padding=1, groups=groups))
+        self.out_channels = hidden if self.layers else cin
+
+    def init_own_parameters(self, g: torch.Generator) -> None:
+        """flax's defaults: lecun normal kernels, zero biases."""
+        for i in range(self.layers):
+            conv = getattr(self, f"conv_{i}")
+            lecun_normal_(conv.weight, g)
+            conv.bias.zero_()
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        for i in range(self.layers):
+            x = F.relu(getattr(self, f"conv_{i}")(x))
+        return x
 
 
 @BACKBONE_REGISTRY.register(name="Identity")

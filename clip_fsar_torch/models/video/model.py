@@ -15,8 +15,10 @@ tokens and position tables, flax's lecun normal elsewhere, the transformer
 and SlowFast classifiers included) and moves the
 model to its device with its conv kernels in channels_last_3d.
 
-MoSINet and the MoSI heads belong to self-supervised pretraining, which is
-not ported (ROADMAP Queue 1 #8): naming them raises.
+MoSINet (MODEL.NAME) runs the model over the pseudo-motion clips of
+self-supervised pretraining, [B, S, T, H, W, 3] flattened to B*S clips,
+with a MoSI head: GAP, dropout and one linear classifier per axis of the
+speed labels (joint, x, y or both).
 """
 
 from __future__ import annotations
@@ -36,8 +38,6 @@ from clip_fsar_torch.models.video import transformer as _transformer  # noqa: F4
 from clip_fsar_torch.models.video.blocks import to_ncdhw
 from clip_fsar_torch.models.video.transformer import LayerNorm
 from clip_fsar_torch.utils.registry import BACKBONE_REGISTRY, HEAD_REGISTRY, MODEL_REGISTRY
-
-PRETRAIN_NOT_PORTED = "self-supervised pretraining (MoSI) is not ported yet: ROADMAP Queue 1 #8"
 
 
 @HEAD_REGISTRY.register(name="TransformerHead")
@@ -93,17 +93,53 @@ class SlowFastHead(nn.Module):
         return logits, feats
 
 
-def _pretrain_head(*_, **__):
-    raise NotImplementedError(f"the MoSI heads: {PRETRAIN_NOT_PORTED}")
+class _MoSIHeadBase(nn.Module):
+    """GAP, dropout and one linear head ``out_<axis>`` per axis (reference
+    module_zoo/heads/mosi_head.py).  The joint head has a class per speed
+    of the speed set; a per-axis one NUM_CLASSES - 1, plus 1 unless
+    PRETRAIN.ZERO_OUT.  Returns ({axis: logits}, pooled features); no
+    activation at eval, as in the JAX package."""
+
+    axes: tuple = ("move_joint",)
+
+    def __init__(self, cfg, dim_in: int):
+        super().__init__()
+        h, p = cfg.VIDEO.HEAD, cfg.PRETRAIN
+        if self.axes == ("move_joint",):
+            from clip_fsar_torch.data.mosi import build_speed_set
+
+            n = len(build_speed_set(int(h.NUM_CLASSES), bool(p.get("DECOUPLE", True)), str(p.get("DATA_MODE", "xy")),
+                                    bool(p.get("ZERO_OUT", False))))
+        else:
+            n = int(h.NUM_CLASSES) - 1 + int(not bool(p.get("ZERO_OUT", False)))
+        self.rate = float(h.get("DROPOUT_RATE", 0) or 0)
+        for axis in self.axes:
+            self.add_module(f"out_{axis}", Dense(dim_in, n))
+
+    def forward(self, x: torch.Tensor, train: bool = True, generator: Optional[torch.Generator] = None):
+        feats = x.mean(dim=(2, 3, 4)) if x.dim() == 5 else x
+        feats = dropout(feats, self.rate, generator if train else None)
+        return {axis: getattr(self, f"out_{axis}")(feats.float()) for axis in self.axes}, feats
 
 
-for _name in ("MoSIHeadJoint", "MoSIHeadOnlyX", "MoSIHeadOnlyY", "MoSIHeadXY"):
-    HEAD_REGISTRY.register(_pretrain_head, name=_name)
+@HEAD_REGISTRY.register(name="MoSIHeadJoint")
+class MoSIHeadJoint(_MoSIHeadBase):
+    axes = ("move_joint",)
 
 
-@MODEL_REGISTRY.register(name="MoSINet")
-def _mosi_net(*_, **__):
-    raise NotImplementedError(f"MoSINet: {PRETRAIN_NOT_PORTED}")
+@HEAD_REGISTRY.register(name="MoSIHeadOnlyX")
+class MoSIHeadOnlyX(_MoSIHeadBase):
+    axes = ("move_x",)
+
+
+@HEAD_REGISTRY.register(name="MoSIHeadOnlyY")
+class MoSIHeadOnlyY(_MoSIHeadBase):
+    axes = ("move_y",)
+
+
+@HEAD_REGISTRY.register(name="MoSIHeadXY")
+class MoSIHeadXY(_MoSIHeadBase):
+    axes = ("move_x", "move_y")
 
 
 @MODEL_REGISTRY.register(name="BaseVideoModel")
@@ -124,6 +160,22 @@ class BaseVideoModel(nn.Module):
         return self.head(feats, train=train, generator=generator)
 
 
+@MODEL_REGISTRY.register(name="MoSINet")
+class MoSINet(nn.Module):
+    """BaseVideoModel ``net`` over pseudo-motion clips: x [B, S, T, H, W, 3]
+    -> predictions over the B*S clips, a dict of per-axis logits (a single
+    output becomes {"move_joint": it})."""
+
+    def __init__(self, cfg, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.net = BaseVideoModel(cfg, dtype)
+
+    def forward(self, x, train: bool = True, generator: Optional[torch.Generator] = None):
+        x = x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+        res, logits = self.net(x, train=train, generator=generator)
+        return (res if isinstance(res, dict) else {"move_joint": res}), logits
+
+
 @torch.no_grad()
 def init_video_weights(model: nn.Module, g: torch.Generator) -> None:
     """Fill every parameter from ``g``: Dense layers and LayerNorms by flax's
@@ -142,14 +194,13 @@ def init_video_weights(model: nn.Module, g: torch.Generator) -> None:
             m.init_own_parameters(g)
 
 
-def build_video_model(cfg, dtype: torch.dtype = torch.float32, device=None, generator: Optional[torch.Generator] = None) -> BaseVideoModel:
-    """The classification model of ``cfg`` with fresh weights from
-    ``generator`` (RANDOM_SEED by default), on ``device`` (the CPU when
-    None; the entry points pass the card)."""
+def build_video_model(cfg, dtype: torch.dtype = torch.float32, device=None, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The model MODEL.NAME names in the model registry (MoSINet), else a
+    BaseVideoModel, with fresh weights from ``generator`` (RANDOM_SEED by
+    default), on ``device`` (the CPU when None; the entry points pass the
+    card)."""
     name = cfg.MODEL.get("NAME", None) or "BaseVideoModel"
-    if name in MODEL_REGISTRY and name != "BaseVideoModel":
-        MODEL_REGISTRY.get(name)(cfg, dtype)
-    model = BaseVideoModel(cfg, dtype)
+    model = (MODEL_REGISTRY.get(name) if name in MODEL_REGISTRY else BaseVideoModel)(cfg, dtype)
     g = generator if generator is not None else torch.Generator().manual_seed(int(cfg.get("RANDOM_SEED", 0)))
     init_video_weights(model, g)
     return model.to(device=device or "cpu", memory_format=torch.channels_last_3d)

@@ -19,8 +19,11 @@ Dispatches on TASK_TYPE and queues the runs in the JAX package's order:
 few-shot training and the few-shot test protocol; classification training,
 its test, the automatic multi-scale re-test (TEST.AUTOMATIC_MULTI_SCALE_TEST:
 10 views, and 3 spatial crops on Kinetics and EPIC) and the EPIC submission
-test.  The localization runners and self-supervised pretraining raise
-NotImplementedError before any work starts.
+test; BMN training and the sliding-window EPIC test (TASK_TYPE localization)
+and the EPIC detection submission (TASK_TYPE submission), which run as one
+process and raise before any work under a group of more than one rank; and
+MoSI self-supervised pretraining (TASK_TYPE pretrain: the classification
+trainer under PRETRAIN.ENABLE, with its SSL validation).
 """
 
 from __future__ import annotations
@@ -31,20 +34,17 @@ from typing import Any, Dict, List, Optional
 from clip_fsar_torch import runtime
 from clip_fsar_torch.config.config import load_config, parse_args
 from clip_fsar_torch.parallel import mesh
-from clip_fsar_torch.train import classification
+from clip_fsar_torch.train import classification, localization
 from clip_fsar_torch.train.loop import test_few_shot, train_few_shot
 from clip_fsar_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger(__name__)
 
 _RUNNERS = {"train_few_shot": train_few_shot, "test_few_shot": test_few_shot, "train": classification.train, "test": classification.test,
-            "submission_classification": classification.submission_test}
-# runners not ported yet -> the ROADMAP item that brings them
-_NOT_PORTED = {
-    "train_localization": "localization (ROADMAP Queue 1 #7)",
-    "test_epic_localization": "localization (ROADMAP Queue 1 #7)",
-    "submission_test": "localization (ROADMAP Queue 1 #7)",
-}
+            "submission_classification": classification.submission_test, "train_localization": localization.train_localization,
+            "test_epic_localization": localization.test_epic_localization, "submission_test": localization.submission_test}
+# runners that run as one process only
+_ONE_PROCESS = ("train_localization", "test_epic_localization", "submission_test")
 
 
 def _multi_scale_cfg(cfg):
@@ -72,7 +72,7 @@ def _multi_scale_cfg(cfg):
 def _run_list(cfg) -> List[tuple]:
     """[(cfg, runner_name)], each with its own copy of the config (the JAX
     run list, run.py:61-99).  The pretrain task queues the classification
-    trainer with PRETRAIN.ENABLE, which raises before any work."""
+    trainer, which pretrains under PRETRAIN.ENABLE."""
     task = cfg.get("TASK_TYPE", "classification")
     runs: List[tuple] = []
     if task == "few_shot_action":
@@ -113,12 +113,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     runtime.device(args.device)  # no card and no --device cpu: raises here, before any work
     cfg = load_config(args.cfg_file, args.opts)
     runs = _run_list(cfg)
+    world = int(os.environ.get("WORLD_SIZE", os.environ.get("JAX_NUM_PROCESSES", "1")) or "1")
     for run_cfg, name in runs:  # refuse before any work starts, never skip silently
-        if name in _NOT_PORTED:
-            raise NotImplementedError(f"runner {name!r} is not ported yet: {_NOT_PORTED[name]}")
-        if name == "train" and bool(run_cfg.get("PRETRAIN", {}).get("ENABLE", False)):
-            raise NotImplementedError(f"TASK_TYPE {cfg.get('TASK_TYPE')} with PRETRAIN.ENABLE: self-supervised pretraining is not ported yet: "
-                                      "ROADMAP Queue 1 #8")
+        if name in _ONE_PROCESS and (world > 1 or mesh.world_size() > 1):
+            raise NotImplementedError(f"runner {name!r} under a process group of {max(world, mesh.world_size())} ranks: the localization "
+                                      "runners run as one process")
     joined = mesh.maybe_init_distributed(cfg, mesh.backend_for(args.device))
     try:
         device = runtime.device(args.device)  # under a process group: this rank's card

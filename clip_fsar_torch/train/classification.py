@@ -19,6 +19,15 @@ TRAIN.RESUME_EPOCH, as there) or TRAIN.CHECKPOINT_FILE_PATH with its
 surgery (train/pretrain.py).  The test keeps one step in flight while the
 meter takes the last one's scores.
 
+Under PRETRAIN.ENABLE (TASK_TYPE pretrain) the same trainer pretrains
+MoSI (JAX classification.py:61-100, 228-322): the loader's pseudo-motion
+clips [B, S, F, H, W, 3] are jittered and erased with the draws of
+[B, S*F, H, W, 3] (one draw per sample, or per frame without
+AUGMENTATION.CONSISTENT, as the JAX step flattens them), the loss is
+``calculate_loss``'s '+'-composition of PRETRAIN.LOSS over the per-axis
+labels, and the validation is the SSL one (``_eval_epoch_ssl``: the mean
+cross-entropy and accuracy per axis over the test split, padding masked).
+
 Under a process group (parallel/mesh.py) TRAIN.BATCH_SIZE and
 TEST.BATCH_SIZE are global: each rank loads and runs its rows of every
 global batch, the random draws (jitter, erasing, mixup) are taken for the
@@ -39,15 +48,15 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from clip_fsar_torch.data import augment
 from clip_fsar_torch.data.classification import build_classification_loader
 from clip_fsar_torch.data.mixup import MixupConfig, draw_mixup, mixup_batch, smooth_one_hot
 from clip_fsar_torch.data.transforms import normalize_images
-from clip_fsar_torch.models.video.model import PRETRAIN_NOT_PORTED, build_video_model
+from clip_fsar_torch.models.video.model import build_video_model
 from clip_fsar_torch.parallel import mesh
 from clip_fsar_torch.train.checkpoint import Checkpointer, auto_resume
+from clip_fsar_torch.train.losses import calculate_loss, soft_target_cross_entropy
 from clip_fsar_torch.train.optimizer import Optimizer, get_lr_at_epoch
 from clip_fsar_torch.train.pretrain import load_test_variables, load_train_checkpoint_file
 from clip_fsar_torch.train.state import TrainState
@@ -69,10 +78,12 @@ def _dual_head(cfg) -> bool:
     return isinstance(cfg.VIDEO.HEAD.get("NUM_CLASSES", 0), (list, tuple))
 
 
+def _pretrain(cfg) -> bool:
+    return "PRETRAIN" in cfg and bool(cfg.PRETRAIN.get("ENABLE", False))
+
+
 def _check(cfg) -> None:
     """Before any work: refuse what the port does not run."""
-    if "PRETRAIN" in cfg and bool(cfg.PRETRAIN.get("ENABLE", False)):
-        raise NotImplementedError(f"PRETRAIN.ENABLE: {PRETRAIN_NOT_PORTED}")
     mesh.check_mesh_cfg(cfg, mesh.world_size())
 
 
@@ -83,7 +94,10 @@ def _rows(global_batch: int, data: mesh.Mesh) -> tuple:
     return mesh.local_episode_range(global_batch, data)
 
 
-def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(x, device: torch.device):
+    """A host array (or a dict of them: SSL labels) on ``device``."""
+    if isinstance(x, dict):
+        return {k: _to_device(v, device) for k, v in x.items()}
     t = torch.from_numpy(np.ascontiguousarray(x))
     if device.type == "cuda":  # from pinned memory, so the copy waits for nothing the card has queued
         return t.pin_memory().to(device, non_blocking=True)
@@ -128,9 +142,11 @@ def make_classification_train_step(model, cfg):
     """train_step(state, videos, labels, lr, generator, draws=None) ->
     metrics (0-dim tensors on the device: loss, top1, updated, nan_skipped),
     updating ``state`` in place.  ``videos`` uint8 [b, T, H, W, 3] and
-    ``labels`` [b] ([b, 2] for EPIC) are this rank's rows on the device.
-    ``draws`` (from ``draw_step``, for the global batch) replace the step's
-    own; ``generator`` drives them and dropout (None: neither)."""
+    ``labels`` [b] ([b, 2] for EPIC) are this rank's rows on the device;
+    under PRETRAIN.ENABLE ``videos`` [b, S, F, H, W, 3] and ``labels``
+    {axis: [b, S]}.  ``draws`` (from ``draw_step``, for the global batch of
+    [B, T, H, W, 3], or [B, S*F, H, W, 3] under pretraining) replace the
+    step's own; ``generator`` drives them and dropout (None: neither)."""
     mean = tuple(float(x) for x in cfg.DATA.MEAN)
     std = tuple(float(x) for x in cfg.DATA.STD)
     nc = cfg.VIDEO.HEAD.NUM_CLASSES
@@ -138,23 +154,31 @@ def make_classification_train_step(model, cfg):
     smoothing = float(cfg.AUGMENTATION.get("LABEL_SMOOTHING", 0.0) or 0.0)
     ema_decay = float(cfg.MODEL.EMA.DECAY) if cfg.MODEL.EMA.get("ENABLE", False) else None
 
-    def soft_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        return -(targets * F.log_softmax(logits.float(), dim=-1)).sum(dim=-1).mean()
+    pretrain = _pretrain(cfg)
 
-    def train_step(state: TrainState, videos: torch.Tensor, labels: torch.Tensor, lr: float, generator: Optional[torch.Generator], draws=None):
+    def train_step(state: TrainState, videos: torch.Tensor, labels, lr: float, generator: Optional[torch.Generator], draws=None):
         b = videos.shape[0]
         world, first = mesh.world_size(), b * mesh.rank()
+        clips = videos.reshape((b, -1) + tuple(videos.shape[-3:])) if pretrain else videos  # [b, S*F, H, W, 3] under pretraining
         if draws is None and generator is not None:
-            draws = draw_step(cfg, (b * world,) + tuple(videos.shape[1:]), generator)
+            draws = draw_step(cfg, (b * world,) + tuple(clips.shape[1:]), generator)
         aug_draws, mix = draws if draws is not None else (None, None)
         if aug_draws is not None:
-            x = augment.apply_train_augment(videos, aug_draws.take(first, first + b), cfg, mean, std, first, b * world)
+            x = augment.apply_train_augment(clips, aug_draws.take(first, first + b), cfg, mean, std, first, b * world)
         else:
-            x = normalize_images(videos, mean, std)
+            x = normalize_images(clips, mean, std)
+        if pretrain:
+            preds, logits = model(x.reshape(videos.shape), train=True, generator=generator)
+            loss, _ = calculate_loss(cfg, preds, logits, {"self-supervised": labels})
+            shared = [k for k in preds if k in labels]
+            top1 = ((preds[shared[0]].argmax(-1) == labels[shared[0]].reshape(-1)).float().mean() if shared
+                    else torch.zeros((), device=loss.device))
+            return _update(state, loss, top1, lr)
         labels = labels.long()
         if dual:
             (pv, pn), _ = model(x, train=True, generator=generator)
-            loss = soft_ce(pv, smooth_one_hot(labels[:, 0], int(nc[0]), smoothing)) + soft_ce(pn, smooth_one_hot(labels[:, 1], int(nc[1]), smoothing))
+            loss = (soft_target_cross_entropy(pv, smooth_one_hot(labels[:, 0], int(nc[0]), smoothing))
+                    + soft_target_cross_entropy(pn, smooth_one_hot(labels[:, 1], int(nc[1]), smoothing)))
             top1 = ((pv.argmax(-1) == labels[:, 0]) & (pn.argmax(-1) == labels[:, 1])).float().mean()
         else:
             if mix is not None:
@@ -162,8 +186,11 @@ def make_classification_train_step(model, cfg):
             else:
                 targets = smooth_one_hot(labels, int(nc), smoothing)
             logits, _ = model(x, train=True, generator=generator)
-            loss = soft_ce(logits, targets)
+            loss = soft_target_cross_entropy(logits, targets)
             top1 = (logits.argmax(-1) == labels).float().mean()
+        return _update(state, loss, top1, lr)
+
+    def _update(state: TrainState, loss: torch.Tensor, top1: torch.Tensor, lr: float):
         model.zero_grad(set_to_none=True)
         loss.backward()
         values = torch.stack([loss.detach(), top1])
@@ -228,14 +255,58 @@ def _eval_epoch(cfg, model, data: mesh.Mesh) -> Dict[str, float]:
     return stats
 
 
+def _ssl_batch_stats(preds: Dict[str, np.ndarray], labels: Dict[str, np.ndarray], valid: np.ndarray) -> tuple:
+    """One validation batch's (mean SSL cross-entropy over the axes, {axis:
+    accuracy}, clips counted): per-clip cross-entropies and hits weighted
+    by the clip's sample being real (the JAX make_ssl_eval_step's sums)."""
+    s = next(iter(labels.values())).shape[1]
+    w = np.repeat(valid.astype(np.float32), s)
+    denom = max(float(w.sum()), 1.0)
+    losses, accs = {}, {}
+    for k, p in preds.items():
+        lab = labels.get(k, labels.get("move_joint"))
+        if lab is None:
+            continue
+        lab = lab.reshape(-1).astype(np.int64)
+        p = p.astype(np.float64)
+        top = p.max(-1)
+        ce = np.log(np.exp(p - top[:, None]).sum(-1)) + top - p[np.arange(len(lab)), lab]
+        losses[k] = float((ce * w).sum()) / denom
+        accs[k] = float(((p.argmax(-1) == lab) * w).sum()) / denom
+    return sum(losses.values()) / max(len(losses), 1), accs, float(w.sum())
+
+
+def _eval_epoch_ssl(cfg, model, data: mesh.Mesh) -> Dict[str, float]:
+    """The pretraining validation over the test split (the reference's eval
+    epoch with the SSL losses): the mean cross-entropy over the axes and the
+    accuracy of each axis, over the real clips (padding rows masked)."""
+    loss_sum = w_sum = 0.0
+    acc_sum: Dict[str, float] = {}
+
+    def on_batch(out, labels, clip_ids, _maps):
+        nonlocal loss_sum, w_sum
+        loss, accs, w = _ssl_batch_stats(out, labels, clip_ids >= 0)
+        loss_sum += loss * w
+        w_sum += w
+        for k, v in accs.items():
+            acc_sum[k] = acc_sum.get(k, 0.0) + v * w
+
+    _test_loop(cfg, model, data, _test_loader(cfg, data), on_batch)
+    stats = {"loss": loss_sum / max(w_sum, 1.0), **{f"acc_{k}": round(v / max(w_sum, 1.0) * 100.0, 2) for k, v in acc_sum.items()}}
+    log_json_stats({"_type": "val_epoch_ssl", **stats, "clips": int(w_sum)}, logger)
+    return stats
+
+
 def train(cfg, device=None) -> Dict[str, Any]:
-    """Classification training (PRETRAIN.ENABLE raises before any work).
+    """Classification training, or MoSI pretraining under PRETRAIN.ENABLE.
     Returns the JAX package's ``best_top1`` and the per-step losses, the
     optimizer updates made, the start weights (``init_weights``: "fresh",
-    "resumed" or TRAIN.CHECKPOINT_FILE_PATH), the steps run, and the wall
+    "resumed" or TRAIN.CHECKPOINT_FILE_PATH), the steps run, the wall
     seconds of the step loop with the clips it trained per second
-    (validations and checkpoints excluded).  Runs on the card unless
-    ``device`` names the CPU."""
+    (validations and checkpoints excluded; under pretraining a clip is a
+    video's S pseudo-motion clips) and the last SSL validation's stats
+    (``ssl_val``, pretraining only).  Runs on the card unless ``device``
+    names the CPU."""
     data, model = _setup(cfg, device)
     device = data.device
     state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
@@ -258,7 +329,7 @@ def train(cfg, device=None) -> Dict[str, Any]:
     log_period = int(cfg.get("LOG_PERIOD", 10))
     loss_meter = ScalarMeter(log_period)
     best_top1, losses, updates, pending = 0.0, [], 0, []
-    train_seconds = 0.0
+    train_seconds, ssl_val = 0.0, None
 
     def fetch() -> float:
         """The pending steps' metrics in one read; returns the last top1."""
@@ -289,13 +360,16 @@ def train(cfg, device=None) -> Dict[str, Any]:
         train_seconds += time.perf_counter() - t0
         covered = range(cur_epoch, min(cur_epoch + num_folds, max_epoch))
         if any(is_eval_epoch(cfg, e) for e in covered):
-            best_top1 = max(best_top1, _eval_epoch(cfg, model, data)["top1_acc"])
+            if _pretrain(cfg):
+                ssl_val = _eval_epoch_ssl(cfg, model, data)
+            else:
+                best_top1 = max(best_top1, _eval_epoch(cfg, model, data)["top1_acc"])
         if any(is_checkpoint_epoch(cfg, e) for e in covered):
             ckpt.save(cur_epoch + num_folds, state)
     ckpt.save(max_epoch, state)
     steps = len(losses)
     return {"best_top1": best_top1, "losses": losses, "updates": updates, "init_weights": init_weights, "steps": steps,
-            "seconds": train_seconds, "clips_per_s": steps * batch / max(train_seconds, 1e-9)}
+            "seconds": train_seconds, "clips_per_s": steps * batch / max(train_seconds, 1e-9), "ssl_val": ssl_val}
 
 
 def _test_loader(cfg, data: mesh.Mesh):
@@ -315,8 +389,11 @@ def _test_loop(cfg, model, data: mesh.Mesh, loader, on_batch, features: bool = F
     t0 = time.perf_counter()
 
     def drain(out, labels, clip_ids, maps):
-        host = tuple(_gather(o) for o in out) if isinstance(out, tuple) else _gather(out)
-        on_batch(host, _gather(labels), _gather(clip_ids), {k: v.float().permute(0, 2, 3, 4, 1).cpu().numpy() for k, v in maps.items()})
+        if isinstance(out, dict):  # MoSI's per-axis predictions, with per-axis labels
+            host, labels = {k: _gather(o) for k, o in out.items()}, {k: _gather(v) for k, v in labels.items()}
+        else:
+            host, labels = (tuple(_gather(o) for o in out) if isinstance(out, tuple) else _gather(out)), _gather(labels)
+        on_batch(host, labels, _gather(clip_ids), {k: v.float().permute(0, 2, 3, 4, 1).cpu().numpy() for k, v in maps.items()})
 
     with fm or contextlib.nullcontext():
         for videos, labels, clip_ids in loader:

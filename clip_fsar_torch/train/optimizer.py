@@ -10,7 +10,8 @@ as torch optimizers over param groups, in the same order:
     -> torch-L2 decay added to the gradient before the moments (adam, sgd;
        SOLVER.WEIGHT_DECAY for the 'rest'/'head' groups, BN.WEIGHT_DECAY
        for 'bn') or decoupled after them (adamw)
-    -> Adam (b1 0.9, b2 0.999, eps 1e-8), AdamW or SGD with momentum
+    -> Adam (b1 0.9, b2 0.999, eps 1e-8), AdamW, SGD with momentum, or LARS
+       (its group's decay inside the trust ratio, ``Lars``)
     -> 1/10 lr for the 'bn' and 'rest' groups under LR_REDUCE and FINE_TUNE
     -> frozen parameters (FIXED_WEIGHTS, ONLY_LINEAR, BN.WB_LOCK) never move,
 
@@ -18,7 +19,7 @@ accumulated over TRAIN.BATCH_SIZE_PER_TASK micro-steps with the semantics of
 the JAX ``cond_multi_steps``: gradients are summed, divided by k on the k-th
 micro-step, and the update uses the lr of that emitting step.
 ``TPU.FLAT_OPTIMIZER`` is a TPU layout choice with no effect on the numbers
-and is not read.  LARS (self-supervised pretraining) is not ported.
+and is not read.
 """
 
 from __future__ import annotations
@@ -148,6 +149,48 @@ def fixed_params(cfg, names, name_prefix: str = "head") -> set:
 # ---------------------------------------------------------------------------
 
 
+class Lars(torch.optim.Optimizer):
+    """LARS with the JAX package's math (scale_by_lars, optimizer.py:159-198;
+    reference models/utils/lars.py:75-117), per parameter tensor p with
+    gradient g and its group's weight decay wd:
+
+        local_lr = trust * ||p|| / (||g|| + wd * ||p||)   (1 where ||p|| or ||g|| is 0)
+        d = (g + wd * p) * local_lr
+        buf = momentum * buf + d
+        p -= lr * (d + momentum * buf if nesterov else buf)
+
+    with the raw gradient's norm, and the lr applied after the transformation
+    (the JAX package's stated divergence from the reference, which
+    multiplies each step's lr into the buffer).  As the fused torch
+    optimizers here, a step with ``found_inf`` 1 changes nothing, decided on
+    the device."""
+
+    def __init__(self, params, momentum: float = 0.9, trust_coefficient: float = 0.001, nesterov: bool = False):
+        super().__init__(params, {"lr": 0.0, "momentum": momentum, "trust_coefficient": trust_coefficient, "nesterov": nesterov,
+                                  "weight_decay": 0.0})
+        self.found_inf: Optional[torch.Tensor] = None
+        self.grad_scale = None
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["momentum_buffer"] = torch.zeros_like(p)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            wd, mom, trust = group["weight_decay"], group["momentum"], group["trust_coefficient"]
+            for p in group["params"]:
+                ok = torch.ones((), dtype=torch.bool, device=p.device) if self.found_inf is None else self.found_inf == 0
+                g, buf = p.grad, self.state[p]["momentum_buffer"]
+                p_norm, g_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(g)
+                local_lr = torch.where((p_norm > 0) & (g_norm > 0), trust * p_norm / (g_norm + wd * p_norm), torch.ones_like(p_norm))
+                d = (g + wd * p) * local_lr
+                new_buf = mom * buf + d
+                upd = d + mom * new_buf if group["nesterov"] else new_buf
+                buf.copy_(torch.where(ok, new_buf, buf))
+                p.sub_(torch.where(ok, group["lr"] * upd, torch.zeros_like(upd)))
+        return None
+
+
 class Optimizer:
     """The JAX optimizer chain over a module's parameters (see the module
     docstring).  ``step(lr, ok)`` takes the gradients in the parameters'
@@ -184,8 +227,8 @@ class Optimizer:
             decay = {"rest": wd, "head": wd, "bn": bn_wd, "no_decay": 0.0}
         elif self.method == "adamw":  # decoupled decay for the decay mask only
             decay = {"rest": wd, "head": wd, "bn": 0.0, "no_decay": 0.0}
-        elif self.method == "lars":
-            raise NotImplementedError("SOLVER.OPTIM_METHOD lars (self-supervised pretraining) is not ported yet: ROADMAP Queue 1, breadth")
+        elif self.method == "lars":  # decay inside the rule, per group: folding it into the gradient would change ||g||
+            decay = {"rest": wd, "head": wd, "bn": bn_wd, "no_decay": 0.0}
         else:
             raise NotImplementedError(f"Unsupported OPTIM_METHOD {self.method!r}")
 
@@ -201,6 +244,8 @@ class Optimizer:
             self.inner = torch.optim.Adam(param_groups_, lr=0.0, betas=(0.9, 0.999), eps=1e-8, fused=True)
         elif self.method == "adamw":
             self.inner = torch.optim.AdamW(param_groups_, lr=0.0, betas=(0.9, 0.999), eps=1e-8, fused=True)
+        elif self.method == "lars":
+            self.inner = Lars(param_groups_, momentum=float(s.get("MOMENTUM", 0.9)), nesterov=bool(s.get("NESTEROV", False)))
         else:
             self.inner = torch.optim.SGD(
                 param_groups_, lr=0.0, momentum=float(s.get("MOMENTUM", 0.9)), nesterov=bool(s.get("NESTEROV", False)), dampening=0.0,

@@ -1,6 +1,6 @@
 """Checkpoint surgery and the classification trainer's checkpoint loading
 (counterpart of clip_fsar_tpu/train/pretrain.py:40-316, the reference's
-utils/checkpoint.py; its self-supervised part is not ported).
+utils/checkpoint.py).
 
 The surgery works on the port's state dicts (names as the models', torch
 layouts), as the JAX package's works on its flax trees:
@@ -22,7 +22,8 @@ layouts), as the JAX package's works on its flax trees:
 
 Checkpoint files are the port's ``.pt`` (a train checkpoint or a bare state
 dict) and the JAX package's ``.npz`` weight archives (``save_weights_npz``),
-converted by ``models/video/convert.py``.  As everywhere in the port, a
+converted by ``models/video/convert.py``, at a local path or a remote one
+(fetched through ``utils/storage.py``).  As everywhere in the port, a
 path that does not exist is passed over and one that exists but cannot be
 read into the model (a directory, a reference-framework file, a file in
 which nothing matches) raises: a run never goes on with fresh weights where
@@ -40,6 +41,7 @@ from torch import nn
 
 from clip_fsar_torch.models.convert_reference import is_reference_checkpoint
 from clip_fsar_torch.models.heads.molo import resize_bilinear
+from clip_fsar_torch.utils import storage
 from clip_fsar_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -185,7 +187,11 @@ def _npz_state(path: str) -> StateDict:
 
 def load_state(path: str) -> Optional[StateDict]:
     """The state dict in a checkpoint file: the port's ``.pt`` (its model
-    entries) or a JAX-package ``.npz``; None when the path does not exist."""
+    entries) or a JAX-package ``.npz``; None when the path does not exist.
+    A remote path (``oss://``, ``gs://``, a registered scheme) is fetched
+    into the local cache first (utils/storage.py)."""
+    if storage.is_remote(path):
+        path = storage.fetch(path)
     if not os.path.exists(path):
         logger.info("checkpoint path %s not found", path)
         return None

@@ -4,8 +4,8 @@ mixup / cutmix and label smoothing with the JAX step's own draws fed to the
 port, EMA on), the classification loader byte for byte (train, the
 multi-view test with its padded tail, NUM_FOLDS, a rank's rows), the meters
 and top-k metrics on the same arrays, mixup / cutmix in every mode with
-injected draws, the checkpoint surgery on the same trees, and the refusals
-of self-supervised pretraining."""
+injected draws, the checkpoint surgery on the same trees, and what
+self-supervised pretraining still refuses."""
 
 import math
 import os
@@ -468,23 +468,25 @@ def test_test_weights_search_order_equals_jax(tmp_path):
 
 
 def test_pretraining_and_mosi_raise_before_any_work(tmp_path):
-    """PRETRAIN.ENABLE (the classification trainer's SSL branch), TASK_TYPE
-    pretrain through the CLI, MoSINet and the MoSI heads raise
-    NotImplementedError naming ROADMAP Queue 1 #8, before any model or
-    loader is made."""
+    """Self-supervised pretraining is ported (MoSINet and the MoSI heads
+    build; PRETRAIN.ENABLE trains them); what it cannot run still raises
+    before any model or loader is made: TPU.MESH.MODEL > 1 (tensor
+    parallelism) through the trainer and through TASK_TYPE pretrain on the
+    CLI."""
     from clip_fsar_torch.models.video import model as vmodel
     from clip_fsar_torch.runs import run
     from clip_fsar_torch.train import classification
 
-    _, cfg = cls_configs(tmp_path, (("PRETRAIN.ENABLE", True),))
+    _, cfg = cls_configs(tmp_path, (("PRETRAIN.ENABLE", True), ("TPU.MESH.MODEL", 2)))
     with mock.patch.object(classification, "build_video_model", side_effect=AssertionError("built")):
-        with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
             classification.train(cfg, device="cpu")
-    for name, head in (("MoSINet", "BaseHead"), ("BaseVideoModel", "MoSIHeadJoint")):
-        _, cfg = cls_configs(tmp_path, (("MODEL.NAME", name), ("VIDEO.HEAD.NAME", head)))
-        with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-            vmodel.build_video_model(cfg)
+    _, cfg = cls_configs(tmp_path, (("MODEL.NAME", "MoSINet"), ("VIDEO.HEAD.NAME", "MoSIHeadJoint"), ("PRETRAIN.ENABLE", True),
+                                    ("VIDEO.HEAD.NUM_CLASSES", 3)))
+    model = vmodel.build_video_model(cfg)
+    assert isinstance(model, vmodel.MoSINet) and isinstance(model.net.head, vmodel.MoSIHeadJoint)
     cfg_path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "pool", "run", "training", "mosi.yaml")
-    with mock.patch.object(run, "_RUNNERS", {}):
-        with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-            run.main(["--cfg", cfg_path, "--device", "cpu", "TASK_TYPE", "pretrain", "OUTPUT_DIR", str(tmp_path / "p")])
+    with mock.patch.object(classification, "build_video_model", side_effect=AssertionError("built")):
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            run.main(["--cfg", cfg_path, "--device", "cpu", "TASK_TYPE", "pretrain", "TPU.MESH", "{DATA: -1, MODEL: 2}", "OUTPUT_DIR", str(tmp_path / "p")])
+    assert not os.path.exists(tmp_path / "p" / "checkpoints")

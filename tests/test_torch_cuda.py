@@ -793,3 +793,97 @@ def test_classification_bf16_eval_matches_fp32(cuda):
         want, got = fp32(x, train=False)[0], bf16(x, train=False)[0]
     assert torch.isfinite(got).all() and torch.isfinite(want).all()
     torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
+
+
+# the localization task and MoSI pretraining at tiny sizes (configs/localization, configs/pretrain)
+BMN_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "localization", "BMN_EPIC100.yaml")
+BMN_TINY = ["DATA.TEMPORAL_SCALE", "32", "DATA.NUM_INPUT_CHANNELS", "16", "DATA.DECODER", "synthetic", "VIDEO.DIM1D", "32", "VIDEO.DIM2D", "16",
+            "VIDEO.DIM3D", "16", "VIDEO.HEAD.NUM_SAMPLE", "8", "VIDEO.HEAD.NUM_CLASSES", "[3, 4]", "TRAIN.BATCH_SIZE", "4"]
+MOSI_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "pretrain", "MoSI_R2D3D_HMDB51.yaml")
+MOSI_TINY = ["VIDEO.BACKBONE.DEPTH", "10", "VIDEO.BACKBONE.NUM_FILTERS", "[8, 16, 16, 32, 32]", "VIDEO.HEAD.NUM_CLASSES", "3",
+             "PRETRAIN.NUM_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "32", "TRAIN.BATCH_SIZE", "2"]
+
+
+def _bmn_batch(cfg, device):
+    from clip_fsar_torch.data.tal_features import TalFeatureDataset
+    from clip_fsar_torch.train.localization import _batches
+
+    feats, maps, _ = next(_batches(TalFeatureDataset(cfg, "train"), int(cfg.TRAIN.BATCH_SIZE), False, 0))
+    return torch.from_numpy(feats).to(device), {k: torch.from_numpy(v).to(device) for k, v in maps.items()}
+
+
+@pytest.mark.cuda
+def test_bmn_forward_and_backward_on_the_card_match_the_cpu(cuda):
+    """SimpleLocalizationConv + BaseBMN (regression and verb/noun maps on, D = T from the preset's
+    DURATION_SCALE -1) in float32 with TF32 off: every output map and the gradient of every parameter the
+    BMN loss reaches (Loss_PemReg's draws the same on both) on the card against the CPU at 1e-4."""
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.train.localization import build_bmn_model
+    from clip_fsar_torch.train.localization_losses import pem_reg_draws
+    from clip_fsar_torch.train.losses import calculate_loss
+
+    cfg = load_config(BMN_CONFIG, BMN_TINY)
+    feats, maps = _bmn_batch(cfg, "cpu")
+    draws = pem_reg_draws(maps["iou_map"].shape, torch.Generator().manual_seed(0))
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        model = build_bmn_model(cfg, dev)
+        preds = model(feats.to(dev))
+        loss, _ = calculate_loss(cfg, preds, None, {"supervised": {k: v.to(dev) for k, v in maps.items()}}, draws=tuple(d.to(dev) for d in draws))
+        loss.backward()
+        outs.append({k: v.detach().cpu() for k, v in preds.items()})
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})  # the regression map feeds no loss
+    assert outs[0]["confidence_map"].shape == (4, 2, 32, 32) and outs[0]["verb_map"].shape == (4, 3, 32, 32)
+    for k, v in outs[0].items():
+        torch.testing.assert_close(outs[1][k], v, atol=1e-4, rtol=1e-4, msg=lambda m, k=k: f"{k}: {m}")
+    assert grads[0].keys() == grads[1].keys() and "head.x_3d_p.weight" in grads[0] and "backbone.conv_0.weight" in grads[0]
+    for n, g in grads[0].items():
+        torch.testing.assert_close(grads[1][n], g, atol=1e-4, rtol=1e-4, msg=lambda m, n=n: f"grad {n}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["localization", "pretrain_adam", "pretrain_lars"])
+def test_bmn_and_mosi_steps_never_wait_for_the_card(cuda, tmp_path, task):
+    """Two BMN train steps, or two MoSI pretrain steps (the preset's per-frame colour jitter and dropout on;
+    Adam or LARS), after a first one, under torch's sync debug mode: nothing inside them synchronises with
+    the device."""
+    import warnings
+
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    if task == "localization":
+        from clip_fsar_torch.train.localization import build_bmn_model, make_localization_train_step, step_generator
+
+        cfg = load_config(BMN_CONFIG, BMN_TINY)
+        model = build_bmn_model(cfg, cuda)
+        step, (x, y) = make_localization_train_step(model, cfg), _bmn_batch(cfg, cuda)
+        run = lambda i: step(state, x, y, 1e-3, step_generator(cfg, 0, i, cuda))[0]  # noqa: E731
+    else:
+        from clip_fsar_torch.data.classification import build_classification_loader
+        from clip_fsar_torch.models.video.model import build_video_model
+        from clip_fsar_torch.train.classification import _to_device, make_classification_train_step
+        from clip_fsar_torch.train.classification import step_generator as cls_generator
+
+        for split in ("train", "test"):
+            with open(tmp_path / f"hmdb51_{split}_list.txt", "w") as f:
+                f.write("".join(f"videos/c{i % 3}/{split}_{i}.avi {i % 3}\n" for i in range(4)))
+        cfg = load_config(MOSI_CONFIG, MOSI_TINY + ["DATA.DECODER", "synthetic", "DATA.ANNO_DIR", str(tmp_path), "SOLVER.OPTIM_METHOD", task.split("_")[1]])
+        model = build_video_model(cfg, device=cuda)
+        videos, labels, _ = next(iter(build_classification_loader(cfg, "train")))
+        x, y = _to_device(videos, cuda), _to_device(labels, cuda)
+        step = make_classification_train_step(model, cfg)
+        run = lambda i: step(state, x, y, 1e-3, cls_generator(cfg, 0, i, cuda))["loss"]  # noqa: E731
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    run(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            losses = [run(i) for i in (1, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)}) == []
+    assert all(torch.isfinite(v).item() for v in losses)

@@ -263,8 +263,8 @@ def test_semi_head_with_unlabeled_clips_matches_jax(threshold):
 def test_heads_register_the_jax_names():
     """The port's registry holds every few-shot head the JAX package
     registers (its builder, fsheads.py and molo.py) and, since PR 13, every
-    classification head of its video models (models/video/*: the MoSI heads
-    registered to raise), and no other."""
+    classification head of its video models (models/video/*, the MoSI heads
+    among them), and no other."""
     import clip_fsar_tpu.models.builder  # noqa: F401
     import clip_fsar_tpu.models.video.model  # noqa: F401
     from clip_fsar_tpu.utils.registry import HEAD_REGISTRY as JREG

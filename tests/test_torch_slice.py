@@ -218,13 +218,17 @@ def test_profile_eval_busy_time_and_refusal():
 
 
 def test_cli_refuses_runners_not_ported(tmp_path):
-    """The localization runners and self-supervised pretraining are not
-    ported (classification is, since PR 13): the CLI raises before any work
-    instead of skipping them."""
-    with pytest.raises(NotImplementedError, match="'train_localization'"):
+    """Every runner of the JAX package is ported, localization and
+    pretraining among them; what the port still cannot run raises before
+    any work instead of being skipped: TPU.MESH.MODEL > 1 (tensor
+    parallelism), and the localization runners under a process group of
+    more than one rank."""
+    from unittest import mock
+
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TPU.MESH", "{DATA: -1, MODEL: 2}", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
+    with mock.patch.dict(os.environ, {"WORLD_SIZE": "2"}), pytest.raises(NotImplementedError, match="'train_localization' under a process group"):
         main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TASK_TYPE", "localization", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="pretraining is not ported"):
-        main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TASK_TYPE", "pretrain", "PRETRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
     assert not os.path.exists(os.path.join(tmp_path, "checkpoints"))
 
 

@@ -203,7 +203,17 @@ and read just after.  Phases:
    and the gathered SSL validation of the same weights bit for bit, the losses and
    weights within the spread of two runs without a group (MaxPool3d's backward adds
    with atomics on the card, so MoSI's steps do not repeat bit for bit), and the
-   step's operations that have no deterministic CUDA implementation.
+   step's operations that have no deterministic CUDA implementation;
+29. tensor parallelism at TPU.MESH {DATA: 1, MODEL: 2}: K1 and K2 at one model
+   rank's heads of the flagship's train chunk, [480, 197, 1152] bf16, against their
+   plain versions, timed beside the library call and the bound; then the ViT-B/16
+   test slice (16 episodes, fresh weights), one flash test step, the train cut (E = 2
+   a step in 2 chunks, 2 steps, dropout and jitter on, the test of its checkpoint)
+   through the CLI, and one fp32 step of one episode (under TPU.REMAT), with no process
+   group, and as two gloo processes on card 0 (``chip_smoke.py --tp-worker``):
+   bf16 logits and losses at 2e-2, the fp32 loss and picked gradients at 1e-4, the two
+   ranks the same bits, K1 / K2 / K3 launched at the local shapes on each rank; per rank
+   the peak and the step times (gloo reduces through the host: no tensor-parallel speed).
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -1967,7 +1977,7 @@ def _dp_run(out_dir: str) -> dict:
             grads["context2"] = torch.cat([p.grad.float().flatten() for n, p in named.items() if n.startswith("context2.")]).cpu()
         return opt_step(self, lr, ok)
 
-    loop.build_few_shot_model, Optimizer.step, common.dropout = capture_build, capture_step, (lambda x, rate, generator: x)
+    loop.build_few_shot_model, Optimizer.step, common.dropout = capture_build, capture_step, (lambda x, *_args: x)
     try:
         _reset_launches()
         results = main(["--cfg", CONFIG, *DP_OPTS, "OUTPUT_DIR", out_dir])
@@ -2129,6 +2139,199 @@ def phase_dp_world2(out_dir: str, card_line: str, world1: dict) -> dict:
         raise AssertionError(f"world 2 tested {ranks[0]['episodes']} episodes, world 1 {one['episodes']}")
     torch.testing.assert_close(torch.from_numpy(ranks[0]["logits"]), torch.from_numpy(one["logits"]), atol=2e-2, rtol=2e-2)
     return {"launches": {name: sum(r["launches"][name] for r in ranks) for name in DP_LAUNCHES}, "seconds": wall}
+
+
+# the tensor-parallel phase: TPU.MESH {DATA: 1, MODEL: 2} as two gloo processes sharing card 0 (NCCL refuses two ranks
+# on one card), each rank holding 6 of every ViT-B/16 block's 12 heads, half of its MLP and half of the prototype
+# transformer's, against the same runs with no process group in this process; dropout and jitter on (the masks of a
+# sharded activation are slices of the full draw, so both worlds draw the same ones)
+TP_OPTS = ["TPU.MESH", "{DATA: 1, MODEL: 2}"]
+TP_HEADS = 6
+TP_SHAPE = (TRAIN_SHAPE[0], 197, 3 * TP_HEADS * 64)  # the flagship's train chunk (480 frames) on one rank's heads
+TP_STEPS, TP_EPISODES, TP_TEST_EPISODES = 2, 2, 4
+# E = 2 a step in 2 chunks of one episode, an Adam update every step, no validation, the test of the step-2 checkpoint on
+# 4 episodes (one step)
+TP_TRAIN_OPTS = TRAIN_OPTS + ["TPU.EPISODES_PER_STEP", str(TP_EPISODES), "TRAIN.BATCH_SIZE_PER_TASK", "1", "TRAIN.NUM_TRAIN_TASKS",
+                              str(TP_STEPS), "TRAIN.VAL_FRE_ITER", "0", "TRAIN.NUM_TEST_TASKS", str(TP_TEST_EPISODES)]
+# one fp32 step of one episode under TPU.REMAT (so that two fp32 ranks fit the card; the same numbers as without it)
+TP_FP32_OPTS = TP_TRAIN_OPTS + ["TPU.COMPUTE_DTYPE", "float32", "TPU.REMAT", "True", "TPU.EPISODES_PER_STEP", "1"]
+TP_FP32_PICKED = ("backbone.transformer.resblocks.0.attn.in_proj_weight", "backbone.transformer.resblocks.0.mlp.c_fc.weight",
+                  f"backbone.transformer.resblocks.{LAYERS - 1}.attn.out_proj.weight", "backbone.ln_pre.weight", "context2.attn_0.to_q.weight")
+TP_FP32_TOL = 1e-4  # the fp32 step's loss (relative) and gradients (norm-relative): reduction order only, TF32 off
+TP_TIMEOUT_S = 600  # each rank of the phase, and its process group's collectives
+# per rank: the fused test slice (4 steps), the flash test step, the train cut (each chunk of each step) and its test step
+TP_LAUNCHES = {"clip_mha_fwd": LAYERS * (4 + TP_STEPS * CHUNKS + 1), "clip_mha_bwd": LAYERS * TP_STEPS * CHUNKS, "flash_mha_fwd": LAYERS}
+
+
+def _tp_runs(out_dir: str, mesh_opts: list) -> dict:
+    """The tensor-parallel phase's runs in this process, on ``mesh_opts``'s mesh (under the caller's process group, if
+    any): the fused test slice and one flash test step on fresh weights, the train cut through the CLI (its losses,
+    seconds a step, peak), one fp32 step's loss and picked full gradients, and the launches of every kernel counted
+    from 0 over the CLI runs."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.parallel import mesh, tensor
+    from clip_fsar_torch.runs.run import load_config, main
+    from clip_fsar_torch.train.step import make_grad_fn
+
+    dev = runtime.device("cuda")
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    test = main(["--cfg", CONFIG, *SLICE_OPTS, *mesh_opts, "OUTPUT_DIR", os.path.join(out_dir, "test")])["test_few_shot"]
+    test_peak = torch.cuda.max_memory_allocated()
+    flash = main(["--cfg", CONFIG, *SLICE_OPTS, *FLASH_OPTS, *mesh_opts, "TRAIN.NUM_TEST_TASKS", "4", "OUTPUT_DIR",
+                  os.path.join(out_dir, "flash")])["test_few_shot"]
+    torch.cuda.reset_peak_memory_stats()
+    train = main(["--cfg", CONFIG, *TP_TRAIN_OPTS, *mesh_opts, "OUTPUT_DIR", os.path.join(out_dir, "train")])
+    train_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    launches = _launches()
+
+    cfg = load_config(CONFIG, TP_FP32_OPTS + mesh_opts)
+    grid = mesh.build_mesh(cfg, dev)
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    mesh.broadcast_module(model.head)
+    tensor.shard_module(model.head, grid.model_shard)
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=1) as loader:
+        batch = next(iter(loader)).to(dev)
+    metrics = make_grad_fn(model.head, cfg, model.text_train, model.text_test)(batch, None)
+    named = dict(model.head.named_parameters())
+    full = lambda p: tensor.spec(p).gather(p.grad) if tensor.spec(p) is not None else p.grad  # noqa: E731
+    fp32 = {"loss": float(metrics["loss"]), "grads": {n: full(named[n]).float().cpu() for n in TP_FP32_PICKED}}
+    del model, batch, named
+    torch.cuda.empty_cache()
+    t = train["train_few_shot"]
+    return {"test_logits": test["episode_logits"], "test_episodes": test["episodes"], "test_seconds": test["seconds"], "test_peak": test_peak,
+            "flash_logits": flash["episode_logits"], "losses": t["losses"], "updates": t["updates"], "step_seconds": t["seconds"] / TP_STEPS,
+            "train_peak": train_peak, "after_logits": train["test_few_shot"]["episode_logits"], "fp32": fp32, "launches": launches}
+
+
+def tp_worker(rank: int, store: str, out_dir: str) -> None:
+    """One rank of the tensor-parallel phase: joins a two-rank gloo group on card 0 and runs ``_tp_runs`` at MODEL 2 in
+    ``out_dir`` (the ranks share it: rank 0 writes the checkpoints), then saves what it saw to ``out_dir/rank<r>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from clip_fsar_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        run = _tp_runs(out_dir, TP_OPTS)
+    finally:
+        mesh.destroy()
+    torch.save(run, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _tp_kernels() -> dict:
+    """K1 and K2 at one rank's shape of the flagship's train chunk, [480, 197, 1152] bf16 (6 heads of 64), against their
+    plain versions: the error, both times taken in turn, the library call and the bound (a ``kernels`` record each)."""
+    from clip_fsar_torch.ops.fused_attention import _heads_split, clip_mha_bwd_cuda, clip_mha_bwd_reference, clip_mha_cuda, clip_mha_reference
+
+    g = torch.Generator().manual_seed(7)
+    b, n, d3 = TP_SHAPE
+    h = TP_HEADS
+    qkv = torch.randn(b, n, d3, generator=g).to("cuda", torch.bfloat16)
+    do = torch.randn(b, n, d3 // 3, generator=g).to("cuda", torch.bfloat16)
+    err = _check_forward(f"K1 clip_mha_fwd {list(TP_SHAPE)} H={h} bf16 (one model rank's heads)", lambda: clip_mha_cuda(qkv, h),
+                         lambda: clip_mha_reference(qkv, h), TOLERANCE[torch.bfloat16])
+    ms, plain_ms, _ = _alternate(lambda: clip_mha_cuda(qkv, h), lambda: clip_mha_reference(qkv, h))
+    fwd = {"shape": list(TP_SHAPE), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": _sdpa_ms(*_heads_split(qkv, h)),
+           **_attention_bound(b, n, h, 64, tensors_in=3, tensors_out=1, rows_fp32=1, products=2)}
+    o, lse = clip_mha_cuda(qkv, h)
+    dqkv = clip_mha_bwd_cuda(qkv, o, lse, do, h)
+    torch.cuda.synchronize()
+    ref = clip_mha_bwd_reference(qkv, o, lse, do, h)
+    berr = (dqkv.float() - ref.float()).abs().max().item()
+    print(f"K2 clip_mha_bwd {list(TP_SHAPE)} H={h} bf16 (one model rank's heads): max|dqkv-ref| {berr:.3e} (tol {TOLERANCE[torch.bfloat16]})")
+    if not torch.isfinite(dqkv.float()).all():
+        raise AssertionError("K2 at the tensor-parallel shape: dqkv is not finite")
+    torch.testing.assert_close(dqkv.float(), ref.float(), atol=TOLERANCE[torch.bfloat16], rtol=TOLERANCE[torch.bfloat16])
+    bms, bplain_ms, _ = _alternate(lambda: clip_mha_bwd_cuda(qkv, o, lse, do, h), lambda: clip_mha_bwd_reference(qkv, o, lse, do, h))
+    leaf = qkv.detach().requires_grad_(True)
+    bwd = {"shape": list(TP_SHAPE), "max_abs_err": berr, "ms": bms, "plain_ms": bplain_ms,
+           "library_ms": _sdpa_bwd_ms(_heads_split(leaf, h), do.reshape(b, n, h, 64).transpose(1, 2), wrt=leaf),
+           **_attention_bound(b, n, h, 64, tensors_in=5, tensors_out=3, rows_fp32=1, products=5)}
+    for name, r in (("clip_mha_fwd", fwd), ("clip_mha_bwd", bwd)):
+        print(f"{name} {list(TP_SHAPE)} bf16 at one model rank's heads: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {100 * r['bound_ms'] / r['ms']:.1f} % of it reached)")
+    return {"clip_mha_fwd": fwd, "clip_mha_bwd": bwd}
+
+
+def phase_tensor_parallel(out_dir: str, card_line: str) -> dict:
+    """TPU.MESH {DATA: 1, MODEL: 2}: K1 and K2 at one rank's heads against their plain versions; the phase's runs
+    with no process group here, then as two gloo processes on card 0 (``chip_smoke.py --tp-worker``; gloo reduces
+    CUDA tensors through the host, so its step times are no tensor-parallel speed): the bf16 test slice's logits, the
+    flash step's and the train cut's losses at PERF.md section 2's 2e-2, the fp32 step's loss and picked gradients at
+    TP_FP32_TOL, the two ranks' losses and logits the same bits, K1 / K2 launched at the local shapes as TP_LAUNCHES
+    says on each rank.  Each rank has TP_TIMEOUT_S; one that fails fails the phase."""
+    import subprocess
+    import sys
+
+    kernels = _tp_kernels()
+    one = _tp_runs(os.path.join(out_dir, "alone"), [])
+    torch.cuda.empty_cache()
+    run_dir = os.path.join(out_dir, "tp")
+    os.makedirs(run_dir)
+    env = {k: v for k, v in os.environ.items() if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    logs = [open(os.path.join(out_dir, f"tp_rank{r}.log"), "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r), os.path.join(out_dir, "tp_store"), run_dir],
+                              cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        while any(p.poll() is None for p in procs) and time.perf_counter() - t0 < TP_TIMEOUT_S:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # a rank failed: its peer would wait for it until the group's timeout
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out_dir, f"tp_rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"tensor parallel: rank {r} exited with {p.returncode} after {wall:.0f} s:\n{tail}")
+    ranks = [torch.load(os.path.join(run_dir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    r0 = ranks[0]
+    errs = {"test logits": float(np.abs(r0["test_logits"] - one["test_logits"]).max()),
+            "flash logits (against the fused run's)": float(np.abs(r0["flash_logits"] - one["test_logits"][:4]).max()),
+            "losses": max(abs(a - b) for a, b in zip(r0["losses"], one["losses"])),
+            "logits after training": float(np.abs(r0["after_logits"] - one["after_logits"]).max())}
+    fp32 = {"loss": abs(r0["fp32"]["loss"] - one["fp32"]["loss"]) / abs(one["fp32"]["loss"]),
+            **{n: ((g - one["fp32"]["grads"][n]).norm() / one["fp32"]["grads"][n].norm()).item() for n, g in r0["fp32"]["grads"].items()}}
+    gib = 2**30
+    print(f"tensor parallel, MODEL 2 over gloo on one card ({card_line}; both ranks share the card and reduce through the host: no "
+          f"tensor-parallel speed): bf16 against no process group: " + ", ".join(f"{k} max diff {v:.3e}" for k, v in errs.items())
+          + f" (tol 2e-2); fp32 step: " + ", ".join(f"{k} {v:.3e}" for k, v in fp32.items()) + f" (relative, tol {TP_FP32_TOL}); losses "
+          f"{r0['losses']} against {one['losses']}; per rank: the CLI's train step "
+          + ", ".join(f"rank {i} {r['step_seconds']:.2f} s" for i, r in enumerate(ranks)) + f" against {one['step_seconds']:.2f} s; peak train "
+          + ", ".join(f"rank {i} {r['train_peak'] / gib:.2f} GiB" for i, r in enumerate(ranks)) + f" against {one['train_peak'] / gib:.2f} GiB, test "
+          + ", ".join(f"rank {i} {r['test_peak'] / gib:.2f} GiB" for i, r in enumerate(ranks)) + f" against {one['test_peak'] / gib:.2f} GiB; "
+          f"{wall:.1f} s with the processes' start; launches per rank {[r['launches'] for r in ranks]}")
+    for key, got in errs.items():
+        if not got <= 2e-2:
+            raise AssertionError(f"tensor parallel: {key} differ from the run without a process group by {got:.3e}")
+    for key, got in fp32.items():
+        if not got <= TP_FP32_TOL:
+            raise AssertionError(f"tensor parallel: the fp32 step's {key} differs from the run without a process group by {got:.3e}")
+    if ranks[0]["losses"] != ranks[1]["losses"] or not np.array_equal(ranks[0]["test_logits"], ranks[1]["test_logits"]):
+        raise AssertionError("tensor parallel: the two model ranks disagree")
+    if r0["updates"] != TP_STEPS or len(r0["losses"]) != TP_STEPS or r0["test_episodes"] != 16:
+        raise AssertionError(f"tensor parallel: {r0['updates']} updates of {len(r0['losses'])} steps, {r0['test_episodes']} test episodes")
+    for i, r in enumerate(ranks):
+        got = {name: r["launches"][name] for name in TP_LAUNCHES}
+        if got != TP_LAUNCHES or any(n for name, n in r["launches"].items() if name not in TP_LAUNCHES):
+            raise AssertionError(f"tensor parallel: rank {i} launched {r['launches']}, expected {TP_LAUNCHES}")
+    return {"kernels": kernels, "launches": {name: {f"rank{i}": r["launches"][name] for i, r in enumerate(ranks)} for name in _launches()},
+            "seconds": wall, "step_s": [r["step_seconds"] for r in ranks], "alone_step_s": one["step_seconds"],
+            "peak_gib": [r["train_peak"] / gib for r in ranks]}
 
 
 def _repeat_classic_steps(name: str, batch) -> None:
@@ -2746,6 +2949,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of the world-2 phase, started by phase_dp_world2
         dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return
+    if sys.argv[1:2] == ["--tp-worker"]:  # one model rank of the tensor-parallel phase, started by phase_tensor_parallel
+        tp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     smi = phase_device()
     build_seconds = phase_build()
     timings = {"clip_mha_fwd": phase_fwd_vs_plain(), "clip_mha_bwd": phase_bwd_vs_plain(), "flash_mha_fwd": phase_flash_fwd_vs_plain()}
@@ -2781,6 +2987,9 @@ def main() -> None:
     dp_launches = {name: {"nccl_world1": dp1["launches"].get(name, 0), "gloo_world2": dp2["launches"].get(name, 0)} for name in _launches()}
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         torch.cuda.empty_cache()
+        tp = phase_tensor_parallel(out_dir, smi)
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        torch.cuda.empty_cache()
         cls = phase_classification(out_dir, smi)
         presets = phase_presets(out_dir, smi)
         cls_dp = phase_classification_dp(out_dir, smi)
@@ -2812,6 +3021,9 @@ def main() -> None:
           f"peak {train_bank['peak_gib']:.3f} GiB"
           + f"; data parallel: the resident train step {dp1['step_ms']:.1f} ms as one NCCL rank against {dp1['alone_step_ms']:.1f} ms "
           f"without a group, its gradient all-reduce {dp1['all_reduce_ms']:.3f} ms; two gloo ranks on the card {dp2['seconds']:.1f} s"
+          f"; tensor parallel (MODEL 2, gloo through the host on one card): the CLI's train step {', '.join(f'{t:.2f}' for t in tp['step_s'])} s "
+          f"on the two ranks against {tp['alone_step_s']:.2f} s without a group, peak {', '.join(f'{g:.2f}' for g in tp['peak_gib'])} GiB, "
+          f"{tp['seconds']:.1f} s"
           f"; classification TAda2D-R50: train {cls['train_clips_per_s']:.3f} clips/s, test {cls['test_clips_per_s']:.3f} and re-test "
           f"{cls['retest_clips_per_s']:.3f} clips/s, resident step {cls['step_ms']:.1f} ms (host {cls['host_ms']:.1f} ms, card busy "
           f"{cls['busy_ms']:.1f} ms), peak {cls['peak_gib']:.3f} GiB; presets: "
@@ -2843,7 +3055,8 @@ def main() -> None:
                         "classic_launches": {slice_name: t["launches"][name] for slice_name, t in classic.items()},
                         "bank_launches": bank_launches[name], "pyth_launches": reference["launches"][name], "dp_launches": dp_launches[name],
                         "classification_launches": classification_launches[name], "localization_launches": bmn["launches"][name],
-                        "pretrain_launches": mosi["launches"][name],
+                        "pretrain_launches": mosi["launches"][name], "tp_launches": tp["launches"][name],
+                        **({"at_tp_rank_heads": tp["kernels"][name]} if name in tp["kernels"] else {}),
                         **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t},
                         **({"at_vit_l336_chunk": l336_kernels[name]} if name in l336_kernels else {})})
         if not records[-1]["launches"] > 0:

@@ -55,6 +55,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from clip_fsar_torch.models.clip.arch import CLIPArch
 from clip_fsar_torch.ops.attention import merge_heads, mha, split_heads
 from clip_fsar_torch.ops.fused_attention import clip_mha
+from clip_fsar_torch.parallel.tensor import ModelShard, copy_to_model, reduce_from_model, shard_param
 
 
 def _empty(*shape) -> nn.Parameter:
@@ -66,17 +67,48 @@ def _empty(*shape) -> nn.Parameter:
 class Dense(nn.Module):
     """Linear layer with float32 params cast to the compute dtype at use
     (flax ``nn.Dense(dtype=..., param_dtype=float32)``).  ``weight`` is
-    torch's (out, in)."""
+    torch's (out, in).
+
+    Under tensor parallelism (parallel/tensor.py) its owner makes it
+    column-parallel (``column_``: the rank's output features, ``parts``
+    runs of them for a packed q|k|v) or row-parallel (``row_``: the rank's
+    input features, the partial products summed over the model group, the
+    bias added once after the sum)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = _empty(out_features, in_features)
         self.bias = _empty(out_features) if bias else None
         self.dtype = dtype
+        self.tp: Optional[ModelShard] = None
+        self.row = False
+
+    def column_(self, shard: ModelShard, parts: int = 1) -> None:
+        shard_param(self.weight, shard, 0, parts)
+        if self.bias is not None:
+            shard_param(self.bias, shard, 0, parts)
+        self.tp = shard
+
+    def row_(self, shard: ModelShard) -> None:
+        shard_param(self.weight, shard, 1)
+        self.tp, self.row = shard, True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+        if self.row:
+            y = reduce_from_model(F.linear(x.to(dt), self.weight.to(dt)), self.tp)
+            return y if self.bias is None else y + self.bias.to(dt)
+        return F.linear(copy_to_model(x.to(dt), self.tp), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
+def shard_feed_forward(fc1: Dense, fc2: Dense, shard: ModelShard) -> Optional[str]:
+    """``fc1`` column-parallel and ``fc2`` row-parallel when the hidden width divides; else why not."""
+    hidden = fc1.weight.shape[0]
+    if hidden % shard.size:
+        return f"hidden width {hidden}"
+    fc1.column_(shard)
+    fc2.row_(shard)
+    return None
 
 
 class LayerNorm(nn.Module):
@@ -122,7 +154,10 @@ class PatchEmbed(nn.Module):
 
 class MultiheadAttention(nn.Module):
     """Self-attention with one packed [D, 3D] in-projection (JAX
-    model.py:197-259; OpenAI names in_proj_weight / in_proj_bias / out_proj)."""
+    model.py:197-259; OpenAI names in_proj_weight / in_proj_bias / out_proj).
+    Tensor-parallel (``shard_``): the rank's heads of q, then of k, then of
+    v in the packed in-projection, so its product is the packed [B, N, 3D/M]
+    of H/M heads that ``clip_mha`` reads as it is; ``out_proj`` row-parallel."""
 
     def __init__(self, dim: int, heads: int, dtype: torch.dtype = torch.float32, attention_backend: str = "plain"):
         super().__init__()
@@ -132,10 +167,21 @@ class MultiheadAttention(nn.Module):
         self.heads = heads
         self.dtype = dtype
         self.attention_backend = attention_backend
+        self.tp: Optional[ModelShard] = None
+
+    def shard_(self, shard: ModelShard) -> Optional[str]:
+        if self.heads % shard.size:
+            return f"{self.heads} heads"
+        shard_param(self.in_proj_weight, shard, 0, parts=3)
+        shard_param(self.in_proj_bias, shard, 0, parts=3)
+        self.out_proj.row_(shard)
+        self.heads //= shard.size
+        self.tp = shard
+        return None
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         dt = self.dtype
-        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))  # [B, N, 3D] (q | k | v)
+        qkv = F.linear(copy_to_model(x.to(dt), self.tp), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))  # [B, N, 3D] (q | k | v)
         if self.attention_backend == "fused" and not causal:
             return self.out_proj(clip_mha(qkv, self.heads))
         q, k, v = (split_heads(t, self.heads) for t in qkv.chunk(3, dim=-1))
@@ -147,6 +193,9 @@ class _MLP(nn.Module):
         super().__init__()
         self.c_fc = Dense(width, width * 4, dtype=dtype)
         self.c_proj = Dense(width * 4, width, dtype=dtype)
+
+    def shard_(self, shard: ModelShard) -> Optional[str]:
+        return shard_feed_forward(self.c_fc, self.c_proj, shard)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.c_proj(quick_gelu(self.c_fc(x)))

@@ -18,8 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clip_fsar_torch.models.clip.model import Dense, LayerNorm
+from clip_fsar_torch.models.clip.model import Dense, LayerNorm, shard_feed_forward
 from clip_fsar_torch.ops.attention import merge_heads, mha, split_heads
+from clip_fsar_torch.parallel.tensor import ModelShard, rand
 
 
 def cos_sim(x: torch.Tensor, y: torch.Tensor, epsilon: float = 0.01) -> torch.Tensor:
@@ -46,14 +47,15 @@ def class_mean(feats: torch.Tensor, labels: torch.Tensor, num_classes: int) -> t
     return means.reshape(*lead, num_classes, *feats.shape[labels.dim():])
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], shard: Optional[ModelShard] = None) -> torch.Tensor:
     """Inverted dropout as flax ``nn.Dropout``: keep each element with
     probability 1 - rate (a Bernoulli mask drawn from ``generator``) and
     scale the kept ones by 1/(1 - rate).  Identity when ``generator`` is
-    None or the rate is 0."""
+    None or the rate is 0.  With ``shard``, ``x`` is the rank's slice of the
+    last axis, and its mask that slice of the full-width draw."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = rand(x.shape, generator, x.device, shard) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -64,9 +66,19 @@ class FeedForward(nn.Module):
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype)
         self.rate = dropout
 
+    def shard_(self, shard: ModelShard) -> Optional[str]:
+        return shard_feed_forward(self.fc1, self.fc2, shard)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = dropout(F.gelu(self.fc1(x), approximate="none"), self.rate, generator)  # torch nn.GELU default: exact erf
+        h = dropout(F.gelu(self.fc1(x), approximate="none"), self.rate, generator, self.fc1.tp)  # torch nn.GELU default: exact erf
         return dropout(self.fc2(h), self.rate, generator)
+
+
+def _attention_shards(heads: int, to_out: Optional[Dense], shard: ModelShard) -> Optional[str]:
+    """Why an attention with ``heads`` heads stays replicated on ``shard``'s model axis (None: it is sharded)."""
+    if to_out is None:
+        return "no output projection: one head spans the width"
+    return f"{heads} heads" if heads % shard.size else None
 
 
 class AttentionQKV(nn.Module):
@@ -83,6 +95,15 @@ class AttentionQKV(nn.Module):
         self.to_out = None if (heads == 1 and dim_head == dim) else Dense(inner, dim, dtype=dtype)
         self.heads = heads
         self.rate = dropout
+
+    def shard_(self, shard: ModelShard) -> Optional[str]:
+        why = _attention_shards(self.heads, self.to_out, shard)
+        if why is None:
+            for proj in (self.to_q, self.to_k, self.to_v):
+                proj.column_(shard)
+            self.to_out.row_(shard)
+            self.heads //= shard.size
+        return why
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         qh, kh, vh = (split_heads(proj(t), self.heads) for proj, t in ((self.to_q, q), (self.to_k, k), (self.to_v, v)))
@@ -206,6 +227,14 @@ class PreNormSelfAttention(nn.Module):
         self.to_qkv = Dense(dim, inner * 3, bias=False, dtype=dtype)
         self.to_out = None if (heads == 1 and dim_head == dim) else Dense(inner, dim, dtype=dtype)
         self.heads, self.rate = heads, dropout
+
+    def shard_(self, shard: ModelShard) -> Optional[str]:
+        why = _attention_shards(self.heads, self.to_out, shard)
+        if why is None:
+            self.to_qkv.column_(shard, parts=3)
+            self.to_out.row_(shard)
+            self.heads //= shard.size
+        return why
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         q, k, v = (split_heads(t, self.heads) for t in self.to_qkv(self.norm(x)).chunk(3, dim=-1))

@@ -21,12 +21,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clip_fsar_torch.models.clip.model import Dense
+from clip_fsar_torch.models.clip.model import Dense, shard_feed_forward
 from clip_fsar_torch.models.heads.common import dropout
 from clip_fsar_torch.models.heads.molo import resize_bilinear
 from clip_fsar_torch.models.init import trunc_normal_
 from clip_fsar_torch.models.video.blocks import Conv3d, same_padding
 from clip_fsar_torch.ops.attention import merge_heads, mha, split_heads
+from clip_fsar_torch.parallel.tensor import ModelShard
 from clip_fsar_torch.utils.registry import BACKBONE_REGISTRY, BRANCH_REGISTRY, STEM_REGISTRY
 
 
@@ -73,8 +74,18 @@ class VideoAttention(nn.Module):
         self.to_qkv = Dense(dim, dim * 3, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
 
+    def shard_(self, shard: ModelShard) -> Optional[str]:
+        """``to_qkv`` column-parallel per head out of each third, ``proj``
+        row-parallel; the probabilities' dropout masks sliced over the heads."""
+        if self.heads % shard.size:
+            return f"{self.heads} heads"
+        self.to_qkv.column_(shard, parts=3)
+        self.proj.row_(shard)
+        self.heads //= shard.size
+        return None
+
     def _mha(self, q, k, v, generator):
-        return mha(q, k, v, prob_dropout_rate=self.attn_dropout, generator=generator)
+        return mha(q, k, v, prob_dropout_rate=self.attn_dropout, generator=generator, prob_dropout_shard=self.proj.tp)
 
     def forward(self, x, generator=None, divide: Optional[str] = None, frames: int = 0, patches: int = 0):
         q, k, v = self.to_qkv(x).chunk(3, dim=-1)
@@ -116,8 +127,11 @@ class TransformerFeedForward(nn.Module):
         self.fc1 = Dense(dim, dim * mult, dtype=dtype)
         self.fc2 = Dense(dim * mult, dim, dtype=dtype)
 
+    def shard_(self, shard: ModelShard) -> Optional[str]:
+        return shard_feed_forward(self.fc1, self.fc2, shard)
+
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        h = dropout(F.gelu(self.fc1(x), approximate="none"), self.rate, generator)
+        h = dropout(F.gelu(self.fc1(x), approximate="none"), self.rate, generator, self.fc1.tp)
         return dropout(self.fc2(h), self.rate, generator)
 
 

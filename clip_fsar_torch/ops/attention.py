@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from clip_fsar_torch.parallel.tensor import ModelShard, rand
+
 
 def mha(
     q: torch.Tensor,
@@ -25,6 +27,7 @@ def mha(
     causal: bool = False,
     prob_dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    prob_dropout_shard: Optional[ModelShard] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention: q [B, H, Nq, Dh], k/v [B, H, Nk, Dh]
     -> [B, H, Nq, Dh] in q's dtype.  ``mask`` is additive, broadcastable to
@@ -32,7 +35,9 @@ def mha(
     query.  With a ``generator`` and ``prob_dropout_rate`` > 0 the softmaxed
     probabilities are dropped out (a Bernoulli keep mask, kept ones scaled
     by 1 / keep), as the JAX ``mha`` does with a dropout key; that call
-    always takes the plain path."""
+    always takes the plain path.  ``prob_dropout_shard`` (a
+    ``parallel.tensor.ModelShard``): the heads are the rank's slice of the
+    model's, and the mask that slice of the draw over all of them."""
     dropping = prob_dropout_rate > 0.0 and generator is not None
     if backend == "pallas" and not dropping:
         from clip_fsar_torch.ops.flash_attention import flash_mha
@@ -51,7 +56,7 @@ def mha(
     probs = torch.softmax(logits, dim=-1)
     if dropping:
         keep = 1.0 - prob_dropout_rate
-        probs = probs * (torch.rand(probs.shape, generator=generator, device=probs.device) < keep).to(probs.dtype) / keep
+        probs = probs * (rand(probs.shape, generator, probs.device, prob_dropout_shard, dim=1) < keep).to(probs.dtype) / keep
     return torch.matmul(probs.to(dtype), v)
 
 

@@ -1,29 +1,35 @@
-"""Data parallelism over torch.distributed (counterpart of
+"""Data and tensor parallelism over torch.distributed (counterpart of
 clip_fsar_tpu/parallel/mesh.py).
 
-The JAX package runs one program over a 1-D ``data`` mesh: episode batches
-are sharded on their leading axis, parameters are replicated, GSPMD inserts
-the gradient psum, and eval outputs come back replicated.  Here each rank is
-one process with its own card (NCCL) or its own CPU (gloo), and the same
-semantics are spelled out:
+The JAX package runs one program over a (data, model) mesh: episode batches
+are sharded on their leading axis over ``data``, the transformer matmuls
+over ``model`` (``parallel/tensor.py``), every other parameter is
+replicated, GSPMD inserts the gradient psum, and eval outputs come back
+replicated.  Here each rank is one process with its own card (NCCL) or its
+own CPU (gloo), and the same semantics are spelled out:
 
-- every rank holds the same weights (``broadcast_module`` sends rank 0's at
-  the start);
-- rank r samples the episode slots ``local_episode_range`` of every global
-  step (the loader's ``episode_range``; per-(step, slot) seeding makes the
-  global batch sliceable);
-- the train step all-reduces the gradient to its mean over the ranks once,
-  after its episode-chunk loop (``all_reduce_grads``), and the metrics and
-  the live BatchNorms' running statistics too (``all_reduce_mean``), so every
-  rank takes the same update;
-- the eval loop gathers the per-episode outputs in rank order
-  (``all_gather_rows``), which is the global episode order.
+- the ranks form a grid of TPU.MESH.DATA x TPU.MESH.MODEL in the JAX
+  package's ``reshape(data, model)`` order: rank = d * MODEL + m, so a
+  model group is consecutive ranks (one host's where it can be), and the
+  ranks of one data column form a data group;
+- every rank holds the same weights (``broadcast_module`` sends rank 0's
+  full weights at the start), then keeps its model slice of each sharded
+  pair (``tensor.shard_module``);
+- data rank d samples the episode slots ``local_episode_range`` of every
+  global step (the loader's ``episode_range``; per-(step, slot) seeding
+  makes the global batch sliceable): the ranks of one model group draw the
+  same episodes;
+- the train step all-reduces the gradient to its mean over the data group
+  once, after its episode-chunk loop (``all_reduce_grads``), and the
+  metrics and the live BatchNorms' running statistics too
+  (``all_reduce_mean``), so every rank takes the same update;
+- the eval loop gathers the per-episode outputs over the data group in
+  rank order (``all_gather_rows``), which is the global episode order.
 
 With no process group every function here is the identity, and a run is the
-one-card run it was.  ``TPU.MESH.DATA`` must be -1 or the world size: a
-process group does not shrink, so a smaller data axis means launching fewer
-processes.  ``TPU.MESH.MODEL > 1`` (the JAX package's tensor parallelism over
-a 2-D mesh, mesh.py:68-91, 161-202) is not ported yet.
+one-card run it was.  With MODEL 1 the data group is the whole world, as it
+was before the model axis.  The mesh must cover the world: DATA x MODEL =
+world (DATA -1 means world / MODEL), since a process group does not shrink.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Callable, Dict, Iterable, List, Optional, TypeVar
 import torch
 import torch.distributed as dist
 
+from clip_fsar_torch.parallel import tensor
 from clip_fsar_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -147,7 +154,7 @@ def maybe_init_distributed(cfg=None, backend: str = "nccl") -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The run's ranks: ``data`` ranks on one data axis (all of them)."""
+    """The run's ranks: ``data`` x ``model`` of them, rank = data_rank * model + model_rank."""
 
     world: int
     rank: int
@@ -155,21 +162,44 @@ class Mesh:
     data: int
     backend: Optional[str]  # None without a process group
     device: torch.device
+    model: int = 1
+    data_group: object = None  # None: the whole world (MODEL 1) or no process group
+    model_group: object = None  # None: no model axis
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def model_shard(self) -> Optional[tensor.ModelShard]:
+        """This rank's place on the model axis (None without one)."""
+        return None if self.model == 1 else tensor.ModelShard(self.model_group, self.model_rank, self.model)
 
 
 def check_mesh_cfg(cfg, world: int) -> int:
     """The data axis size TPU.MESH asks for on ``world`` ranks, refusing
-    what the port cannot give (before any work): MODEL > 1 (tensor
-    parallelism, not ported), DATA above the world size (as the JAX package
-    refuses more devices than it has) and DATA below it (a process group
-    does not shrink: launch that many processes)."""
+    (before any work) what the JAX package refuses, with its messages:
+    MODEL not dividing the world, a DATA x MODEL grid larger than it, DATA
+    above it; and what a process group cannot do: a grid smaller than the
+    world (a process group does not shrink: launch that many processes)."""
     mesh_cfg = cfg.TPU.get("MESH", None) if (cfg is not None and "TPU" in cfg) else None
     get = mesh_cfg.get if mesh_cfg is not None else (lambda *_: -1)
     model = int(get("MODEL", 1) or 1)
     want = int(get("DATA", -1) or -1)
     if model > 1:
-        raise NotImplementedError(f"TPU.MESH.MODEL={model}: tensor parallelism over a model axis is not ported yet "
-                                  "(ROADMAP Queue 1, tensor parallelism); the port runs data parallel only")
+        if world % model:
+            raise ValueError(f"TPU.MESH.MODEL={model} must divide the device count {world}")
+        data = want if want > 0 else world // model
+        if data * model > world:
+            raise ValueError(f"mesh {data}x{model} needs {data * model} devices, have {world}")
+        if data * model < world:
+            raise ValueError(f"TPU.MESH {data}x{model} with {world} ranks: every rank of the process group is on the mesh, so launch "
+                             f"{data * model} processes (torchrun --nproc_per_node={data * model}) or set TPU.MESH.DATA -1")
+        return data
     if want > world:
         raise ValueError(f"TPU.MESH.DATA={want} but only {world} devices present")
     if 0 < want < world:
@@ -178,16 +208,47 @@ def check_mesh_cfg(cfg, world: int) -> int:
     return world
 
 
+_SUBGROUPS: Dict[tuple, tuple] = {}  # (model axis size, world group) -> (data group, model group) of this rank
+_ACTIVE: tuple = (None, None)  # the (data group, model group) of the last mesh built
+
+
+def _subgroups(model: int) -> tuple:
+    """This rank's (data group, model group) for a model axis of ``model``,
+    made the first time (every rank makes them together, in the same order)."""
+    key = (model, dist.group.WORLD)
+    if key not in _SUBGROUPS:
+        world = world_size()
+        model_group, _ = dist.new_subgroups_by_enumeration([list(range(d * model, (d + 1) * model)) for d in range(world // model)])
+        data_group, _ = dist.new_subgroups_by_enumeration([list(range(m, world, model)) for m in range(model)])
+        _SUBGROUPS[key] = (data_group, model_group)
+    return _SUBGROUPS[key]
+
+
 def build_mesh(cfg=None, device=None) -> Mesh:
     """The mesh of the current process group (one rank without one), after
     ``check_mesh_cfg``; ``device`` is the caller's device kind, resolved by
-    ``runtime.device`` (under a group on a card: this rank's card)."""
+    ``runtime.device`` (under a group on a card: this rank's card).  Makes
+    the mesh's data and model groups the ones the collectives below use."""
     from clip_fsar_torch import runtime
 
+    global _ACTIVE
     world = world_size()
     data = check_mesh_cfg(cfg, world)
+    model = world // data
+    groups = _subgroups(model) if model > 1 else (None, None)
+    _ACTIVE = groups
     return Mesh(world=world, rank=rank(), local_rank=local_rank(), data=data, backend=dist.get_backend() if distributed() else None,
-                device=runtime.device(device))
+                device=runtime.device(device), model=model, data_group=groups[0], model_group=groups[1])
+
+
+def data_size() -> int:
+    """The ranks on the data axis of the last mesh built (the world with MODEL 1)."""
+    return dist.get_world_size(_ACTIVE[0]) if (_ACTIVE[0] is not None and distributed()) else world_size()
+
+
+def data_rank() -> int:
+    """This rank's place on the data axis of the last mesh built (its rank with MODEL 1)."""
+    return dist.get_rank(_ACTIVE[0]) if (_ACTIVE[0] is not None and distributed()) else rank()
 
 
 def data_axis_size(mesh: Mesh) -> int:
@@ -210,13 +271,14 @@ def check_batch_divisible(episodes_per_step: int, mesh: Mesh) -> None:
 
 def local_episode_range(global_e: int, mesh: Mesh) -> tuple:
     """The contiguous [lo, hi) slice of the global episode batch this rank
-    samples: rank r of n takes rows [r E/n, (r+1) E/n) (replaces the
-    reference's per-rank DataLoader sharding, utils/launcher.py:55-57)."""
-    if mesh.world == 1:
+    samples: data rank d of n takes rows [d E/n, (d+1) E/n), the same on
+    every rank of its model group (replaces the reference's per-rank
+    DataLoader sharding, utils/launcher.py:55-57)."""
+    if mesh.data == 1:
         return 0, int(global_e)
     check_batch_divisible(global_e, mesh)
     per = int(global_e) // mesh.data
-    return mesh.rank * per, (mesh.rank + 1) * per
+    return mesh.data_rank * per, (mesh.data_rank + 1) * per
 
 
 def _buckets(tensors: List[torch.Tensor], limit: int) -> Iterable[List[int]]:
@@ -236,27 +298,30 @@ def _buckets(tensors: List[torch.Tensor], limit: int) -> Iterable[List[int]]:
 
 @torch.no_grad()
 def _reduce_mean_(tensors: List[torch.Tensor], limit: int = BUCKET_BYTES) -> None:
-    """Each tensor, in place, becomes its mean over the ranks: one
-    all-reduce (a sum) per flat bucket, then a division by the world size."""
-    world = world_size()
+    """Each tensor, in place, becomes its mean over the data ranks: one
+    all-reduce (a sum) per flat bucket over the data group, then a division
+    by the data axis size."""
+    group, n = _ACTIVE[0], data_size()
     for run in _buckets(tensors, limit):
         parts = [tensors[i] for i in run]
         flat = torch.cat([t.reshape(-1) for t in parts])
-        dist.all_reduce(flat)
-        flat.div_(world)
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
         torch._foreach_copy_(parts, [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in parts]), parts)])
 
 
 def all_reduce_mean(tensors: List[torch.Tensor]) -> None:
-    """Each tensor, in place, becomes its mean over the ranks (no-op without a process group)."""
+    """Each tensor, in place, becomes its mean over the data ranks (no-op without a process group)."""
     if distributed():
         _reduce_mean_(tensors)
 
 
 def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
-    """Every set ``.grad`` of ``params`` becomes its mean over the ranks, in
-    flat buckets of at most BUCKET_BYTES (no-op without a process group).
-    Every rank must hold gradients for the same parameters."""
+    """Every set ``.grad`` of ``params`` becomes its mean over the data
+    ranks, in flat buckets of at most BUCKET_BYTES (no-op without a process
+    group).  Every rank must hold gradients for the same parameters.  A
+    sharded parameter's gradient is its slice's, a replicated one's the same
+    on every model rank: neither is reduced over the model group."""
     if distributed():
         _reduce_mean_([p.grad for p in params if p.grad is not None])
 
@@ -276,22 +341,23 @@ def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:
 
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """[n, ...] on every rank -> [world * n, ...], rank 0's rows first: the
-    global episode order.  NCCL has no bool: bools travel as uint8.  The
-    identity without a process group."""
+    """[n, ...] on every rank -> [data * n, ...] over the data group, data
+    rank 0's rows first: the global episode order.  NCCL has no bool: bools
+    travel as uint8.  The identity without a process group."""
     if not distributed():
         return x
     wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-    parts = [torch.empty_like(wire) for _ in range(world_size())]
-    dist.all_gather(parts, wire)  # the list form: gloo gathers CUDA tensors in it too
+    parts = [torch.empty_like(wire) for _ in range(data_size())]
+    dist.all_gather(parts, wire, group=_ACTIVE[0])  # the list form: gloo gathers CUDA tensors in it too
     out = torch.cat(parts)
     return out.to(torch.bool) if x.dtype == torch.bool else out
 
 
 def destroy() -> None:
-    """Leave the process group (and forget this host's group)."""
-    global _HOST_GROUP
-    _HOST_GROUP = None
+    """Leave the process group (and forget this host's group and the mesh's groups)."""
+    global _HOST_GROUP, _ACTIVE
+    _HOST_GROUP, _ACTIVE = None, (None, None)
+    _SUBGROUPS.clear()
     dist.destroy_process_group()
 
 

@@ -13,8 +13,12 @@ cpu``), one process per card, through torchrun:
 The ranks join one process group before the runners (NCCL on cards, gloo on
 the CPU; parallel/mesh.py) and leave it after them.  TPU.EPISODES_PER_STEP,
 TPU.EVAL_EPISODES_PER_STEP and TEST.BATCH_SIZE are global episode counts,
-each rank runs its slice of every step, and the results are those of one
-process running them all.
+each data rank runs its slice of every step, and the results are those of
+one process running them all.  With TPU.MESH.MODEL M the N ranks form a grid
+of N / M data ranks by M model ranks, and the transformers' matmuls are
+tensor-parallel over each model group (parallel/tensor.py):
+
+    torchrun --nproc_per_node=4 -m clip_fsar_torch.runs.run --cfg ... TPU.MESH "{DATA: 2, MODEL: 2}"
 Dispatches on TASK_TYPE and queues the runs in the JAX package's order:
 few-shot training and the few-shot test protocol; classification training,
 its test, the automatic multi-scale re-test (TEST.AUTOMATIC_MULTI_SCALE_TEST:

@@ -6,7 +6,12 @@ clip_fsar_tpu/train/pretrain.py:247-301).
 (``torch.save`` of the step, the head's state dict with an RN tower's
 BatchNorm running stats, the optimizer with its accumulation window, and the
 EMA parameters), atomically, keeping the newest five; under a process group
-rank 0 writes and every rank waits for the file.  A head checkpoint file (``save_checkpoint``) holds the head's state
+rank 0 writes and every rank waits for the file.  Under tensor parallelism
+the model ranks gather their slices first, so the file holds full tensors
+(parameters, optimizer moments, the accumulation window, the EMA) whatever
+TPU.MESH.MODEL wrote it; a run reads it into its full model and then cuts
+its slices (``TrainState.shard_``), so a checkpoint written at MODEL 2
+resumes at MODEL 1, and the reverse.  A head checkpoint file (``save_checkpoint``) holds the head's state
 dict alone.  Loading a checkpoint FILE (TEST/TRAIN.CHECKPOINT_FILE_PATH) is
 non-strict as in the JAX package: entries whose name and shape match the head
 are taken, the rest are skipped with a log line.
@@ -39,7 +44,7 @@ from torch import nn
 from clip_fsar_torch.models.clip.convert import params_from_jax
 from clip_fsar_torch.models.convert_reference import is_reference_checkpoint, reference_head_state
 from clip_fsar_torch.models.heads.clipfsar import CLIPFSARHead
-from clip_fsar_torch.parallel import mesh
+from clip_fsar_torch.parallel import mesh, tensor
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.utils.logging import get_logger
 
@@ -56,10 +61,12 @@ def _atomic_save(obj, path: str) -> None:
 
 
 def save_checkpoint(path: str, head: nn.Module) -> None:
-    """The head's state dict to ``path``, written by rank 0 (every rank holds
-    the same weights); every rank returns once the file is whole."""
+    """The head's state dict to ``path`` in full tensors, written by rank 0
+    (every rank holds the same weights, or its model slice of them); every
+    rank returns once the file is whole."""
+    sd = tensor.gather_named(head.state_dict(), tensor.specs(head))
     if mesh.rank() == 0:
-        _atomic_save({"head": head.state_dict()}, path)
+        _atomic_save({"head": sd}, path)
     mesh.barrier()
 
 
@@ -146,19 +153,20 @@ class Checkpointer:
         return os.path.join(self.dir, f"{step}.pt")
 
     def save(self, step: int, state: TrainState) -> str:
-        """Written by rank 0 (every rank holds the same state); every rank
-        returns once the file is whole."""
+        """Written by rank 0 (every rank holds the same state, or its model
+        slice of it: every rank then gathers); every rank returns once the
+        file is whole."""
+        specs = tensor.specs(state.head)
+        if specs or mesh.rank() == 0:
+            full = lambda sd: {k: v.detach().cpu() for k, v in tensor.gather_named(sd, specs).items()}  # noqa: E731
+            payload = {
+                "step": state.step,
+                "head": full(state.model_variables()),
+                "optimizer": state.optimizer.state_dict(),
+                "ema": None if state.ema is None else full(state.ema),
+            }
         if mesh.rank() == 0:
-            cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
-            _atomic_save(
-                {
-                    "step": state.step,
-                    "head": cpu(state.model_variables()),
-                    "optimizer": state.optimizer.state_dict(),
-                    "ema": None if state.ema is None else cpu(state.ema),
-                },
-                self.path(step),
-            )
+            _atomic_save(payload, self.path(step))
             for old in self.steps()[: -self.max_to_keep]:
                 os.unlink(self.path(old))
             logger.info("Saved checkpoint at step %d", step)

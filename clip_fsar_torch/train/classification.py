@@ -29,13 +29,15 @@ labels, and the validation is the SSL one (``_eval_epoch_ssl``: the mean
 cross-entropy and accuracy per axis over the test split, padding masked).
 
 Under a process group (parallel/mesh.py) TRAIN.BATCH_SIZE and
-TEST.BATCH_SIZE are global: each rank loads and runs its rows of every
+TEST.BATCH_SIZE are global: each data rank loads and runs its rows of every
 global batch, the random draws (jitter, erasing, mixup) are taken for the
 global batch and sliced, mixup's partners (element B - 1 - i) are gathered
-from the other ranks, the gradient and the metrics are all-reduced to their
-means once a step, and eval outputs are gathered in global row order before
-the meter sees them.  Dropout draws its masks per rank (as in the few-shot
-path, ROADMAP "Not faults").
+from the other data ranks, the gradient and the metrics are all-reduced to
+their means over the data ranks once a step, and eval outputs (and the
+feature maps) are gathered in global row order before the meter sees them.
+Dropout draws its masks per data rank (as in the few-shot path, ROADMAP
+"Not faults").  Under TPU.MESH.MODEL > 1 the video transformers' matmuls
+are tensor-parallel (parallel/tensor.py), after the weights are loaded.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from clip_fsar_torch.data.classification import build_classification_loader
 from clip_fsar_torch.data.mixup import MixupConfig, draw_mixup, mixup_batch, smooth_one_hot
 from clip_fsar_torch.data.transforms import normalize_images
 from clip_fsar_torch.models.video.model import build_video_model
-from clip_fsar_torch.parallel import mesh
+from clip_fsar_torch.parallel import mesh, tensor
 from clip_fsar_torch.train.checkpoint import Checkpointer, auto_resume
 from clip_fsar_torch.train.losses import calculate_loss, soft_target_cross_entropy
 from clip_fsar_torch.train.optimizer import Optimizer, get_lr_at_epoch
@@ -82,15 +84,10 @@ def _pretrain(cfg) -> bool:
     return "PRETRAIN" in cfg and bool(cfg.PRETRAIN.get("ENABLE", False))
 
 
-def _check(cfg) -> None:
-    """Before any work: refuse what the port does not run."""
-    mesh.check_mesh_cfg(cfg, mesh.world_size())
-
-
 def _rows(global_batch: int, data: mesh.Mesh) -> tuple:
-    """This rank's rows [lo, hi) of a global batch (an equal share each)."""
-    if global_batch % data.world:
-        raise ValueError(f"the global batch of {global_batch} clips must be divisible by the {data.world} ranks (each takes an equal share)")
+    """This data rank's rows [lo, hi) of a global batch (an equal share each)."""
+    if global_batch % data.data:
+        raise ValueError(f"the global batch of {global_batch} clips must be divisible by the {data.data} data ranks (each takes an equal share)")
     return mesh.local_episode_range(global_batch, data)
 
 
@@ -133,9 +130,9 @@ def _partner(x: torch.Tensor) -> torch.Tensor:
     """The rows that this rank's rows mix with, element B - 1 - i of the global batch."""
     if not mesh.distributed():
         return x.flip(0)
-    b = x.shape[0]
+    b, d = x.shape[0], mesh.data_rank()
     full = mesh.all_gather_rows(x).flip(0)
-    return full[mesh.rank() * b : (mesh.rank() + 1) * b]
+    return full[d * b : (d + 1) * b]
 
 
 def make_classification_train_step(model, cfg):
@@ -158,7 +155,7 @@ def make_classification_train_step(model, cfg):
 
     def train_step(state: TrainState, videos: torch.Tensor, labels, lr: float, generator: Optional[torch.Generator], draws=None):
         b = videos.shape[0]
-        world, first = mesh.world_size(), b * mesh.rank()
+        world, first = mesh.data_size(), b * mesh.data_rank()
         clips = videos.reshape((b, -1) + tuple(videos.shape[-3:])) if pretrain else videos  # [b, S*F, H, W, 3] under pretraining
         if draws is None and generator is not None:
             draws = draw_step(cfg, (b * world,) + tuple(clips.shape[1:]), generator)
@@ -222,8 +219,8 @@ def make_classification_eval_step(model, cfg):
 
 
 def _setup(cfg, device):
+    """The mesh (TPU.MESH refused as the JAX package refuses it, before any model) and the fresh model."""
     setup_logging(cfg.get("OUTPUT_DIR", None))
-    _check(cfg)
     mesh.maybe_init_distributed(cfg, mesh.backend_for(device))
     data = mesh.build_mesh(cfg, device)
     model = build_video_model(cfg, dtype=compute_dtype(cfg), device=data.device)
@@ -321,6 +318,7 @@ def train(cfg, device=None) -> Dict[str, Any]:
         if state.ema is not None:
             state.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
     mesh.broadcast_module(model)
+    state.shard_(data.model_shard)
     train_step = make_classification_train_step(model, cfg)
     batch = int(cfg.TRAIN.BATCH_SIZE)
     loader = build_classification_loader(cfg, "train", row_range=_rows(batch, data))
@@ -380,11 +378,10 @@ def _test_loop(cfg, model, data: mesh.Mesh, loader, on_batch, features: bool = F
     """Run ``loader``'s clips through ``model``, one step in flight while
     ``on_batch(out, labels, clip_ids, maps)`` takes the one before (global
     rows on the host; ``maps`` the residual blocks' feature maps with
-    ``features``, else empty); returns the loop's clips and seconds."""
+    ``features``, else empty, gathered in global row order as the outputs
+    are); returns the loop's clips and seconds."""
     eval_step = make_classification_eval_step(model, cfg)
     fm = FeatureMaps(model) if features else None
-    if fm is not None and mesh.distributed():
-        raise NotImplementedError("VISUALIZATION.FEATURE_MAPS under a process group: run the feature-map test as one process")
     pending, clips = None, 0
     t0 = time.perf_counter()
 
@@ -393,13 +390,13 @@ def _test_loop(cfg, model, data: mesh.Mesh, loader, on_batch, features: bool = F
             host, labels = {k: _gather(o) for k, o in out.items()}, {k: _gather(v) for k, v in labels.items()}
         else:
             host, labels = (tuple(_gather(o) for o in out) if isinstance(out, tuple) else _gather(out)), _gather(labels)
-        on_batch(host, labels, _gather(clip_ids), {k: v.float().permute(0, 2, 3, 4, 1).cpu().numpy() for k, v in maps.items()})
+        on_batch(host, labels, _gather(clip_ids), {k: _gather(v.float().permute(0, 2, 3, 4, 1).contiguous()) for k, v in maps.items()})
 
     with fm or contextlib.nullcontext():
         for videos, labels, clip_ids in loader:
             out = eval_step(_to_device(videos, data.device))
             maps = {} if fm is None else dict(fm.maps)  # this step's; the next step's hooks write new tensors
-            clips += videos.shape[0] * data.world
+            clips += videos.shape[0] * data.data
             if pending is not None:
                 drain(*pending)
             pending = (out, _to_device(labels, data.device), _to_device(clip_ids, data.device), maps)
@@ -413,6 +410,7 @@ def _test_model(cfg, device):
     data, model = _setup(cfg, device)
     weights = load_test_variables(cfg, Checkpointer(cfg.OUTPUT_DIR), model)
     mesh.broadcast_module(model)
+    tensor.shard_module(model, data.model_shard)
     return data, model, weights
 
 
@@ -434,7 +432,7 @@ def test(cfg, device=None) -> Dict[str, Any]:
     def on_batch(out, labels, clip_ids, maps):
         nonlocal viz_id
         valid = clip_ids >= 0
-        if maps:
+        if maps and mesh.rank() == 0:  # the maps of every rank, in global row order
             viz_id += save_feature_maps(maps, cfg, start_id=viz_id, valid=valid)
         if dual:
             meter.update_stats(out[0][valid], out[1][valid], labels[valid, 0], labels[valid, 1], clip_ids[valid])

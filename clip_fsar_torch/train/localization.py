@@ -80,11 +80,11 @@ def build_bmn_model(cfg, device=None, generator: Optional[torch.Generator] = Non
 
 
 def _one_process(cfg, what: str) -> None:
-    """Before any work: refuse a process group of more than one rank, and TPU.MESH keys the port cannot give."""
+    """Before any work: refuse a process group of more than one rank.  TPU.MESH
+    is not read, as the JAX package's localization runners do not read it."""
     if mesh.world_size() > 1 or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
         raise NotImplementedError(f"{what} under a process group of more than one rank: the localization runners run as one process, as the "
                                   "JAX package's do")
-    mesh.check_mesh_cfg(cfg, 1)
 
 
 def _batches(ds: TalFeatureDataset, batch_size: int, shuffle: bool, seed: int):

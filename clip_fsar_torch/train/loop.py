@@ -38,7 +38,7 @@ from clip_fsar_torch.data.frame_bank import (
 )
 from clip_fsar_torch.data.loader import build_few_shot_loader
 from clip_fsar_torch.models.builder import FewShotModel, build_few_shot_model, tower_execution
-from clip_fsar_torch.parallel import mesh
+from clip_fsar_torch.parallel import mesh, tensor
 from clip_fsar_torch.train.checkpoint import Checkpointer, auto_resume, load_checkpoint_file, load_test_weights
 from clip_fsar_torch.train.optimizer import Optimizer, epoch_for_iter, get_lr_at_epoch
 from clip_fsar_torch.train.pretrain import surgery_flags
@@ -166,7 +166,8 @@ def _episodes_per_step(e: int, data: mesh.Mesh) -> int:
         logger.info("TPU.EPISODES_PER_STEP=%d is not divisible by the %d-device data mesh — rounding up to %d episodes/step",
                     e, mesh.data_axis_size(data), rounded)
     mesh.check_batch_divisible(rounded, data)
-    logger.info("mesh: %d devices on axis 'data'; %d episodes/step", data.world, rounded)
+    logger.info("mesh: %d devices on axis 'data'%s; %d episodes/step", data.data,
+                f", {data.model} on axis 'model'" if data.model > 1 else "", rounded)
     return rounded
 
 
@@ -251,6 +252,7 @@ def train_few_shot(cfg, device=None) -> Dict[str, Any]:
         if state.ema is not None:
             state.ema = {n: p.detach().clone() for n, p in model.head.named_parameters()}
     mesh.broadcast_module(model.head)
+    state.shard_(data.model_shard)
     train_bank = build_train_frame_bank(cfg, device) if bool(cfg.TPU.get("TRAIN_FRAME_BANK", False)) else None
     train_wrap = None if train_bank is None else (lambda sampler: TrainIndexEpisodeSampler(sampler, train_bank.table))
     train_step = make_train_step(model.head, cfg, model.text_train, model.text_test, None if train_bank is None else train_bank.pixels)
@@ -355,6 +357,7 @@ def test_few_shot(cfg, device=None) -> Dict[str, Any]:
     model = build_few_shot_model(cfg, flow="test", device=device)
     weights = load_test_weights(cfg, model.head)
     mesh.broadcast_module(model.head)
+    tensor.shard_module(model.head, data.model_shard)
     num_tasks = int(cfg.TRAIN.get("NUM_TEST_TASKS", 10000))
     e = _episodes_per_step(int(cfg.TEST.get("BATCH_SIZE", cfg.TPU.get("EPISODES_PER_STEP", 1))), data)
     logger.info("few-shot test: %d episodes, %d per step, on %s", num_tasks, e, device)

@@ -30,6 +30,8 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from clip_fsar_torch.parallel import tensor
+
 # ---------------------------------------------------------------------------
 # LR policies (reference lr_policy.py:10-56)
 # ---------------------------------------------------------------------------
@@ -161,7 +163,8 @@ class Lars(torch.optim.Optimizer):
 
     with the raw gradient's norm, and the lr applied after the transformation
     (the JAX package's stated divergence from the reference, which
-    multiplies each step's lr into the buffer).  As the fused torch
+    multiplies each step's lr into the buffer).  The norms are the full
+    tensors' under tensor parallelism.  As the fused torch
     optimizers here, a step with ``found_inf`` 1 changes nothing, decided on
     the device."""
 
@@ -181,7 +184,7 @@ class Lars(torch.optim.Optimizer):
             for p in group["params"]:
                 ok = torch.ones((), dtype=torch.bool, device=p.device) if self.found_inf is None else self.found_inf == 0
                 g, buf = p.grad, self.state[p]["momentum_buffer"]
-                p_norm, g_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(g)
+                p_norm, g_norm = tensor.tensor_norm(p, p), tensor.tensor_norm(g, p)
                 local_lr = torch.where((p_norm > 0) & (g_norm > 0), trust * p_norm / (g_norm + wd * p_norm), torch.ones_like(p_norm))
                 d = (g + wd * p) * local_lr
                 new_buf = mom * buf + d
@@ -204,7 +207,13 @@ class Optimizer:
     torch's fused optimizer with ``found_inf`` set unless the window closes
     on this step -- the fused kernels then leave parameters and moments
     alone and take the step count back.  Every micro-step therefore launches
-    the same kernels, and none waits for the card."""
+    the same kernels, and none waits for the card.
+
+    Under tensor parallelism (parallel/tensor.py) a sharded parameter's
+    moments are its slice's: the clipping norm and LARS's norms sum over
+    the model group, the signature names the full shapes, and
+    ``state_dict`` gathers the slices into full tensors.  An optimizer made
+    before its module was sharded takes the slices with ``follow_shards``."""
 
     def __init__(self, cfg, module: nn.Module, name_prefix: str = "head"):
         s = cfg.SOLVER
@@ -261,7 +270,8 @@ class Optimizer:
         return {
             "method": self.method,
             "k": self.k,
-            "groups": [(g["group"], g["weight_decay"], g["lr_scale"], [tuple(p.shape) for p in g["params"]]) for g in self.inner.param_groups],
+            "groups": [(g["group"], g["weight_decay"], g["lr_scale"], [tensor.full_shape(p) for p in g["params"]])
+                       for g in self.inner.param_groups],
         }
 
     def _zero_missing_momentum(self) -> None:
@@ -294,7 +304,7 @@ class Optimizer:
             torch._foreach_mul_(self.acc, keep.to(torch.float32))
             self.mini_step *= keep
         if self.clip_norm is not None:  # optax.clip_by_global_norm
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            norm = tensor.global_norm(grads, self.params)
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm), self.clip_norm / norm)
             grads = torch._foreach_mul(grads, scale)
         for p, g in zip(self.params, grads):
@@ -306,8 +316,31 @@ class Optimizer:
         self.inner.step()
         return do_update
 
+    def _inner_params(self) -> List[nn.Parameter]:
+        return [p for g in self.inner.param_groups for p in g["params"]]  # the order of the inner state dict's indices
+
     def state_dict(self) -> dict:
-        return {"inner": self.inner.state_dict(), "mini_step": int(self.mini_step), "acc": self.acc, "signature": self.signature()}
+        """Full tensors (every model rank calls it when the parameters are sharded)."""
+        inner, acc = self.inner.state_dict(), self.acc
+        if any(tensor.spec(p) is not None for p in self.params):
+            full = lambda t, p: tensor.spec(p).gather(t) if (tensor.spec(p) is not None and t.shape == p.shape) else t  # noqa: E731
+            ps = self._inner_params()
+            inner["state"] = {i: {k: full(v, ps[i]) for k, v in st.items()} for i, st in inner["state"].items()}
+            acc = None if acc is None else [full(a, p) for a, p in zip(acc, self.params)]
+        return {"inner": inner, "mini_step": int(self.mini_step), "acc": acc, "signature": self.signature()}
+
+    @torch.no_grad()
+    def follow_shards(self) -> None:
+        """Cut the moments and the accumulation window of every sharded
+        parameter to its slice (after ``parallel.tensor.shard_module``)."""
+        take = lambda t, p: tensor.spec(p).take(t) if (tensor.spec(p) is not None and tuple(t.shape) == tensor.full_shape(p)) else t  # noqa: E731
+        for p in self._inner_params():
+            st = self.inner.state.get(p, {})
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    st[k] = take(v, p)
+        if self.acc is not None:
+            self.acc = [take(a, p) for a, p in zip(self.acc, self.params)]
 
     def load_state_dict(self, sd: dict) -> None:
         self.inner.load_state_dict(sd["inner"])

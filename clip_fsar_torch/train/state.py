@@ -16,6 +16,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from clip_fsar_torch.parallel import tensor
 from clip_fsar_torch.train.optimizer import Optimizer
 
 
@@ -44,6 +45,14 @@ class TrainState:
         if self.ema is not None:
             sd.update(self.ema)
         return sd
+
+    def shard_(self, shard: Optional[tensor.ModelShard]) -> None:
+        """Keep this rank's model slice of the head, of its optimizer state and
+        of its EMA (tensor parallelism; nothing without a model axis)."""
+        if tensor.shard_module(self.head, shard):
+            self.optimizer.follow_shards()
+            if self.ema is not None:
+                self.ema = tensor.take_named(self.ema, tensor.specs(self.head))
 
     @torch.no_grad()
     def update_ema(self, decay: float) -> None:

@@ -150,8 +150,8 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, b
 
     def grad_fn(batch: Episode, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         e, s, q = batch.support_images.shape[0], batch.support_images.shape[1], batch.target_images.shape[1]
-        # under a process group the batch is this rank's slice [first, first + e) of the global e_all episodes
-        e_all, first = e * mesh.world_size(), e * mesh.rank()
+        # under a process group the batch is this data rank's slice [first, first + e) of the global e_all episodes
+        e_all, first = e * mesh.data_size(), e * mesh.data_rank()
         draws = (None, None)
         if generator is not None:
             host = augment.host_generator(generator)  # the step's host draws (the jitter's op orders)

@@ -12,8 +12,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import math
+
 import torch
 
+from clip_fsar_torch.parallel.tensor import full_shape
 from clip_fsar_torch.utils.logging import get_logger, log_json_stats
 
 logger = get_logger(__name__)
@@ -22,8 +25,9 @@ logger = get_logger(__name__)
 def params_count(module: torch.nn.Module) -> int:
     """Total number of parameter elements (reference misc.py:40-50); buffers
     such as BatchNorm running stats are not parameters, as flax's
-    ``batch_stats`` are not ``params``."""
-    return int(sum(p.numel() for p in module.parameters()))
+    ``batch_stats`` are not ``params``.  A tensor-parallel parameter counts
+    in full, as the JAX package counts a sharded array."""
+    return int(sum(math.prod(full_shape(p)) for p in module.parameters()))
 
 
 def device_mem_usage(device) -> Optional[Dict[str, float]]:

@@ -51,7 +51,7 @@ def main() -> None:
     with open(args.spec) as f:
         spec = json.load(f)
 
-    common.dropout = lambda x, rate, generator: x
+    common.dropout = lambda x, *_args: x
     built, steps, saves = [], [], []
     build, make_generator, atomic_save, opt_step = loop.build_few_shot_model, loop.step_generator, checkpoint._atomic_save, Optimizer.step
 

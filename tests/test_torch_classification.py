@@ -469,17 +469,17 @@ def test_test_weights_search_order_equals_jax(tmp_path):
 
 def test_pretraining_and_mosi_raise_before_any_work(tmp_path):
     """Self-supervised pretraining is ported (MoSINet and the MoSI heads
-    build; PRETRAIN.ENABLE trains them); what it cannot run still raises
-    before any model or loader is made: TPU.MESH.MODEL > 1 (tensor
-    parallelism) through the trainer and through TASK_TYPE pretrain on the
-    CLI."""
+    build; PRETRAIN.ENABLE trains them); a mesh it cannot run on still
+    raises before any model or loader is made: TPU.MESH.MODEL 2 on one
+    process (the JAX package's ValueError: the model axis must divide the
+    devices) through the trainer and through TASK_TYPE pretrain on the CLI."""
     from clip_fsar_torch.models.video import model as vmodel
     from clip_fsar_torch.runs import run
     from clip_fsar_torch.train import classification
 
     _, cfg = cls_configs(tmp_path, (("PRETRAIN.ENABLE", True), ("TPU.MESH.MODEL", 2)))
     with mock.patch.object(classification, "build_video_model", side_effect=AssertionError("built")):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        with pytest.raises(ValueError, match="TPU.MESH.MODEL=2 must divide the device count 1"):
             classification.train(cfg, device="cpu")
     _, cfg = cls_configs(tmp_path, (("MODEL.NAME", "MoSINet"), ("VIDEO.HEAD.NAME", "MoSIHeadJoint"), ("PRETRAIN.ENABLE", True),
                                     ("VIDEO.HEAD.NUM_CLASSES", 3)))
@@ -487,6 +487,6 @@ def test_pretraining_and_mosi_raise_before_any_work(tmp_path):
     assert isinstance(model, vmodel.MoSINet) and isinstance(model.net.head, vmodel.MoSIHeadJoint)
     cfg_path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "pool", "run", "training", "mosi.yaml")
     with mock.patch.object(classification, "build_video_model", side_effect=AssertionError("built")):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        with pytest.raises(ValueError, match="TPU.MESH.MODEL=2 must divide the device count 1"):
             run.main(["--cfg", cfg_path, "--device", "cpu", "TASK_TYPE", "pretrain", "TPU.MESH", "{DATA: -1, MODEL: 2}", "OUTPUT_DIR", str(tmp_path / "p")])
     assert not os.path.exists(tmp_path / "p" / "checkpoints")

@@ -191,23 +191,21 @@ def test_maybe_init_distributed_reads_torchrun_and_sets_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("key, error, match", [
-    ("MODEL", NotImplementedError, "TPU.MESH.MODEL=2: tensor parallelism"),
+    ("MODEL", ValueError, "TPU.MESH.MODEL=2 must divide the device count 1"),
     ("DATA", ValueError, "TPU.MESH.DATA=4 but only 1 devices present"),
 ])
 @pytest.mark.parametrize("runner", ["train", "test"])
 def test_mesh_keys_the_port_cannot_give_raise_before_any_work(key, error, match, runner):
-    """F7: the port once ran on one card whatever TPU.MESH asked.  Tensor
-    parallelism (MODEL > 1) is not ported and raises NotImplementedError;
-    DATA above the world size raises the JAX package's ValueError
-    (mesh.py:86-87, held to JAX's own message below).  Both before any
-    model is built."""
+    """F7: the port once ran on one card whatever TPU.MESH asked.  A model
+    axis (MODEL > 1) that does not divide the one process, and DATA above the
+    world size, raise the JAX package's ValueError (mesh.py:80-81, 88-89,
+    held to JAX's own message below), before any model is built."""
     from clip_fsar_tpu.parallel import mesh as jmesh
 
     cfg = tiny_cfg("TRAIN.ENABLE", "True", "TRAIN.NUM_TRAIN_TASKS", "1")
     cfg.TPU.MESH[key] = 2 if key == "MODEL" else 4  # base.yaml has no MODEL key: the JAX builder reads it where set
-    if key == "DATA":
-        with pytest.raises(ValueError, match=match):
-            jmesh.build_mesh(cfg, devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match=match):
+        jmesh.build_mesh(cfg, devices=jax.devices()[:1])
     with mock.patch.object(loop, "build_few_shot_model", side_effect=AssertionError("a model was built")):
         with pytest.raises(error, match=match):
             (loop.train_few_shot if runner == "train" else loop.test_few_shot)(cfg, device="cpu")
@@ -223,6 +221,24 @@ def test_data_axis_must_be_the_world():
         mesh.check_mesh_cfg(tiny_cfg("TPU.MESH.DATA", "2"), 4)
     built = mesh.build_mesh(tiny_cfg(), "cpu")
     assert (built.world, built.rank, built.local_rank, built.data, built.backend, built.device) == (1, 0, 0, 1, None, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("data, model, world, want", [
+    (-1, 2, 4, 2), (2, 2, 4, 2), (-1, 2, 2, 1), (1, 2, 4, "launch 2 processes"), (4, 2, 4, "mesh 4x2 needs 8 devices, have 4"),
+    (-1, 3, 4, "TPU.MESH.MODEL=3 must divide the device count 4"),
+])
+def test_data_times_model_must_be_the_world(data, model, world, want):
+    """With a model axis the grid is DATA x MODEL ranks, DATA -1 meaning
+    world / MODEL: a grid of the world's size runs (its data axis returned),
+    a larger one or a MODEL that does not divide raises the JAX package's
+    ValueError, and a smaller one raises with the number of processes to
+    launch (a process group does not shrink)."""
+    cfg = tiny_cfg("TPU.MESH", f"{{DATA: {data}, MODEL: {model}}}")
+    if isinstance(want, int):
+        assert mesh.check_mesh_cfg(cfg, world) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            mesh.check_mesh_cfg(cfg, world)
 
 
 def test_collectives_are_the_identity_without_a_process_group():

@@ -219,13 +219,13 @@ def test_profile_eval_busy_time_and_refusal():
 
 def test_cli_refuses_runners_not_ported(tmp_path):
     """Every runner of the JAX package is ported, localization and
-    pretraining among them; what the port still cannot run raises before
-    any work instead of being skipped: TPU.MESH.MODEL > 1 (tensor
-    parallelism), and the localization runners under a process group of
-    more than one rank."""
+    pretraining among them; what the port cannot run raises before any work
+    instead of being skipped: a TPU.MESH model axis that does not divide the
+    one process (the JAX package's ValueError), and the localization runners
+    under a process group of more than one rank."""
     from unittest import mock
 
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="TPU.MESH.MODEL=2 must divide the device count 1"):
         main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TPU.MESH", "{DATA: -1, MODEL: 2}", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
     with mock.patch.dict(os.environ, {"WORLD_SIZE": "2"}), pytest.raises(NotImplementedError, match="'train_localization' under a process group"):
         main(["--cfg", CONFIG, "--device", "cpu", *TINY_OPTS, "TASK_TYPE", "localization", "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])

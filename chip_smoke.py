@@ -1,7 +1,8 @@
 """Drive the port's few-shot test and train paths (the CLIP-FSAR head, and the classic HyRSM++ and MoLo
-heads, on pixels and off frame banks, with no process group and as data-parallel ranks), its classification
-task (every video backbone preset), its localization task and MoSI pretraining, its layer_norm op and its
-clip_mha stage-ablation tool once on an NVIDIA GPU and check them.
+heads, on pixels and off frame banks, with no process group and as data-parallel ranks; every shipped project
+signature, every CLIP tower and every few-shot head and trunk a config key selects), its classification task
+(every video backbone preset), its localization task and MoSI pretraining, its layer_norm op and its clip_mha
+stage-ablation tool once on an NVIDIA GPU and check them, and check that every train path repeats bit for bit.
 
     python3 chip_smoke.py
 
@@ -199,11 +200,10 @@ and read just after.  Phases:
    112 px a video, 10 videos a step, bf16), one epoch of 4 steps and the SSL
    validation; on one batch bf16 against fp32 (logits, loss, picked gradients); the
    resident bf16 step as in phase 27, clips/s, peak; one step under LARS; the run
-   again without a group and as the one rank of an NCCL group: the first step's loss
-   and the gathered SSL validation of the same weights bit for bit, the losses and
-   weights within the spread of two runs without a group (MaxPool3d's backward adds
-   with atomics on the card, so MoSI's steps do not repeat bit for bit), and the
-   step's operations that have no deterministic CUDA implementation;
+   again without a group and as the one rank of an NCCL group: the three runs' losses,
+   trained weights and SSL validation bit for bit (the stem's max-pool backward is the
+   gather kernel of ops/pool3d.py, phase 31), and the SSL validation of the same
+   weights under the group bit for bit;
 29. tensor parallelism at TPU.MESH {DATA: 1, MODEL: 2}: K1 and K2 at one model
    rank's heads of the flagship's train chunk, [480, 197, 1152] bf16, against their
    plain versions, timed beside the library call and the bound; then the ViT-B/16
@@ -213,22 +213,60 @@ and read just after.  Phases:
    group, and as two gloo processes on card 0 (``chip_smoke.py --tp-worker``):
    bf16 logits and losses at 2e-2, the fp32 loss and picked gradients at 1e-4, the two
    ranks the same bits, K1 / K2 / K3 launched at the local shapes on each rank; per rank
-   the peak and the step times (gloo reduces through the host: no tensor-parallel speed).
+   the peak and the step times (gloo reduces through the host: no tensor-parallel speed);
+30. the determinism probe: one train step of every train path above (ViT-B/16 fused
+   and flash, RN50, HyRSM++ 5-shot, MoLo 1-shot at one episode; TAda2D-R50 at its
+   batch of 8 and the nine other presets at 2; BMN at 2 windows; MoSI at its 10
+   videos) at full width under torch.use_deterministic_algorithms(True, warn_only=True):
+   the operations torch names as having no deterministic CUDA implementation, by path;
+31. the pools' backward kernel (``csrc/pool3d.cu``: max-pool and count-include-pad
+   average-pool backward as gathers, no atomics) at every shape phase 30's steps launched
+   it at (MoSI's stem, S3D-G's, the SlowFast and R2D3D stems, TAdaConv's pooled
+   branches), in the path's dtype and channels_last_3d, from the forward's argmax on
+   tied inputs, against its plain version (fp32 1e-6, bf16 1e-2 relative), finite, the
+   same bits on a second launch, timed beside its plain version, torch's own atomic
+   backward of the same pool (no path runs it) and its bound;
+32. the signatures, towers and heads no earlier phase runs, at full width with fresh
+   weights: (a) the shipped CLIP-FSAR 5-shot (the test at SHOT_TEST 5, Q 1,
+   MERGE_BEFORE), MoLo 5-shot (the test at SHOT_TEST 5), HyRSM++ 1-shot and 2-shot
+   (standing for SHOT 2-4) configs through the CLI: 2 train steps of E = 2 in 2 chunks
+   (MoLo 5-shot: none), the test protocol on 8 episodes, train and test episodes/s,
+   peak, no kernel launched; then on one batch of its loaders bf16 against fp32 (eval
+   logits, loss, picked gradients), the resident bf16 step's card ms beside the host's;
+   K1-K5 at the train step of one episode of ViT-B/32 (N = 50) and ViT-L/14 at 224 px
+   (N = 257) against their plain versions, timed beside the library call and the bound;
+   (b) every other CLIP tower under the CLIP-FSAR head (ViT-B/32, ViT-L/14 on the fused
+   and the flash path, RN101, RN50x4, RN50x16, RN50x64 at the config's 224 px): one eval
+   and one train step of one episode in bf16 against fp32, the launches against the
+   blocks' forwards and backwards, the peak (a tower that does not fit at one episode
+   is reported with the peak it reached); (c) the heads CNN_HyRSM_1shot, CNN_HyRSM_5shot,
+   CNN_HyRSM_plusplus_semi, CNN_TRX, CNN_OTAM, CNN_TSN, CNN_CrossTransformer on the
+   HyRSM++ 5-shot config's ResNet-50, and resnet18 / resnet34 under CNN_OTAM: the same;
+   each of these paths' train steps also under the determinism probe;
+33. the determinism check: every train path was probed and no probe named an
+   operation (fails otherwise).
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
-and its backward, ``F.layer_norm`` and its backward), that call on the same
-inputs: a yardstick that no path of the port runs.  ``bound_ms`` is the least
+and its backward, ``F.layer_norm`` and its backward, the CUDA backward of
+``F.max_pool3d`` / ``F.avg_pool3d``), that call on the same inputs: a
+yardstick that no path of the port runs.  ``bound_ms`` is the least
 time the card could take: the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
 operations over the card's peak for their type.
 
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises before it.
+
+``python3 chip_smoke.py --cudnn-determinism`` runs none of the phases: it measures what cuDNN's deterministic
+convolution algorithms (``runtime.deterministic_convolutions``, under which the few-shot and classification
+train steps run) cost each conv-heavy train step, and whether small fp32 MoSI steps repeat without them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import importlib
 import json
 import os
@@ -451,30 +489,30 @@ def _alternate(kernel, plain, iters: int = 20) -> tuple:
 
 
 def _reset_launches() -> None:
-    from clip_fsar_torch.ops import flash_attention, fused_layernorm
+    from clip_fsar_torch.ops import flash_attention, fused_layernorm, pool3d
     from clip_fsar_torch.ops.fused_attention import clip_mha_bwd_cuda, clip_mha_cuda
     from clip_fsar_torch.tools import fa_decomp
 
     clip_mha_cuda.launches = clip_mha_bwd_cuda.launches = 0
-    for counts in (flash_attention.LAUNCHES, fused_layernorm.LAUNCHES, fa_decomp.LAUNCHES):
+    for counts in (flash_attention.LAUNCHES, fused_layernorm.LAUNCHES, fa_decomp.LAUNCHES, pool3d.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _launches() -> dict:
     """Every kernel's launches since the last reset, by kernel name."""
-    from clip_fsar_torch.ops import flash_attention, fused_layernorm
+    from clip_fsar_torch.ops import flash_attention, fused_layernorm, pool3d
     from clip_fsar_torch.ops.fused_attention import clip_mha_bwd_cuda, clip_mha_cuda
     from clip_fsar_torch.tools import fa_decomp
 
     return {"clip_mha_fwd": clip_mha_cuda.launches, "clip_mha_bwd": clip_mha_bwd_cuda.launches, **flash_attention.LAUNCHES,
-            **fused_layernorm.LAUNCHES, **{f"clip_mha_decomp_{mode}": n for mode, n in fa_decomp.LAUNCHES.items()}}
+            **fused_layernorm.LAUNCHES, **{f"clip_mha_decomp_{mode}": n for mode, n in fa_decomp.LAUNCHES.items()}, **pool3d.LAUNCHES}
 
 
-def _expect_launches(what: str, **want: int) -> dict:
-    """The launches since the last reset; raises unless the named kernels launched ``want`` times and
-    every other kernel never."""
-    got = _launches()
+def _expect_launches(what: str, got: dict = None, **want: int) -> dict:
+    """The launches since the last reset (or ``got``, read earlier); raises unless the named kernels launched ``want``
+    times and every other kernel never."""
+    got = _launches() if got is None else got
     expected = {name: want.get(name, 0) for name in got}
     if got != expected:
         raise AssertionError(f"{what} launched {got}, expected {expected}")
@@ -1382,10 +1420,10 @@ def phase_remat_vs_none() -> None:
             _compare_steps(f"ViT-B/16 train step [{path}] remat {name} vs off", runs[name], runs["off"])
 
 
-def phase_vit_l336_kernels() -> dict:
-    """K1-K5 at the ViT-L/14@336px slice's frame chunk: K1 and K2 on [120, 577, 3072] bf16, K3-K5 on its
-    head-split views [120, 16, 577, 64]; each against its plain version, then timed beside it, the library
-    call (``scaled_dot_product_attention`` and its backward) and the bound.  Returns the timings by kernel."""
+def _vit_kernels(where: str, b: int, n: int, h: int, seed: int) -> dict:
+    """K1-K5 at one tower's frame batch: K1 and K2 on [b, n, 3 * h * 64] bf16, K3-K5 on its head-split views
+    [b, h, n, 64]; each against its plain version, then timed beside it, the library call
+    (``scaled_dot_product_attention`` and its backward) and the bound.  Returns the timings by kernel."""
     from clip_fsar_torch.ops.attention import split_heads
     from clip_fsar_torch.ops.flash_attention import (
         flash_mha_bwd_dkv_cuda,
@@ -1397,9 +1435,9 @@ def phase_vit_l336_kernels() -> dict:
     )
     from clip_fsar_torch.ops.fused_attention import _heads_split, clip_mha_bwd_cuda, clip_mha_bwd_reference, clip_mha_cuda, clip_mha_reference
 
-    b, n, h, dh = L336_CHUNK_FRAMES, L336_N, L336_HEADS, 64
+    dh = 64
     tol = TOLERANCE[torch.bfloat16]
-    g = torch.Generator().manual_seed(6)
+    g = torch.Generator().manual_seed(seed)
     qkv = torch.randn(b, n, 3 * h * dh, generator=g).to("cuda", torch.bfloat16)
     q, k, v = (split_heads(t, h) for t in qkv.chunk(3, dim=-1))
     shape = f"[{b}, {n}, {3 * h * dh}]"
@@ -1415,7 +1453,7 @@ def phase_vit_l336_kernels() -> dict:
               ("K5 flash_mha_bwd_dkv (dk, dv)", flash_mha_bwd_dkv_cuda(q, k, v, lse3, delta, do3), flash_mha_bwd_dkv_reference(q, k, v, lse3, delta, do3)))
     for what, got, want in checks:
         errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(got, want)]
-        print(f"{what} at the ViT-L/14@336px frame chunk {shape} bf16: max|out-ref| {', '.join(f'{e:.3e}' for e in errs)} (tol {tol})")
+        print(f"{what} at {where} {shape} bf16: max|out-ref| {', '.join(f'{e:.3e}' for e in errs)} (tol {tol})")
         for x, y in zip(got, want):
             if not torch.isfinite(x.float()).all():
                 raise AssertionError(f"{what}: not finite")
@@ -1437,11 +1475,28 @@ def phase_vit_l336_kernels() -> dict:
     for name, kernel, plain, library_ms, (t_in, t_out, rows, products) in cases:
         ms, plain_ms, all_ms = _alternate(kernel, plain, iters=10)
         bound = _attention_bound(b, n, h, dh, tensors_in=t_in, tensors_out=t_out, rows_fp32=rows, products=products)
-        print(f"{name} at the ViT-L/14@336px frame chunk {shape} H={h} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, "
+        print(f"{name} at {where} {shape} H={h} bf16: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, "
               f"plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, library {library_ms:.4f} ms (kernel / library = {ms / library_ms:.2f}), "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it reached)")
         timed[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
     return timed
+
+
+def phase_vit_l336_kernels() -> dict:
+    """K1-K5 at the ViT-L/14@336px slice's frame chunk: K1 and K2 on [120, 577, 3072] bf16, K3-K5 on its
+    head-split views [120, 16, 577, 64]."""
+    return _vit_kernels("the ViT-L/14@336px frame chunk", L336_CHUNK_FRAMES, L336_N, L336_HEADS, seed=6)
+
+
+# one episode of the flagship's train step: 5 support and 25 query clips of 8 frames
+ONE_EPISODE_FRAMES = 30 * 8
+
+
+def phase_tower_kernels() -> dict:
+    """K1-K5 at the train step of one episode (240 frames at 224 px) of the ViT-B/32 tower (N = 50, 12 heads) and of
+    the ViT-L/14 tower (N = 257, 16 heads), the shapes phase 32b's tower steps give them."""
+    return {"at_vit_b32": _vit_kernels("ViT-B/32's one-episode train step", ONE_EPISODE_FRAMES, 50, 12, seed=8),
+            "at_vit_l14_224": _vit_kernels("ViT-L/14's one-episode train step", ONE_EPISODE_FRAMES, 257, 16, seed=9)}
 
 
 def phase_vit_l336_train_slice(out_dir: str) -> dict:
@@ -2381,6 +2436,30 @@ CLS_PRESET_EVAL_SHARE = 5e-2
 CLS_DP_OPTS = ["TEST.AUTOMATIC_MULTI_SCALE_TEST", "False"]
 
 
+def _pool_sites(model) -> dict:
+    """The pools one forward of a video model runs, by the backward kernel each one's gradient launches
+    (ops/pool3d.py): a max-pool for each DownSampleStem and Inception block and four for Inception3D itself (two after
+    the stem, two between stages), an average pool for each TAdaConv pooled branch."""
+    from clip_fsar_torch.models.video.blocks import DownSampleStem
+    from clip_fsar_torch.models.video.branches import TAdaConvBlockAvgPool
+    from clip_fsar_torch.models.video.meta import Inception3D, InceptionBlock3D
+
+    sites = {"max_pool3d_bwd": 0, "avg_pool3d_bwd": 0}
+    for m in model.modules():
+        if isinstance(m, (DownSampleStem, InceptionBlock3D)):
+            sites["max_pool3d_bwd"] += 1
+        elif isinstance(m, Inception3D):
+            sites["max_pool3d_bwd"] += 2 + sum(isinstance(item, tuple) for item in m.layout)
+        elif isinstance(m, TAdaConvBlockAvgPool):
+            sites["avg_pool3d_bwd"] += 1
+    return sites
+
+
+def _pool_launches(model, steps: int) -> dict:
+    """The pools' backward launches of ``steps`` train steps of ``model`` (one backward each), by kernel."""
+    return {name: n * steps for name, n in _pool_sites(model).items() if n}
+
+
 def _cls_lists(root: str, train: int = CLS_TRAIN_VIDEOS, test: int = CLS_TEST_VIDEOS) -> str:
     """Kinetics-400 list files of synthetic videos (the synthetic decoder keys its frames off the path)."""
     os.makedirs(root, exist_ok=True)
@@ -2492,7 +2571,7 @@ def phase_classification(out_dir: str, card_line: str) -> dict:
     results = main(["--cfg", os.path.join(REPO, CLS_CONFIG), *opts])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _expect_launches("the TAda2D classification run (train, validation, test, multi-scale re-test)")
+    launches = _launches()  # held below to the model's pools, once it is built
     peak = torch.cuda.max_memory_allocated()
     train, (single, multi) = results["train"], results["test"]
     batch = int(cfg.TRAIN.BATCH_SIZE)
@@ -2516,6 +2595,8 @@ def phase_classification(out_dir: str, card_line: str) -> dict:
     dev = runtime.device("cuda")
     videos, labels = _cls_batch(cfg, dev)
     fp32 = build_video_model(cfg, dtype=torch.float32, device=dev)
+    # the pools' backward kernel once per pool of each train step (the tests run no backward)
+    _expect_launches("the TAda2D classification run (train, validation, test, multi-scale re-test)", launches, **_pool_launches(fp32, steps))
     bf16 = _with_dtype(fp32, torch.bfloat16)
     want, got = _cls_loss_and_grads(fp32, cfg, videos, labels), _cls_loss_and_grads(bf16, cfg, videos, labels)
     diff, scale = (got[0] - want[0]).abs().max().item(), want[0].abs().max().item()
@@ -2576,7 +2657,7 @@ def phase_presets(out_dir: str, card_line: str) -> dict:
 
     dev = runtime.device("cuda")
     _reset_launches()
-    out = {}
+    out, want_launches = {}, {}
     for preset in CLS_PRESETS:
         cfg = _preset_cfg(preset, out_dir)
         videos, labels = _cls_batch(cfg, dev, seed=1)
@@ -2609,9 +2690,11 @@ def phase_presets(out_dir: str, card_line: str) -> dict:
         if not finite or not diff <= CLS_PRESET_EVAL_SHARE * scale:
             raise AssertionError(f"preset {preset}: finite {finite}, bf16 eval logits differ from fp32 by {diff:.4e} of {scale:.4e}")
         out[preset] = {"step_ms": ms, "peak_gib": peak / 2**30, "eval_share": diff / scale}
+        for name, n in _pool_launches(bf16, 3).items():  # three train steps
+            want_launches[name] = want_launches.get(name, 0) + n
         del bf16, state, step, videos, labels, x
         torch.cuda.empty_cache()
-    return {"launches": _expect_launches("the backbone presets"), "presets": out}
+    return {"launches": _expect_launches("the backbone presets", **want_launches), "presets": out}
 
 
 def _cls_dp_run(out_dir: str, lists: str) -> dict:
@@ -2637,7 +2720,14 @@ def phase_classification_dp(out_dir: str, card_line: str) -> dict:
         grouped = _cls_dp_run(os.path.join(out_dir, "nccl"), lists)
     finally:
         mesh.destroy()
-    launches = _expect_launches("the classification runs with and without a process group")
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.runs.run import load_config
+
+    launches = _launches()
+    model = build_video_model(load_config(os.path.join(REPO, CLS_CONFIG), _cls_opts(out_dir, lists)), device=runtime.device("cuda"))
+    launches = _expect_launches("the classification runs with and without a process group", launches, **_pool_launches(model, 2 * len(alone["losses"])))
+    del model
     same = {"losses": grouped["losses"] == alone["losses"], "checkpoint": all(torch.equal(grouped["state"][k], v) for k, v in alone["state"].items()),
             "test_scores": np.array_equal(grouped["preds"], alone["preds"])}
     print(f"classification data parallel, world 1 over NCCL on {card_line}: the same bits as without a process group: {same}; losses {grouped['losses']}")
@@ -2664,34 +2754,6 @@ MOSI_OPTS: list = []  # overrides of the preset (none: full width)
 # largest fp32 logit, the loss at 2e-2, the last conv's gradient at GRAD_REL_TOL and the first conv's and the head's at
 # CLASSIC_HEAD_GRAD_TOL (norm-relative)
 MOSI_LOGIT_SHARE = 5e-2
-# the run as one NCCL rank against the run without a group: the per-step losses and the SSL validation loss relative,
-# the largest parameter difference as a multiple of that between two runs without a group (two runs of the same
-# code read 1e-4 relative apart on the losses from the third step on)
-MOSI_GROUP_RTOL, MOSI_GROUP_PARAMS = 1e-3, 4.0
-
-
-def _nondeterministic_ops(cfg, videos, labels, dev) -> list:
-    """One train step of ``cfg``'s model under torch.use_deterministic_algorithms(True, warn_only=True): the
-    operations torch warns have no deterministic CUDA implementation."""
-    import warnings
-
-    from clip_fsar_torch.models.video.model import build_video_model
-    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
-    from clip_fsar_torch.train.optimizer import Optimizer
-    from clip_fsar_torch.train.state import TrainState
-
-    model = build_video_model(cfg, device=dev)
-    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
-    step = make_classification_train_step(model, cfg)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            step(state, videos, labels, 1e-6, step_generator(cfg, 0, 0, dev))
-            torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    return sorted({str(w.message).split(" does not have")[0] for w in caught if "deterministic" in str(w.message)})
 
 
 def phase_localization(out_dir: str, card_line: str) -> dict:
@@ -2834,7 +2896,7 @@ def phase_pretrain(out_dir: str, card_line: str) -> dict:
     alone = _mosi_run(os.path.join(out_dir, "alone"), lists)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _expect_launches("the MoSI pretraining run (train, SSL validation)")
+    launches = _expect_launches("the MoSI pretraining run (train, SSL validation)", max_pool3d_bwd=MOSI_TRAIN_VIDEOS // 10)
     peak = torch.cuda.max_memory_allocated()
     steps = MOSI_TRAIN_VIDEOS // 10
     print(f"MoSI R-2D3D-18 HMDB51 through the CLI: losses per step {[round(x, 5) for x in alone['losses']]}; {alone['updates']} updates; "
@@ -2906,10 +2968,8 @@ def phase_pretrain(out_dir: str, card_line: str) -> dict:
     del model, state, before, videos, labels
     torch.cuda.empty_cache()
 
-    # MoSI's steps do not repeat bit for bit on the card even without a group (MaxPool3d's CUDA backward adds with
-    # atomics, below): the group's run is held to the run without one where the bits must agree (the first step's
-    # loss, the gathered SSL validation of the same weights) and elsewhere within MOSI_GROUP_RTOL of it, beside the
-    # spread between two runs without a group
+    # two runs without a group, and the run as the one rank of an NCCL group, the same bits: the losses, the trained
+    # weights and the SSL validation (the stem's max-pool backward writes each input gradient once, ops/pool3d.py)
     again = _mosi_run(os.path.join(out_dir, "again"), lists)
     model = build_video_model(cfg, device=dev)
     model.load_state_dict(alone["state"])
@@ -2921,26 +2981,648 @@ def phase_pretrain(out_dir: str, card_line: str) -> dict:
         val_grouped = _eval_epoch_ssl(cfg, model, mesh.build_mesh(cfg, "cuda"))
     finally:
         mesh.destroy()
-    _expect_launches("the MoSI pretraining run under a process group")
+    _expect_launches("the MoSI pretraining run under a process group", max_pool3d_bwd=steps)
     del model
     torch.cuda.empty_cache()
 
-    def spread(a: dict, b: dict) -> dict:
-        rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"] + [a["ssl_val"]["loss"]], b["losses"] + [b["ssl_val"]["loss"]]))
-        return {"loss_rel": rel, "param_abs": max(float((a["state"][k].float() - v.float()).abs().max()) for k, v in b["state"].items())}
+    def same_bits(a: dict, b: dict) -> dict:
+        return {"losses": a["losses"] == b["losses"], "weights": all(torch.equal(a["state"][k], v) for k, v in b["state"].items()),
+                "ssl_validation": a["ssl_val"] == b["ssl_val"]}
 
-    group, runs = spread(grouped, alone), spread(again, alone)
-    same = {"first_loss": grouped["losses"][0] == alone["losses"][0], "ssl_val_same_weights": val_grouped == val_alone}
-    print(f"MoSI pretraining, world 1 over NCCL on {card_line}: the same bits {same}; against the run without a group: losses and SSL "
-          f"validation loss within {group['loss_rel']:.3e} relative, parameters within {group['param_abs']:.3e}; two runs without a group: "
-          f"{runs['loss_rel']:.3e}, {runs['param_abs']:.3e} (tol {MOSI_GROUP_RTOL} relative on the losses, parameters within "
-          f"{MOSI_GROUP_PARAMS} x the two runs' difference)")
-    if not all(same.values()) or not group["loss_rel"] <= MOSI_GROUP_RTOL or not group["param_abs"] <= MOSI_GROUP_PARAMS * max(runs["param_abs"], 1e-6):
-        raise AssertionError(f"MoSI pretraining under a one-rank NCCL group differs from the run without one: {same}, {group} (two runs without: {runs})")
-    nondet = _nondeterministic_ops(cfg, _to_device(videos_host, dev), _to_device(labels_host, dev), dev)
-    print(f"MoSI train step: operations without a deterministic CUDA implementation (torch.use_deterministic_algorithms, warn only): {nondet}")
+    runs, group = same_bits(again, alone), {**same_bits(grouped, alone), "ssl_validation_same_weights": val_grouped == val_alone}
+    print(f"MoSI pretraining on {card_line}: two runs without a group the same bits {runs}; world 1 over NCCL against the run without a "
+          f"group the same bits {group}; losses {alone['losses']} / {again['losses']} / {grouped['losses']}")
+    if not all(runs.values()) or not all(group.values()):
+        raise AssertionError(f"MoSI pretraining does not repeat bit for bit: two runs without a group {runs}, under a one-rank NCCL group {group}")
     return {"launches": launches, "train_clips_per_s": alone["clips_per_s"] * MOSI_CLIPS, "peak_gib": peak / 2**30, "step_peak_gib": step_peak / 2**30,
             **timed}
+
+
+# --- determinism of the train paths, and the pools' backward kernel (phases 30-31) -----------------------------------
+# every train path of the port, each probed by one train step under torch.use_deterministic_algorithms(True, warn_only=True)
+PROBE_PATHS = ["vit_b16_fused", "vit_b16_flash", "rn50", "hyrsm_pp_5shot", "molo_1shot", "tada2d"] + CLS_PRESETS + ["bmn", "mosi"]
+# operations a train path may reach that have no deterministic CUDA implementation, each with the ROADMAP entry that
+# files it (none: every such operation a train path reached has been replaced)
+DETERMINISM_ALLOWED: dict = {}
+PROBED: dict = {}  # train path -> the operations torch named in its probed step
+POOL_CASES: list = []  # the pools' backward launches of the probed steps: (path, mode, x shape, kernel, stride, padding, dtype, channels_last)
+# one episode a step in one chunk, an optimizer update every step
+PROBE_FEW_SHOT_OPTS = ["TPU.EPISODES_PER_STEP", "1", "TPU.EPISODE_CHUNKS", "1", "TRAIN.BATCH_SIZE_PER_TASK", "1"]
+# the pools' backward kernel against its plain version: fp32 leaves room for the last bit only (the plain version adds in
+# the kernel's order), bf16 for one rounding of the same fp32 sum
+POOL_TOLERANCE = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
+
+
+@contextlib.contextmanager
+def _probe(path: str):
+    """Run the block, one train step of ``path``, under torch.use_deterministic_algorithms(True, warn_only=True) and
+    record in PROBED the operations torch names as having no deterministic CUDA implementation (and any other warning
+    about determinism, whole), and in POOL_CASES the shapes the pools' backward kernel was launched at."""
+    import warnings
+
+    from clip_fsar_torch.ops import pool3d
+
+    launch = pool3d.pool3d_bwd_cuda
+
+    def recorded(mode, dy, argmax, in_shape, kernel, stride, padding, channels_last):
+        POOL_CASES.append((path, mode, tuple(in_shape), tuple(kernel), tuple(stride), tuple(padding), dy.dtype, channels_last))
+        return launch(mode, dy, argmax, in_shape, kernel, stride, padding, channels_last)
+
+    torch.cuda.synchronize()
+    pool3d.pool3d_bwd_cuda = recorded
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        pool3d.pool3d_bwd_cuda = launch
+    named = set()
+    for w in caught:
+        text = str(w.message)
+        if "does not have a deterministic implementation" in text:
+            named.add(text.split(" does not have")[0])
+        elif "determinis" in text.lower():
+            named.add(text[:300])
+    PROBED[path] = sorted(named)
+
+
+def _few_shot_train_step(cfg, dev):
+    """A fresh few-shot model of ``cfg`` on the card and its full train step (``make_train_step``: augmentation, forward,
+    backward, the optimizer) on one batch of the train loader: ``run(i)`` steps with step i's generator."""
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=int(cfg.TPU.EPISODES_PER_STEP)) as loader:
+        batch = next(iter(loader)).to(dev)
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+    step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+    return lambda i: step(state, batch, 1e-5, step_generator(cfg, i, dev))
+
+
+def _cls_train_step(cfg, model, videos, labels):
+    """The classification train step (``make_classification_train_step``, the optimizer's update included) of ``model``
+    on a resident batch: ``run(i)`` steps with step i's generator."""
+    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    step = make_classification_train_step(model, cfg)
+    return lambda i: step(state, videos, labels, 1e-6, step_generator(cfg, 0, i, videos.device))
+
+
+def phase_determinism_probe(out_dir: str, card_line: str) -> None:
+    """Phase 30: one train step of every train path that an earlier phase drives (ViT-B/16 on the fused and the flash
+    path, RN50, HyRSM++ 5-shot, MoLo 1-shot at one episode a step; TAda2D-R50 at its batch of 8 and the nine other
+    presets at 2; BMN at 2 windows; MoSI at its 10 videos) at full width under torch.use_deterministic_algorithms(True,
+    warn_only=True): the operations torch names as having no deterministic CUDA implementation, by path.  The shapes of
+    the pools' backward launches are kept for phase 31.  The check of what was named comes last (phase 33), after the
+    new paths' own probes."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.classification import build_classification_loader
+    from clip_fsar_torch.data.tal_features import TalFeatureDataset
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.train import localization as loc
+    from clip_fsar_torch.train.classification import _to_device
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    dev = runtime.device("cuda")
+    few_shot = {"vit_b16_fused": (CONFIG, TRAIN_OPTS), "vit_b16_flash": (CONFIG, TRAIN_OPTS + FLASH_OPTS), "rn50": (CONFIG, RN_TRAIN_OPTS),
+                **{name: (os.path.join(REPO, CLASSIC_CONFIGS[name]), _classic_opts(name)) for name in CLASSIC_CONFIGS}}
+    for path, (config, opts) in few_shot.items():
+        run = _few_shot_train_step(load_config(config, opts + PROBE_FEW_SHOT_OPTS), dev)
+        with _probe(path):
+            run(0)
+        del run
+        torch.cuda.empty_cache()
+    lists = _cls_lists(os.path.join(out_dir, "probe_lists"))
+    video_cfgs = {"tada2d": load_config(os.path.join(REPO, CLS_CONFIG), _cls_opts(out_dir, lists)),
+                  **{preset: _preset_cfg(preset, out_dir) for preset in CLS_PRESETS}}
+    for path, cfg in video_cfgs.items():
+        model = build_video_model(cfg, dtype=torch.bfloat16, device=dev)
+        run = _cls_train_step(cfg, model, *_cls_batch(cfg, dev, seed=2))
+        with _probe(path):
+            run(0)
+        del model, run
+        torch.cuda.empty_cache()
+    cfg = load_config(os.path.join(REPO, BMN_CONFIG), BMN_OPTS)
+    feats, maps, _ = next(loc._batches(TalFeatureDataset(cfg, "train"), 2, False, 0))
+    x, y = torch.from_numpy(feats).to(dev), {k: torch.from_numpy(v).to(dev) for k, v in maps.items()}
+    model = loc.build_bmn_model(cfg, dev)
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    with _probe("bmn"):
+        loc.make_localization_train_step(model, cfg)(state, x, y, 1e-4, loc.step_generator(cfg, 0, 0, dev))
+    del model, state, x, y
+    torch.cuda.empty_cache()
+    cfg = load_config(os.path.join(REPO, MOSI_CONFIG), ["DATA.DECODER", "synthetic", "DATA.ANNO_DIR", _mosi_lists(os.path.join(out_dir, "probe_mosi"))])
+    videos, labels, _ = next(iter(build_classification_loader(cfg, "train")))
+    model = build_video_model(cfg, dtype=torch.bfloat16, device=dev)
+    run = _cls_train_step(cfg, model, _to_device(videos, dev), _to_device(labels, dev))
+    with _probe("mosi"):
+        run(0)
+    del model, run
+    torch.cuda.empty_cache()
+    for path in PROBE_PATHS:
+        print(f"determinism probe on {card_line}: one {path} train step: operations without a deterministic CUDA implementation "
+              f"{PROBED[path] or 'none'}")
+
+
+def _pool_bound(mode: str, x_numel: int, y_numel: int, esize: int) -> dict:
+    """dy and (max) the int64 argmax read once, dx written once."""
+    return _bound(y_numel * esize + (8 * y_numel if mode == "max" else 0) + x_numel * esize, 0)
+
+
+def phase_pool3d(card_line: str) -> dict:
+    """Phase 31: the pools' backward kernel at every shape the probed train steps launched it at (MoSI's stem pool,
+    S3D-G's stem, branch and stage pools, TAdaConv's pooled branches), in the path's own dtype and memory format, from
+    the forward's own argmax on tied inputs (values from {0, 1, 2}), against its plain version; finite, the same bits on
+    a second launch; each shape timed beside its plain version, torch's own CUDA backward of the same pool (atomics: no
+    path of the port runs it) and the bound.  Returns the records of the max and the average backward, each at the
+    first shape of the path that launches it in the CLI runs (MoSI, TAda2D), the other shapes under ``at_shapes``."""
+    from clip_fsar_torch.ops import pool3d
+
+    cases = []
+    for case in POOL_CASES:
+        if case[1:] not in [c[1:] for c in cases]:
+            cases.append(case)
+    want = {("mosi", "max"), ("s3dg", "max"), ("tada2d", "avg")}
+    if not want <= {(c[0], c[1]) for c in cases}:
+        raise AssertionError(f"the probed steps launched the pools' backward at {cases}, expected {sorted(want)} among them")
+    g = torch.Generator().manual_seed(7)
+    records = {}
+    for path, mode, shape, kernel, stride, padding, dtype, channels_last in cases:
+        x = torch.randint(0, 3, shape, generator=g).to("cuda", dtype)
+        x = x.contiguous(memory_format=torch.channels_last_3d) if channels_last else x.contiguous()
+        if mode == "max":
+            y, argmax = F.max_pool3d(x, kernel, stride, padding, return_indices=True)
+        else:
+            y, argmax = F.avg_pool3d(x, kernel, stride, padding), None
+        dy = torch.randn(y.shape, generator=g).to("cuda", dtype).contiguous(memory_format=torch.channels_last_3d)
+        run = lambda: pool3d.pool3d_bwd_cuda(mode, dy, argmax, shape, kernel, stride, padding, channels_last)  # noqa: E731
+        if mode == "max":
+            plain = lambda: pool3d.max_pool3d_bwd_reference(dy, argmax, shape, kernel, stride, padding)  # noqa: E731
+            library = lambda: torch.ops.aten.max_pool3d_with_indices_backward(dy, x, kernel, stride, padding, [1, 1, 1], False, argmax)  # noqa: E731
+        else:
+            plain = lambda: pool3d.avg_pool3d_bwd_reference(dy, shape, kernel, stride, padding)  # noqa: E731
+            library = lambda: torch.ops.aten.avg_pool3d_backward(dy, x, kernel, stride, padding, False, True, None)  # noqa: E731
+        dx = run()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (dx.float() - ref.float()).abs().max().item()
+        tol = POOL_TOLERANCE[dtype]
+        what = f"pool3d_bwd {mode} ({path}) x {list(shape)} kernel {kernel} stride {stride} padding {padding} {str(dtype)[6:]}"
+        print(f"{what}: max|dx-ref| {err:.3e} (tol {tol}, relative); dx in x's memory format: "
+              f"{dx.is_contiguous(memory_format=torch.channels_last_3d if channels_last else torch.contiguous_format)}")
+        if not torch.isfinite(dx.float()).all():
+            raise AssertionError(f"{what}: dx is not finite")
+        torch.testing.assert_close(dx.float(), ref.float(), rtol=tol, atol=tol)
+        if not torch.equal(run(), dx):
+            raise AssertionError(f"{what}: a second launch gave other bits")
+        ms, plain_ms, all_ms = _alternate(run, plain, iters=10)
+        library_ms = _time_ms(library, iters=10)
+        bound = _pool_bound(mode, x.numel(), y.numel(), x.element_size())
+        print(f"{what} on {card_line}: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, torch's "
+              f"atomic backward {library_ms:.4f} ms (kernel / library = {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it reached)")
+        entry = {"path": path, "shape": list(shape), "kernel": list(kernel), "stride": list(stride), "padding": list(padding),
+                 "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
+        name = f"{mode}_pool3d_bwd"
+        if name not in records:
+            records[name] = {**{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, "at_shapes": []}
+        records[name]["at_shapes"].append(entry)
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        del x, y, argmax, dy, dx, ref
+        torch.cuda.empty_cache()
+    for name, path in (("max_pool3d_bwd", "mosi"), ("avg_pool3d_bwd", "tada2d")):  # the main record: the CLI path's first shape
+        first = next(e for e in records[name]["at_shapes"] if e["path"] == path)
+        records[name].update({k: first[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    return records
+
+
+def phase_determinism_check(card_line: str) -> dict:
+    """Phase 33: every train path was probed, and no probe named an operation without a deterministic CUDA
+    implementation (DETERMINISM_ALLOWED lists the ones filed as open faults: none)."""
+    missing = [path for path in PROBE_PATHS + NEW_PROBE_PATHS if path not in PROBED and path not in SKIPPED_PROBES]
+    named = {path: [op for op in ops if op not in DETERMINISM_ALLOWED] for path, ops in PROBED.items()}
+    named = {path: ops for path, ops in named.items() if ops}
+    print(f"determinism check on {card_line}: {len(PROBED)} train paths probed; operations without a deterministic CUDA implementation: "
+          f"{named or 'none'}; allowed exceptions {DETERMINISM_ALLOWED or 'none'}; not run {SKIPPED_PROBES or 'none'}")
+    if missing or named:
+        raise AssertionError(f"the determinism probe missed the train paths {missing} or named {named}")
+    return dict(PROBED)
+
+
+# --- the shipped variants, towers and heads that no earlier phase runs (phase 32) ----------------------------------------
+# the four shipped signatures of configs/projects that no earlier phase runs, each standing for its family: (config,
+# train steps through the CLI; 0 runs the test protocol alone).  HyRSM++ 2-shot stands for SHOT 2-4, which run the head
+# code of SHOT 5 (phase 16)
+SIGNATURE_CONFIGS = {
+    "clipfsar_5shot": (os.path.join("configs", "projects", "CLIPFSAR", "hmdb51", "CLIPFSAR_HMDB51_5shot_v1.yaml"), 2),
+    "molo_5shot": (os.path.join("configs", "projects", "MoLo", "hmdb51", "MoLo_HMDB51_5shot_v1.yaml"), 0),
+    "hyrsm_pp_1shot": (os.path.join("configs", "projects", "hyrsmplusplus", "hmdb51", "HyRSMplusplus_HMDB51_1shot_v1.yaml"), 2),
+    "hyrsm_pp_2shot": (os.path.join("configs", "projects", "hyrsmplusplus", "hmdb51", "HyRSMplusplus_HMDB51_2shot_v1.yaml"), 2),
+}
+SIGNATURE_EPISODES, SIGNATURE_TEST_EPISODES = 2, 8  # E a train step (in 2 chunks); the test protocol's episodes, 4 a step
+SIGNATURE_OPTS = ["DATA.DECODER", "synthetic", "TPU.EPISODES_PER_STEP", str(SIGNATURE_EPISODES), "TPU.EPISODE_CHUNKS", "2",
+                  "TRAIN.BATCH_SIZE_PER_TASK", "1", "TRAIN.NUM_VAL_TASKS", "4", "TPU.EVAL_EPISODES_PER_STEP", "4", "TRAIN.NUM_TEST_TASKS",
+                  str(SIGNATURE_TEST_EPISODES), "TEST.BATCH_SIZE", "4", "LOG_PERIOD", "1"]
+# the CLIP towers VIDEO.HEAD.BACKBONE_NAME selects that no earlier phase runs, under the CLIP-FSAR head of the flagship
+# config at its 224 px crop (the RN towers' attention pooling resized to it, as the JAX builder does)
+TOWERS = ["ViT-B/32", "ViT-L/14", "RN101", "RN50x4", "RN50x16", "RN50x64"]
+# may stop at the card's memory at one episode: it is then reported with the peak it reached, not shrunk
+TOWER_MAY_NOT_FIT = {"RN50x64"}
+# the heads VIDEO.HEAD.NAME selects that no earlier phase runs, on the shipped HyRSM++ 5-shot config's ResNet-50 trunk;
+# then the two other trunks under one of them
+HEADS = ["CNN_HyRSM_1shot", "CNN_HyRSM_5shot", "CNN_HyRSM_plusplus_semi", "CNN_TRX", "CNN_OTAM", "CNN_TSN", "CNN_CrossTransformer"]
+TRUNKS_HEAD, TRUNKS = "CNN_OTAM", ["resnet18", "resnet34"]
+# heads that give no class logits: trained with TRAIN.USE_CLASSIFICATION False, the key their users set (the JAX train
+# step, like the port's, reads the class logits whenever it is on)
+NO_CLASS_LOGITS = {"CNN_TSN", "CNN_OTAM", "CNN_TRX", "CNN_CrossTransformer"}
+# the gradients of a model behind a CLIP RN tower on per-episode batch statistics, at fresh weights, bf16 against fp32:
+# reported, not held.  Rounding in bf16 flips ReLUs and moves the batch statistics, and the BatchNorm backward's mean
+# subtractions cancel most of the gradient, so the stem's gradient differs by norm by about its own size and the error
+# grows with the tower: this script read the stem's at 1.12 (RN50), 1.37 (RN101), 1.40 (RN50x4), 1.36 (RN50x16), the
+# last convolution's at 0.17 to 0.75 and the head's at 0.05 to 0.24 (NVIDIA H100 80GB HBM3, 700.00 W).  The loss and
+# the eval logits are held; the RN towers' fp32 gradients are held to JAX's on the CPU (tests/test_torch_rn.py).  The
+# other trunks' gradients are held at CLASSIC_HEAD_GRAD_TOL, the tolerance of gradients that see the distances of nearly
+# parallel fresh features (OTAM's and TSN's logits are nothing else)
+LIVE_BN_GRADS = None
+ONE_EPISODE_OPTS = ["DATA.DECODER", "synthetic", "TPU.EPISODES_PER_STEP", "1", "TPU.EPISODE_CHUNKS", "1", "TRAIN.BATCH_SIZE_PER_TASK", "1",
+                    "TPU.EVAL_EPISODES_PER_STEP", "1"]
+NEW_PROBE_PATHS = ([name for name in SIGNATURE_CONFIGS] + [f"{t}_{p}" for t in ("ViT-B/32", "ViT-L/14") for p in ("fused", "flash")]
+                   + TOWERS[2:] + HEADS + TRUNKS)
+SKIPPED_PROBES: dict = {}  # train path -> why its step could not run (a tower that does not fit the card at one episode)
+
+
+def _picked_grads(head) -> dict:
+    """The gradients held bf16 against fp32 with their tolerances: the trunk's first convolution, its last convolution
+    (a ViT's last block's in-projection) and the head's own parameters together ("head"), each at
+    CLASSIC_HEAD_GRAD_TOL.  Behind a CLIP RN tower on per-episode batch statistics (the CLIP-FSAR head's live
+    BatchNorm) they are reported, not held (LIVE_BN_GRADS)."""
+    named = [(n, p) for n, p in head.named_parameters() if p.requires_grad]
+    convs = [n for n, p in named if n.startswith("backbone.") and p.dim() == 4]
+    last = convs[-1] if len(convs) > 1 else [n for n, _ in named if n.startswith("backbone.") and n.endswith("attn.in_proj_weight")][-1]
+    tol = LIVE_BN_GRADS if getattr(head, "train_backbone_bn", False) and not head.arch.is_vit else CLASSIC_HEAD_GRAD_TOL
+    picked = {convs[0]: tol, last: tol}
+    if any(not n.startswith("backbone.") for n, _ in named):  # OTAM and TSN have no parameters of their own
+        picked["head"] = tol
+    return picked
+
+
+def _grads(head, picked) -> dict:
+    named = dict(head.named_parameters())
+    out = {n: named[n].grad.float().clone() for n in picked if n != "head"}
+    if "head" in picked:
+        out["head"] = torch.cat([p.grad.float().flatten() for n, p in named.items() if not n.startswith("backbone.") and p.grad is not None])
+    return out
+
+
+def _few_shot_run(what: str, cfg, dev, train_batch, test_batch, probe: str = None) -> dict:
+    """A fresh model of ``cfg`` on the card: one eval step's logits on ``test_batch``, one ``make_grad_fn`` step's loss and
+    picked gradients on ``train_batch`` with its peak, the launches of both counted from 0; then, under ``probe``'s name,
+    one full train step (optimizer included) under the determinism probe."""
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_eval_step, make_grad_fn, make_train_step
+
+    model = build_few_shot_model(cfg, flow="train", device=dev)
+    picked = _picked_grads(model.head)
+    torch.cuda.synchronize()
+    _reset_launches()
+    logits = make_eval_step(model.head, cfg, model.text_train, model.text_test)(test_batch)["logits"].float()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = make_grad_fn(model.head, cfg, model.text_train, model.text_test)(train_batch, step_generator(cfg, 0, dev))
+    torch.cuda.synchronize()
+    out = {"logits": logits, "loss": metrics["loss"].item(), "grads": _grads(model.head, picked), "picked": picked, "launches": _launches(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if probe:
+        model.head.zero_grad(set_to_none=True)
+        state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+        step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+        with _probe(probe):
+            step(state, train_batch, 1e-5, step_generator(cfg, 1, dev))
+        del state, step
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compare_dtypes(what: str, got: dict, want: dict) -> dict:
+    """bf16 (``got``) against fp32 (``want``): the eval logits to CLASSIC_LOGIT_SHARE of the largest fp32 logit, the loss at
+    2e-2, the picked gradients norm-relative at their tolerances (PERF.md 2)."""
+    diff, scale = (got["logits"] - want["logits"]).abs().max().item(), want["logits"].abs().max().item()
+    rels = {n: ((got["grads"][n] - g).norm() / g.norm()).item() for n, g in want["grads"].items()}
+    print(f"{what} bf16 vs fp32: eval logits max abs diff {diff:.4e}, {diff / scale:.3e} of the largest fp32 logit {scale:.4e} (tol "
+          f"{CLASSIC_LOGIT_SHARE}); loss {got['loss']:.6f} vs {want['loss']:.6f} (tol 2e-2); gradients norm-relative "
+          + ", ".join(f"{n} {r:.3e} (tol {want['picked'][n] or 'none: reported, LIVE_BN_GRADS'})" for n, r in rels.items()))
+    bad = [n for n, r in rels.items() if not (r <= want["picked"][n] if want["picked"][n] else np.isfinite(r) and got["grads"][n].norm() > 0)]
+    if not (torch.isfinite(got["logits"]).all() and diff <= CLASSIC_LOGIT_SHARE * scale) or bad:
+        raise AssertionError(f"{what}: bf16 differs from fp32: logits {diff:.4e} of {scale:.4e}, gradients {bad}")
+    torch.testing.assert_close(torch.tensor(got["loss"]), torch.tensor(want["loss"]), atol=2e-2, rtol=2e-2)
+    return {"eval_share": diff / scale, "loss": (got["loss"], want["loss"]), "grad_rel": rels}
+
+
+def _batches(cfg, dev) -> tuple:
+    """One train batch and one test batch of the config's loaders (TPU.EPISODES_PER_STEP / TPU.EVAL_EPISODES_PER_STEP
+    episodes), on the card."""
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=int(cfg.TPU.EPISODES_PER_STEP)) as loader:
+        train = next(iter(loader)).to(dev)
+    with build_few_shot_loader(cfg, "test", num_steps=1, episodes_per_step=int(cfg.TPU.EVAL_EPISODES_PER_STEP)) as loader:
+        test = next(iter(loader)).to(dev)
+    return train, test
+
+
+def phase_signatures(out_dir: str, card_line: str) -> dict:
+    """Phase 32a: the four shipped signatures that no earlier phase runs, as written (RN50 or ResNet-50 at 224 px, 8
+    frames, 5-way; fresh weights, the synthetic decoder) through the CLI: 2 train steps of E = 2 in 2 chunks and the test
+    protocol on 8 episodes of their checkpoint (MoLo 5-shot: the test protocol alone, on fresh weights), no kernel
+    launched; then bf16 against fp32 on one train and one test batch of its loaders (eval logits, loss, picked
+    gradients), the bf16 train step with its batch resident, and one train step under the determinism probe."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.runs.run import load_config, main
+    from clip_fsar_torch.tools.profile_eval import config_opts
+    from clip_fsar_torch.tools.profile_train import resident_step_ms
+
+    dev = runtime.device("cuda")
+    out = {}
+    for name, (config, steps) in SIGNATURE_CONFIGS.items():
+        path = os.path.join(REPO, config)
+        opts = config_opts(path) + SIGNATURE_OPTS + (["TRAIN.NUM_TRAIN_TASKS", str(steps), "TRAIN.VAL_FRE_ITER", str(steps)] if steps
+                                                     else ["TRAIN.ENABLE", "False"])
+        cfg = load_config(path, opts)
+        t = cfg.TRAIN
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        results = main(["--cfg", path, *opts, "OUTPUT_DIR", os.path.join(out_dir, name)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _expect_launches(f"the {name} CLI run")  # RN50 and the torchvision trunks reach no kernel, as in JAX
+        peak = torch.cuda.max_memory_allocated()
+        test = results["test_few_shot"]
+        _check_test_stats(test, SIGNATURE_TEST_EPISODES)
+        record = {"launches": launches, "test_episodes_per_s": SIGNATURE_TEST_EPISODES / test["seconds"], "peak_gib": peak / 2**30}
+        line = (f"{name} ({cfg.VIDEO.HEAD.NAME} on {cfg.VIDEO.HEAD.BACKBONE_NAME}, train SHOT {t.SHOT} Q {t.QUERY_PER_CLASS}, test SHOT "
+                f"{t.get('SHOT_TEST', t.SHOT)} Q {t.QUERY_PER_CLASS_TEST}, MERGE_BEFORE {bool(t.get('MERGE_BEFORE', False))}) through the CLI on "
+                f"{card_line}: ")
+        if steps:
+            train = results["train_few_shot"]
+            if len(train["losses"]) != steps or not np.isfinite(train["losses"]).all() or train["updates"] != steps:
+                raise AssertionError(f"{name}: expected {steps} finite losses and updates, got {train['losses']}, {train['updates']}")
+            if not test["weights"].endswith(os.path.join("checkpoints", f"{steps}.pt")):
+                raise AssertionError(f"{name}: the test read {test['weights']}, not the step-{steps} checkpoint")
+            record["episodes_per_s"] = steps * SIGNATURE_EPISODES / (train["seconds"] - train["val_seconds"])
+            line += f"losses {[round(x, 5) for x in train['losses']]}, {record['episodes_per_s']:.4f} train episodes/s (loader included); "
+        print(line + f"test protocol {record['test_episodes_per_s']:.3f} episodes/s ({SIGNATURE_TEST_EPISODES} episodes of "
+              f"{test['weights'] or 'fresh weights'}), CLI wall {wall:.2f} s, peak {record['peak_gib']:.3f} GiB; launches {launches}")
+
+        one = load_config(path, config_opts(path) + SIGNATURE_OPTS)
+        train_batch, test_batch = _batches(one, dev)
+        want = _few_shot_run(name, load_config(path, config_opts(path) + SIGNATURE_OPTS + ["TPU.COMPUTE_DTYPE", "float32"]), dev,
+                             train_batch, test_batch)
+        got = _few_shot_run(name, one, dev, train_batch, test_batch, probe=name)
+        record.update(_compare_dtypes(f"{name} (one batch of E = {SIGNATURE_EPISODES})", got, want))
+        _expect_launches(f"the {name} steps", got["launches"])
+        model = build_few_shot_model(one, flow="train", device=dev)
+        timed = resident_step_ms(model, one, train_batch, steps=3)
+        del model
+        torch.cuda.empty_cache()
+        print(f"{name} train step on {card_line}, batch resident (E = {SIGNATURE_EPISODES} in 2 chunks, bf16): {timed['step_ms']:.1f} ms a "
+              f"step (CUDA events, 3 steps); the host queued a step in {timed['host_ms']:.1f} ms; peak of one step {got['peak_gib']:.3f} GiB")
+        out[name] = {**record, "resident_step_ms": timed["step_ms"], "host_ms": timed["host_ms"], "step_peak_gib": got["peak_gib"]}
+        del train_batch, test_batch, want, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_towers(card_line: str) -> dict:
+    """Phase 32b: every CLIP tower VIDEO.HEAD.BACKBONE_NAME selects that no earlier phase runs (ViT-B/32 and ViT-L/14 at
+    224 px: N = 50 and 257; RN101, RN50x4, RN50x16, RN50x64 at the config's 224 px crop) under the flagship's CLIP-FSAR head
+    at full width, fresh weights from the seed: one eval step and one train step of one episode in fp32 and in bf16 (eval
+    logits, loss, picked gradients), the bf16 train step's peak, its launches counted from 0 (the ViTs: K1 / K2 on the
+    fused path, then K3-K5 on the flash path, against the blocks' forwards and backwards; the RN towers: none), and one
+    train step under the determinism probe.  A tower in TOWER_MAY_NOT_FIT that runs out of the card's memory is
+    reported with the peak it reached."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.models.builder import tower_execution
+    from clip_fsar_torch.models.clip.arch import ARCHS
+    from clip_fsar_torch.runs.run import load_config
+
+    dev = runtime.device("cuda")
+    out = {}
+    for tower in TOWERS:
+        opts = TRAIN_OPTS[2:] + ["VIDEO.HEAD.BACKBONE_NAME", tower] + ONE_EPISODE_OPTS
+        cfg = load_config(CONFIG, opts)
+        vit = isinstance(ARCHS[tower].vision_layers, int)
+        train_batch, test_batch = _batches(cfg, dev)
+        runs = {}
+        for dtype, extra, probe in (("bfloat16", [], f"{tower}_fused" if vit else tower), ("float32", ["TPU.COMPUTE_DTYPE", "float32"], None)):
+            try:
+                runs[dtype] = _few_shot_run(tower, load_config(CONFIG, opts + extra), dev, train_batch, test_batch, probe=probe)
+            except torch.cuda.OutOfMemoryError as e:
+                if tower not in TOWER_MAY_NOT_FIT:
+                    raise
+                runs[dtype] = f"out of the card's memory at one episode in {dtype} ({str(e).splitlines()[0][:120]})"
+                gc.collect()
+                torch.cuda.empty_cache()
+        if isinstance(runs["bfloat16"], str) or isinstance(runs["float32"], str):
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            fit = {d: not isinstance(r, str) for d, r in runs.items()}
+            if not fit["bfloat16"]:
+                SKIPPED_PROBES[tower] = runs["bfloat16"]
+            print(f"tower {tower} under the CLIP-FSAR head on {card_line}: one episode of {cfg.DATA.NUM_INPUT_FRAMES} frames at "
+                  f"{cfg.DATA.TRAIN_CROP_SIZE} px fits in {[d for d, ok in fit.items() if ok] or 'neither dtype'}: "
+                  f"{[r for r in runs.values() if isinstance(r, str)]}; peak reached {peak:.3f} GiB"
+                  + ("" if isinstance(runs["bfloat16"], str) else f"; the bf16 train step's peak {runs['bfloat16']['peak_gib']:.3f} GiB"))
+            out[tower] = {"fits": False, "peak_gib": peak if isinstance(runs["bfloat16"], str) else runs["bfloat16"]["peak_gib"], **fit}
+            del runs, train_batch, test_batch
+            torch.cuda.empty_cache()
+            continue
+        got, want = runs["bfloat16"], runs["float32"]
+        record = {}
+        record.update(_compare_dtypes(f"tower {tower} (one episode)", got, want), fits=True, peak_gib=got["peak_gib"])
+        launches = {"fused": got["launches"]}
+        if vit:
+            layers = ARCHS[tower].vision_layers
+            remat = tower_execution(cfg)[0]
+            fwd, bwd = layers + layers * (1 + remat), layers  # one eval step, one train step (twice a block under remat)
+            _expect_launches(f"tower {tower}, fused path", got["launches"], clip_mha_fwd=fwd, clip_mha_bwd=bwd)
+            flash = _few_shot_run(tower, load_config(CONFIG, opts + FLASH_OPTS), dev, train_batch, test_batch, probe=f"{tower}_flash")
+            launches["flash"] = _expect_launches(f"tower {tower}, flash path", flash["launches"], flash_mha_fwd=fwd, flash_mha_bwd_dq=bwd,
+                                                 flash_mha_bwd_dkv=bwd)
+            diff = (flash["logits"] - got["logits"]).abs().max().item()
+            print(f"tower {tower}: flash path against the fused path (bf16): eval logits max abs diff {diff:.4e}, loss {flash['loss']:.6f} "
+                  f"vs {got['loss']:.6f} (tol 2e-2 each)")
+            torch.testing.assert_close(flash["logits"], got["logits"], atol=2e-2, rtol=2e-2)
+            torch.testing.assert_close(torch.tensor(flash["loss"]), torch.tensor(got["loss"]), atol=2e-2, rtol=2e-2)
+        else:
+            _expect_launches(f"tower {tower}", got["launches"])
+        print(f"tower {tower} under the CLIP-FSAR head on {card_line} ({ARCHS[tower].vision_width} wide, one episode of "
+              f"{cfg.DATA.NUM_INPUT_FRAMES} frames at {cfg.DATA.TRAIN_CROP_SIZE} px): the bf16 train step's peak {got['peak_gib']:.3f} GiB; "
+              f"launches {launches}")
+        out[tower] = {**record, "launches": launches}
+        del train_batch, test_batch, want, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_heads(card_line: str) -> dict:
+    """Phase 32c: every few-shot head VIDEO.HEAD.NAME selects that no earlier phase runs, on the shipped HyRSM++ 5-shot
+    config's ResNet-50 trunk as written (224 px, 8 frames, 5-way 5-shot; the loader gives the semi head no unlabeled
+    clips, as it gives none to a user's run), and the resnet18 and resnet34 trunks under CNN_OTAM: one eval step and
+    one train step of one episode in fp32 and bf16 (eval logits, loss, picked gradients), no kernel launched, the bf16
+    step's peak, and one train step under the determinism probe."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.tools.profile_eval import config_opts
+
+    dev = runtime.device("cuda")
+    path = os.path.join(REPO, CLASSIC_CONFIGS["hyrsm_pp_5shot"])
+    cases = {head: ["VIDEO.HEAD.NAME", head] for head in HEADS}
+    cases.update({trunk: ["VIDEO.HEAD.NAME", TRUNKS_HEAD, "VIDEO.HEAD.BACKBONE_NAME", trunk] for trunk in TRUNKS})
+    cases = {case: extra + (["TRAIN.USE_CLASSIFICATION", "False"] if extra[1] in NO_CLASS_LOGITS else []) for case, extra in cases.items()}
+    out = {}
+    batches = None
+    for case, extra in cases.items():
+        opts = config_opts(path) + ONE_EPISODE_OPTS + extra
+        cfg = load_config(path, opts)
+        if batches is None:  # the heads share the config's loaders
+            batches = _batches(cfg, dev)
+        want = _few_shot_run(case, load_config(path, opts + ["TPU.COMPUTE_DTYPE", "float32"]), dev, *batches)
+        got = _few_shot_run(case, cfg, dev, *batches, probe=case)
+        record = _compare_dtypes(f"{cfg.VIDEO.HEAD.NAME} on {cfg.VIDEO.HEAD.BACKBONE_NAME} (one episode)", got, want)
+        _expect_launches(f"{case}", got["launches"])
+        print(f"{cfg.VIDEO.HEAD.NAME} on {cfg.VIDEO.HEAD.BACKBONE_NAME} on {card_line}: the bf16 train step's peak {got['peak_gib']:.3f} GiB; "
+              "no kernel launched")
+        out[case] = {**record, "peak_gib": got["peak_gib"], "launches": got["launches"]}
+    return out
+
+
+# --- what cuDNN's deterministic convolution algorithms cost (not run by default: python3 chip_smoke.py --cudnn-determinism)
+def _step_ms(run, steps: int = 3) -> float:
+    """CUDA-event ms a step of ``run(i)`` over ``steps`` steps after a warm-up step."""
+    run(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(1, steps + 1):
+        run(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def phase_cudnn_determinism(card_line: str) -> None:
+    """The train steps with and without ``runtime.deterministic_convolutions`` (cuDNN's deterministic algorithms; the
+    few-shot and classification steps run under it): three fp32 MoSI runs of 3 steps at 4 frames under each, whether
+    their losses are the same bits; then the resident step of each conv-heavy path built each way, timed in turn
+    (without, with, with, without).  BMN's step, which runs without it (ROADMAP F9), with the flag set around it."""
+    from unittest import mock
+
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.classification import build_classification_loader
+    from clip_fsar_torch.data.tal_features import TalFeatureDataset
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.train import localization as loc
+    from clip_fsar_torch.train.classification import _to_device
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    dev = runtime.device("cuda")
+
+    @contextlib.contextmanager
+    def default_pick():
+        yield
+
+    def plain_cudnn(on: bool):
+        """The steps built under this context run with cuDNN's deterministic algorithms (on) or its default pick."""
+        return contextlib.nullcontext() if on else mock.patch.object(runtime, "deterministic_convolutions", default_pick)
+
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as d:
+        lists = _mosi_lists(os.path.join(d, "mosi"))
+        small = load_config(os.path.join(REPO, MOSI_CONFIG), ["DATA.DECODER", "synthetic", "DATA.ANNO_DIR", lists, "PRETRAIN.NUM_FRAMES", "4",
+                                                              "TRAIN.BATCH_SIZE", "4"])
+        videos, labels, _ = next(iter(build_classification_loader(small, "train")))
+        x, y = _to_device(videos, dev), _to_device(labels, dev)
+        for on in (False, True):
+            runs = []
+            for _ in range(3):
+                with plain_cudnn(on):
+                    run = _cls_train_step(small, build_video_model(small, device=dev), x, y)
+                runs.append(torch.stack([run(i)["loss"] for i in range(3)]).cpu())
+            print(f"MoSI fp32 at 4 frames, 3 runs of 3 steps, deterministic convolutions {on}: losses {[r.tolist() for r in runs]}; "
+                  f"the same bits: {all(torch.equal(r, runs[0]) for r in runs)}")
+        del x, y
+        torch.cuda.empty_cache()
+
+        def video(cfg, batch=None):
+            def make():
+                model = build_video_model(cfg, dtype=torch.bfloat16, device=dev)
+                run = _cls_train_step(cfg, model, *(batch or _cls_batch(cfg, dev, seed=3)))
+                return lambda i: run(i)["loss"]
+            return make
+
+        def few_shot(cfg):
+            return lambda: (lambda run: lambda i: run(i)["loss"])(_few_shot_train_step(cfg, dev))
+
+        mosi = load_config(os.path.join(REPO, MOSI_CONFIG), ["DATA.DECODER", "synthetic", "DATA.ANNO_DIR", lists])
+        mosi_batch = tuple(_to_device(t, dev) for t in next(iter(build_classification_loader(mosi, "train")))[:2])
+        paths = {"TAda2D-R50, batch 8": video(load_config(os.path.join(REPO, CLS_CONFIG), _cls_opts(d, _cls_lists(os.path.join(d, "cls"))))),
+                 "MoSI R-2D3D-18, 10 videos": video(mosi, mosi_batch),
+                 **{f"preset {p}, batch 2": video(_preset_cfg(p, d)) for p in ("r2d3ds", "csn", "s3dg", "slowfast_8x8")},
+                 "RN50 CLIP-FSAR, E = 4 in 2 chunks": few_shot(load_config(CONFIG, RN_TRAIN_OPTS)),
+                 **{f"{name}, E = 4 in 2 chunks": few_shot(load_config(os.path.join(REPO, CLASSIC_CONFIGS[name]), _classic_opts(name)))
+                    for name in CLASSIC_CONFIGS}}
+        for name, make in paths.items():
+            ms = {False: [], True: []}
+            for on in (False, True, True, False):
+                with plain_cudnn(on):
+                    run = make()
+                ms[on].append(_step_ms(run))
+                del run
+                torch.cuda.empty_cache()
+            print(f"{name} on {card_line}: the bf16 train step {ms[False]} ms with cuDNN's default pick, {ms[True]} ms with its "
+                  "deterministic algorithms (CUDA events, 3 steps)")
+        cfg = load_config(os.path.join(REPO, BMN_CONFIG), BMN_OPTS)
+        feats, maps, _ = next(loc._batches(TalFeatureDataset(cfg, "train"), BMN_BATCH, False, 0))
+        x, y = torch.from_numpy(feats).to(dev), {k: torch.from_numpy(v).to(dev) for k, v in maps.items()}
+        model = loc.build_bmn_model(cfg, dev)
+        state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+        step = loc.make_localization_train_step(model, cfg)
+        ms = {False: [], True: []}
+        for on in (False, True, True, False):
+            torch.backends.cudnn.deterministic = on
+            ms[on].append(_step_ms(lambda i: step(state, x, y, 1e-4, loc.step_generator(cfg, 0, i, dev))[0]))
+        torch.backends.cudnn.deterministic = False
+        print(f"BMN, {BMN_BATCH} windows, fp32, on {card_line}: the train step {ms[False]} ms with cuDNN's default pick, {ms[True]} ms with "
+              "its deterministic algorithms (CUDA events, 3 steps)")
+
+
+START = time.perf_counter()
+
+
+def _elapsed(after: str) -> float:
+    """Print and return the seconds since the script started, labelled with the phases just done."""
+    seconds = time.perf_counter() - START
+    print(f"chip_smoke elapsed after {after}: {seconds:.1f} s")
+    return seconds
 
 
 def main() -> None:
@@ -2952,6 +3634,11 @@ def main() -> None:
     if sys.argv[1:2] == ["--tp-worker"]:  # one model rank of the tensor-parallel phase, started by phase_tensor_parallel
         tp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return
+    if sys.argv[1:2] == ["--cudnn-determinism"]:  # what cuDNN's deterministic algorithms cost the train steps (ROADMAP F9)
+        smi = phase_device()
+        phase_build()
+        phase_cudnn_determinism(smi)
+        return
     smi = phase_device()
     build_seconds = phase_build()
     timings = {"clip_mha_fwd": phase_fwd_vs_plain(), "clip_mha_bwd": phase_bwd_vs_plain(), "flash_mha_fwd": phase_flash_fwd_vs_plain()}
@@ -2962,6 +3649,7 @@ def main() -> None:
     decomp = phase_fa_decomp(smi)
     timings.update({f"clip_mha_decomp_{mode}": record for mode, record in decomp.items()})
     phase_loader_resize()
+    _elapsed("phases 1-6d (build, kernels, replay, resize)")
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         phase_test_slice(out_dir)
         train = {path: phase_train_slice(os.path.join(out_dir, f"train_{path}"), path) for path in TRAIN_PATHS}
@@ -2972,6 +3660,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         train["vit_l336"] = phase_vit_l336_train_slice(os.path.join(out_dir, "train_vit_l336"))
     phase_frame_chunks_vs_none()
+    _elapsed("phases 7-15 (ViT-B/16, RN50 and ViT-L/14@336px slices)")
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         classic = {name: phase_classic_slice(os.path.join(out_dir, name), name, smi) for name in CLASSIC_CONFIGS}
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
@@ -2979,6 +3668,7 @@ def main() -> None:
         eval_bank = phase_eval_bank_full(smi)
         train_bank = phase_train_bank_full(os.path.join(out_dir, "train_bank"), smi, train["fused"])
         reference = phase_reference_checkpoint(out_dir)
+    _elapsed("phases 16-21 (classic slices, frame banks, .pyth)")
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         torch.cuda.empty_cache()
         dp1 = phase_dp_world1(out_dir, smi)
@@ -2988,6 +3678,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         torch.cuda.empty_cache()
         tp = phase_tensor_parallel(out_dir, smi)
+    _elapsed("phases 22-23 and 29 (data and tensor parallel)")
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
         torch.cuda.empty_cache()
         cls = phase_classification(out_dir, smi)
@@ -2997,6 +3688,19 @@ def main() -> None:
         torch.cuda.empty_cache()
         bmn = phase_localization(out_dir, smi)
         mosi = phase_pretrain(out_dir, smi)
+    _elapsed("phases 24-28 (classification, localization, pretraining)")
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        torch.cuda.empty_cache()
+        phase_determinism_probe(out_dir, smi)
+    timings.update(phase_pool3d(smi))
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as out_dir:
+        torch.cuda.empty_cache()
+        signatures = phase_signatures(out_dir, smi)
+    tower_kernels = phase_tower_kernels()
+    towers = phase_towers(smi)
+    heads = phase_heads(smi)
+    phase_determinism_check(smi)
+    _elapsed("phases 30-33 (determinism, pools, signatures, towers, heads)")
     classification_launches = {name: {"tada2d_k400_cli": cls["launches"][name], "presets": presets["launches"][name],
                                       "nccl_world1": cls_dp["launches"][name]} for name in _launches()}
     # each kernel's launches in the bank phases' bank runs, counted from 0 in each
@@ -3031,7 +3735,14 @@ def main() -> None:
           + f"; BMN EPIC-100: mask {bmn['mask_s']:.2f} s, train {bmn['train_windows_per_s']:.3f} and test {bmn['test_windows_per_s']:.3f} "
           f"windows/s, resident step {bmn['step_ms']:.1f} ms (host {bmn['host_ms']:.1f} ms, card busy {bmn['busy_ms']:.1f} ms), peak "
           f"{bmn['step_peak_gib']:.3f} GiB; MoSI R-2D3D-18: train {mosi['train_clips_per_s']:.3f} clips/s, resident step {mosi['step_ms']:.1f} ms "
-          f"(host {mosi['host_ms']:.1f} ms, card busy {mosi['busy_ms']:.1f} ms), peak {mosi['step_peak_gib']:.3f} GiB")
+          f"(host {mosi['host_ms']:.1f} ms, card busy {mosi['busy_ms']:.1f} ms), peak {mosi['step_peak_gib']:.3f} GiB; "
+          + "; ".join(f"{name}: {r['test_episodes_per_s']:.3f} test episodes/s"
+                      + (f", {r['episodes_per_s']:.4f} train episodes/s" if "episodes_per_s" in r else "")
+                      + f", resident step {r['resident_step_ms']:.1f} ms (host {r['host_ms']:.1f} ms), peak {r['peak_gib']:.3f} GiB"
+                      for name, r in signatures.items())
+          + "; towers (one-episode bf16 train step's peak): " + ", ".join(
+              f"{t} {r['peak_gib']:.2f} GiB" + ("" if r["fits"] else " (did not fit)") for t, r in towers.items())
+          + "; heads and trunks (the same): " + ", ".join(f"{h} {r['peak_gib']:.2f} GiB" for h, r in heads.items()))
     kernels = [
         ("clip_mha_fwd", "fused", "clip_fsar_torch/csrc/clip_mha_fwd.cu", "clip_fsar_tpu/ops/fused_attention.py:71"),
         ("clip_mha_bwd", "fused", "clip_fsar_torch/csrc/clip_mha_bwd.cu", "clip_fsar_tpu/ops/fused_attention.py:97"),
@@ -3040,11 +3751,19 @@ def main() -> None:
         ("flash_mha_bwd_dkv", "flash", "clip_fsar_torch/csrc/flash_mha_bwd.cu", "clip_fsar_tpu/ops/flash_attention.py:123"),
         ("layer_norm_fwd", "replay", "clip_fsar_torch/csrc/layer_norm.cu", "clip_fsar_tpu/ops/fused_layernorm.py:77"),
         ("layer_norm_bwd", "replay", "clip_fsar_torch/csrc/layer_norm.cu", "clip_fsar_tpu/ops/fused_layernorm.py:96"),
-    ] + [(f"clip_mha_decomp_{mode}", "tool", "clip_fsar_torch/csrc/clip_mha_decomp.cu", "tools/_fa_decomp.py:64") for mode in decomp]
+    ] + [(f"clip_mha_decomp_{mode}", "tool", "clip_fsar_torch/csrc/clip_mha_decomp.cu", "tools/_fa_decomp.py:64") for mode in decomp] + [
+        # no TPU kernel: the JAX package's flax pools, whose gradient XLA computes (the port's replaces torch's atomic backward)
+        ("max_pool3d_bwd", "pool", "clip_fsar_torch/csrc/pool3d.cu", "clip_fsar_tpu/models/video/blocks.py:225"),
+        ("avg_pool3d_bwd", "pool", "clip_fsar_torch/csrc/pool3d.cu", "clip_fsar_tpu/models/video/branches.py:163"),
+    ]
     # launches: each kernel's count from the path that runs it, counted from 0: the train slice (train,
     # validation, test) of its own attention path, the LayerNorm replay, the stage-ablation tool's table
     launches = {"fused": train["fused"]["launches"], "flash": train["flash"]["launches"], "replay": replay["launches"],
-                "tool": {name: record["launches"] for name, record in timings.items() if "launches" in record}}
+                "tool": {name: record["launches"] for name, record in timings.items() if "launches" in record},
+                "pool": {"max_pool3d_bwd": mosi["launches"]["max_pool3d_bwd"], "avg_pool3d_bwd": cls["launches"]["avg_pool3d_bwd"]}}
+    # K1-K5 at the new towers' shapes, with the launches of the tower phase's bf16 steps (K1 / K2 fused, K3-K5 flash)
+    tower_launches = {key: {name: n for path in towers[tower]["launches"].values() for name, n in path.items() if n}
+                      for key, tower in (("at_vit_b32", "ViT-B/32"), ("at_vit_l14_224", "ViT-L/14"))}
     records = []
     for name, path, source, replaces in kernels:
         t = timings[name]
@@ -3057,7 +3776,12 @@ def main() -> None:
                         "classification_launches": classification_launches[name], "localization_launches": bmn["launches"][name],
                         "pretrain_launches": mosi["launches"][name], "tp_launches": tp["launches"][name],
                         **({"at_tp_rank_heads": tp["kernels"][name]} if name in tp["kernels"] else {}),
-                        **{key: t[key] for key in ("library_covers", "at_480_frames") if key in t},
+                        **{key: t[key] for key in ("library_covers", "at_480_frames", "at_shapes") if key in t},
+                        **{key: {**tower_kernels[key][name], "launches": tower_launches[key].get(name, 0)} for key in tower_kernels
+                           if name in tower_kernels[key]},
+                        "new_paths_launches": {"signatures": sum(r["launches"][name] for r in signatures.values()),
+                                               "towers": sum(p.get(name, 0) for r in towers.values() for p in r.get("launches", {}).values()),
+                                               "heads": sum(r["launches"][name] for r in heads.values())},
                         **({"at_vit_l336_chunk": l336_kernels[name]} if name in l336_kernels else {})})
         if not records[-1]["launches"] > 0:
             raise AssertionError(f"{name} was launched no time on the path that runs it")

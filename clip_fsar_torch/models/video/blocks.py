@@ -23,6 +23,11 @@ are kept: ``bn`` never trains (the classification model never passes
 ``train_bn``, so every BatchNorm normalizes with its running statistics) and
 it ignores ``BN.EPS`` (eps 1e-5 always; ``BlockParams.bn_eps`` is read and
 unused, as there).
+
+The 3-D max-pools (``DownSampleStem`` here, ``Inception3D`` in meta.py) and
+TAdaConv's average pool (branches.py) go through ``ops/pool3d.py``: the
+forward is ATen's, the backward a gather that writes each input gradient
+once, so a train step repeats bit for bit on the card, as XLA's does.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch import nn
 from clip_fsar_torch.models.clip.model import Dense
 from clip_fsar_torch.models.heads.common import dropout
 from clip_fsar_torch.models.init import fc_init_, lecun_normal_, msra_fill_
+from clip_fsar_torch.ops import pool3d
 from clip_fsar_torch.utils.registry import BRANCH_REGISTRY, HEAD_REGISTRY, STEM_REGISTRY
 
 
@@ -314,7 +320,7 @@ class DownSampleStem(nn.Module):
         self.out_channels = self.stem.out_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.max_pool3d(self.stem(x), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        return pool3d.max_pool3d(self.stem(x), (1, 3, 3), (1, 2, 2), (0, 1, 1))
 
 
 # ---------------------------------------------------------------------------

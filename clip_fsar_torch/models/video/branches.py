@@ -26,6 +26,7 @@ from torch import nn
 
 from clip_fsar_torch.models.clip.model import Dense
 from clip_fsar_torch.models.video.blocks import BatchNorm, BlockParams, Conv3d, bn, conv3d
+from clip_fsar_torch.ops import pool3d
 from clip_fsar_torch.utils.registry import BRANCH_REGISTRY
 
 
@@ -167,7 +168,7 @@ class TAdaConvBlockAvgPool(nn.Module):
         y = F.relu(self.a_bn(self.a(x)))
         y = self.b(y, self.b_rf(y))
         # pooled in float32, which its BatchNorm computes in anyway (the JAX package pools in the compute dtype first)
-        pooled = F.avg_pool3d(y.float(), self.pool_k, (1, 1, 1), tuple(k // 2 for k in self.pool_k), count_include_pad=True)
+        pooled = pool3d.avg_pool3d(y.float(), self.pool_k, (1, 1, 1), tuple(k // 2 for k in self.pool_k))
         y = F.relu(self.b_bn(y) + self.b_avgpool_bn(pooled).to(y.dtype))
         return self.c_bn(self.c(y))
 

@@ -18,6 +18,7 @@ from torch import nn
 from clip_fsar_torch.models.video.blocks import Base3DResStage, bn, conv3d
 from clip_fsar_torch.models.init import lecun_normal_
 from clip_fsar_torch.models.video.branches import SelfGating
+from clip_fsar_torch.ops import pool3d
 from clip_fsar_torch.utils.registry import BACKBONE_REGISTRY, BRANCH_REGISTRY, STEM_REGISTRY
 
 _N_CONV_RESNET = {
@@ -93,7 +94,7 @@ class InceptionBlock3D(nn.Module):
         b0 = self.branch0(x)
         b1 = self.branch1_1(self.branch1_0(x))
         b2 = self.branch2_1(self.branch2_0(x))
-        b3 = self.branch3(F.max_pool3d(x, 3, 1, 1))
+        b3 = self.branch3(pool3d.max_pool3d(x, 3, 1, 1))
         if self.gating:
             b0, b1, b2, b3 = self.gating_b0(b0), self.gating_b1(b1), self.gating_b2(b2), self.gating_b3(b3)
         return torch.cat([b0, b1, b2, b3], dim=1)
@@ -138,11 +139,11 @@ class Inception3D(nn.Module):
         self.out_channels = cin
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        pool = lambda y: F.max_pool3d(y, (1, 3, 3), (1, 2, 2), (0, 1, 1))  # noqa: E731
+        pool = lambda y: pool3d.max_pool3d(y, (1, 3, 3), (1, 2, 2), (0, 1, 1))  # noqa: E731
         x = pool(self.Conv_1a(x))
         x = pool(self.Conv_2c(self.Conv_2b(x)))
         for item in self.layout:
-            x = F.max_pool3d(x, *item) if isinstance(item, tuple) else getattr(self, item)(x)
+            x = pool3d.max_pool3d(x, *item) if isinstance(item, tuple) else getattr(self, item)(x)
         return x
 
 

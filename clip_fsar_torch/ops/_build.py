@@ -111,6 +111,10 @@ def library() -> ctypes.CDLL:
     # qkv, out, then (B, N, H, Dh, dtype, mode)
     lib.clip_mha_decomp.argtypes = [p, p, i, i, i, i, i, i, p]
     lib.clip_mha_decomp.restype = i
+    # dy, argmax, dx, then (mode, dtype), x's (N, C, D, H, W), the output's (D, H, W), kernel, stride and padding (d, h, w),
+    # the (n, c, d, h, w) strides of dy, argmax and dx, channels_last
+    lib.pool3d_bwd.argtypes = [p] * 3 + [i] * 2 + [l] * 5 + [i] * 12 + [l] * 15 + [i, p]
+    lib.pool3d_bwd.restype = i
     lib.attn_fwd_single_block_max.argtypes = []
     lib.attn_fwd_single_block_max.restype = i
     lib.attn_bwd_resident_max.argtypes = []

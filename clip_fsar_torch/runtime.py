@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -28,3 +29,20 @@ def device(kind: Optional[str] = None) -> torch.device:
         raise RuntimeError(f"the port runs on device {str(dev)!r} but torch sees no CUDA device; "
                            "ask for the CPU by name (device 'cpu', --device cpu on the CLI)")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """Inside the block (or the function it decorates) cuDNN takes only the
+    convolution algorithms that give the same bits on every run.  Otherwise
+    its heuristics may pick a backward that cuDNN marks nondeterministic, and
+    then a train step does not repeat bit for bit (a fp32 MoSI step of 4
+    frames did not).  The train steps of the few-shot and the classification tasks run
+    under it: their forward and backward both happen inside the step call.
+    The flag is restored on exit."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before

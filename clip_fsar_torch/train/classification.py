@@ -51,6 +51,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from clip_fsar_torch import runtime
 from clip_fsar_torch.data import augment
 from clip_fsar_torch.data.classification import build_classification_loader
 from clip_fsar_torch.data.mixup import MixupConfig, draw_mixup, mixup_batch, smooth_one_hot
@@ -153,6 +154,7 @@ def make_classification_train_step(model, cfg):
 
     pretrain = _pretrain(cfg)
 
+    @runtime.deterministic_convolutions()  # the backward runs inside: the same bits on every run
     def train_step(state: TrainState, videos: torch.Tensor, labels, lr: float, generator: Optional[torch.Generator], draws=None):
         b = videos.shape[0]
         world, first = mesh.data_size(), b * mesh.data_rank()

@@ -51,6 +51,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from clip_fsar_torch import runtime
 from clip_fsar_torch.data import augment
 from clip_fsar_torch.data.frame_bank import assemble_train_clips, gather_eval_clips
 from clip_fsar_torch.data.transforms import normalize_images
@@ -148,6 +149,7 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, b
         out = augment.apply_train_augment(images.flatten(0, 1), chunk_draws, cfg, mean, std, first, total)
         return out.reshape((e, n) + out.shape[1:])
 
+    @runtime.deterministic_convolutions()  # the backward runs inside: the same bits on every run
     def grad_fn(batch: Episode, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         e, s, q = batch.support_images.shape[0], batch.support_images.shape[1], batch.target_images.shape[1]
         # under a process group the batch is this data rank's slice [first, first + e) of the global e_all episodes

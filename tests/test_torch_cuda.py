@@ -887,3 +887,152 @@ def test_bmn_and_mosi_steps_never_wait_for_the_card(cuda, tmp_path, task):
         torch.cuda.set_sync_debug_mode("default")
     assert sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)}) == []
     assert all(torch.isfinite(v).item() for v in losses)
+
+
+# the pools' backward kernel at the shapes of the paths that run it: MoSI's R-2D3D stem pool (10 of a step's 90 clips),
+# S3D-G's stem, branch and stage pools at 16 frames of 224 px (batch 2), TAdaConv's pooled branch on TAda2D-R50's first
+# stage (fp32, as the branch pools); (x shape [N, C, D, H, W], kernel, stride, padding, mode)
+POOL_CASES = [((10, 64, 16, 56, 56), (1, 3, 3), (1, 2, 2), (0, 1, 1), "max"),
+              ((2, 64, 8, 112, 112), (1, 3, 3), (1, 2, 2), (0, 1, 1), "max"),
+              ((2, 192, 8, 28, 28), (3, 3, 3), (1, 1, 1), (1, 1, 1), "max"),
+              ((2, 480, 8, 28, 28), (3, 3, 3), (2, 2, 2), (1, 1, 1), "max"),
+              ((2, 832, 4, 14, 14), (2, 2, 2), (2, 2, 2), (0, 0, 0), "max"),
+              ((2, 64, 16, 56, 56), (3, 1, 1), (1, 1, 1), (1, 0, 0), "avg")]
+# fp32: the plain version adds in the kernel's order, so 1e-6 relative leaves room only for the last bit; bf16: one
+# rounding of the fp32 sum in each (the plain version's sum is the same, its rounding too)
+POOL_TOLERANCE = [(torch.float32, 1e-6), (torch.bfloat16, 1e-2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", POOL_TOLERANCE)
+@pytest.mark.parametrize("channels_last", [True, False], ids=["channels_last", "ncdhw"])
+@pytest.mark.parametrize("shape, kernel, stride, padding, mode", POOL_CASES)
+def test_pool3d_bwd_kernel_matches_plain(cuda, shape, kernel, stride, padding, mode, channels_last, dtype, tol):
+    """The pools' backward kernel against its plain version on the card, from the forward's own argmax, with
+    ties (values from {0, 1, 2}); dx in x's memory format; one launch counted; a second launch the same bits."""
+    from clip_fsar_torch.ops import pool3d
+
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randint(0, 3, shape, generator=g).to(cuda, dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    if mode == "max":
+        y, argmax = torch.nn.functional.max_pool3d(x, kernel, stride, padding, return_indices=True)
+    else:
+        y, argmax = torch.nn.functional.avg_pool3d(x, kernel, stride, padding), None
+    dy = torch.randn(y.shape, generator=g).to(cuda, dtype)
+    before = dict(pool3d.LAUNCHES)
+    dx = pool3d.pool3d_bwd_cuda(mode, dy, argmax, shape, kernel, stride, padding, channels_last)
+    torch.cuda.synchronize()
+    assert pool3d.LAUNCHES == {**before, f"{mode}_pool3d_bwd": before[f"{mode}_pool3d_bwd"] + 1}
+    assert dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last_3d if channels_last else torch.contiguous_format)
+    if mode == "max":
+        ref = pool3d.max_pool3d_bwd_reference(dy, argmax, shape, kernel, stride, padding)
+    else:
+        ref = pool3d.avg_pool3d_bwd_reference(dy, shape, kernel, stride, padding)
+    assert torch.isfinite(dx.float()).all()
+    torch.testing.assert_close(dx.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(pool3d.pool3d_bwd_cuda(mode, dy, argmax, shape, kernel, stride, padding, channels_last), dx)
+
+
+@pytest.mark.cuda
+def test_pool3d_autograd_on_the_card_launches_the_kernel_and_matches_the_cpu(cuda):
+    """max_pool3d and avg_pool3d through autograd on the card: the forward is F's, the backward the kernel (one
+    launch each), and the input gradient equals the CPU's plain backward at fp32 1e-6."""
+    from clip_fsar_torch.ops import pool3d
+
+    x = torch.randn(2, 8, 6, 15, 14, generator=torch.Generator().manual_seed(0))
+    for fn, name in ((pool3d.max_pool3d, "max_pool3d_bwd"), (pool3d.avg_pool3d, "avg_pool3d_bwd")):
+        grads = []
+        for dev in (cuda, torch.device("cpu")):
+            t = x.to(dev).contiguous(memory_format=torch.channels_last_3d).requires_grad_(True)
+            before = pool3d.LAUNCHES[name]
+            y = fn(t, (3, 3, 3), (2, 2, 2), (1, 1, 1))
+            y.backward(torch.arange(y.numel(), dtype=torch.float32, device=dev).reshape(y.shape).sin())
+            assert pool3d.LAUNCHES[name] == before + (dev.type == "cuda")
+            grads.append(t.grad.cpu())
+        torch.testing.assert_close(grads[0], grads[1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_pool3d_kernel_refuses_what_it_does_not_take(cuda):
+    from clip_fsar_torch.ops import pool3d
+
+    dy = torch.zeros(1, 2, 2, 2, 2, device=cuda)
+    with pytest.raises(TypeError):
+        pool3d.pool3d_bwd_cuda("avg", dy.half(), None, (1, 2, 4, 4, 4), 2, 2, 0, False)
+    with pytest.raises(ValueError):
+        pool3d.pool3d_bwd_cuda("max", dy, None, (1, 2, 4, 4, 4), 2, 2, 0, False)  # no argmax
+    with pytest.raises(ValueError):
+        pool3d.pool3d_bwd_cuda("avg", dy, None, (1, 2, 7, 7, 7), 2, 2, 0, False)  # dy is not that pool's output (3 a side)
+
+
+@pytest.mark.cuda
+def test_mosi_train_steps_are_the_same_bits_on_a_second_run(cuda, tmp_path):
+    """Three MoSI pretrain steps on the card (R-2D3D at full width, 4 frames of 112 px, the preset's colour jitter and
+    dropout, Adam), run twice from one seed: the same loss bits and parameters.  The stem's overlapping
+    (1, 3, 3) / (1, 2, 2) max-pool used to go through F.max_pool3d, whose CUDA backward adds with atomics."""
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.data.classification import build_classification_loader
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.ops import pool3d
+    from clip_fsar_torch.train.classification import _to_device, make_classification_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    for split in ("train", "test"):
+        with open(tmp_path / f"hmdb51_{split}_list.txt", "w") as f:
+            f.write("".join(f"videos/c{i % 3}/{split}_{i}.avi {i % 3}\n" for i in range(4)))
+    cfg = load_config(MOSI_CONFIG, ["DATA.DECODER", "synthetic", "DATA.ANNO_DIR", str(tmp_path), "PRETRAIN.NUM_FRAMES", "4",
+                                    "TRAIN.BATCH_SIZE", "4"])
+    videos, labels, _ = next(iter(build_classification_loader(cfg, "train")))
+    x, y = _to_device(videos, cuda), _to_device(labels, cuda)
+
+    def run():
+        model = build_video_model(cfg, device=cuda)
+        state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+        step = make_classification_train_step(model, cfg)
+        before = pool3d.LAUNCHES["max_pool3d_bwd"]
+        losses = torch.stack([step(state, x, y, 1e-3, step_generator(cfg, 0, i, cuda))["loss"] for i in range(3)])
+        assert pool3d.LAUNCHES["max_pool3d_bwd"] == before + 3
+        return losses.cpu(), {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    (a, first), (b, second) = run(), run()
+    assert torch.isfinite(a).all() and torch.equal(a, b), (a.tolist(), b.tolist())
+    assert sorted(k for k in first if not torch.equal(first[k], second[k])) == []
+
+
+@pytest.mark.cuda
+def test_tada2d_train_steps_past_the_first_update_are_the_same_bits_on_a_second_run(cuda):
+    """Three train steps of the small TAda2D (bf16, jitter, erasing, mixup, EMA) at a learning rate that moves the
+    pooled branch's zero-initialised BatchNorm scale in the first update, so that the second and third steps send a
+    gradient through TAdaConv's average pool; run twice from one seed: the same loss bits and parameters.  The pool
+    used to go through F.avg_pool3d, whose CUDA backward adds with atomics where the (3, 1, 1) windows overlap."""
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.models.video.model import build_video_model
+    from clip_fsar_torch.ops import pool3d
+    from clip_fsar_torch.train.classification import make_classification_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    cfg = load_config(_CLS_CONFIG, _CLS_OPTS)
+    g = torch.Generator().manual_seed(0)
+    videos = torch.randint(0, 256, (4, 8, 64, 64, 3), dtype=torch.uint8, generator=g).to(cuda)
+    labels = torch.arange(4, dtype=torch.int32, device=cuda)
+
+    def run():
+        model = build_video_model(cfg, dtype=torch.bfloat16, device=cuda)
+        state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+        step = make_classification_train_step(model, cfg)
+        scales = [n for n in dict(model.named_parameters()) if n.endswith("b_avgpool_bn.weight")]
+        assert scales and all(not model.get_parameter(n).any() for n in scales)
+        before = pool3d.LAUNCHES["avg_pool3d_bwd"]
+        losses = [step(state, videos, labels, 1e-2, step_generator(cfg, 0, 0, cuda))["loss"]]
+        assert all(model.get_parameter(n).any() for n in scales)  # the first update moved every pooled branch's scale
+        losses += [step(state, videos, labels, 1e-2, step_generator(cfg, 0, i, cuda))["loss"] for i in (1, 2)]
+        assert pool3d.LAUNCHES["avg_pool3d_bwd"] == before + 3 * len(scales)
+        return torch.stack(losses).cpu(), {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    (a, first), (b, second) = run(), run()
+    assert torch.isfinite(a).all() and torch.equal(a, b), (a.tolist(), b.tolist())
+    assert sorted(k for k in first if not torch.equal(first[k], second[k])) == []

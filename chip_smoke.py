@@ -190,11 +190,14 @@ and read just after.  Phases:
    N = 32 samples a proposal, the regression and the 97 verb / 300 noun maps; fresh
    weights, synthetic features), one epoch at 8 windows a step, the sliding-window
    test of its checkpoint (mAP of the action, verb and noun streams) and the EPIC
-   submission JSON; the mask's build time on the host, finite losses, moved
-   parameters, no kernel launched; the card's fp32 forward and loss against the
-   CPU's on 2 windows; the train step with its batch resident (CUDA-event ms, the
-   host's ms, the card's busy ms, any synchronisation: the script fails on one),
-   train and test windows/s, peak;
+   submission JSON; the mask's and its lists' build time on the host, finite losses,
+   moved parameters, BMN's boundary-matching gathers launched once a forward and once
+   a backward and no other kernel; the training again from the same start: the same
+   loss bits and checkpoint; the card's fp32 forward and loss against the CPU's (the
+   layer's plain versions) on 2 windows; the train step with its batch resident under
+   cuDNN's deterministic algorithms (CUDA-event ms, the host's ms, the card's busy ms,
+   any synchronisation: the script fails on one), its device time by operator and by
+   kernel, train and test windows/s, peak;
 28. MoSI pretraining through the CLI at full width: R-2D3D-18 on HMDB51
    (``configs/pretrain/MoSI_R2D3D_HMDB51.yaml``: 9 pseudo-motion clips of 16 frames at
    112 px a video, 10 videos a step, bf16), one epoch of 4 steps and the SSL
@@ -244,12 +247,21 @@ and read just after.  Phases:
    HyRSM++ 5-shot config's ResNet-50, and resnet18 / resnet34 under CNN_OTAM: the same;
    each of these paths' train steps also under the determinism probe;
 33. the determinism check: every train path was probed and no probe named an
-   operation (fails otherwise).
+   operation (fails otherwise);
+34. BMN's boundary-matching gathers (``csrc/boundary_matching.cu``: the layer's forward
+   and its input gradient's gather, no atomics) at the EPIC preset's full shape (8
+   windows, DIM1D 256, DIM3D 512, N = 32, D = T = 200) against their plain versions
+   (fp32, 1e-5 of the largest value and by norm), finite, the same bits on a second
+   launch, each timed beside its plain version, torch's CSR sparse product of the same
+   gather and its bound; the op forward and forward + backward beside the dense path it
+   replaced (matmul by the 1.02 GB mask, Conv3d, ReLU), whose output and gradients it
+   matches at 1e-4 of their largest values.
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
 and its backward, ``F.layer_norm`` and its backward, the CUDA backward of
-``F.max_pool3d`` / ``F.avg_pool3d``), that call on the same inputs: a
+``F.max_pool3d`` / ``F.avg_pool3d``, ``torch.sparse.mm`` by the BMN mask),
+that call on the same inputs: a
 yardstick that no path of the port runs.  ``bound_ms`` is the least
 time the card could take: the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -259,8 +271,8 @@ The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises before it.
 
 ``python3 chip_smoke.py --cudnn-determinism`` runs none of the phases: it measures what cuDNN's deterministic
-convolution algorithms (``runtime.deterministic_convolutions``, under which the few-shot and classification
-train steps run) cost each conv-heavy train step, and whether small fp32 MoSI steps repeat without them.
+convolution algorithms (``runtime.deterministic_convolutions``, under which every train step runs) cost each
+conv-heavy train step, BMN's with its device time by operator, and whether small fp32 MoSI steps repeat without them.
 """
 
 from __future__ import annotations
@@ -489,24 +501,25 @@ def _alternate(kernel, plain, iters: int = 20) -> tuple:
 
 
 def _reset_launches() -> None:
-    from clip_fsar_torch.ops import flash_attention, fused_layernorm, pool3d
+    from clip_fsar_torch.ops import boundary_matching, flash_attention, fused_layernorm, pool3d
     from clip_fsar_torch.ops.fused_attention import clip_mha_bwd_cuda, clip_mha_cuda
     from clip_fsar_torch.tools import fa_decomp
 
     clip_mha_cuda.launches = clip_mha_bwd_cuda.launches = 0
-    for counts in (flash_attention.LAUNCHES, fused_layernorm.LAUNCHES, fa_decomp.LAUNCHES, pool3d.LAUNCHES):
+    for counts in (flash_attention.LAUNCHES, fused_layernorm.LAUNCHES, fa_decomp.LAUNCHES, pool3d.LAUNCHES, boundary_matching.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _launches() -> dict:
     """Every kernel's launches since the last reset, by kernel name."""
-    from clip_fsar_torch.ops import flash_attention, fused_layernorm, pool3d
+    from clip_fsar_torch.ops import boundary_matching, flash_attention, fused_layernorm, pool3d
     from clip_fsar_torch.ops.fused_attention import clip_mha_bwd_cuda, clip_mha_cuda
     from clip_fsar_torch.tools import fa_decomp
 
     return {"clip_mha_fwd": clip_mha_cuda.launches, "clip_mha_bwd": clip_mha_bwd_cuda.launches, **flash_attention.LAUNCHES,
-            **fused_layernorm.LAUNCHES, **{f"clip_mha_decomp_{mode}": n for mode, n in fa_decomp.LAUNCHES.items()}, **pool3d.LAUNCHES}
+            **fused_layernorm.LAUNCHES, **{f"clip_mha_decomp_{mode}": n for mode, n in fa_decomp.LAUNCHES.items()}, **pool3d.LAUNCHES,
+            **boundary_matching.LAUNCHES}
 
 
 def _expect_launches(what: str, got: dict = None, **want: int) -> dict:
@@ -2760,17 +2773,18 @@ def phase_localization(out_dir: str, card_line: str) -> dict:
     """Phase 27: BMN on EPIC-Kitchens-100 features at full width (configs/localization/BMN_EPIC100.yaml: T = D = 200,
     2304 channels, N = 32 samples, the regression and 97 / 300 verb / noun maps; synthetic features, fresh weights) through
     the CLI: one epoch at 8 windows a step, the test of its checkpoint (mAP of three streams) and the submission of it;
-    no kernel launched.  Then the card's fp32 forward and loss against the CPU's on the same windows, and the train step
-    with its batch resident."""
+    the boundary-matching gathers launched once a forward (train, test and submission batches) and once a backward, no
+    other kernel.  The training again from the same start: the same loss bits and checkpoint.  Then the card's fp32
+    forward and loss against the CPU's on the same windows, and the train step with its batch resident (under cuDNN's
+    deterministic algorithms, as the step runs), its peak and its device time by operator and by kernel."""
     from clip_fsar_torch import runtime
     from clip_fsar_torch.data.tal_features import TalFeatureDataset, duration_scale
-    from clip_fsar_torch.models.heads import bmn
+    from clip_fsar_torch.ops import boundary_matching
     from clip_fsar_torch.runs.run import load_config, main
+    from clip_fsar_torch.tools import profile_bmn
     from clip_fsar_torch.train import localization as loc
     from clip_fsar_torch.train.localization_losses import pem_reg_draws
     from clip_fsar_torch.train.losses import calculate_loss
-    from clip_fsar_torch.train.optimizer import Optimizer
-    from clip_fsar_torch.train.state import TrainState
 
     path = os.path.join(REPO, BMN_CONFIG)
     opts = BMN_OPTS + ["OUTPUT_DIR", os.path.join(out_dir, "bmn")]
@@ -2783,21 +2797,24 @@ def phase_localization(out_dir: str, card_line: str) -> dict:
     sub = main(["--cfg", path, *opts, "TASK_TYPE", "submission"])["submission_test"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _expect_launches("the BMN runs (train, test, submission)")
-    peak = torch.cuda.max_memory_allocated()
     train, test = results["train_localization"], results["test_epic_localization"]
-    h = cfg.VIDEO.HEAD
-    key = (int(cfg.DATA.TEMPORAL_SCALE), duration_scale(cfg), int(h.NUM_SAMPLE), int(h.NUM_SAMPLE_PERBIN), float(h.BOUNDARY_RATIO))
     ds = TalFeatureDataset(cfg, "train")
     steps = -(-len(ds) // BMN_BATCH)
+    forwards = steps + -(-test["windows"] // BMN_BATCH) + -(-len(TalFeatureDataset(cfg, str(cfg.TEST.get("TEST_SET", "test")))) // BMN_BATCH)
+    launches = _expect_launches("the BMN runs (train, test, submission)", bm_gather_fwd=forwards, bm_gather_bwd=steps)
+    peak = torch.cuda.max_memory_allocated()
+    h = cfg.VIDEO.HEAD
+    key = (int(cfg.DATA.TEMPORAL_SCALE), duration_scale(cfg), int(h.NUM_SAMPLE), int(h.NUM_SAMPLE_PERBIN), float(h.BOUNDARY_RATIO))
+    lists = boundary_matching.boundary_matching_lists(*key)
     stats = {k: v for k, v in test.items() if "/mAP" in k}
     with open(sub["path"]) as f:
         sub_json = json.load(f)
     ckpt = torch.load(train["checkpoint"], map_location="cpu", weights_only=True)["head"]
     fresh = loc.build_bmn_model(cfg).state_dict()
     moved = {n: float((ckpt[n] - fresh[n]).abs().max()) for n in ("backbone.conv_0.weight", "head.x_3d_p.weight", "head.x_2d_p_conv4.weight")}
-    print(f"BMN EPIC-100 through the CLI: mask [{key[0]}, {key[2]} x {key[1]} x {key[0]}] built in {bmn.MASK_BUILD_SECONDS[key]:.3f} s on the host; "
-          f"{len(ds)} train "
+    print(f"BMN EPIC-100 through the CLI: mask [{key[0]}, {key[2]} x {key[1]} x {key[0]}] and its lists built in "
+          f"{boundary_matching.LISTS_BUILD_SECONDS[key]:.3f} s on the host ({lists.nnz} nonzeros, at most {lists.max_per_column} a column and "
+          f"{lists.max_per_row} a row, {lists.active} of {lists.cells} cells with any); {len(ds)} train "
           f"windows, losses per step {[round(x, 5) for x in train['losses']]}; parameters moved by {moved}; test of {test['weights']} on "
           f"{test['windows']} windows: {', '.join(f'{k} {v:.4f}' for k, v in stats.items() if k.endswith('mAP_avg'))}; submission "
           f"{len(sub_json['results'])} videos, {sum(len(v) for v in sub_json['results'].values())} detections")
@@ -2812,7 +2829,18 @@ def phase_localization(out_dir: str, card_line: str) -> dict:
     print(f"BMN on {card_line}: train {train['windows_per_s']:.3f} windows/s (loader included), test {test['windows_per_s']:.3f} windows/s "
           f"(proposal parsing, soft-NMS and mAP on the host included); CLI wall {wall:.2f} s; peak {peak / 2**30:.3f} GiB; launches {launches}")
 
+    # the training again from the same start, through the runner the CLI calls: the same bits
     dev = runtime.device("cuda")
+    _reset_launches()
+    again = loc.train_localization(load_config(path, BMN_OPTS + ["OUTPUT_DIR", os.path.join(out_dir, "bmn_again")]), dev)
+    _expect_launches("the second BMN training", bm_gather_fwd=steps, bm_gather_bwd=steps)
+    state_again = torch.load(again["checkpoint"], map_location="cpu", weights_only=True)["head"]
+    same = {"losses": again["losses"] == train["losses"], "checkpoint": ckpt.keys() == state_again.keys()
+            and all(torch.equal(ckpt[k], state_again[k]) for k in ckpt)}
+    print(f"BMN on {card_line}: a second training from the same start the same bits {same}; losses {train['losses']} / {again['losses']}")
+    if not all(same.values()):
+        raise AssertionError(f"BMN training does not repeat bit for bit: {same}")
+
     feats, maps, _ = next(loc._batches(ds, BMN_CPU_WINDOWS, False, 0))
     draws = pem_reg_draws(maps["iou_map"].shape, torch.Generator().manual_seed(0))
     outs, losses = [], []
@@ -2827,28 +2855,26 @@ def phase_localization(out_dir: str, card_line: str) -> dict:
         losses.append(float(loss))
         del model, preds
     diffs = {k: float((outs[0][k] - outs[1][k]).abs().max()) for k in outs[0]}
-    print(f"BMN fp32 on the card against the CPU ({BMN_CPU_WINDOWS} windows, the epoch-1 weights): max abs diff by map {diffs} (tol "
-          f"{BMN_MAP_ATOL}); loss {losses[0]:.7f} vs {losses[1]:.7f} (rtol {BMN_LOSS_RTOL})")
+    print(f"BMN fp32 on the card against the CPU ({BMN_CPU_WINDOWS} windows, the epoch-1 weights; the CPU runs the boundary-matching "
+          f"layer's plain versions): max abs diff by map {diffs} (tol {BMN_MAP_ATOL}); loss {losses[0]:.7f} vs {losses[1]:.7f} (rtol {BMN_LOSS_RTOL})")
     if not all(d <= BMN_MAP_ATOL for d in diffs.values()) or not abs(losses[0] - losses[1]) <= BMN_LOSS_RTOL * abs(losses[1]):
         raise AssertionError(f"BMN on the card differs from the CPU: {diffs}, losses {losses}")
     torch.cuda.empty_cache()
-    feats, maps, _ = next(loc._batches(ds, BMN_BATCH, False, 0))
-    x, y = torch.from_numpy(feats).to(dev), {k: torch.from_numpy(v).to(dev) for k, v in maps.items()}
-    model = loc.build_bmn_model(cfg, dev)
-    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
-    step = loc.make_localization_train_step(model, cfg)
     torch.cuda.reset_peak_memory_stats()
-    timed = _resident(lambda i: step(state, x, y, 1e-4, loc.step_generator(cfg, 0, i, dev))[0])
+    model, run = profile_bmn.build_step(cfg, dev, "deterministic", BMN_BATCH)
+    timed = _resident(run)
     step_peak = torch.cuda.max_memory_allocated()
-    print(f"BMN train step on {card_line}, batch resident ({BMN_BATCH} windows, fp32): {timed['step_ms']:.1f} ms a step (CUDA events, 4 steps); "
-          f"the host queued a step in {timed['host_ms']:.1f} ms; the card busy {timed['busy_ms']:.1f} ms a step (profiler); "
-          f"{BMN_BATCH / timed['step_ms'] * 1e3:.2f} windows/s; peak {step_peak / 2**30:.3f} GiB; synchronisations inside the steps: "
-          f"{timed['waits'] or 'none'}")
+    split = profile_bmn.split_step(run)
+    print(f"BMN train step on {card_line}, batch resident ({BMN_BATCH} windows, fp32, cuDNN's deterministic algorithms): {timed['step_ms']:.1f} ms "
+          f"a step (CUDA events, 4 steps); the host queued a step in {timed['host_ms']:.1f} ms; the card busy {timed['busy_ms']:.1f} ms a step "
+          f"(profiler); {BMN_BATCH / timed['step_ms'] * 1e3:.2f} windows/s; peak {step_peak / 2**30:.3f} GiB; synchronisations inside the "
+          f"steps: {timed['waits'] or 'none'}")
+    profile_bmn.report_split("BMN train step split", split, top=12)
     if timed["waits"] or not timed["finite"]:
         raise AssertionError(f"the BMN train step waited for the card at {timed['waits']} or lost its loss")
-    del model, state, step, x, y
+    del model, run
     torch.cuda.empty_cache()
-    return {"launches": launches, "mask_s": bmn.MASK_BUILD_SECONDS[key], "train_windows_per_s": train["windows_per_s"],
+    return {"launches": launches, "mask_s": boundary_matching.LISTS_BUILD_SECONDS[key], "train_windows_per_s": train["windows_per_s"],
             "test_windows_per_s": test["windows_per_s"], "peak_gib": peak / 2**30, "step_peak_gib": step_peak / 2**30, **timed}
 
 
@@ -3514,6 +3540,149 @@ def phase_heads(card_line: str) -> dict:
     return out
 
 
+# --- BMN's boundary-matching gathers at the EPIC preset's full shape (phase 34) ----------------------------------------
+BM_WIDTHS = (BMN_BATCH, 256, 512)  # windows a step, VIDEO.DIM1D and VIDEO.DIM3D of BMN_EPIC100.yaml
+# fp32 against the plain version, which adds in the kernel's order and rounds each product and sum as it does: a share of
+# the largest value, and by norm
+BM_TOLERANCE = 1e-5
+# the boundary-matching op (matrix products and gathers) against the dense path it replaced, on the same inputs: sums of
+# up to 8192 products in other orders (TF32 off), as a share of the largest value; the gradients under one cotangent that
+# is zero where the two outputs fall on either side of the ReLU's kink (there the gates differ, not the arithmetic)
+BM_DENSE_SHARE = 1e-4
+
+
+def _bm_bounds(lists, b: int, c3: int, out: torch.Tensor) -> tuple:
+    """The gathers' bounds.  Forward: P read, the output written, the column lists and the cell order read once; a product
+    and a sum for each nonzero and (b, o), and the bias.  Backward: the output and its gradient read, dP written, the row
+    lists read once; a product and a sum for each nonzero and (b, o) whose output the ReLU passed in this run's data."""
+    p_bytes, out_bytes = b * c3 * lists.num_sample * lists.tscale * 4, b * c3 * lists.cells * 4
+    col_bytes = lists.col_t.numel() * 2 + lists.col_w.numel() * 4 + lists.col_n.numel() + lists.order.numel() * 4
+    row_bytes = (lists.row_ptr.numel() + lists.row_cell.numel() + lists.row_w.numel()) * 4
+    fwd = _bound(p_bytes + out_bytes + col_bytes + c3 * 4, 2 * lists.nnz * b * c3 + out.numel(), PEAK_FP32_FLOPS)
+    per_cell = torch.bincount(lists.row_cell.long(), minlength=lists.cells).double()  # nonzeros at each cell over every n
+    live = float(((out > 0).reshape(b * c3, lists.cells).double().sum(0) * per_cell).sum())
+    bwd = _bound(2 * out_bytes + p_bytes + row_bytes, 2 * live, PEAK_FP32_FLOPS)
+    return fwd, bwd
+
+
+def _bm_check(what: str, got: torch.Tensor, want: torch.Tensor, again: torch.Tensor, tol: float = BM_TOLERANCE) -> float:
+    """``got`` finite, within ``tol`` of max|want| and by norm, and the same bits as ``again``; returns max|got - want|."""
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"{what}: max|got-ref| {err:.3e} ({err / scale:.3e} of the largest |ref| {scale:.4e}), by norm {rel:.3e} (tol {tol}); "
+          f"the same bits on a second launch: {torch.equal(again, got)}")
+    if not torch.isfinite(got).all() or not err <= tol * scale or not rel <= tol:
+        raise AssertionError(f"{what}: {err:.3e} of {scale:.3e}, {rel:.3e} by norm (tol {tol})")
+    if not torch.equal(again, got):
+        raise AssertionError(f"{what}: a second launch gave other bits")
+    return err
+
+
+def phase_boundary_matching(card_line: str) -> dict:
+    """Phase 34: BMN's boundary-matching gathers (``csrc/boundary_matching.cu``) at the EPIC preset's full shape (8 windows,
+    DIM1D 256, DIM3D 512, N = 32, D = T = 200; random features, weights and output gradient from a seed) against their plain
+    versions, finite, the same bits on a second launch; each timed in turn with its plain version, beside its bound and
+    torch's CSR sparse product of the same gather (``torch.sparse.mm``, without the bias, ReLU or its mask: no path runs
+    it); then the op forward, and forward and backward through autograd (its matrix products included), in turn with the
+    dense path it replaced (``torch.matmul`` by the 1.02 GB mask, F.conv3d on cuDNN's own pick, ReLU), whose output and
+    gradients it must match."""
+    from clip_fsar_torch import runtime
+    from clip_fsar_torch.data.tal_features import duration_scale
+    from clip_fsar_torch.models.heads.bmn import mask_matrix
+    from clip_fsar_torch.ops import boundary_matching as bm
+    from clip_fsar_torch.runs.run import load_config
+
+    cfg = load_config(os.path.join(REPO, BMN_CONFIG), BMN_OPTS)
+    h = cfg.VIDEO.HEAD
+    key = (int(cfg.DATA.TEMPORAL_SCALE), duration_scale(cfg), int(h.NUM_SAMPLE), int(h.NUM_SAMPLE_PERBIN), float(h.BOUNDARY_RATIO))
+    b, c, c3 = BM_WIDTHS
+    if (c, c3) != (int(cfg.VIDEO.DIM1D), int(cfg.VIDEO.DIM3D)):
+        raise AssertionError(f"{BMN_CONFIG} sets DIM1D {cfg.VIDEO.DIM1D} and DIM3D {cfg.VIDEO.DIM3D}, not {c} and {c3}")
+    dev = runtime.device("cuda")  # TF32 off, as the port runs
+    lists = bm.boundary_matching_lists(*key).to(dev)
+    t, d, n = lists.tscale, lists.dscale, lists.num_sample
+    g = torch.Generator(device=dev).manual_seed(11)
+    mid = torch.randn(b, c, t, generator=g, device=dev).relu()
+    weight = torch.randn(c3, c, n, generator=g, device=dev) / (c * n) ** 0.5
+    bias = 0.1 * torch.randn(c3, generator=g, device=dev)
+    p = bm.project(mid, weight)
+    shape = f"P [{b}, {c3}, {n}, {t}] -> [{b}, {c3}, {d}, {t}] fp32, {lists.nnz} nonzeros"
+    fwd = lambda: bm.bm_gather_fwd_cuda(p, bias, lists)  # noqa: E731
+    out = fwd()
+    torch.cuda.synchronize()
+    fwd_err = _bm_check(f"bm_gather_fwd {shape}", out, bm.gather_fwd_reference(p, bias, lists), fwd())
+    dout = torch.randn(out.shape, generator=g, device=dev)
+    bwd = lambda: bm.bm_gather_bwd_cuda(out, dout, lists)  # noqa: E731
+    dp = bwd()
+    torch.cuda.synchronize()
+    bwd_err = _bm_check(f"bm_gather_bwd {shape}", dp, bm.gather_bwd_reference(out, dout, lists), bwd())
+    fwd_bound, bwd_bound = _bm_bounds(lists, b, c3, out)
+    fwd_plain = lambda: bm.gather_fwd_reference(p, bias, lists)  # noqa: E731
+    bwd_plain = lambda: bm.gather_bwd_reference(out, dout, lists)  # noqa: E731
+    fwd_ms = [_time_ms(fwd), _time_ms(fwd_plain, iters=2), _time_ms(fwd), _time_ms(fwd_plain, iters=2)]
+    bwd_ms = [_time_ms(bwd), _time_ms(bwd_plain, iters=2), _time_ms(bwd), _time_ms(bwd_plain, iters=2)]
+    # the mask as [N*T', D*T] and [D*T, N*T'] in CSR
+    rows = torch.sparse_csr_tensor(lists.row_ptr, lists.row_cell, lists.row_w, size=(n * t, lists.cells), check_invariants=False)
+    cols = rows.t().to_sparse_csr()
+    p_t = p.reshape(b * c3, n * t).t().contiguous()
+    dy_t = torch.where(out > 0, dout, 0.0).reshape(b * c3, lists.cells).t().contiguous()
+    lib_fwd_ms = _time_ms(lambda: torch.sparse.mm(cols, p_t), iters=5)
+    lib_bwd_ms = _time_ms(lambda: torch.sparse.mm(rows, dy_t), iters=5)
+    del rows, cols, p_t, dy_t
+    torch.cuda.empty_cache()
+    records = {}
+    for name, ms, bound, err, lib in (("bm_gather_fwd", fwd_ms, fwd_bound, fwd_err, lib_fwd_ms), ("bm_gather_bwd", bwd_ms, bwd_bound, bwd_err, lib_bwd_ms)):
+        records[name] = {"max_abs_err": err, "ms": min(ms[0], ms[2]), "plain_ms": min(ms[1], ms[3]), "library_ms": lib, **bound}
+        print(f"{name} on {card_line} at the EPIC preset ({shape}): kernel {ms[0]:.4f} / {ms[2]:.4f} ms, plain {ms[1]:.2f} / {ms[3]:.2f} ms, "
+              f"torch.sparse.mm of the same gather (CSR) {lib:.4f} ms (kernel / library = {records[name]['ms'] / lib:.2f}), bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; {100 * bound['bound_ms'] / records[name]['ms']:.1f} % of it reached)")
+    del out, dout, dp
+    torch.cuda.empty_cache()
+
+    # the op (matrix products and gathers) against the dense path it replaced, forward and forward + backward, in turn
+    mask = mask_matrix(*key).to(dev)
+    dy = torch.randn(b, c3, d, t, generator=g, device=dev)
+    leaves = [x.clone().requires_grad_(True) for x in (mid, weight, bias)]
+
+    def op(m, w, bb):
+        return bm.boundary_matching(m, w, bb, lists)
+
+    def dense(m, w, bb):
+        bm5 = torch.matmul(m, mask).view(b, c, n, d, t)
+        return F.relu(F.conv3d(bm5, w.view(c3, c, n, 1, 1), bb, stride=(n, 1, 1)))[:, :, 0]
+
+    with torch.no_grad():
+        kink = (op(*leaves) > 0) != (dense(*leaves) > 0)  # outputs within the two paths' roundings of 0: the ReLU passes one
+    dy_same = torch.where(kink, 0.0, dy)  # the gradient of the same function on both sides: 0 where the ReLU's gates differ
+    results = []
+    for fn in (op, dense):
+        y = fn(*leaves)
+        results.append([y.detach()] + list(torch.autograd.grad(y, leaves, dy_same)))
+        del y
+    diffs = {what: ((got - want).abs().max() / want.abs().max()).item()
+             for what, got, want in zip(("out", "d_mid", "d_weight", "d_bias"), results[0], results[1])}
+    print(f"boundary-matching op against the dense path (matmul by the mask, Conv3d, ReLU) at the EPIC preset: max abs diff as a share "
+          f"of the largest dense value {diffs} (tol {BM_DENSE_SHARE}); the output gradient zeroed at the {int(kink.sum())} of {kink.numel()} "
+          f"outputs whose ReLU gate differs between the two")
+    if not all(v <= BM_DENSE_SHARE for v in diffs.values()):
+        raise AssertionError(f"the boundary-matching op differs from the dense path: {diffs}")
+    del results
+    timed = {"op_fwd": [], "dense_fwd": [], "op_fwd_bwd": [], "dense_fwd_bwd": []}
+    for fn in (op, dense, dense, op):
+        tag = "op" if fn is op else "dense"
+        with torch.no_grad():
+            timed[f"{tag}_fwd"].append(_time_ms(lambda: fn(*leaves), iters=3))
+        timed[f"{tag}_fwd_bwd"].append(_time_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, dy), iters=3))
+    print(f"boundary-matching layer on {card_line} at the EPIC preset, {b} windows: forward {timed['op_fwd']} ms with the gathers against "
+          f"{timed['dense_fwd']} ms on the dense path; forward and backward {timed['op_fwd_bwd']} ms against {timed['dense_fwd_bwd']} ms "
+          f"(CUDA events, 3 calls each, in turn)")
+    records["bm_gather_fwd"].update(op_fwd_ms=min(timed["op_fwd"]), dense_fwd_ms=min(timed["dense_fwd"]))
+    records["bm_gather_bwd"].update(op_fwd_bwd_ms=min(timed["op_fwd_bwd"]), dense_fwd_bwd_ms=min(timed["dense_fwd_bwd"]))
+    del mask, dy, dy_same, kink, leaves, mid, weight, bias, p
+    torch.cuda.empty_cache()
+    return records
+
+
 # --- what cuDNN's deterministic convolution algorithms cost (not run by default: python3 chip_smoke.py --cudnn-determinism)
 def _step_ms(run, steps: int = 3) -> float:
     """CUDA-event ms a step of ``run(i)`` over ``steps`` steps after a warm-up step."""
@@ -3532,18 +3701,16 @@ def phase_cudnn_determinism(card_line: str) -> None:
     """The train steps with and without ``runtime.deterministic_convolutions`` (cuDNN's deterministic algorithms; the
     few-shot and classification steps run under it): three fp32 MoSI runs of 3 steps at 4 frames under each, whether
     their losses are the same bits; then the resident step of each conv-heavy path built each way, timed in turn
-    (without, with, with, without).  BMN's step, which runs without it (ROADMAP F9), with the flag set around it."""
+    (without, with, with, without).  BMN's step (which runs under it since its boundary-matching layer is a gather) the
+    same way, with its device time by operator and by kernel each way."""
     from unittest import mock
 
     from clip_fsar_torch import runtime
     from clip_fsar_torch.data.classification import build_classification_loader
-    from clip_fsar_torch.data.tal_features import TalFeatureDataset
     from clip_fsar_torch.models.video.model import build_video_model
     from clip_fsar_torch.runs.run import load_config
-    from clip_fsar_torch.train import localization as loc
+    from clip_fsar_torch.tools import profile_bmn
     from clip_fsar_torch.train.classification import _to_device
-    from clip_fsar_torch.train.optimizer import Optimizer
-    from clip_fsar_torch.train.state import TrainState
 
     dev = runtime.device("cuda")
 
@@ -3601,18 +3768,16 @@ def phase_cudnn_determinism(card_line: str) -> None:
             print(f"{name} on {card_line}: the bf16 train step {ms[False]} ms with cuDNN's default pick, {ms[True]} ms with its "
                   "deterministic algorithms (CUDA events, 3 steps)")
         cfg = load_config(os.path.join(REPO, BMN_CONFIG), BMN_OPTS)
-        feats, maps, _ = next(loc._batches(TalFeatureDataset(cfg, "train"), BMN_BATCH, False, 0))
-        x, y = torch.from_numpy(feats).to(dev), {k: torch.from_numpy(v).to(dev) for k, v in maps.items()}
-        model = loc.build_bmn_model(cfg, dev)
-        state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
-        step = loc.make_localization_train_step(model, cfg)
-        ms = {False: [], True: []}
-        for on in (False, True, True, False):
-            torch.backends.cudnn.deterministic = on
-            ms[on].append(_step_ms(lambda i: step(state, x, y, 1e-4, loc.step_generator(cfg, 0, i, dev))[0]))
-        torch.backends.cudnn.deterministic = False
-        print(f"BMN, {BMN_BATCH} windows, fp32, on {card_line}: the train step {ms[False]} ms with cuDNN's default pick, {ms[True]} ms with "
-              "its deterministic algorithms (CUDA events, 3 steps)")
+        ms = {"default": [], "deterministic": []}
+        for cudnn in ("default", "deterministic", "deterministic", "default"):
+            model, run = profile_bmn.build_step(cfg, dev, cudnn, BMN_BATCH)
+            ms[cudnn].append(_step_ms(run))
+            if len(ms[cudnn]) == 1:
+                profile_bmn.report_split(f"BMN step split, cuDNN {cudnn}", profile_bmn.split_step(run), top=10)
+            del model, run
+            torch.cuda.empty_cache()
+        print(f"BMN, {BMN_BATCH} windows, fp32, on {card_line}: the train step {ms['default']} ms with cuDNN's default pick, "
+              f"{ms['deterministic']} ms with its deterministic algorithms, as the step runs (CUDA events, 3 steps)")
 
 
 START = time.perf_counter()
@@ -3701,6 +3866,9 @@ def main() -> None:
     heads = phase_heads(smi)
     phase_determinism_check(smi)
     _elapsed("phases 30-33 (determinism, pools, signatures, towers, heads)")
+    torch.cuda.empty_cache()
+    timings.update(phase_boundary_matching(smi))
+    _elapsed("phase 34 (BMN's boundary-matching gathers)")
     classification_launches = {name: {"tada2d_k400_cli": cls["launches"][name], "presets": presets["launches"][name],
                                       "nccl_world1": cls_dp["launches"][name]} for name in _launches()}
     # each kernel's launches in the bank phases' bank runs, counted from 0 in each
@@ -3755,12 +3923,17 @@ def main() -> None:
         # no TPU kernel: the JAX package's flax pools, whose gradient XLA computes (the port's replaces torch's atomic backward)
         ("max_pool3d_bwd", "pool", "clip_fsar_torch/csrc/pool3d.cu", "clip_fsar_tpu/models/video/blocks.py:225"),
         ("avg_pool3d_bwd", "pool", "clip_fsar_torch/csrc/pool3d.cu", "clip_fsar_tpu/models/video/branches.py:163"),
+        # no TPU kernel: the JAX package's BMN product by the dense mask and (N, 1, 1) Conv3d, computed by XLA (the port's
+        # gathers replace torch.matmul by the mask, cuDNN's Conv3d and their backwards)
+        ("bm_gather_fwd", "localization", "clip_fsar_torch/csrc/boundary_matching.cu", "clip_fsar_tpu/models/heads/bmn.py:98"),
+        ("bm_gather_bwd", "localization", "clip_fsar_torch/csrc/boundary_matching.cu", "clip_fsar_tpu/models/heads/bmn.py:102"),
     ]
     # launches: each kernel's count from the path that runs it, counted from 0: the train slice (train,
     # validation, test) of its own attention path, the LayerNorm replay, the stage-ablation tool's table
     launches = {"fused": train["fused"]["launches"], "flash": train["flash"]["launches"], "replay": replay["launches"],
                 "tool": {name: record["launches"] for name, record in timings.items() if "launches" in record},
-                "pool": {"max_pool3d_bwd": mosi["launches"]["max_pool3d_bwd"], "avg_pool3d_bwd": cls["launches"]["avg_pool3d_bwd"]}}
+                "pool": {"max_pool3d_bwd": mosi["launches"]["max_pool3d_bwd"], "avg_pool3d_bwd": cls["launches"]["avg_pool3d_bwd"]},
+                "localization": bmn["launches"]}
     # K1-K5 at the new towers' shapes, with the launches of the tower phase's bf16 steps (K1 / K2 fused, K3-K5 flash)
     tower_launches = {key: {name: n for path in towers[tower]["launches"].values() for name, n in path.items() if n}
                       for key, tower in (("at_vit_b32", "ViT-B/32"), ("at_vit_l14_224", "ViT-L/14"))}
@@ -3776,7 +3949,8 @@ def main() -> None:
                         "classification_launches": classification_launches[name], "localization_launches": bmn["launches"][name],
                         "pretrain_launches": mosi["launches"][name], "tp_launches": tp["launches"][name],
                         **({"at_tp_rank_heads": tp["kernels"][name]} if name in tp["kernels"] else {}),
-                        **{key: t[key] for key in ("library_covers", "at_480_frames", "at_shapes") if key in t},
+                        **{key: t[key] for key in ("library_covers", "at_480_frames", "at_shapes", "op_fwd_ms", "dense_fwd_ms", "op_fwd_bwd_ms",
+                                                   "dense_fwd_bwd_ms") if key in t},
                         **{key: {**tower_kernels[key][name], "launches": tower_launches[key].get(name, 0)} for key in tower_kernels
                            if name in tower_kernels[key]},
                         "new_paths_launches": {"signatures": sum(r["launches"][name] for r in signatures.values()),

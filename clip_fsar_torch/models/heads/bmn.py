@@ -7,14 +7,17 @@ boundary-matching confidence map from window features [B, C, T], with the
 optional regression map (VIDEO.HEAD.USE_BMN_REGRESSION) and verb/noun
 classification maps (a [verbs, nouns] VIDEO.HEAD.NUM_CLASSES, EPIC).
 
-The boundary-matching layer is one matmul of the features [B, C, T] with
-the sample mask [T, N*D*T]; its result [B, C, N*D*T] is already the NCDHW
-layout [B, C, N, D, T] of the (N, 1, 1) Conv3d that sums over the N
-samples, so nothing is transposed (the JAX package moves the channels last
-here).  The mask is built once per (T, D, N, per-bin, ratio) on the host
-(``boundary_matching_mask``, the JAX package's numbers, cached) and kept on
-the device as a buffer outside the state dict, as the JAX package keeps it
-outside ``params``.  Everything runs in float32, as in the JAX package.
+The boundary-matching layer, the features [B, C, T] times the sample mask
+[T, N*D*T] through the (N, 1, 1) Conv3d ``x_3d_p`` and a ReLU, is one op,
+``ops.boundary_matching``: the Conv3d's weight first (a matrix product),
+then a gather over the mask's nonzeros (a CUDA kernel on the card, with a
+gathered backward), so neither the [B, C, N, D, T] activation nor a
+convolution backward is formed.  ``x_3d_p`` keeps its parameters and
+names.  The mask (``boundary_matching_mask``, the JAX package's numbers)
+is built once per (T, D, N, per-bin, ratio) on the host and kept only as
+the op's lists of its nonzeros, outside the state dict, as the JAX
+package keeps it outside ``params``; ``mask_matrix`` gives it dense.
+Everything runs in float32, as in the JAX package.
 The localization runners build the head directly (train/localization.py),
 as the JAX ones do, so it is not looked up in the head registry.
 """
@@ -23,7 +26,6 @@ from __future__ import annotations
 
 import functools
 import math
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -33,9 +35,8 @@ from torch import nn
 
 from clip_fsar_torch.data.tal_features import duration_scale
 from clip_fsar_torch.models.init import lecun_normal_
+from clip_fsar_torch.ops.boundary_matching import boundary_matching, boundary_matching_lists
 
-# (T, D, N, per-bin, ratio) -> host seconds the mask took to build
-MASK_BUILD_SECONDS: Dict[tuple, float] = {}
 
 
 def interp1d_bin_mask(seg_xmin, seg_xmax, tscale, num_sample, num_sample_perbin) -> np.ndarray:
@@ -94,12 +95,9 @@ def boundary_matching_mask(tscale: int, dscale: int, num_sample: int, num_sample
 @functools.lru_cache(maxsize=2)
 def mask_matrix(tscale: int, dscale: int, num_sample: int, num_sample_perbin: int, boundary_ratio: float) -> torch.Tensor:
     """``boundary_matching_mask`` as a [T, N*D*T] host tensor, built once per
-    key (1.02 GB at the preset's T = D = 200, N = 32)."""
-    key = (tscale, dscale, num_sample, num_sample_perbin, boundary_ratio)
-    t0 = time.perf_counter()
-    mask = torch.from_numpy(boundary_matching_mask(*key).reshape(tscale, -1))
-    MASK_BUILD_SECONDS[key] = time.perf_counter() - t0
-    return mask
+    key (1.02 GB at the preset's T = D = 200, N = 32): the dense operand of
+    the JAX package's product, for the tests; the model uses its lists."""
+    return torch.from_numpy(boundary_matching_mask(tscale, dscale, num_sample, num_sample_perbin, boundary_ratio).reshape(tscale, -1))
 
 
 def _conv_stack(cin: int, width: int, cout: int) -> nn.ModuleList:
@@ -137,7 +135,6 @@ class BaseBMN(nn.Module):
         for tag, n in self.branches.items():
             for i, conv in enumerate(_conv_stack(d3, d2, n), start=1):
                 self.add_module(f"x_2d_{tag}_conv{i}", conv)
-        self.register_buffer("bm_mask", mask_matrix(*self.key), persistent=False)
 
     def init_own_parameters(self, g: torch.Generator) -> None:
         """flax's defaults: lecun normal kernels, zero biases."""
@@ -153,12 +150,11 @@ class BaseBMN(nn.Module):
         return getattr(self, f"x_2d_{tag}_conv4")(h)
 
     def forward(self, x: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
-        b = x.shape[0]
         start = torch.sigmoid(self.x_1d_s_conv2(F.relu(self.x_1d_s_conv1(x))))[:, 0]
         end = torch.sigmoid(self.x_1d_e_conv2(F.relu(self.x_1d_e_conv1(x))))[:, 0]
         mid = F.relu(self.x_1d_p_conv(x))  # [B, C, T]
-        bm = torch.matmul(mid, self.bm_mask).view(b, mid.shape[1], self.num_sample, self.dscale, self.tscale)
-        bm = F.relu(self.x_3d_p(bm))[:, :, 0]  # [B, C3, D, T]
+        weight = self.x_3d_p.weight.view(self.x_3d_p.out_channels, mid.shape[1], self.num_sample)
+        bm = boundary_matching(mid, weight, self.x_3d_p.bias, boundary_matching_lists(*self.key))  # [B, C3, D, T]
         out = {"confidence_map": torch.sigmoid(self._map("p", bm)), "start": start, "end": end, "reg_map": None, "verb_map": None, "noun_map": None}
         for tag in self.branches:
             if tag != "p":

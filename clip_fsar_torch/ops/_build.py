@@ -115,6 +115,12 @@ def library() -> ctypes.CDLL:
     # the (n, c, d, h, w) strides of dy, argmax and dx, channels_last
     lib.pool3d_bwd.argtypes = [p] * 3 + [i] * 2 + [l] * 5 + [i] * 12 + [l] * 15 + [i, p]
     lib.pool3d_bwd.restype = i
+    # BMN's boundary-matching gathers: P, order, col_t, col_w, col_n, bias, out, then (B, C3, N, T, cells, active, K)
+    lib.bm_gather_fwd.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.bm_gather_fwd.restype = i
+    # out, dout, the [cells, B*C3] scratch, row_ptr, row_cell, row_w, dP, then (B, C3, N, T, cells)
+    lib.bm_gather_bwd.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.bm_gather_bwd.restype = i
     lib.attn_fwd_single_block_max.argtypes = []
     lib.attn_fwd_single_block_max.restype = i
     lib.attn_bwd_resident_max.argtypes = []

@@ -1,0 +1,282 @@
+"""BMN's boundary-matching layer, relu(Conv3d(mid @ mask)), as a gather over the mask's nonzeros.
+
+``boundary_matching(mid, weight, bias, lists)`` takes the features mid [B, C, T] (float32), the (N, 1, 1)
+Conv3d's weight viewed as [C3, C, N] and its bias [C3], and the mask's lists (``boundary_matching_lists``),
+and returns [B, C3, D, T]: what the JAX package computes at clip_fsar_tpu/models/heads/bmn.py:94-103, the
+product of mid with the dense sample mask [T, N*D*T], viewed as [B, C, N, D, T], through the Conv3d of stride
+(N, 1, 1) and a ReLU.  Both steps are linear, so the op groups them the other way round:
+
+    P[b, o, n, t'] = sum_c W[o, c, n] * mid[b, c, t']            (torch.matmul)
+    y[b, o, d, t]  = relu(bias[o] + sum_n sum_t' mask[t', n, d, t] * P[b, o, n, t'])
+
+The second step is the gather ``bm_gather_fwd`` (``csrc/boundary_matching.cu``) on a CUDA tensor and
+``gather_fwd_reference`` on a CPU tensor.  Its backward forms dP by walking each (n, t') row's entries in
+ascending order under the ReLU's mask (``bm_gather_bwd``, which first lays the masked gradient out as
+[D*T, B*C3]; ``gather_bwd_reference``) and takes dW and dmid from two matrix products and dbias from a sum:
+no atomics, so a train step through the layer repeats bit
+for bit, and no [B, C, N, D, T] activation (10.5 GB at the EPIC preset's 8 windows) is ever formed.
+The kernels and the plain versions add in the same order, rounding each product and each sum, so they
+give the same fp32 bits.  There is no fallback from the kernel to its plain version.
+
+The lists are built once per mask key on the host from ``models.heads.bmn.boundary_matching_mask`` itself
+(its float32 nonzeros: the JAX mask's bits) and moved once to each device that asks for them.  The JAX
+package's layer reaches no Pallas kernel: this op replaces no TPU kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from clip_fsar_torch.ops import _build
+
+# kernel launches since the last reset (a run shows it went through the kernels)
+LAUNCHES = {"bm_gather_fwd": 0, "bm_gather_bwd": 0}
+# (T, D, N, per-bin, ratio) -> host seconds the mask and its lists took to build
+LISTS_BUILD_SECONDS: Dict[tuple, float] = {}
+SHARED_MAX = 232448  # a forward block's shared memory on sm_90: at least one channel's P [N, T] in float32
+
+
+class BMLists:
+    """The nonzeros of one sample mask [T', N, D, T] in the two orders the gathers walk.
+
+    ``order`` [D*T] int32: the active cells (cell = d * T + t with an entry in some n) ascending, then the rest.
+    Column form, over the ``active`` first cells of ``order``: ``col_t`` [N, K, A] int16 and ``col_w`` [N, K, A]
+    float32, the entries (t', w) of column (n, order[i]) in ascending t', padded with (0, 0.0) to K, the largest
+    count of any column (read from the mask); ``col_n`` [N, A] uint8, the counts.  Row form (CSR over the N*T
+    rows n * T + t'): ``row_ptr`` [N*T + 1] int32, ``row_cell`` and ``row_w`` [nnz], each row's entries in
+    ascending cell."""
+
+    TENSORS = ("order", "col_t", "col_w", "col_n", "row_ptr", "row_cell", "row_w")
+
+    def __init__(self, shape: tuple, active: int, max_per_row: int, tensors: Dict[str, torch.Tensor]):
+        self.tscale, self.num_sample, self.dscale = shape  # T, N, D
+        self.active, self.max_per_row = active, max_per_row
+        for name in self.TENSORS:
+            setattr(self, name, tensors[name])
+        self.max_per_column = int(self.col_t.shape[1])
+        self.nnz = int(self.row_w.numel())
+        self._on: Dict[torch.device, "BMLists"] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_w.device
+
+    @property
+    def cells(self) -> int:
+        return self.dscale * self.tscale
+
+    def to(self, device) -> "BMLists":
+        """These lists on ``device``, copied there once and kept."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.device:
+            return self
+        if device not in self._on:
+            moved = BMLists((self.tscale, self.num_sample, self.dscale), self.active, self.max_per_row,
+                            {name: getattr(self, name).to(device) for name in self.TENSORS})
+            self._on[device] = moved
+        return self._on[device]
+
+
+def lists_from_mask(mask: np.ndarray) -> BMLists:
+    """``BMLists`` of a float32 mask [T', N, D, T] (``boundary_matching_mask``): every nonzero once in each form."""
+    tp_n, n_n, d_n, t_n = mask.shape
+    if tp_n != t_n:
+        raise ValueError(f"the mask is [T', N, D, T] with T' = T, got {mask.shape}")
+    if t_n > np.iinfo(np.int16).max or d_n * t_n >= 2**31 or n_n * t_n >= 2**31:
+        raise ValueError(f"the lists hold t' in int16 and cells in int32, got a mask of {mask.shape}")
+    tp, n, d, t = np.nonzero(mask)  # ascending in (t', n, d, t)
+    w = mask[tp, n, d, t].astype(np.float32)
+    cell = d.astype(np.int64) * t_n + t
+    cells = d_n * t_n
+    # column form: (n, cell, t') ascending
+    by_col = np.lexsort((tp, cell, n))
+    col_key = n[by_col] * cells + cell[by_col]
+    counts = np.bincount(col_key, minlength=n_n * cells).reshape(n_n, cells)
+    k_max = int(counts.max()) if counts.size else 0
+    if k_max > np.iinfo(np.uint8).max:
+        raise ValueError(f"a column of the mask holds {k_max} entries; the lists count them in uint8")
+    is_active = counts.sum(0) > 0
+    active_cells = np.flatnonzero(is_active)
+    order = np.concatenate([active_cells, np.flatnonzero(~is_active)]).astype(np.int32)
+    slot = np.full(cells, -1, np.int64)
+    slot[active_cells] = np.arange(len(active_cells))
+    a = len(active_cells)
+    starts = np.concatenate([[0], np.cumsum(counts.reshape(-1))[:-1]])
+    k = np.arange(len(by_col)) - starts[col_key]
+    col_t = np.zeros((n_n, k_max, a), np.int16)
+    col_w = np.zeros((n_n, k_max, a), np.float32)
+    col_t[n[by_col], k, slot[cell[by_col]]] = tp[by_col]
+    col_w[n[by_col], k, slot[cell[by_col]]] = w[by_col]
+    col_n = counts[:, active_cells].astype(np.uint8)
+    # row form: (n, t', cell) ascending
+    by_row = np.lexsort((cell, tp, n))
+    row_key = n[by_row] * tp_n + tp[by_row]
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(row_key, minlength=n_n * tp_n))]).astype(np.int32)
+    tensors = {"order": order, "col_t": col_t, "col_w": col_w, "col_n": col_n, "row_ptr": row_ptr,
+               "row_cell": cell[by_row].astype(np.int32), "row_w": w[by_row]}
+    max_per_row = int(np.diff(row_ptr).max()) if len(row_ptr) > 1 else 0
+    return BMLists((t_n, n_n, d_n), a, max_per_row, {name: torch.from_numpy(np.ascontiguousarray(v)) for name, v in tensors.items()})
+
+
+@functools.lru_cache(maxsize=4)
+def boundary_matching_lists(tscale: int, dscale: int, num_sample: int, num_sample_perbin: int, boundary_ratio: float) -> BMLists:
+    """The lists of ``boundary_matching_mask(tscale, dscale, num_sample, num_sample_perbin, boundary_ratio)``,
+    built once per key on the host (the dense mask is dropped after); the seconds go to LISTS_BUILD_SECONDS."""
+    from clip_fsar_torch.models.heads.bmn import boundary_matching_mask
+
+    key = (tscale, dscale, num_sample, num_sample_perbin, boundary_ratio)
+    t0 = time.perf_counter()
+    lists = lists_from_mask(boundary_matching_mask(*key))
+    LISTS_BUILD_SECONDS[key] = time.perf_counter() - t0
+    return lists
+
+
+def project(mid: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """P [B, C3, N, T] = sum_c weight[o, c, n] * mid[b, c, t] as one matrix product."""
+    c3, c, n = weight.shape
+    return torch.matmul(weight.permute(0, 2, 1).reshape(c3 * n, c), mid).view(mid.shape[0], c3, n, mid.shape[2])
+
+
+def gather_fwd_reference(p: torch.Tensor, bias: torch.Tensor, lists: BMLists) -> torch.Tensor:
+    """Plain-torch ``bm_gather_fwd``: relu(bias + the sum over n ascending, then each column's t' ascending, of
+    w * P) at every cell, as [B, C3, D*T]; the cells of no entry give relu(bias)."""
+    b, c3, n_s, _ = p.shape
+    acc = torch.zeros(b, c3, lists.active, dtype=p.dtype, device=p.device)
+    for n in range(n_s):
+        pn = p[:, :, n]
+        for k in range(lists.max_per_column):
+            # padded entries add 0 * P[..., 0] = 0: the same bits as the kernel, which stops at the count
+            acc = acc + lists.col_w[n, k] * pn[:, :, lists.col_t[n, k].long()]
+    full = torch.zeros(b, c3, lists.cells, dtype=p.dtype, device=p.device)
+    full[:, :, lists.order[: lists.active].long()] = acc
+    return torch.relu(full + bias.view(1, c3, 1))
+
+
+def gather_bwd_reference(out: torch.Tensor, dout: torch.Tensor, lists: BMLists) -> torch.Tensor:
+    """Plain-torch ``bm_gather_bwd``: dP [B, C3, N, T], each row's sum of w * (out > 0 ? dout : 0) over its
+    cells ascending."""
+    b, c3 = out.shape[:2]
+    dy = torch.where(out > 0, dout, torch.zeros((), dtype=dout.dtype, device=dout.device)).reshape(b, c3, -1)
+    first, last = lists.row_ptr[:-1].long(), lists.row_ptr[1:].long()
+    acc = torch.zeros(b, c3, first.numel(), dtype=out.dtype, device=out.device)
+    for k in range(lists.max_per_row):
+        e = first + k
+        live = e < last
+        e = torch.where(live, e, torch.zeros_like(e))
+        w = torch.where(live, lists.row_w[e], torch.zeros((), dtype=lists.row_w.dtype, device=out.device))
+        acc = acc + w * dy[:, :, lists.row_cell[e].long()]
+    return acc.view(b, c3, lists.num_sample, lists.tscale)
+
+
+def _check_lists(lists: BMLists, device: torch.device) -> None:
+    if lists.device != device:
+        raise ValueError(f"the mask's lists are on {lists.device}, the tensors on {device}")
+
+
+def bm_gather_fwd_cuda(p: torch.Tensor, bias: torch.Tensor, lists: BMLists) -> torch.Tensor:
+    """Launch ``bm_gather_fwd``: [B, C3, D*T] float32 from P [B, C3, N, T] and bias [C3], float32, contiguous,
+    on one card with the lists.  Raises on any input the kernel does not take."""
+    if p.device.type != "cuda":
+        raise ValueError(f"bm_gather_fwd_cuda needs a CUDA tensor, got {p.device}")
+    if p.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"bm_gather_fwd takes float32, got {p.dtype} and {bias.dtype}")
+    b, c3, n, t = p.shape
+    if (n, t) != (lists.num_sample, lists.tscale) or bias.shape != (c3,) or not (p.is_contiguous() and bias.is_contiguous()):
+        raise ValueError(f"bm_gather_fwd needs contiguous P [B, C3, {lists.num_sample}, {lists.tscale}] and bias [C3], got "
+                         f"{tuple(p.shape)} and {tuple(bias.shape)}")
+    if n * t * 4 > SHARED_MAX:
+        raise ValueError(f"bm_gather_fwd holds one channel's P [{n}, {t}] in shared memory: {n * t * 4} bytes exceed {SHARED_MAX}")
+    _check_lists(lists, p.device)
+    out = torch.empty(b, c3, lists.cells, dtype=torch.float32, device=p.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(p.device):
+        code = lib.bm_gather_fwd(p.data_ptr(), lists.order.data_ptr(), lists.col_t.data_ptr(), lists.col_w.data_ptr(),
+                                 lists.col_n.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c3, n, t, lists.cells, lists.active,
+                                 lists.max_per_column, torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "bm_gather_fwd launch")
+    LAUNCHES["bm_gather_fwd"] += 1
+    return out
+
+
+def bm_gather_bwd_cuda(out: torch.Tensor, dout: torch.Tensor, lists: BMLists, scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``bm_gather_bwd``: dP [B, C3, N, T] float32 from the forward's output and its gradient, both
+    [B, C3, D*T] (or [B, C3, D, T]) float32 and contiguous, on one card with the lists.  ``scratch`` (made here
+    when None) receives (out > 0 ? dout : 0) as [D*T, B*C3], which the kernel gathers from.  Raises on any
+    input the kernel does not take."""
+    if out.device.type != "cuda" or dout.device != out.device:
+        raise ValueError(f"bm_gather_bwd_cuda needs CUDA tensors on one device, got {out.device} and {dout.device}")
+    if out.dtype != torch.float32 or dout.dtype != torch.float32:
+        raise TypeError(f"bm_gather_bwd takes float32, got {out.dtype} and {dout.dtype}")
+    b, c3 = out.shape[:2]
+    if out.shape != dout.shape or out[0, 0].numel() != lists.cells or not (out.is_contiguous() and dout.is_contiguous()):
+        raise ValueError(f"bm_gather_bwd needs contiguous out and dout of one shape [B, C3, {lists.dscale}, {lists.tscale}], got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    _check_lists(lists, out.device)
+    if scratch is None:
+        scratch = torch.empty(lists.cells, b * c3, dtype=torch.float32, device=out.device)
+    if scratch.shape != (lists.cells, b * c3) or scratch.dtype != torch.float32 or scratch.device != out.device or not scratch.is_contiguous():
+        raise ValueError(f"bm_gather_bwd's scratch is a contiguous float32 [{lists.cells}, {b * c3}] on {out.device}, got "
+                         f"{scratch.dtype} {tuple(scratch.shape)} on {scratch.device}")
+    dp = torch.empty(b, c3, lists.num_sample, lists.tscale, dtype=torch.float32, device=out.device)
+    if dp.numel() == 0:
+        return dp
+    lib = _build.library()
+    with torch.cuda.device(out.device):
+        code = lib.bm_gather_bwd(out.data_ptr(), dout.data_ptr(), scratch.data_ptr(), lists.row_ptr.data_ptr(), lists.row_cell.data_ptr(),
+                                 lists.row_w.data_ptr(), dp.data_ptr(), b, c3, lists.num_sample, lists.tscale, lists.cells,
+                                 torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "bm_gather_bwd launch")
+    LAUNCHES["bm_gather_bwd"] += 1
+    return dp
+
+
+class _BoundaryMatching(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mid: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, lists: BMLists) -> torch.Tensor:
+        p = project(mid, weight)
+        out = gather_fwd_reference(p, bias, lists) if mid.device.type == "cpu" else bm_gather_fwd_cuda(p, bias.contiguous(), lists)
+        ctx.lists = lists
+        ctx.save_for_backward(mid, weight, out)
+        return out.view(mid.shape[0], weight.shape[0], lists.dscale, lists.tscale)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        mid, weight, out = ctx.saved_tensors
+        lists = ctx.lists
+        dy = dy.reshape(out.shape).contiguous()
+        c3, c, n = weight.shape
+        b, _, t = mid.shape
+        if dy.device.type == "cpu":
+            dp = gather_bwd_reference(out, dy, lists)
+            dbias = torch.where(out > 0, dy, torch.zeros((), dtype=dy.dtype)).sum((0, 2))
+        else:
+            scratch = torch.empty(lists.cells, b * c3, dtype=torch.float32, device=dy.device)
+            dp = bm_gather_bwd_cuda(out, dy, lists, scratch)
+            dbias = scratch.sum(0).view(b, c3).sum(0)  # the kernel's (out > 0 ? dy : 0), transposed
+        dmid = dweight = None
+        if ctx.needs_input_grad[0]:  # sum over (o, n) of W[o, c, n] * dP[b, o, n, t]
+            dmid = torch.matmul(weight.permute(1, 0, 2).reshape(c, c3 * n), dp.view(b, c3 * n, t))
+        if ctx.needs_input_grad[1]:  # sum over (b, t) of dP[b, o, n, t] * mid[b, c, t]
+            dweight = torch.matmul(dp.permute(1, 2, 0, 3).reshape(c3 * n, b * t), mid.permute(0, 2, 1).reshape(b * t, c))
+            dweight = dweight.view(c3, n, c).permute(0, 2, 1)
+        return dmid, dweight, dbias if ctx.needs_input_grad[2] else None, None
+
+
+def boundary_matching(mid: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, lists: BMLists) -> torch.Tensor:
+    """relu(Conv3d(mid @ mask)) of BMN as [B, C3, D, T] (see the module docstring): mid [B, C, T], the Conv3d's
+    weight viewed as [C3, C, N], its bias [C3], and the mask's lists (moved to mid's device once).  float32 on a
+    card; on the CPU the plain versions in any float type."""
+    if mid.dim() != 3 or weight.dim() != 3 or mid.shape[1] != weight.shape[1] or mid.shape[2] != lists.tscale or \
+            weight.shape[2] != lists.num_sample or bias.shape != (weight.shape[0],):
+        raise ValueError(f"boundary_matching needs mid [B, C, {lists.tscale}], weight [C3, C, {lists.num_sample}] and bias [C3], got "
+                         f"{tuple(mid.shape)}, {tuple(weight.shape)} and {tuple(bias.shape)}")
+    return _BoundaryMatching.apply(mid, weight, bias, lists.to(mid.device))

@@ -37,9 +37,12 @@ def deterministic_convolutions():
     convolution algorithms that give the same bits on every run.  Otherwise
     its heuristics may pick a backward that cuDNN marks nondeterministic, and
     then a train step does not repeat bit for bit (a fp32 MoSI step of 4
-    frames did not).  The train steps of the few-shot and the classification tasks run
-    under it: their forward and backward both happen inside the step call.
-    The flag is restored on exit."""
+    frames did not).  The train steps of the few-shot, the classification and
+    the localization tasks run under it: their forward and backward both
+    happen inside the step call.  BMN's step holds no 3-D convolution (its
+    boundary-matching layer is a gather, ops/boundary_matching.py), whose
+    deterministic algorithms cost its step 11 times over.  The flag is
+    restored on exit."""
     before = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:

@@ -21,7 +21,9 @@ Two deliberate divergences from the JAX package (ROADMAP): DATA.DURATION_SCALE
 loads the newest checkpoint where the JAX one writes the predictions of
 freshly initialized weights.  Everything runs in float32.  The runners run
 as one process: a process group of more than one rank raises before any
-work.
+work.  The train step runs under cuDNN's deterministic algorithms and BMN's
+boundary-matching layer has a gathered backward (ops/boundary_matching.py),
+so a training repeats bit for bit on a card.
 """
 
 from __future__ import annotations
@@ -105,8 +107,12 @@ def make_localization_train_step(model: BMNModel, cfg):
     """train_step(state, feats [b, T, C], maps {name: [b, ...]} on the device,
     lr, draws=None or generator) -> (loss, parts) as 0-dim device tensors,
     updating ``state`` in place.  ``draws`` (``Loss_PemReg``'s fields) are
-    drawn from ``generator`` when not given.  Reads nothing back."""
+    drawn from ``generator`` when not given.  Reads nothing back.  The step
+    runs under ``runtime.deterministic_convolutions()``, and the boundary-matching
+    layer's backward is a gather (``ops.boundary_matching``): two runs from one
+    start give the same bits on a card."""
 
+    @runtime.deterministic_convolutions()  # the backward runs inside: the same bits on every run
     def train_step(state: TrainState, feats: torch.Tensor, maps: Dict[str, torch.Tensor], lr: float,
                    generator: Optional[torch.Generator] = None, draws=None):
         preds = model(feats)

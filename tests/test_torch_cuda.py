@@ -1,5 +1,6 @@
 """The port's CUDA kernels (clip_mha K1/K2, flash_mha K3-K5, layer_norm K6/K7, the clip_mha
-stage-ablation kernels K8) against their plain-torch versions, on the card.
+stage-ablation kernels K8, the 3-D pools' backward, BMN's boundary-matching gathers) against their
+plain-torch versions, on the card, and the train steps that must repeat bit for bit.
 
 Skips without a CUDA device (the kernels have no CPU mode).  On the card:
 
@@ -9,6 +10,7 @@ Imports no JAX, so it also runs where only torch is installed.
 """
 
 import os
+from unittest import mock
 
 import pytest
 import torch
@@ -1036,3 +1038,151 @@ def test_tada2d_train_steps_past_the_first_update_are_the_same_bits_on_a_second_
     (a, first), (b, second) = run(), run()
     assert torch.isfinite(a).all() and torch.equal(a, b), (a.tolist(), b.tolist())
     assert sorted(k for k in first if not torch.equal(first[k], second[k])) == []
+
+
+# BMN's boundary-matching gathers: (T, D, N, per-bin, ratio) of the mask, windows B, output channels C3: the
+# localization tests' key; D < T with C3 = 13 (a ragged last block of 8 channels); T = 100 at N = 32; the EPIC preset's
+# mask (T = D = 200, N = 32: 25.6 KB of P a channel, 8 channels a block) at a few windows and channels
+BM_CASES = [((32, 32, 8, 3, 0.5), 3, 16), ((32, 12, 8, 3, 0.5), 2, 13), ((100, 100, 32, 3, 0.5), 2, 24), ((200, 200, 32, 3, 0.5), 2, 16)]
+BM_IDS = ["T32_D32_N8", "T32_D12_N8_C13", "T100_N32", "T200_N32"]
+
+
+def _bm_inputs(key, b, c3, dev, seed=0):
+    from clip_fsar_torch.ops import boundary_matching as bm_op
+
+    lists = bm_op.boundary_matching_lists(*key).to(dev)
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn(b, c3, key[2], key[0], generator=g).to(dev)
+    bias = (0.1 * torch.randn(c3, generator=g)).to(dev)
+    return lists, p, bias
+
+
+def _close_to_plain(got, want, what):
+    """fp32 against the plain version, which adds in the kernel's order: within 1e-5 of the largest value and by norm."""
+    scale = want.abs().max().item()
+    assert torch.isfinite(got).all(), what
+    assert (got - want).abs().max().item() <= 1e-5 * scale, what
+    assert ((got - want).norm() / want.norm().clamp_min(1e-30)).item() <= 1e-5, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key, b, c3", BM_CASES, ids=BM_IDS)
+def test_bm_gather_kernels_match_plain(cuda, key, b, c3):
+    """bm_gather_fwd and bm_gather_bwd against their plain versions on the card (fp32): within 1e-5 of the largest
+    value and by norm; one launch counted each; a second launch gives the same bits (no atomics)."""
+    from clip_fsar_torch.ops import boundary_matching as bm_op
+
+    lists, p, bias = _bm_inputs(key, b, c3, cuda)
+    before = dict(bm_op.LAUNCHES)
+    out = bm_op.bm_gather_fwd_cuda(p, bias, lists)
+    torch.cuda.synchronize()
+    assert bm_op.LAUNCHES == {**before, "bm_gather_fwd": before["bm_gather_fwd"] + 1}
+    assert out.shape == (b, c3, key[1] * key[0])
+    _close_to_plain(out, bm_op.gather_fwd_reference(p, bias, lists), "forward")
+    assert torch.equal(bm_op.bm_gather_fwd_cuda(p, bias, lists), out)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    dp = bm_op.bm_gather_bwd_cuda(out, dout, lists)
+    torch.cuda.synchronize()
+    assert bm_op.LAUNCHES["bm_gather_bwd"] == before["bm_gather_bwd"] + 1 and dp.shape == p.shape
+    _close_to_plain(dp, bm_op.gather_bwd_reference(out, dout, lists), "backward")
+    assert torch.equal(bm_op.bm_gather_bwd_cuda(out, dout, lists), dp)
+
+
+@pytest.mark.cuda
+def test_boundary_matching_autograd_on_the_card_matches_the_cpu(cuda):
+    """The op through autograd on the card (P and the weight and mid gradients by matrix products, the gathers by the
+    kernels: one launch each) against the same op on the CPU (its plain versions): the output at 1e-5, the gradients of
+    mid, weight and bias at 1e-4."""
+    from clip_fsar_torch.ops import boundary_matching as bm_op
+
+    key, b, c, c3, n = (32, 12, 8, 3, 0.5), 3, 16, 12, 8
+    g = torch.Generator().manual_seed(0)
+    mid, weight = torch.randn(b, c, 32, generator=g).relu(), torch.randn(c3, c, n, generator=g) / (c * n) ** 0.5
+    bias, dy = 0.1 * torch.randn(c3, generator=g), torch.randn(b, c3, 12, 32, generator=g)
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_(True) for t in (mid, weight, bias)]
+        before = dict(bm_op.LAUNCHES)
+        out = bm_op.boundary_matching(*leaves, bm_op.boundary_matching_lists(*key))
+        out.backward(dy.to(dev))
+        on_card = int(dev.type == "cuda")
+        assert bm_op.LAUNCHES == {"bm_gather_fwd": before["bm_gather_fwd"] + on_card, "bm_gather_bwd": before["bm_gather_bwd"] + on_card}
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    torch.testing.assert_close(results[0][0], results[1][0], atol=1e-5, rtol=1e-5)
+    for got, want, name in zip(results[0][1:], results[1][1:], ("mid", "weight", "bias")):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=lambda m, name=name: f"grad {name}: {m}")
+
+
+@pytest.mark.cuda
+def test_bm_gather_kernels_refuse_what_they_do_not_take(cuda):
+    from clip_fsar_torch.ops import boundary_matching as bm_op
+
+    lists, p, bias = _bm_inputs((32, 12, 8, 3, 0.5), 2, 4, cuda)
+    with pytest.raises(TypeError):
+        bm_op.bm_gather_fwd_cuda(p.double(), bias.double(), lists)
+    with pytest.raises(ValueError):
+        bm_op.bm_gather_fwd_cuda(p[:, :, :4], bias, lists)  # another N than the mask's
+    with pytest.raises(ValueError):
+        bm_op.bm_gather_fwd_cuda(p.transpose(2, 3).contiguous().transpose(2, 3), bias, lists)  # not contiguous
+    with pytest.raises(ValueError):
+        bm_op.bm_gather_fwd_cuda(p, bias, bm_op.boundary_matching_lists(32, 12, 8, 3, 0.5))  # lists on the host
+    out = bm_op.bm_gather_fwd_cuda(p, bias, lists)
+    with pytest.raises(ValueError):
+        bm_op.bm_gather_bwd_cuda(out, out[:1].contiguous(), lists)
+
+
+# a BMN where cuDNN has algorithms to choose among: 100 windows' positions, 512 feature channels, the preset's widths
+# (DIM1D 256, DIM3D 512) and N = 32, narrower 2-D maps, 4 windows a step
+BMN_WIDE = ["DATA.TEMPORAL_SCALE", "100", "DATA.NUM_INPUT_CHANNELS", "512", "DATA.DECODER", "synthetic", "VIDEO.DIM1D", "256",
+            "VIDEO.DIM2D", "128", "VIDEO.DIM3D", "512", "TRAIN.BATCH_SIZE", "4"]
+
+
+def _bmn_training(cfg, dev, steps):
+    from clip_fsar_torch.train.localization import build_bmn_model, make_localization_train_step, step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+
+    model = build_bmn_model(cfg, dev)
+    state = TrainState.create(cfg, model, Optimizer(cfg, model, name_prefix=""))
+    step, (x, y) = make_localization_train_step(model, cfg), _bmn_batch(cfg, dev)
+    losses = torch.stack([step(state, x, y, 1e-3, step_generator(cfg, 0, i, dev))[0] for i in range(steps)])
+    return losses.cpu(), {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.cuda
+def test_bmn_train_steps_are_the_same_bits_on_a_second_run(cuda):
+    """Three fp32 BMN train steps (the EPIC preset at 100 positions, its widths, 4 windows; Adam at 1e-3) run twice from
+    one seed: the same loss bits and parameters.  The step used to run cuDNN's own pick of convolution backwards, and
+    the boundary-matching layer's (32, 1, 1) Conv3d among them."""
+    from clip_fsar_torch.config.config import load_config
+
+    cfg = load_config(BMN_CONFIG, BMN_WIDE)
+    (a, first), (b, second) = _bmn_training(cfg, cuda, 3), _bmn_training(cfg, cuda, 3)
+    assert torch.isfinite(a).all() and torch.equal(a, b), (a.tolist(), b.tolist())
+    assert sorted(k for k in first if not torch.equal(first[k], second[k])) == []
+
+
+@pytest.mark.cuda
+def test_bmn_step_runs_the_gathers_and_no_3d_convolution(cuda):
+    """A BMN train step on the card launches bm_gather_fwd and bm_gather_bwd once each, reaches no 5-D convolution
+    (no [B, C, N, D, T] activation), and runs its convolutions under cuDNN's deterministic algorithms."""
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.ops import boundary_matching as bm_op
+
+    cfg = load_config(BMN_CONFIG, BMN_TINY)
+    seen = []
+    conv = torch.nn.functional.conv2d
+
+    def watched(*args, **kwargs):
+        seen.append(torch.backends.cudnn.deterministic)
+        return conv(*args, **kwargs)
+
+    before = dict(bm_op.LAUNCHES)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU], record_shapes=True) as prof:
+        with mock.patch.object(torch.nn.functional, "conv2d", watched):
+            _bmn_training(cfg, cuda, 1)
+    assert bm_op.LAUNCHES == {name: n + 1 for name, n in before.items()}
+    assert seen and all(seen)
+    five_d = [(e.key, e.input_shapes) for e in prof.key_averages(group_by_input_shape=True)
+              if "conv" in e.key and any(len(s) == 5 for s in (e.input_shapes or []))]
+    assert five_d == []

@@ -44,7 +44,8 @@ def test_the_import_scan_sees_the_whole_port():
     for must in ("chip_smoke.py", "clip_fsar_torch/config/config.py", "clip_fsar_torch/native/frameops.py",
                  "clip_fsar_torch/ops/fused_layernorm.py", "clip_fsar_torch/tools/fa_decomp.py", "clip_fsar_torch/runs/run.py",
                  "clip_fsar_torch/data/frame_bank.py", "clip_fsar_torch/models/convert_reference.py", "clip_fsar_torch/utils/misc.py",
-                 "clip_fsar_torch/parallel/mesh.py", "clip_fsar_torch/parallel/tensor.py", "clip_fsar_torch/ops/pool3d.py"):
+                 "clip_fsar_torch/parallel/mesh.py", "clip_fsar_torch/parallel/tensor.py", "clip_fsar_torch/ops/pool3d.py",
+                 "clip_fsar_torch/ops/boundary_matching.py", "clip_fsar_torch/tools/profile_bmn.py"):
         assert must in rel
     assert list(_imports(os.path.join(REPO, "tests", "torch_parity.py")))  # and the scan does find imports: this file has jax
 

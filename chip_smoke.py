@@ -226,9 +226,11 @@ and read just after.  Phases:
    average-pool backward as gathers, no atomics) at every shape phase 30's steps launched
    it at (MoSI's stem, S3D-G's, the SlowFast and R2D3D stems, TAdaConv's pooled
    branches), in the path's dtype and channels_last_3d, from the forward's argmax on
-   tied inputs, against its plain version (fp32 1e-6, bf16 1e-2 relative), finite, the
-   same bits on a second launch, timed beside its plain version, torch's own atomic
-   backward of the same pool (no path runs it) and its bound;
+   tied inputs, against its plain version (fp32 1e-6, bf16 1e-2 relative, and the same
+   bits), finite, the same bits on a second launch, timed beside its plain version,
+   torch's own atomic backward of the same pool (no path runs it), its bound and the
+   card's own time (calls queued behind a spin of the card, so the launch thread's gaps
+   do not count);
 32. the signatures, towers and heads no earlier phase runs, at full width with fresh
    weights: (a) the shipped CLIP-FSAR 5-shot (the test at SHOT_TEST 5, Q 1,
    MERGE_BEFORE), MoLo 5-shot (the test at SHOT_TEST 5), HyRSM++ 1-shot and 2-shot
@@ -251,9 +253,11 @@ and read just after.  Phases:
 34. BMN's boundary-matching gathers (``csrc/boundary_matching.cu``: the layer's forward
    and its input gradient's gather, no atomics) at the EPIC preset's full shape (8
    windows, DIM1D 256, DIM3D 512, N = 32, D = T = 200) against their plain versions
-   (fp32, 1e-5 of the largest value and by norm), finite, the same bits on a second
-   launch, each timed beside its plain version, torch's CSR sparse product of the same
-   gather and its bound; the op forward and forward + backward beside the dense path it
+   (fp32, 1e-5 of the largest value and by norm, and the same bits), finite, the same
+   bits on a second launch, each timed beside its plain version, torch's CSR sparse
+   product of the same gather and its bound (the backward also beside the card's own
+   time, as in phase 31); the op forward and forward +
+   backward beside the dense path it
    replaced (matmul by the 1.02 GB mask, Conv3d, ReLU), whose output and gradients it
    matches at 1e-4 of their largest values.
 
@@ -3171,11 +3175,13 @@ def _pool_bound(mode: str, x_numel: int, y_numel: int, esize: int) -> dict:
 def phase_pool3d(card_line: str) -> dict:
     """Phase 31: the pools' backward kernel at every shape the probed train steps launched it at (MoSI's stem pool,
     S3D-G's stem, branch and stage pools, TAdaConv's pooled branches), in the path's own dtype and memory format, from
-    the forward's own argmax on tied inputs (values from {0, 1, 2}), against its plain version; finite, the same bits on
-    a second launch; each shape timed beside its plain version, torch's own CUDA backward of the same pool (atomics: no
-    path of the port runs it) and the bound.  Returns the records of the max and the average backward, each at the
-    first shape of the path that launches it in the CLI runs (MoSI, TAda2D), the other shapes under ``at_shapes``."""
+    the forward's own argmax on tied inputs (values from {0, 1, 2}), against its plain version: the same bits, finite,
+    the same bits on a second launch; each shape timed beside its plain version, torch's own CUDA backward of the same
+    pool (atomics: no path of the port runs it), the bound and the card's own time (``tools.profile_pools.card_ms``).
+    Returns the records of the max and the average backward, each at the first shape of the path that launches it in
+    the CLI runs (MoSI, TAda2D), the other shapes under ``at_shapes``."""
     from clip_fsar_torch.ops import pool3d
+    from clip_fsar_torch.tools.profile_pools import card_ms
 
     cases = []
     for case in POOL_CASES:
@@ -3212,16 +3218,21 @@ def phase_pool3d(card_line: str) -> dict:
         if not torch.isfinite(dx.float()).all():
             raise AssertionError(f"{what}: dx is not finite")
         torch.testing.assert_close(dx.float(), ref.float(), rtol=tol, atol=tol)
+        if not torch.equal(dx, ref):
+            raise AssertionError(f"{what}: not the plain version's bits")
         if not torch.equal(run(), dx):
             raise AssertionError(f"{what}: a second launch gave other bits")
         ms, plain_ms, all_ms = _alternate(run, plain, iters=10)
         library_ms = _time_ms(library, iters=10)
+        device_ms = card_ms(run)
         bound = _pool_bound(mode, x.numel(), y.numel(), x.element_size())
-        print(f"{what} on {card_line}: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, torch's "
-              f"atomic backward {library_ms:.4f} ms (kernel / library = {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it reached)")
+        _, vec, tile = pool3d.launch_tile(mode, dtype, shape, kernel, stride, padding, channels_last)
+        print(f"{what} on {card_line}: kernel {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, on the card {device_ms:.4f} ms, plain {all_ms[2]:.4f} / {all_ms[3]:.4f} ms, torch's atomic "
+              f"backward {library_ms:.4f} ms (kernel / library = {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it reached); tile and box {tile} ({vec} elements a thread)")
         entry = {"path": path, "shape": list(shape), "kernel": list(kernel), "stride": list(stride), "padding": list(padding),
-                 "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound}
+                 "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                 **bound, "tile": list(tile)}
         name = f"{mode}_pool3d_bwd"
         if name not in records:
             records[name] = {**{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, "at_shapes": []}
@@ -3231,7 +3242,7 @@ def phase_pool3d(card_line: str) -> dict:
         torch.cuda.empty_cache()
     for name, path in (("max_pool3d_bwd", "mosi"), ("avg_pool3d_bwd", "tada2d")):  # the main record: the CLI path's first shape
         first = next(e for e in records[name]["at_shapes"] if e["path"] == path)
-        records[name].update({k: first[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        records[name].update({k: first[k] for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     return records
 
 
@@ -3553,26 +3564,30 @@ BM_DENSE_SHARE = 1e-4
 
 def _bm_bounds(lists, b: int, c3: int, out: torch.Tensor) -> tuple:
     """The gathers' bounds.  Forward: P read, the output written, the column lists and the cell order read once; a product
-    and a sum for each nonzero and (b, o), and the bias.  Backward: the output and its gradient read, dP written, the row
-    lists read once; a product and a sum for each nonzero and (b, o) whose output the ReLU passed in this run's data."""
+    and a sum for each nonzero and (b, o), and the bias.  Backward: the output and its gradient read, dP written, the tile
+    row lists (the function's own list of nonzeros: row_ptr, row_cell, row_w) read once; a product and a sum for each
+    nonzero and (b, o) whose output the ReLU passed in this run's data."""
     p_bytes, out_bytes = b * c3 * lists.num_sample * lists.tscale * 4, b * c3 * lists.cells * 4
     col_bytes = lists.col_t.numel() * 2 + lists.col_w.numel() * 4 + lists.col_n.numel() + lists.order.numel() * 4
     row_bytes = (lists.row_ptr.numel() + lists.row_cell.numel() + lists.row_w.numel()) * 4
     fwd = _bound(p_bytes + out_bytes + col_bytes + c3 * 4, 2 * lists.nnz * b * c3 + out.numel(), PEAK_FP32_FLOPS)
-    per_cell = torch.bincount(lists.row_cell.long(), minlength=lists.cells).double()  # nonzeros at each cell over every n
+    per_cell = torch.bincount(lists.row_cell.long(), minlength=lists.cells).double().to(out.device)  # nonzeros at each cell over every n
     live = float(((out > 0).reshape(b * c3, lists.cells).double().sum(0) * per_cell).sum())
     bwd = _bound(2 * out_bytes + p_bytes + row_bytes, 2 * live, PEAK_FP32_FLOPS)
     return fwd, bwd
 
 
 def _bm_check(what: str, got: torch.Tensor, want: torch.Tensor, again: torch.Tensor, tol: float = BM_TOLERANCE) -> float:
-    """``got`` finite, within ``tol`` of max|want| and by norm, and the same bits as ``again``; returns max|got - want|."""
+    """``got`` finite, within ``tol`` of max|want| and by norm, want's bits, and the same bits as ``again``; returns
+    max|got - want|."""
     err, scale = (got - want).abs().max().item(), want.abs().max().item()
     rel = ((got - want).norm() / want.norm()).item()
     print(f"{what}: max|got-ref| {err:.3e} ({err / scale:.3e} of the largest |ref| {scale:.4e}), by norm {rel:.3e} (tol {tol}); "
-          f"the same bits on a second launch: {torch.equal(again, got)}")
+          f"the plain version's bits: {torch.equal(got, want)}; the same bits on a second launch: {torch.equal(again, got)}")
     if not torch.isfinite(got).all() or not err <= tol * scale or not rel <= tol:
         raise AssertionError(f"{what}: {err:.3e} of {scale:.3e}, {rel:.3e} by norm (tol {tol})")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: not the plain version's bits")
     if not torch.equal(again, got):
         raise AssertionError(f"{what}: a second launch gave other bits")
     return err
@@ -3581,16 +3596,18 @@ def _bm_check(what: str, got: torch.Tensor, want: torch.Tensor, again: torch.Ten
 def phase_boundary_matching(card_line: str) -> dict:
     """Phase 34: BMN's boundary-matching gathers (``csrc/boundary_matching.cu``) at the EPIC preset's full shape (8 windows,
     DIM1D 256, DIM3D 512, N = 32, D = T = 200; random features, weights and output gradient from a seed) against their plain
-    versions, finite, the same bits on a second launch; each timed in turn with its plain version, beside its bound and
-    torch's CSR sparse product of the same gather (``torch.sparse.mm``, without the bias, ReLU or its mask: no path runs
-    it); then the op forward, and forward and backward through autograd (its matrix products included), in turn with the
-    dense path it replaced (``torch.matmul`` by the 1.02 GB mask, F.conv3d on cuDNN's own pick, ReLU), whose output and
-    gradients it must match."""
+    versions: the same bits, finite, the same bits on a second launch; each timed in turn with its plain version, beside
+    its bound, torch's CSR sparse product of the same gather (``torch.sparse.mm``, without the bias, ReLU or its mask: no
+    path runs it) and, for the backward, the card's own time in its masked transpose and its gather (``card_ms``); then
+    the op forward, and forward and backward through autograd (its matrix products included), in turn with the dense path
+    it replaced (``torch.matmul`` by the 1.02 GB mask, F.conv3d on cuDNN's own pick, ReLU), whose output and gradients it
+    must match."""
     from clip_fsar_torch import runtime
     from clip_fsar_torch.data.tal_features import duration_scale
     from clip_fsar_torch.models.heads.bmn import mask_matrix
     from clip_fsar_torch.ops import boundary_matching as bm
     from clip_fsar_torch.runs.run import load_config
+    from clip_fsar_torch.tools.profile_pools import card_ms
 
     cfg = load_config(os.path.join(REPO, BMN_CONFIG), BMN_OPTS)
     h = cfg.VIDEO.HEAD
@@ -3621,8 +3638,9 @@ def phase_boundary_matching(card_line: str) -> dict:
     bwd_plain = lambda: bm.gather_bwd_reference(out, dout, lists)  # noqa: E731
     fwd_ms = [_time_ms(fwd), _time_ms(fwd_plain, iters=2), _time_ms(fwd), _time_ms(fwd_plain, iters=2)]
     bwd_ms = [_time_ms(bwd), _time_ms(bwd_plain, iters=2), _time_ms(bwd), _time_ms(bwd_plain, iters=2)]
+    bwd_card_ms = card_ms(bwd, iters=5)  # the masked transpose and the gather
     # the mask as [N*T', D*T] and [D*T, N*T'] in CSR
-    rows = torch.sparse_csr_tensor(lists.row_ptr, lists.row_cell, lists.row_w, size=(n * t, lists.cells), check_invariants=False)
+    rows = torch.sparse_csr_tensor(*lists.rows(dev), size=(n * t, lists.cells), check_invariants=False)
     cols = rows.t().to_sparse_csr()
     p_t = p.reshape(b * c3, n * t).t().contiguous()
     dy_t = torch.where(out > 0, dout, 0.0).reshape(b * c3, lists.cells).t().contiguous()
@@ -3633,9 +3651,13 @@ def phase_boundary_matching(card_line: str) -> dict:
     records = {}
     for name, ms, bound, err, lib in (("bm_gather_fwd", fwd_ms, fwd_bound, fwd_err, lib_fwd_ms), ("bm_gather_bwd", bwd_ms, bwd_bound, bwd_err, lib_bwd_ms)):
         records[name] = {"max_abs_err": err, "ms": min(ms[0], ms[2]), "plain_ms": min(ms[1], ms[3]), "library_ms": lib, **bound}
-        print(f"{name} on {card_line} at the EPIC preset ({shape}): kernel {ms[0]:.4f} / {ms[2]:.4f} ms, plain {ms[1]:.2f} / {ms[3]:.2f} ms, "
-              f"torch.sparse.mm of the same gather (CSR) {lib:.4f} ms (kernel / library = {records[name]['ms'] / lib:.2f}), bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; {100 * bound['bound_ms'] / records[name]['ms']:.1f} % of it reached)")
+        if name == "bm_gather_bwd":
+            records[name]["device_ms"] = bwd_card_ms
+        print(f"{name} on {card_line} at the EPIC preset ({shape}): kernel {ms[0]:.4f} / {ms[2]:.4f} ms"
+              + (f" (on the card {bwd_card_ms:.4f} ms: the masked transpose and the gather)" if name == "bm_gather_bwd" else "")
+              + f", plain {ms[1]:.2f} / {ms[3]:.2f} ms, torch.sparse.mm of the same gather (CSR) {lib:.4f} ms (kernel / library = "
+              f"{records[name]['ms'] / lib:.2f}), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+              f"{100 * bound['bound_ms'] / records[name]['ms']:.1f} % of it reached)")
     del out, dout, dp
     torch.cuda.empty_cache()
 
@@ -3949,8 +3971,8 @@ def main() -> None:
                         "classification_launches": classification_launches[name], "localization_launches": bmn["launches"][name],
                         "pretrain_launches": mosi["launches"][name], "tp_launches": tp["launches"][name],
                         **({"at_tp_rank_heads": tp["kernels"][name]} if name in tp["kernels"] else {}),
-                        **{key: t[key] for key in ("library_covers", "at_480_frames", "at_shapes", "op_fwd_ms", "dense_fwd_ms", "op_fwd_bwd_ms",
-                                                   "dense_fwd_bwd_ms") if key in t},
+                        **{key: t[key] for key in ("device_ms", "library_covers", "at_480_frames", "at_shapes",
+                                                   "op_fwd_ms", "dense_fwd_ms", "op_fwd_bwd_ms", "dense_fwd_bwd_ms") if key in t},
                         **{key: {**tower_kernels[key][name], "launches": tower_launches[key].get(name, 0)} for key in tower_kernels
                            if name in tower_kernels[key]},
                         "new_paths_launches": {"signatures": sum(r["launches"][name] for r in signatures.values()),

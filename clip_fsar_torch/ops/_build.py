@@ -111,15 +111,16 @@ def library() -> ctypes.CDLL:
     # qkv, out, then (B, N, H, Dh, dtype, mode)
     lib.clip_mha_decomp.argtypes = [p, p, i, i, i, i, i, i, p]
     lib.clip_mha_decomp.restype = i
-    # dy, argmax, dx, then (mode, dtype), x's (N, C, D, H, W), the output's (D, H, W), kernel, stride and padding (d, h, w),
-    # the (n, c, d, h, w) strides of dy, argmax and dx, channels_last
-    lib.pool3d_bwd.argtypes = [p] * 3 + [i] * 2 + [l] * 5 + [i] * 12 + [l] * 15 + [i, p]
+    # dy, argmax, dx, then (mode, dtype, vec) and the plan (24 ints in host memory: the channels-last view, the output's
+    # extents, kernel, stride, padding, the tile and its box; ops/pool3d.py)
+    lib.pool3d_bwd.argtypes = [p] * 3 + [i] * 3 + [ctypes.POINTER(i), p]
     lib.pool3d_bwd.restype = i
     # BMN's boundary-matching gathers: P, order, col_t, col_w, col_n, bias, out, then (B, C3, N, T, cells, active, K)
     lib.bm_gather_fwd.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.bm_gather_fwd.restype = i
-    # out, dout, the [cells, B*C3] scratch, row_ptr, row_cell, row_w, dP, then (B, C3, N, T, cells)
-    lib.bm_gather_bwd.argtypes = [p] * 7 + [i] * 5 + [p]
+    # out, dout, the [cells, B*C3] scratch, tile_cells, tile_cell_ptr, tile_chunk_ptr, chunk_cut, ent, dP, then (B, C3, N, T,
+    # cells, the most entries of a chunk) and the tile the lists were built for (samples, positions, cells a chunk)
+    lib.bm_gather_bwd.argtypes = [p] * 9 + [i] * 9 + [p]
     lib.bm_gather_bwd.restype = i
     lib.attn_fwd_single_block_max.argtypes = []
     lib.attn_fwd_single_block_max.restype = i

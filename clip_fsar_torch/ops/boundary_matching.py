@@ -12,19 +12,22 @@ product of mid with the dense sample mask [T, N*D*T], viewed as [B, C, N, D, T],
 The second step is the gather ``bm_gather_fwd`` (``csrc/boundary_matching.cu``) on a CUDA tensor and
 ``gather_fwd_reference`` on a CPU tensor.  Its backward forms dP by walking each (n, t') row's entries in
 ascending order under the ReLU's mask (``bm_gather_bwd``, which first lays the masked gradient out as
-[D*T, B*C3]; ``gather_bwd_reference``) and takes dW and dmid from two matrix products and dbias from a sum:
+[D*T, B*C3], then walks tiles of rows over the union of their cells staged in shared memory;
+``gather_bwd_reference``) and takes dW and dmid from two matrix products and dbias from a sum:
 no atomics, so a train step through the layer repeats bit
 for bit, and no [B, C, N, D, T] activation (10.5 GB at the EPIC preset's 8 windows) is ever formed.
 The kernels and the plain versions add in the same order, rounding each product and each sum, so they
 give the same fp32 bits.  There is no fallback from the kernel to its plain version.
 
 The lists are built once per mask key on the host from ``models.heads.bmn.boundary_matching_mask`` itself
-(its float32 nonzeros: the JAX mask's bits) and moved once to each device that asks for them.  The JAX
+(its float32 nonzeros: the JAX mask's bits); the forms the kernels read are moved once to each device that asks
+for them, and the row form, which only the plain version reads, once to each device it runs on.  The JAX
 package's layer reaches no Pallas kernel: this op replaces no TPU kernel.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import time
 from typing import Dict, Optional
@@ -39,6 +42,9 @@ LAUNCHES = {"bm_gather_fwd": 0, "bm_gather_bwd": 0}
 # (T, D, N, per-bin, ratio) -> host seconds the mask and its lists took to build
 LISTS_BUILD_SECONDS: Dict[tuple, float] = {}
 SHARED_MAX = 232448  # a forward block's shared memory on sm_90: at least one channel's P [N, T] in float32
+# the backward's row tiles (csrc/boundary_matching.cu kTileN, kTileT, kChunk, which refuses lists built for others): TILE_N
+# samples n by TILE_T positions t' (TILE_T even: rows go in pairs), their union of cells streamed in chunks of TILE_CHUNK
+TILE_N, TILE_T, TILE_CHUNK = 4, 16, 32
 
 
 class BMLists:
@@ -49,22 +55,37 @@ class BMLists:
     float32, the entries (t', w) of column (n, order[i]) in ascending t', padded with (0, 0.0) to K, the largest
     count of any column (read from the mask); ``col_n`` [N, A] uint8, the counts.  Row form (CSR over the N*T
     rows n * T + t'): ``row_ptr`` [N*T + 1] int32, ``row_cell`` and ``row_w`` [nnz], each row's entries in
-    ascending cell."""
+    ascending cell.  Tile form, for the backward kernel (``tile_lists``): ``tile_cell_ptr`` [tiles + 1] and
+    ``tile_cells``, each tile's union of cells ascending; ``tile_chunk_ptr`` [tiles + 1], each tile's first chunk of
+    TILE_CHUNK union cells among all tiles' chunks; ``ent`` [merged, 4] int32, for each chunk, row pair (the tile's rows
+    t' and t' + 1 of one n, t' even) and cell of the chunk that either row holds, ascending: (the cell's index in the
+    chunk | 256 if row t' holds it | 512 if row t' + 1 does, the two weights' float32 bits (0 where absent), 0);
+    ``chunk_cut`` [chunks * PAIRS + 1], the first merged entry of (chunk, pair): pair p's entries in chunk c are
+    ``ent[chunk_cut[c * PAIRS + p]:chunk_cut[c * PAIRS + p + 1]]``, PAIRS = TILE_N * TILE_T / 2.
+    ``max_chunk_entries``: the most merged entries of any chunk; ``tile``: the (TILE_N, TILE_T, TILE_CHUNK) the tile form
+    was built for, which the kernel holds against its own.
 
-    TENSORS = ("order", "col_t", "col_w", "col_n", "row_ptr", "row_cell", "row_w")
+    ``device`` is where the column and tile forms, the ones the kernels read (KERNEL_TENSORS), lie.  The row form
+    stays on the host whatever ``device`` is; ``rows(device)`` gives it on a device."""
 
-    def __init__(self, shape: tuple, active: int, max_per_row: int, tensors: Dict[str, torch.Tensor]):
+    KERNEL_TENSORS = ("order", "col_t", "col_w", "col_n", "tile_cell_ptr", "tile_cells", "tile_chunk_ptr", "chunk_cut", "ent")
+    ROW_TENSORS = ("row_ptr", "row_cell", "row_w")
+
+    def __init__(self, shape: tuple, active: int, max_per_row: int, tensors: Dict[str, torch.Tensor], tile: tuple):
         self.tscale, self.num_sample, self.dscale = shape  # T, N, D
-        self.active, self.max_per_row = active, max_per_row
-        for name in self.TENSORS:
+        self.active, self.max_per_row, self.tile = active, max_per_row, tuple(tile)
+        for name in self.KERNEL_TENSORS + self.ROW_TENSORS:
             setattr(self, name, tensors[name])
         self.max_per_column = int(self.col_t.shape[1])
         self.nnz = int(self.row_w.numel())
+        pairs = self.tile[0] * self.tile[1] // 2
+        self.max_chunk_entries = int((self.chunk_cut[pairs::pairs] - self.chunk_cut[:-1:pairs]).max()) if self.chunk_cut.numel() > 1 else 0
         self._on: Dict[torch.device, "BMLists"] = {}
+        self._rows_on: Dict[torch.device, tuple] = {}  # the row form on each device that asked for it
 
     @property
     def device(self) -> torch.device:
-        return self.row_w.device
+        return self.ent.device
 
     @property
     def cells(self) -> int:
@@ -78,10 +99,52 @@ class BMLists:
         if device == self.device:
             return self
         if device not in self._on:
-            moved = BMLists((self.tscale, self.num_sample, self.dscale), self.active, self.max_per_row,
-                            {name: getattr(self, name).to(device) for name in self.TENSORS})
+            moved = copy.copy(self)  # the counts, the row form and its copies on other devices shared
+            for name in self.KERNEL_TENSORS:
+                setattr(moved, name, getattr(self, name).to(device))
+            moved._on = {}
             self._on[device] = moved
         return self._on[device]
+
+    def rows(self, device) -> tuple:
+        """The row form (row_ptr, row_cell, row_w) on ``device``, copied there once and kept."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.row_w.device:
+            return self.row_ptr, self.row_cell, self.row_w
+        if device not in self._rows_on:
+            self._rows_on[device] = tuple(getattr(self, name).to(device) for name in self.ROW_TENSORS)
+        return self._rows_on[device]
+
+
+def tile_lists(n: np.ndarray, tp: np.ndarray, cell: np.ndarray, w: np.ndarray, n_n: int, t_n: int, cells: int) -> Dict[str, np.ndarray]:
+    """The tile form of the nonzeros (n, t', cell, w) of a mask with N = n_n samples, T = t_n positions and ``cells``
+    cells (see ``BMLists``): tile (n // TILE_N) * ceil(T / TILE_T) + t' // TILE_T; its row pair (n % TILE_N) * TILE_T / 2 +
+    (t' % TILE_T) // 2, whose rows a and b are the even and the odd t'; chunk k of the tile its union cells
+    [k * TILE_CHUNK, (k + 1) * TILE_CHUNK)."""
+    pairs = TILE_N * TILE_T // 2
+    tiles_t = -(-t_n // TILE_T)
+    tiles = -(-n_n // TILE_N) * tiles_t
+    tile = ((n // TILE_N) * tiles_t + tp // TILE_T).astype(np.int64)
+    pair = ((n % TILE_N) * TILE_T + tp % TILE_T).astype(np.int64) // 2
+    odd = (tp % 2).astype(np.int64)
+    union, u = np.unique(tile * cells + cell, return_inverse=True)  # every tile's cells, ascending within the tile
+    cell_ptr = np.searchsorted(union // cells, np.arange(tiles + 1))
+    u = u.reshape(-1) - cell_ptr[tile]
+    chunk_ptr = np.concatenate([[0], np.cumsum(-(-np.diff(cell_ptr) // TILE_CHUNK))])
+    chunk = chunk_ptr[tile] + u // TILE_CHUNK  # the chunk's index over all tiles
+    # one merged entry for each (chunk, pair, cell): which of the pair's rows hold the cell, and their weights
+    key = (chunk * pairs + pair) * TILE_CHUNK + u % TILE_CHUNK
+    merged, at = np.unique(key, return_inverse=True)
+    at = at.reshape(-1)
+    ent = np.zeros((len(merged), 4), np.int32)
+    ent[:, 0] = merged % TILE_CHUNK
+    np.bitwise_or.at(ent[:, 0], at, (1 << (8 + odd)).astype(np.int32))
+    ent[at, 1 + odd] = w.astype(np.float32).view(np.int32)
+    chunk_cut = np.searchsorted(merged // TILE_CHUNK, np.arange(chunk_ptr[-1] * pairs + 1))
+    return {"tile_cell_ptr": cell_ptr.astype(np.int32), "tile_cells": (union % cells).astype(np.int32), "tile_chunk_ptr": chunk_ptr.astype(np.int32),
+            "chunk_cut": chunk_cut.astype(np.int32), "ent": ent}
 
 
 def lists_from_mask(mask: np.ndarray) -> BMLists:
@@ -120,9 +183,10 @@ def lists_from_mask(mask: np.ndarray) -> BMLists:
     row_key = n[by_row] * tp_n + tp[by_row]
     row_ptr = np.concatenate([[0], np.cumsum(np.bincount(row_key, minlength=n_n * tp_n))]).astype(np.int32)
     tensors = {"order": order, "col_t": col_t, "col_w": col_w, "col_n": col_n, "row_ptr": row_ptr,
-               "row_cell": cell[by_row].astype(np.int32), "row_w": w[by_row]}
+               "row_cell": cell[by_row].astype(np.int32), "row_w": w[by_row], **tile_lists(n, tp, cell, w, n_n, t_n, cells)}
     max_per_row = int(np.diff(row_ptr).max()) if len(row_ptr) > 1 else 0
-    return BMLists((t_n, n_n, d_n), a, max_per_row, {name: torch.from_numpy(np.ascontiguousarray(v)) for name, v in tensors.items()})
+    return BMLists((t_n, n_n, d_n), a, max_per_row, {name: torch.from_numpy(np.ascontiguousarray(v)) for name, v in tensors.items()},
+                   (TILE_N, TILE_T, TILE_CHUNK))
 
 
 @functools.lru_cache(maxsize=4)
@@ -164,14 +228,15 @@ def gather_bwd_reference(out: torch.Tensor, dout: torch.Tensor, lists: BMLists) 
     cells ascending."""
     b, c3 = out.shape[:2]
     dy = torch.where(out > 0, dout, torch.zeros((), dtype=dout.dtype, device=dout.device)).reshape(b, c3, -1)
-    first, last = lists.row_ptr[:-1].long(), lists.row_ptr[1:].long()
+    row_ptr, row_cell, row_w = lists.rows(out.device)
+    first, last = row_ptr[:-1].long(), row_ptr[1:].long()
     acc = torch.zeros(b, c3, first.numel(), dtype=out.dtype, device=out.device)
     for k in range(lists.max_per_row):
         e = first + k
         live = e < last
         e = torch.where(live, e, torch.zeros_like(e))
-        w = torch.where(live, lists.row_w[e], torch.zeros((), dtype=lists.row_w.dtype, device=out.device))
-        acc = acc + w * dy[:, :, lists.row_cell[e].long()]
+        w = torch.where(live, row_w[e], torch.zeros((), dtype=row_w.dtype, device=out.device))
+        acc = acc + w * dy[:, :, row_cell[e].long()]
     return acc.view(b, c3, lists.num_sample, lists.tscale)
 
 
@@ -231,8 +296,9 @@ def bm_gather_bwd_cuda(out: torch.Tensor, dout: torch.Tensor, lists: BMLists, sc
         return dp
     lib = _build.library()
     with torch.cuda.device(out.device):
-        code = lib.bm_gather_bwd(out.data_ptr(), dout.data_ptr(), scratch.data_ptr(), lists.row_ptr.data_ptr(), lists.row_cell.data_ptr(),
-                                 lists.row_w.data_ptr(), dp.data_ptr(), b, c3, lists.num_sample, lists.tscale, lists.cells,
+        code = lib.bm_gather_bwd(out.data_ptr(), dout.data_ptr(), scratch.data_ptr(), lists.tile_cells.data_ptr(), lists.tile_cell_ptr.data_ptr(),
+                                 lists.tile_chunk_ptr.data_ptr(), lists.chunk_cut.data_ptr(), lists.ent.data_ptr(), dp.data_ptr(), b, c3,
+                                 lists.num_sample, lists.tscale, lists.cells, lists.max_chunk_entries, *lists.tile,
                                  torch.cuda.current_stream().cuda_stream)
     _build.check(code, "bm_gather_bwd launch")
     LAUNCHES["bm_gather_bwd"] += 1

@@ -9,7 +9,9 @@ maximum of each window, as XLA's select does).  Each is a
 kernel ``pool3d_bwd`` (``csrc/pool3d.cu``), on a CPU tensor
 ``max_pool3d_bwd_reference`` / ``avg_pool3d_bwd_reference``, a sum over the
 window's offsets in a fixed order of strided slices.  There is no fallback from
-the kernel to its plain version.
+the kernel to its plain version.  The kernel takes a tile of the input gradient
+a block, whose covering windows of dy and argmax it stages in shared memory;
+``tile_plan`` picks the tile on the host.
 
 Why: PyTorch's CUDA backwards of both pools add into the input gradient with
 atomics, in an order that changes between runs wherever windows overlap, so a
@@ -23,6 +25,9 @@ The max-pool saves only the argmax (int64, the forward's flat index within the
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
 from typing import Sequence, Tuple
 
 import torch
@@ -32,6 +37,9 @@ from clip_fsar_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"max": 0, "avg": 1}
+SMEM_BUDGET = 64 * 1024  # a block's staged box and tables: four blocks share an SM's 227 KB
+MIN_BLOCKS = 4 * 132  # enough tiles to give each of the card's 132 SMs four blocks
+THREADS = 256  # a block's threads (csrc/pool3d.cu kThreads)
 
 # kernel launches since the last reset (a run shows it went through the kernel)
 LAUNCHES = {"max_pool3d_bwd": 0, "avg_pool3d_bwd": 0}
@@ -93,11 +101,81 @@ def max_pool3d_bwd_reference(dy: torch.Tensor, argmax: torch.Tensor, in_shape, k
 
 def avg_pool3d_bwd_reference(dy: torch.Tensor, in_shape, kernel, stride, padding) -> torch.Tensor:
     """Plain-torch ``pool3d_bwd`` (average, count_include_pad): dx [N, C, D, H, W] contiguous in dy's dtype,
-    the sum in fp32 over the window offsets in ascending order of dy / (kd * kh * kw)."""
+    the sum in fp32 over the window offsets in ascending order of dy / (kd * kh * kw).  The divisor is a tensor on
+    dy's device: a CUDA tensor divided by a Python number is multiplied by its reciprocal instead, which is not the
+    same bits as the division on the CPU or in the kernel."""
     kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
-    g = dy.float() / float(kernel[0] * kernel[1] * kernel[2])
+    g = dy.float() / torch.tensor(float(kernel[0] * kernel[1] * kernel[2]), device=dy.device)
     return _scatter_offsets(dy, in_shape, kernel, stride, padding,
                             lambda out_slices, first, counts: g[(slice(None), slice(None)) + out_slices]).to(dy.dtype)
+
+
+def box_extent(t: int, k: int, s: int, out: int) -> int:
+    """The most windows along one axis that cover t consecutive input positions, at kernel k and stride s."""
+    return min(out, (t + k - 2) // s + 1)
+
+
+def _smem_bytes(box: int, esize: int, with_argmax: bool, tables: int) -> int:
+    """A block's shared memory (csrc/pool3d.cu): the int64 argmax box, the dy box (to 16 bytes), the tables."""
+    return (8 * box if with_argmax else 0) + (box * esize + 15) // 16 * 16 + 8 * tables
+
+
+def _candidates(extent: int) -> list:
+    return sorted({min(extent, 1 << i) for i in range(max(1, extent).bit_length() + 1)})
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(view: tuple, out: Triple, kernel: Triple, stride: Triple, esize: int, with_argmax: bool, vec: int,
+              budget: int = SMEM_BUDGET, min_blocks: int = MIN_BLOCKS) -> tuple:
+    """The tile of ``pool3d_bwd``'s blocks over the channels-last view ``view`` = (N', C', D, H, W) of dx (NCDHW is N*C
+    planes of one channel): (TD, TH, TW, CB) positions and channels a block, and its box (BD, BH, BW), the most
+    covering windows along each axis, which the block stages in shared memory.  CB is 128, 64 or 32 bytes of channels
+    (a multiple of ``vec``; at most 64 channels where ``vec`` is 1).  Among the tiles whose box fits ``budget`` bytes:
+    the most blocks up to ``min_blocks`` first, then at least THREADS elements a block, then the fewest staged windows
+    per position owned, then the widest CB, then up to eight elements a thread, then the least shared memory.  Raises
+    if no tile fits."""
+    _, c, d, h, w = view
+    widest = min(c, 128 // esize) if vec > 1 else min(c, 64)
+    best = None
+    for cb in sorted({widest} | {x for x in (64 // esize, 32 // esize) if vec > 1 and vec <= x < widest}):
+        for tw, td, th in itertools.product(sorted({-(-w // (1 << i)) for i in range(w.bit_length() + 1)}), _candidates(d), _candidates(h)):
+            boxes = tuple(box_extent(t, k, s, o) for t, k, s, o in zip((td, th, tw), kernel, stride, out))
+            smem = _smem_bytes(boxes[0] * boxes[1] * boxes[2] * cb, esize, with_argmax, td + th + tw)
+            if smem > budget:
+                continue
+            blocks = view[0] * -(-c // cb) * -(-d // td) * -(-h // th) * -(-w // tw)
+            staged = boxes[0] * boxes[1] * boxes[2] / (td * th * tw)
+            elems = td * th * tw * (cb // vec)
+            key = (max(0, min_blocks - blocks), elems < THREADS, staged, -cb, -min(elems, 8 * THREADS), smem)
+            if best is None or key < best[0]:
+                best = (key, (td, th, tw, cb) + boxes)
+    if best is None:
+        raise ValueError(f"pool3d_bwd: no tile's covering windows fit {budget} bytes of shared memory at kernel {kernel}, "
+                         f"stride {stride}, x {view}")
+    return best[1]
+
+
+def launch_tile(mode: str, dtype: torch.dtype, in_shape, kernel, stride, padding, channels_last: bool, aligned: bool = True) -> tuple:
+    """What ``pool3d_bwd_cuda`` launches for these arguments: the channels-last view (N', C', D, H, W), the elements a
+    thread owns (16 bytes' worth, or 1 where C' is not a multiple of that or a pointer is not ``aligned`` to 16 bytes),
+    and ``tile_plan``'s tile and box."""
+    kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
+    n, c, d, h, w = in_shape
+    view = (n, c, d, h, w) if channels_last else (n * c, 1, d, h, w)
+    out = tuple(_out_extent(*a) for a in zip(in_shape[2:], kernel, stride, padding))
+    vec = 16 // dtype.itemsize if aligned and view[1] % (16 // dtype.itemsize) == 0 else 1
+    return view, vec, tile_plan(view, out, kernel, stride, dtype.itemsize, mode == "max", vec)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(mode: str, dtype: torch.dtype, in_shape: tuple, kernel: Triple, stride: Triple, padding: Triple, channels_last: bool,
+                 aligned: bool) -> tuple:
+    """``launch_tile``'s thread width and the kernel's plan as the C array it takes, once per geometry (the launch's
+    host time counts where a step waits on its launch thread)."""
+    view, vec, tile = launch_tile(mode, dtype, in_shape, kernel, stride, padding, channels_last, aligned)
+    out = tuple(_out_extent(*a) for a in zip(in_shape[2:], kernel, stride, padding))
+    plan = view + out + kernel + stride + padding + tile
+    return vec, (ctypes.c_int * len(plan))(*plan)
 
 
 def _channels_last(t: torch.Tensor) -> bool:
@@ -123,18 +201,24 @@ def pool3d_bwd_cuda(mode: str, dy: torch.Tensor, argmax, in_shape, kernel, strid
                          f"{padding} (outputs {want}; padding at most half the window)")
     if mode == "max" and (argmax is None or argmax.dtype != torch.int64 or argmax.shape != dy.shape or argmax.device != dy.device):
         raise ValueError("the max-pool backward needs the forward's int64 argmax, shaped like dy, on dy's device")
-    if max(in_shape[2] * in_shape[3] * in_shape[4], *in_shape[1:]) >= 2**31 or max(want) >= 2**31:
-        raise ValueError(f"pool3d_bwd takes planes and extents below 2^31 elements, got x {tuple(in_shape)}")
+    n, c, d, h, w = in_shape
+    if max(d * h * w, n * c) >= 2**31:
+        raise ValueError(f"pool3d_bwd takes planes and N*C below 2^31 elements, got x {tuple(in_shape)}")
     fmt = torch.channels_last_3d if channels_last else torch.contiguous_format
     dx = torch.empty(tuple(in_shape), dtype=dy.dtype, device=dy.device, memory_format=fmt)
     if dx.numel() == 0:
         return dx
+    # the kernel reads dy and argmax in dx's layout: a copy only where the caller's differs
+    if not dy.is_contiguous(memory_format=fmt):
+        dy = dy.contiguous(memory_format=fmt)
+    if mode == "max" and not argmax.is_contiguous(memory_format=fmt):
+        argmax = argmax.contiguous(memory_format=fmt)
+    aligned = not any(t.data_ptr() % 16 for t in (dy, dx) + ((argmax,) if mode == "max" else ()))
+    vec, plan = _launch_args(mode, dy.dtype, tuple(in_shape), kernel, stride, padding, bool(channels_last), aligned)
     lib = _build.library()
-    strides = list(dy.stride()) + (list(argmax.stride()) if mode == "max" else [0] * 5) + list(dx.stride())
     with torch.cuda.device(dy.device):
         code = lib.pool3d_bwd(dy.data_ptr(), argmax.data_ptr() if mode == "max" else None, dx.data_ptr(), _MODES[mode], _DTYPE_CODES[dy.dtype],
-                              *in_shape, *want, *kernel, *stride, *padding, *strides, int(channels_last),
-                              torch.cuda.current_stream().cuda_stream)
+                              vec, plan, torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pool3d_bwd launch")
     LAUNCHES[f"{mode}_pool3d_bwd"] += 1
     return dx

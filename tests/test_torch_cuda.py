@@ -891,17 +891,23 @@ def test_bmn_and_mosi_steps_never_wait_for_the_card(cuda, tmp_path, task):
     assert all(torch.isfinite(v).item() for v in losses)
 
 
-# the pools' backward kernel at the shapes of the paths that run it: MoSI's R-2D3D stem pool (10 of a step's 90 clips),
-# S3D-G's stem, branch and stage pools at 16 frames of 224 px (batch 2), TAdaConv's pooled branch on TAda2D-R50's first
-# stage (fp32, as the branch pools); (x shape [N, C, D, H, W], kernel, stride, padding, mode)
+# the pools' backward kernel at the shapes of the paths that run it: MoSI's R-2D3D stem pool (10 of a step's 90 clips,
+# and the whole step's 90), S3D-G's stem, branch and stage pools at 16 frames of 224 px (batch 2), TAdaConv's pooled
+# branch on TAda2D-R50's first stage (fp32, as the branch pools); then extents whose tiles end in a partial tile on every
+# axis, with channel counts that are not a multiple of the 16-byte vector in bf16 (20, 44) or of the channel block
+# in fp32; (x shape [N, C, D, H, W], kernel, stride, padding, mode)
 POOL_CASES = [((10, 64, 16, 56, 56), (1, 3, 3), (1, 2, 2), (0, 1, 1), "max"),
+              ((90, 64, 16, 56, 56), (1, 3, 3), (1, 2, 2), (0, 1, 1), "max"),
               ((2, 64, 8, 112, 112), (1, 3, 3), (1, 2, 2), (0, 1, 1), "max"),
               ((2, 192, 8, 28, 28), (3, 3, 3), (1, 1, 1), (1, 1, 1), "max"),
               ((2, 480, 8, 28, 28), (3, 3, 3), (2, 2, 2), (1, 1, 1), "max"),
               ((2, 832, 4, 14, 14), (2, 2, 2), (2, 2, 2), (0, 0, 0), "max"),
-              ((2, 64, 16, 56, 56), (3, 1, 1), (1, 1, 1), (1, 0, 0), "avg")]
+              ((2, 64, 16, 56, 56), (3, 1, 1), (1, 1, 1), (1, 0, 0), "avg"),
+              ((4, 20, 13, 29, 31), (3, 3, 3), (2, 2, 2), (1, 1, 1), "max"),
+              ((3, 44, 9, 33, 37), (3, 1, 1), (1, 1, 1), (1, 0, 0), "avg")]
 # fp32: the plain version adds in the kernel's order, so 1e-6 relative leaves room only for the last bit; bf16: one
-# rounding of the fp32 sum in each (the plain version's sum is the same, its rounding too)
+# rounding of the fp32 sum in each (the plain version's sum is the same, its rounding too); and beyond the tolerance,
+# the same bits
 POOL_TOLERANCE = [(torch.float32, 1e-6), (torch.bfloat16, 1e-2)]
 
 
@@ -911,7 +917,8 @@ POOL_TOLERANCE = [(torch.float32, 1e-6), (torch.bfloat16, 1e-2)]
 @pytest.mark.parametrize("shape, kernel, stride, padding, mode", POOL_CASES)
 def test_pool3d_bwd_kernel_matches_plain(cuda, shape, kernel, stride, padding, mode, channels_last, dtype, tol):
     """The pools' backward kernel against its plain version on the card, from the forward's own argmax, with
-    ties (values from {0, 1, 2}); dx in x's memory format; one launch counted; a second launch the same bits."""
+    ties (values from {0, 1, 2}): the same bits; dx in x's memory format; one launch counted; a second launch the
+    same bits."""
     from clip_fsar_torch.ops import pool3d
 
     g = torch.Generator().manual_seed(sum(shape))
@@ -934,6 +941,7 @@ def test_pool3d_bwd_kernel_matches_plain(cuda, shape, kernel, stride, padding, m
         ref = pool3d.avg_pool3d_bwd_reference(dy, shape, kernel, stride, padding)
     assert torch.isfinite(dx.float()).all()
     torch.testing.assert_close(dx.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(dx, ref)
     assert torch.equal(pool3d.pool3d_bwd_cuda(mode, dy, argmax, shape, kernel, stride, padding, channels_last), dx)
 
 
@@ -1043,8 +1051,9 @@ def test_tada2d_train_steps_past_the_first_update_are_the_same_bits_on_a_second_
 # BMN's boundary-matching gathers: (T, D, N, per-bin, ratio) of the mask, windows B, output channels C3: the
 # localization tests' key; D < T with C3 = 13 (a ragged last block of 8 channels); T = 100 at N = 32; the EPIC preset's
 # mask (T = D = 200, N = 32: 25.6 KB of P a channel, 8 channels a block) at a few windows and channels
-BM_CASES = [((32, 32, 8, 3, 0.5), 3, 16), ((32, 12, 8, 3, 0.5), 2, 13), ((100, 100, 32, 3, 0.5), 2, 24), ((200, 200, 32, 3, 0.5), 2, 16)]
-BM_IDS = ["T32_D32_N8", "T32_D12_N8_C13", "T100_N32", "T200_N32"]
+BM_CASES = [((32, 32, 8, 3, 0.5), 3, 16), ((32, 12, 8, 3, 0.5), 2, 13), ((100, 100, 32, 3, 0.5), 2, 24), ((200, 200, 32, 3, 0.5), 2, 16),
+            ((200, 200, 32, 3, 0.5), 8, 512)]
+BM_IDS = ["T32_D32_N8", "T32_D12_N8_C13", "T100_N32", "T200_N32", "epic_preset"]
 
 
 def _bm_inputs(key, b, c3, dev, seed=0):
@@ -1069,7 +1078,8 @@ def _close_to_plain(got, want, what):
 @pytest.mark.parametrize("key, b, c3", BM_CASES, ids=BM_IDS)
 def test_bm_gather_kernels_match_plain(cuda, key, b, c3):
     """bm_gather_fwd and bm_gather_bwd against their plain versions on the card (fp32): within 1e-5 of the largest
-    value and by norm; one launch counted each; a second launch gives the same bits (no atomics)."""
+    value and by norm, and the same bits (both add in the plain versions' order), up to the EPIC preset's full shape
+    (8 windows, DIM3D 512); one launch counted each; a second launch gives the same bits (no atomics)."""
     from clip_fsar_torch.ops import boundary_matching as bm_op
 
     lists, p, bias = _bm_inputs(key, b, c3, cuda)
@@ -1078,14 +1088,40 @@ def test_bm_gather_kernels_match_plain(cuda, key, b, c3):
     torch.cuda.synchronize()
     assert bm_op.LAUNCHES == {**before, "bm_gather_fwd": before["bm_gather_fwd"] + 1}
     assert out.shape == (b, c3, key[1] * key[0])
-    _close_to_plain(out, bm_op.gather_fwd_reference(p, bias, lists), "forward")
+    want = bm_op.gather_fwd_reference(p, bias, lists)
+    _close_to_plain(out, want, "forward")
+    assert torch.equal(out, want)
+    del want
     assert torch.equal(bm_op.bm_gather_fwd_cuda(p, bias, lists), out)
     dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
     dp = bm_op.bm_gather_bwd_cuda(out, dout, lists)
     torch.cuda.synchronize()
     assert bm_op.LAUNCHES["bm_gather_bwd"] == before["bm_gather_bwd"] + 1 and dp.shape == p.shape
-    _close_to_plain(dp, bm_op.gather_bwd_reference(out, dout, lists), "backward")
+    want = bm_op.gather_bwd_reference(out, dout, lists)
+    _close_to_plain(dp, want, "backward")
+    assert torch.equal(dp, want)
+    del want
     assert torch.equal(bm_op.bm_gather_bwd_cuda(out, dout, lists), dp)
+
+
+@pytest.mark.cuda
+def test_bm_gather_bwd_refuses_lists_of_another_tile(cuda):
+    """Lists whose tile form was built for another tile than the kernel's are refused, not read with the wrong layout."""
+    import copy
+
+    from clip_fsar_torch.ops import boundary_matching as bm_op
+
+    lists, p, bias = _bm_inputs((32, 12, 8, 3, 0.5), 2, 3, cuda)
+    out = bm_op.bm_gather_fwd_cuda(p, bias, lists)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = bm_op.LAUNCHES["bm_gather_bwd"]
+    for tile in ((bm_op.TILE_N * 2, bm_op.TILE_T, bm_op.TILE_CHUNK), (bm_op.TILE_N, bm_op.TILE_T // 2, bm_op.TILE_CHUNK),
+                 (bm_op.TILE_N, bm_op.TILE_T, bm_op.TILE_CHUNK * 2)):
+        other = copy.copy(lists)
+        other.tile = tile
+        with pytest.raises(RuntimeError, match="bm_gather_bwd launch"):
+            bm_op.bm_gather_bwd_cuda(out, dout, other)
+    assert bm_op.LAUNCHES["bm_gather_bwd"] == before
 
 
 @pytest.mark.cuda

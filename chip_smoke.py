@@ -152,8 +152,9 @@ and read just after.  Phases:
    off the same bank (the same split and transform) the same way;
 20. the train bank: the ViT-B/16 train slice of phase 8 through the CLI off a
    train bank of the HMDB51 train split (4280 videos x 8 grid frames at 256
-   px, 6.73 GB), validating and testing off eval banks; losses, updates, train
-   episodes/s against phase 8's fused reading, the peak beside both banks;
+   px, 6.73 GB), validating and testing off eval banks of 8 grid frames (1.56
+   GB: phase 19 shows the full-size one); losses, updates, train episodes/s
+   against phase 8's fused reading, the peak beside the banks;
 21. a reference-framework ``.pyth`` (``model_state``, ``module.head.`` keys)
    written from the fresh ViT-B/16 CLIP-FSAR head and tested through
    TEST.CHECKPOINT_FILE_PATH: the same logits, bit for bit, as that head;
@@ -190,9 +191,9 @@ and read just after.  Phases:
    N = 32 samples a proposal, the regression and the 97 verb / 300 noun maps; fresh
    weights, synthetic features), one epoch at 8 windows a step, the sliding-window
    test of its checkpoint (mAP of the action, verb and noun streams) and the EPIC
-   submission JSON; the mask's and its lists' build time on the host, finite losses,
-   moved parameters, BMN's boundary-matching gathers launched once a forward and once
-   a backward and no other kernel; the training again from the same start: the same
+   submission JSON, both on 3 synthetic val videos; the mask's and its lists'
+   build time on the host, finite losses, moved parameters, BMN's boundary-matching
+   gathers launched once a forward and once a backward and no other kernel; the training again from the same start: the same
    loss bits and checkpoint; the card's fp32 forward and loss against the CPU's (the
    layer's plain versions) on 2 windows; the train step with its batch resident under
    cuDNN's deterministic algorithms (CUDA-event ms, the host's ms, the card's busy ms,
@@ -255,8 +256,8 @@ and read just after.  Phases:
    windows, DIM1D 256, DIM3D 512, N = 32, D = T = 200) against their plain versions
    (fp32, 1e-5 of the largest value and by norm, and the same bits), finite, the same
    bits on a second launch, each timed beside its plain version, torch's CSR sparse
-   product of the same gather and its bound (the backward also beside the card's own
-   time, as in phase 31); the op forward and forward +
+   product of the same gather and its bound, and beside the card's own time (as in
+   phase 31); the host seconds of the mask's lists; the op forward and forward +
    backward beside the dense path it
    replaced (matmul by the 1.02 GB mask, Conv3d, ReLU), whose output and gradients it
    matches at 1e-4 of their largest values.
@@ -1738,8 +1739,10 @@ BANK_CLASSES, BANK_VIDEOS_PER_CLASS, BANK_GRID = 6, 2, 16
 BANK_BITS_OPTS = ["DATA.DECODER", "cached_opencv", "DATA.FRAME_CACHE_FRAMES", str(BANK_GRID), "TRAIN.DATASET_FEW", "HMDB_few_shot",
                   "TPU.EVAL_FRAME_BANK_FRAMES", "0", "TPU.TRAIN_FRAME_BANK_FRAMES", "0"]
 # the full-size banks: the HMDB51 splits of the shipped configs, 64 grid frames a video for the eval bank (the shipped
-# FRAME_CACHE_FRAMES), 8 for the train bank; the episodes of each timed test loop, in steps of 4
-BANK_EVAL_FRAMES, BANK_TRAIN_FRAMES, BANK_LOOP_EPISODES = 64, 8, 48
+# FRAME_CACHE_FRAMES), 8 for the train bank; the episodes of each timed test loop, in steps of 4.  The train-bank slice's
+# val and test banks take BANK_SLICE_EVAL_FRAMES grid frames (1.56 GB each, ~2 s of host work against ~15 s at 64): the
+# full-size eval bank is shown by the test slice before it
+BANK_EVAL_FRAMES, BANK_TRAIN_FRAMES, BANK_LOOP_EPISODES, BANK_SLICE_EVAL_FRAMES = 64, 8, 48, 8
 HYRSM = "hyrsm_pp_5shot"
 
 
@@ -1953,13 +1956,13 @@ def phase_eval_bank_full(card_line: str) -> dict:
 def phase_train_bank_full(out_dir: str, card_line: str, pixel: dict) -> dict:
     """The ViT-B/16 train slice through the CLI off a train bank of the HMDB51 train split (4280 videos, 8 grid frames,
     256 px: 6.73 GB), its validations off one val bank (the val split reads test_few_shot.txt, as in the JAX package:
-    1292 videos, 64 grid frames, 12.45 GB) and its test off a test bank: losses, updates, train episodes/s against the
+    1292 videos, BANK_SLICE_EVAL_FRAMES grid frames, 1.56 GB) and its test off a test bank: losses, updates, train episodes/s against the
     pixel path's (``pixel``, the fused train slice of this run), the peak with the train and val banks beside the
     train step, the banks' build and upload seconds."""
     from clip_fsar_torch.runs.run import main
 
     banks = ["TPU.TRAIN_FRAME_BANK", "True", "TPU.TRAIN_FRAME_BANK_FRAMES", str(BANK_TRAIN_FRAMES), "TPU.EVAL_FRAME_BANK", "True",
-             "TPU.EVAL_FRAME_BANK_FRAMES", str(BANK_EVAL_FRAMES)]
+             "TPU.EVAL_FRAME_BANK_FRAMES", str(BANK_SLICE_EVAL_FRAMES)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -2763,6 +2766,9 @@ BMN_OPTS = ["DATA.DECODER", "synthetic", "TRAIN.BATCH_SIZE", str(BMN_BATCH), "TE
 # full-width CPU forward of 8 windows would take the CPU most of a minute): the maps at 1e-4 absolute (sigmoid outputs
 # and logits of fresh weights, sums of up to 8192 products in another order), the loss at 1e-4 relative
 BMN_CPU_WINDOWS, BMN_MAP_ATOL, BMN_LOSS_RTOL = 2, 1e-4, 1e-4
+# the synthetic val split that BMN's CLI test and submission read, cut from the dataset's 8 videos (27 windows, each ~1 s
+# of the host's proposal parsing and soft-NMS on fresh weights, twice) to BMN_EVAL_VIDEOS; the train split keeps its 8
+BMN_EVAL_VIDEOS = 3
 MOSI_CONFIG = os.path.join("configs", "pretrain", "MoSI_R2D3D_HMDB51.yaml")
 MOSI_TRAIN_VIDEOS, MOSI_TEST_VIDEOS = 40, 20  # one epoch of 4 steps of 10 videos (90 clips each); a validation of 2 batches
 MOSI_CLIPS = 9  # 5 speeds per axis, decoupled: 4 x-speeds, 4 y-speeds and the static clip
@@ -2773,10 +2779,28 @@ MOSI_OPTS: list = []  # overrides of the preset (none: full width)
 MOSI_LOGIT_SHARE = 5e-2
 
 
+@contextlib.contextmanager
+def _bmn_eval_videos(count: int):
+    """Synthetic localization splits other than train made of ``count`` videos (the dataset's first ``count``)."""
+    from clip_fsar_torch.data.tal_features import TalFeatureDataset
+
+    make = TalFeatureDataset._synthetic_annotations
+
+    def fewer(self, num_videos: int = 8):
+        return make(self, num_videos if self.split == "train" else count)
+
+    TalFeatureDataset._synthetic_annotations = fewer
+    try:
+        yield
+    finally:
+        TalFeatureDataset._synthetic_annotations = make
+
+
 def phase_localization(out_dir: str, card_line: str) -> dict:
     """Phase 27: BMN on EPIC-Kitchens-100 features at full width (configs/localization/BMN_EPIC100.yaml: T = D = 200,
     2304 channels, N = 32 samples, the regression and 97 / 300 verb / noun maps; synthetic features, fresh weights) through
-    the CLI: one epoch at 8 windows a step, the test of its checkpoint (mAP of three streams) and the submission of it;
+    the CLI: one epoch at 8 windows a step, the test of its checkpoint (mAP of three streams) and the submission of it,
+    both on BMN_EVAL_VIDEOS synthetic val videos;
     the boundary-matching gathers launched once a forward (train, test and submission batches) and once a backward, no
     other kernel.  The training again from the same start: the same loss bits and checkpoint.  Then the card's fp32
     forward and loss against the CPU's on the same windows, and the train step with its batch resident (under cuDNN's
@@ -2797,14 +2821,17 @@ def phase_localization(out_dir: str, card_line: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    results = main(["--cfg", path, *opts])
-    sub = main(["--cfg", path, *opts, "TASK_TYPE", "submission"])["submission_test"]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _bmn_eval_videos(BMN_EVAL_VIDEOS):
+        results = main(["--cfg", path, *opts])
+        sub = main(["--cfg", path, *opts, "TASK_TYPE", "submission"])["submission_test"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sub_videos = set(TalFeatureDataset(cfg, "val").annotations)
+        sub_windows = len(TalFeatureDataset(cfg, str(cfg.TEST.get("TEST_SET", "test"))))
     train, test = results["train_localization"], results["test_epic_localization"]
     ds = TalFeatureDataset(cfg, "train")
     steps = -(-len(ds) // BMN_BATCH)
-    forwards = steps + -(-test["windows"] // BMN_BATCH) + -(-len(TalFeatureDataset(cfg, str(cfg.TEST.get("TEST_SET", "test")))) // BMN_BATCH)
+    forwards = steps + -(-test["windows"] // BMN_BATCH) + -(-sub_windows // BMN_BATCH)
     launches = _expect_launches("the BMN runs (train, test, submission)", bm_gather_fwd=forwards, bm_gather_bwd=steps)
     peak = torch.cuda.max_memory_allocated()
     h = cfg.VIDEO.HEAD
@@ -2828,7 +2855,7 @@ def phase_localization(out_dir: str, card_line: str) -> dict:
         raise AssertionError(f"the test and the submission read {test['weights']} and {sub['weights']}, not the epoch-1 checkpoint")
     if len(stats) != 18 or not all(0.0 <= v <= 1.0 for v in stats.values()):
         raise AssertionError(f"malformed mAP dict {stats}")
-    if sub_json.get("version") != "0.2" or set(sub_json["results"]) != set(TalFeatureDataset(cfg, "val").annotations):
+    if sub_json.get("version") != "0.2" or set(sub_json["results"]) != sub_videos or len(sub_videos) != BMN_EVAL_VIDEOS:
         raise AssertionError(f"malformed submission JSON: {sorted(sub_json)}, videos {sorted(sub_json.get('results', {}))}")
     print(f"BMN on {card_line}: train {train['windows_per_s']:.3f} windows/s (loader included), test {test['windows_per_s']:.3f} windows/s "
           f"(proposal parsing, soft-NMS and mAP on the host included); CLI wall {wall:.2f} s; peak {peak / 2**30:.3f} GiB; launches {launches}")
@@ -3598,7 +3625,8 @@ def phase_boundary_matching(card_line: str) -> dict:
     DIM1D 256, DIM3D 512, N = 32, D = T = 200; random features, weights and output gradient from a seed) against their plain
     versions: the same bits, finite, the same bits on a second launch; each timed in turn with its plain version, beside
     its bound, torch's CSR sparse product of the same gather (``torch.sparse.mm``, without the bias, ReLU or its mask: no
-    path runs it) and, for the backward, the card's own time in its masked transpose and its gather (``card_ms``); then
+    path runs it) and the card's own time (``card_ms``: the forward's gather, the backward's masked transpose and
+    gather); the host seconds the mask and its lists took to build (``LISTS_BUILD_SECONDS``); then
     the op forward, and forward and backward through autograd (its matrix products included), in turn with the dense path
     it replaced (``torch.matmul`` by the 1.02 GB mask, F.conv3d on cuDNN's own pick, ReLU), whose output and gradients it
     must match."""
@@ -3623,7 +3651,11 @@ def phase_boundary_matching(card_line: str) -> dict:
     weight = torch.randn(c3, c, n, generator=g, device=dev) / (c * n) ** 0.5
     bias = 0.1 * torch.randn(c3, generator=g, device=dev)
     p = bm.project(mid, weight)
-    shape = f"P [{b}, {c3}, {n}, {t}] -> [{b}, {c3}, {d}, {t}] fp32, {lists.nnz} nonzeros"
+    shape = f"P [{n}, {t}, {b}, {c3}] -> [{b}, {c3}, {d}, {t}] fp32, {lists.nnz} nonzeros"
+    print(f"the mask {key} and its lists (column, row and the two tile forms) took {bm.LISTS_BUILD_SECONDS[key]:.3f} s on the host; "
+          f"the forward's tiles of {lists.fwd_tile[0]} durations x {lists.fwd_tile[1]} starts, at most {lists.fwd_max_chunk_entries} "
+          f"merged entries a chunk of {lists.fwd_tile[2]} rows ({lists.fwd_ent.shape[0]} in all); the backward's at most "
+          f"{lists.max_chunk_entries} ({lists.ent.shape[0]})")
     fwd = lambda: bm.bm_gather_fwd_cuda(p, bias, lists)  # noqa: E731
     out = fwd()
     torch.cuda.synchronize()
@@ -3638,11 +3670,12 @@ def phase_boundary_matching(card_line: str) -> dict:
     bwd_plain = lambda: bm.gather_bwd_reference(out, dout, lists)  # noqa: E731
     fwd_ms = [_time_ms(fwd), _time_ms(fwd_plain, iters=2), _time_ms(fwd), _time_ms(fwd_plain, iters=2)]
     bwd_ms = [_time_ms(bwd), _time_ms(bwd_plain, iters=2), _time_ms(bwd), _time_ms(bwd_plain, iters=2)]
+    fwd_card_ms = card_ms(fwd, iters=5)
     bwd_card_ms = card_ms(bwd, iters=5)  # the masked transpose and the gather
     # the mask as [N*T', D*T] and [D*T, N*T'] in CSR
     rows = torch.sparse_csr_tensor(*lists.rows(dev), size=(n * t, lists.cells), check_invariants=False)
     cols = rows.t().to_sparse_csr()
-    p_t = p.reshape(b * c3, n * t).t().contiguous()
+    p_t = p.view(n * t, b * c3)  # P's own rows
     dy_t = torch.where(out > 0, dout, 0.0).reshape(b * c3, lists.cells).t().contiguous()
     lib_fwd_ms = _time_ms(lambda: torch.sparse.mm(cols, p_t), iters=5)
     lib_bwd_ms = _time_ms(lambda: torch.sparse.mm(rows, dy_t), iters=5)
@@ -3650,11 +3683,11 @@ def phase_boundary_matching(card_line: str) -> dict:
     torch.cuda.empty_cache()
     records = {}
     for name, ms, bound, err, lib in (("bm_gather_fwd", fwd_ms, fwd_bound, fwd_err, lib_fwd_ms), ("bm_gather_bwd", bwd_ms, bwd_bound, bwd_err, lib_bwd_ms)):
-        records[name] = {"max_abs_err": err, "ms": min(ms[0], ms[2]), "plain_ms": min(ms[1], ms[3]), "library_ms": lib, **bound}
-        if name == "bm_gather_bwd":
-            records[name]["device_ms"] = bwd_card_ms
-        print(f"{name} on {card_line} at the EPIC preset ({shape}): kernel {ms[0]:.4f} / {ms[2]:.4f} ms"
-              + (f" (on the card {bwd_card_ms:.4f} ms: the masked transpose and the gather)" if name == "bm_gather_bwd" else "")
+        device_ms = bwd_card_ms if name == "bm_gather_bwd" else fwd_card_ms
+        records[name] = {"max_abs_err": err, "ms": min(ms[0], ms[2]), "plain_ms": min(ms[1], ms[3]), "library_ms": lib, **bound,
+                         "device_ms": device_ms}
+        print(f"{name} on {card_line} at the EPIC preset ({shape}): kernel {ms[0]:.4f} / {ms[2]:.4f} ms (on the card {device_ms:.4f} ms"
+              + (": the masked transpose and the gather)" if name == "bm_gather_bwd" else ")")
               + f", plain {ms[1]:.2f} / {ms[3]:.2f} ms, torch.sparse.mm of the same gather (CSR) {lib:.4f} ms (kernel / library = "
               f"{records[name]['ms'] / lib:.2f}), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
               f"{100 * bound['bound_ms'] / records[name]['ms']:.1f} % of it reached)")

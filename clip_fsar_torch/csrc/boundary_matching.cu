@@ -6,8 +6,8 @@
 // then an (N, 1, 1) Conv3d of stride (N, 1, 1) and a ReLU.  Both steps are
 // linear, so the port groups them the other way round (ops/boundary_matching.py):
 //
-//   P[b, o, n, t']  = sum_c W[o, c, n] * mid[b, c, t']                  (torch.matmul)
-//   out[b, o, cell] = relu(bias[o] + sum_n sum_{t'} mask[t', n, cell] * P[b, o, n, t'])
+//   P[n, t', b, o]  = sum_c W[o, c, n] * mid[b, c, t']                  (torch.matmul)
+//   out[b, o, cell] = relu(bias[o] + sum_n sum_{t'} mask[t', n, cell] * P[n, t', b, o])
 //                                                                       (bm_gather_fwd)
 //   dP[b, o, n, t'] = sum_cell mask[t', n, cell] * (out > 0 ? dout : 0)[b, o, cell]
 //                                                                       (bm_gather_bwd)
@@ -22,23 +22,42 @@
 // cells ascending.  Products and sums are rounded separately (no fused
 // multiply-add), as the plain versions in ops/boundary_matching.py compute
 // them in the same order, so kernel and plain version give the same fp32 bits.
+// The column form (each (n, cell) column's entries, t' ascending) and the row
+// form (each (n, t') row's entries, cell ascending) stay on the host: the plain
+// versions walk them.  The kernels walk tile forms of the same nonzeros, built
+// once per mask on the host (ops/boundary_matching.py), one for each gather.
 //
-// The lists (built once per mask on the host, ops/boundary_matching.py):
-//   order [cells]        the active cells (any entry in any n) ascending, then the others
-//   col_t, col_w [N, K, A], col_n [N, A]
-//                        column (n, order[i]) for i < A: its entries (t', w), t' ascending,
-//                        padded to K, the largest count of any column; col_n the count
-//   (the row form, row (n, t')'s entries (cell, w) in CSR, stays on the host: the
-//   plain version walks it, and the tile lists below are built from the same nonzeros)
-//
-// What bounds it on an H100.  Forward: P read and out written once (0.76 GB at
-// the preset B 8, C3 512, N 32, D = T 200) and 2 operations for each nonzero
-// and (b, o) (20 GFLOP of fp32 at 67 TFLOP/s): about 0.3 ms either way.
-// Design: the lists are the same for every (b, o), so a forward block takes
-// one b and OB output channels, holds those channels' P in shared memory (OB *
-// N * T floats: 25.6 KB a channel at the preset) and walks a run of cells, one
-// thread a cell, reading each column entry once from device memory for all OB
-// channels.
+// Forward: P read and out written once (0.76 GB at the preset B 8, C3 512,
+// N 32, D = T 200) and 2 operations for each nonzero and (b, o) (20 GFLOP of
+// fp32 at 67 TFLOP/s, 0.30 ms, the bound; a product and a sum rounded apart
+// issue as two instructions, so this kernel takes 0.60 ms at the least).
+// P comes from its matrix product as rows [N*T', B*C3], a row's channels side
+// by side.  The first forward (a block of 8 channels' whole P in shared memory,
+// a thread a cell, 5.47 ms) read P 20 times over, half of it for blocks of
+// inactive cells, and each column entry once for only 8 channels.  The kernel
+// now takes cells in tiles of 8 durations d by 8 starts t, whose cells share
+// their rows (a tile's union of rows is ~17 times smaller than its entries at
+// the preset), and walks each tile's cells in pairs (d even, d + 1) at one t,
+// which share 41 % of their rows (2.46 M entries merge to 1.46 M), from tile lists:
+//   fwd_tile_row_ptr [tiles + 1], fwd_tile_rows   each tile's union of rows n * T + t', ascending
+//   fwd_tile_chunk_ptr [tiles + 1]                each tile's first chunk of 32 union rows
+//   fwd_ent [merged] int4                         for each chunk, cell pair and row of the chunk
+//                                                 that either cell holds, ascending: (the row's
+//                                                 index in the chunk | 256 if cell d holds it |
+//                                                 512 if cell d + 1 does, the two weights' bits, 0)
+//   fwd_chunk_cut [chunks * 32 + 1]               the first merged entry of (chunk, pair)
+// A block owns one tile and 128 channels; the union's rows stream through the
+// ring of three chunks that the two gathers share (tile_sums), each of 16 warps
+// owns 2 cell pairs, each lane 4 channels, one 16-byte shared read an entry for
+// both cells of a pair.  A tile of no active cell stages nothing.  The output goes out through
+// shared memory with the bias and the ReLU.  At the preset it takes 2.28 ms
+// (chip_smoke.py phase 34), 13.3 % of the bound, 0.45x torch.sparse.mm; of the
+// tiles tried (4 x 16, 8 x 16, 16 x 8, 16 x 16, 8 x 4, chunks of 16 and 64, 8
+// warps, 1 to 4 blocks an SM) none was faster.  What holds it is issue: the loop
+// spends ~24.5 instructions a merged entry and warp (the 16 products and sums
+// of the pair predicated, so issued whether a cell holds the row or not), 1.1 G
+// at the preset, ~1.2 ms at the card's full issue rate; staging alone (no sums)
+// takes 1.13 ms and the sums alone 2.17, overlapped to 2.28.
 //
 // Backward: out and dout read, dP written (1.4 GB, 0.43 ms).  It first writes
 // dyt [cells, B*C3] = (out > 0 ? dout : 0) transposed (a scratch buffer the
@@ -84,66 +103,28 @@
 
 namespace {
 
-constexpr int kFwdThreads = 512;
-constexpr int kFwdCellsPerThread = 4;  // a block's run of cells: P is loaded once for 2048 cells
-constexpr int kTileN = 4, kTileT = 16;  // a backward tile: 4 samples n by 16 positions t' (ops/boundary_matching.py TILE_N, TILE_T)
-constexpr int kTileRows = kTileN * kTileT;
-constexpr int kChunk = 32;  // union cells a slot of the backward's ring holds (TILE_CHUNK)
-constexpr int kBwdChannels = 128;  // channels of dyt a backward block takes
-constexpr int kLaneChannels = kBwdChannels / 32;  // 4 a lane: one 16-byte read of a cell's slice
-constexpr int kBwdWarps = 16;  // two row pairs a warp
-constexpr int kSlots = 3;  // the backward's ring: chunks k, k + 1 and k + 2
-constexpr int kBwdMinBlocks = 2;  // backward blocks an SM holds (registers to match: 32 warps an SM)
-constexpr int kPairs = kTileRows / 2;  // row pairs (t' even, t' + 1) of a tile
-constexpr int kPairsPerWarp = kPairs / kBwdWarps;
-static_assert(kTileT % 2 == 0 && kPairs % kBwdWarps == 0 && kLaneChannels == 4, "a backward tile's rows and channels");
-constexpr int kMaxChannels = 8;  // OB: output channels a forward block takes
+// Both gathers stream a tile's union of rows (forward) or cells (backward) through one ring in shared memory: chunks
+// of kChunk union items (ops/boundary_matching.py TILE_CHUNK), 128 channels a block, 16 warps of two output pairs,
+// each lane 4 channels; a tile holds 2 * kPairs outputs
+constexpr int kChunk = 32;
+constexpr int kChannels = 128;
+constexpr int kLaneChannels = kChannels / 32;  // 4 a lane: one 16-byte read of an item's slice
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kSlots = 3;  // chunks k, k + 1 and k + 2
+constexpr int kMinBlocks = 2;  // blocks an SM holds (registers to match: 32 warps an SM)
+constexpr int kPairs = 32;
+constexpr int kPairsPerWarp = kPairs / kWarps;
+constexpr int kTileOut = 2 * kPairs;
+static_assert(kPairs % kWarps == 0 && kLaneChannels == 4 && kChunk <= 256, "a tile's pairs, channels and chunk");
+// a backward tile: 4 samples n by 16 positions t' (TILE_N, TILE_T), rows in pairs (t' even, t' + 1)
+constexpr int kTileN = 4, kTileT = 16;
+// a forward tile: 8 durations d by 8 starts t (FWD_TILE_D, FWD_TILE_T), cells in pairs (d even, d + 1) at one t
+constexpr int kFwdTileD = 8, kFwdTileT = 8;
+static_assert(kTileN * kTileT == kTileOut && kTileT % 2 == 0 && kFwdTileD * kFwdTileT == kTileOut && kFwdTileD % 2 == 0, "the tiles");
 constexpr int kSharedMax = 232448;  // a block's dynamic shared memory on sm_90
 
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
-
-template <int OB>
-__global__ void __launch_bounds__(kFwdThreads) bm_gather_fwd_kernel(const float* __restrict__ p, const int32_t* __restrict__ order,
-                                                                     const int16_t* __restrict__ col_t, const float* __restrict__ col_w,
-                                                                     const uint8_t* __restrict__ col_n, const float* __restrict__ bias,
-                                                                     float* __restrict__ out, int O, int N, int T, int cells, int A, int K) {
-  extern __shared__ float ps[];  // [OB, N, T]: this block's channels of P
-  const int oblocks = (O + OB - 1) / OB;
-  const int b = blockIdx.y / oblocks, o0 = (blockIdx.y % oblocks) * OB;
-  const int nob = min(OB, O - o0);
-  const int plane = N * T;
-  const float* src = p + ((int64_t)b * O + o0) * plane;
-  for (int i = threadIdx.x; i < nob * plane; i += kFwdThreads) ps[i] = src[i];
-  __syncthreads();
-  float bo[OB];
-#pragma unroll
-  for (int o = 0; o < OB; ++o) bo[o] = o < nob ? bias[o0 + o] : 0.f;
-  float* dst = out + ((int64_t)b * O + o0) * cells;
-  const int first = blockIdx.x * kFwdThreads * kFwdCellsPerThread;
-  const int last = min(cells, first + kFwdThreads * kFwdCellsPerThread);
-  for (int i = first + threadIdx.x; i < last; i += kFwdThreads) {
-    float acc[OB];
-#pragma unroll
-    for (int o = 0; o < OB; ++o) acc[o] = 0.f;
-    if (i < A) {
-      for (int n = 0; n < N; ++n) {
-        const int count = col_n[(int64_t)n * A + i];
-        const float* pn = ps + n * T;
-        for (int k = 0; k < count; ++k) {
-          const int64_t e = ((int64_t)n * K + k) * A + i;
-          const float w = col_w[e];
-          const float* pt = pn + col_t[e];
-#pragma unroll
-          for (int o = 0; o < OB; ++o) acc[o] = __fadd_rn(acc[o], __fmul_rn(w, pt[o * plane]));
-        }
-      }
-    }
-    const int cell = order[i];
-#pragma unroll
-    for (int o = 0; o < OB; ++o)
-      if (o < nob) dst[(int64_t)o * cells + cell] = relu(__fadd_rn(acc[o], bo[o]));
-  }
-}
 
 // The backward's first pass: dyt [cells, BO] = (out > 0 ? dout : 0) transposed from [BO, cells], through a 64 x 64
 // tile in shared memory, so that the gather reads a cell's BO channels from one row.  A thread reads 4 consecutive
@@ -217,68 +198,61 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-// The backward's gather over row tiles.  Block = (channel block, tile), the channel block outermost; warp w owns the
-// tile's row pairs p = w + kBwdWarps * i (rows 2p and 2p + 1: sample n0 + 2p / kTileT, positions t0 + 2p % kTileT and
-// the next), lane l its channels c0 + kLaneChannels * l onwards.  A slot of the ring holds one chunk: its cells'
-// channels [kChunk][kBwdChannels] floats, its merged entries (at most max_entries int4) and its (pair -> first entry)
-// cuts [kPairs + 1].  A merged entry reads its cell's channels once for both rows of the pair.  Chunk k + 2 is copied in
-// while chunk k is summed, and the cells and entry range a thread's copies of chunk k + 3 need are loaded into
-// registers then too, so no copy waits on a load.
-__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks) bm_gather_bwd_kernel(const float* __restrict__ dyt, const int32_t* __restrict__ tile_cells,
-                                                                        const int32_t* __restrict__ tile_cell_ptr,
-                                                                        const int32_t* __restrict__ tile_chunk_ptr,
-                                                                        const int32_t* __restrict__ chunk_cut, const int4* __restrict__ ent,
-                                                                        float* __restrict__ dp, int BO, int N, int T, int tiles_t, int tiles,
-                                                                        int max_entries, int aligned) {
-  constexpr int kThreadsBwd = kBwdWarps * 32, kCopies = kChunk * kBwdChannels / 4 / kThreadsBwd;
-  static_assert(kChunk * kBwdChannels / 4 % kThreadsBwd == 0, "a chunk's 16-byte copies split evenly over the threads");
-  extern __shared__ __align__(16) unsigned char smem[];
+// One tile's sums, the part both gathers share.  The block owns a tile and kChannels channels c0 onwards of src
+// [items, BO] (a row's BO channels side by side); the tile's union of items (ucount of them, ascending, in ``items``) is
+// staged chunk by chunk into a ring slot: its items' channels [kChunk][kChannels] floats (zeros past the union or BO),
+// its merged entries (at most max_entries int4: the item's index in the chunk | 256 if output 0 of the pair holds it |
+// 512 if output 1 does, the two weights' bits, 0) and its (pair -> first entry) cuts [kPairs + 1].  Warp w sums pairs
+// q = w + kWarps * i, lane l channels c0 + kLaneChannels * l onwards: each (output, channel) sum has one owner, which adds
+// its output's entries in the union's order, reading an item the pair shares once for both outputs.  Chunk k + 2 is
+// copied in by cp.async while chunk k is summed, and the items and entry range a thread's copies of chunk k + 3 need
+// are loaded into registers then too, so no copy waits on a load.  On return every warp is done with shared memory.
+__device__ __forceinline__ void tile_sums(const float* __restrict__ src, const int32_t* __restrict__ items, int ucount, int chunk0, int chunks,
+                                          const int32_t* __restrict__ chunk_cut, const int4* __restrict__ ent, int c0, int BO,
+                                          int max_entries, int aligned, unsigned char* smem, float (&acc)[kPairsPerWarp][2][kLaneChannels]) {
+  constexpr int kCopies = kChunk * kChannels / 4 / kThreads;
+  static_assert(kChunk * kChannels / 4 % kThreads == 0, "a chunk's 16-byte copies split evenly over the threads");
   const int ent_bytes = max_entries * 16;
-  const int slot_bytes = kChunk * kBwdChannels * 4 + ent_bytes + (((kPairs + 1) * 4 + 15) & ~15);
-  const int tile = blockIdx.x % tiles, c0 = (blockIdx.x / tiles) * kBwdChannels;
+  const int slot_bytes = kChunk * kChannels * 4 + ent_bytes + (((kPairs + 1) * 4 + 15) & ~15);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int first = tile_cell_ptr[tile], ucount = tile_cell_ptr[tile + 1] - first;
-  const int32_t* cells = tile_cells + first;
-  const int chunk0 = tile_chunk_ptr[tile], chunks = tile_chunk_ptr[tile + 1] - chunk0;
 
   auto ring_of = [&](int k) { return reinterpret_cast<float*>(smem + (k % kSlots) * slot_bytes); };
-  auto ents_of = [&](int k) { return reinterpret_cast<int4*>(smem + (k % kSlots) * slot_bytes + kChunk * kBwdChannels * 4); };
-  auto cuts_of = [&](int k) { return reinterpret_cast<int32_t*>(smem + (k % kSlots) * slot_bytes + kChunk * kBwdChannels * 4 + ent_bytes); };
-  int next_cell[kCopies], next_e0 = 0, next_e1 = 0;  // what this thread's copies of the next chunk to stage read
+  auto ents_of = [&](int k) { return reinterpret_cast<int4*>(smem + (k % kSlots) * slot_bytes + kChunk * kChannels * 4); };
+  auto cuts_of = [&](int k) { return reinterpret_cast<int32_t*>(smem + (k % kSlots) * slot_bytes + kChunk * kChannels * 4 + ent_bytes); };
+  int next_item[kCopies], next_e0 = 0, next_e1 = 0;  // what this thread's copies of the next chunk to stage read
   auto fetch = [&](int k) {
     if (k >= chunks) return;
 #pragma unroll
     for (int m = 0; m < kCopies; ++m) {
-      const int u = k * kChunk + (threadIdx.x + m * kThreadsBwd) / (kBwdChannels / 4);
-      next_cell[m] = u < ucount ? cells[u] : -1;
+      const int u = k * kChunk + (threadIdx.x + m * kThreads) / (kChannels / 4);
+      next_item[m] = u < ucount ? items[u] : -1;
     }
     next_e0 = chunk_cut[(int64_t)(chunk0 + k) * kPairs];
     next_e1 = chunk_cut[(int64_t)(chunk0 + k) * kPairs + kPairs];
   };
-  auto stage = [&](int k) {  // chunk k (from fetch(k)): its cells' channels (zeros past the union or BO), entries, cuts
+  auto stage = [&](int k) {  // chunk k (from fetch(k)): its items' channels, entries, cuts
     if (k < chunks) {
       float* ring = ring_of(k);
 #pragma unroll
       for (int m = 0; m < kCopies; ++m) {
-        const int i = threadIdx.x + m * kThreadsBwd, ch = c0 + (i % (kBwdChannels / 4)) * 4;
+        const int i = threadIdx.x + m * kThreads, ch = c0 + (i % (kChannels / 4)) * 4;
         float* to = ring + i * 4;
-        if (next_cell[m] >= 0 && aligned && ch + 4 <= BO) {
-          cp_async_16(to, dyt + (int64_t)next_cell[m] * BO + ch);
+        if (next_item[m] >= 0 && aligned && ch + 4 <= BO) {
+          cp_async_16(to, src + (int64_t)next_item[m] * BO + ch);
         } else {
-          const float* from = dyt + (next_cell[m] >= 0 ? (int64_t)next_cell[m] * BO : 0);
+          const float* from = src + (next_item[m] >= 0 ? (int64_t)next_item[m] * BO : 0);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) to[c] = next_cell[m] >= 0 && ch + c < BO ? from[ch + c] : 0.f;
+          for (int c = 0; c < 4; ++c) to[c] = next_item[m] >= 0 && ch + c < BO ? from[ch + c] : 0.f;
         }
       }
       int4* ents = ents_of(k);
-      for (int i = threadIdx.x; i < next_e1 - next_e0; i += kThreadsBwd) cp_async_16(ents + i, ent + next_e0 + i);
+      for (int i = threadIdx.x; i < next_e1 - next_e0; i += kThreads) cp_async_16(ents + i, ent + next_e0 + i);
       int32_t* cuts = cuts_of(k);
-      for (int i = threadIdx.x; i <= kPairs; i += kThreadsBwd) cp_async_4(cuts + i, chunk_cut + (int64_t)(chunk0 + k) * kPairs + i);
+      for (int i = threadIdx.x; i <= kPairs; i += kThreads) cp_async_4(cuts + i, chunk_cut + (int64_t)(chunk0 + k) * kPairs + i);
     }
     cp_async_commit();  // a group for every chunk index, empty past the last, so that the waits below count alike
   };
 
-  float acc[kPairsPerWarp][2][kLaneChannels];  // [pair][row t' or t' + 1][channel]
 #pragma unroll
   for (int i = 0; i < kPairsPerWarp; ++i)
 #pragma unroll
@@ -299,97 +273,139 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks) bm_gather_bwd_k
     const int e0 = cuts[0];
 #pragma unroll
     for (int i = 0; i < kPairsPerWarp; ++i) {
-      const int p = warp + kBwdWarps * i;
-      const int end = cuts[p + 1] - e0;
-      int e = cuts[p] - e0;
+      const int q = warp + kWarps * i;
+      const int end = cuts[q + 1] - e0;
+      int e = cuts[q] - e0;
       for (; e + 2 <= end; e += 2) {  // two merged entries in flight, added in order
         const int4 a = ents[e], b = ents[e + 1];
         float va[kLaneChannels], vb[kLaneChannels];
-        load_lane(ring + (a.x & 255) * kBwdChannels, va);
-        load_lane(ring + (b.x & 255) * kBwdChannels, vb);
+        load_lane(ring + (a.x & 255) * kChannels, va);
+        load_lane(ring + (b.x & 255) * kChannels, vb);
         add_merged(acc[i][0], acc[i][1], a, va);
         add_merged(acc[i][0], acc[i][1], b, vb);
       }
       if (e < end) {
         const int4 a = ents[e];
         float va[kLaneChannels];
-        load_lane(ring + (a.x & 255) * kBwdChannels, va);
+        load_lane(ring + (a.x & 255) * kChannels, va);
         add_merged(acc[i][0], acc[i][1], a, va);
       }
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring, which dP's tile takes
+  __syncthreads();  // every warp is done with the ring, which the caller's output tile takes
+}
 
-  // dP's tile through shared memory, so that neighbouring threads write neighbouring positions t' of one channel
-  float* out = reinterpret_cast<float*>(smem);  // [kBwdChannels][kTileRows + 1]
+// A gather block's shared memory: the ring's slots, or the output's tile [kChannels][kTileOut + 1] if that is larger.
+int64_t gather_smem_bytes(int max_entries) {
+  const int64_t slot = kChunk * kChannels * 4 + (int64_t)max_entries * 16 + (((kPairs + 1) * 4 + 15) & ~15);
+  const int64_t out = (int64_t)kChannels * (kTileOut + 1) * 4;
+  return kSlots * slot > out ? kSlots * slot : out;
+}
+
+// The backward's gather over row tiles: block = (channel block, tile), the channel block outermost, so that the channel
+// block's slice of dyt stays in L2 while its tiles run; the tile's union of cells summed by ``tile_sums`` (pair q: rows
+// t' and t' + 1 of sample n0 + 2q / kTileT, t' = t0 + 2q % kTileT); dP goes out through shared memory, a row's kTileT
+// positions t' side by side.
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bm_gather_bwd_kernel(const float* __restrict__ dyt, const int32_t* __restrict__ tile_cells,
+                                                                           const int32_t* __restrict__ tile_cell_ptr,
+                                                                           const int32_t* __restrict__ tile_chunk_ptr,
+                                                                           const int32_t* __restrict__ chunk_cut, const int4* __restrict__ ent,
+                                                                           float* __restrict__ dp, int BO, int N, int T, int tiles_t, int tiles,
+                                                                           int max_entries, int aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockIdx.x % tiles, c0 = (blockIdx.x / tiles) * kChannels;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = tile_cell_ptr[tile], chunk0 = tile_chunk_ptr[tile];
+  float acc[kPairsPerWarp][2][kLaneChannels];  // [pair][row t' or t' + 1][channel]
+  tile_sums(dyt, tile_cells + first, tile_cell_ptr[tile + 1] - first, chunk0, tile_chunk_ptr[tile + 1] - chunk0, chunk_cut, ent, c0, BO,
+            max_entries, aligned, smem, acc);
+
+  float* out = reinterpret_cast<float*>(smem);  // [kChannels][kTileOut + 1]
 #pragma unroll
   for (int i = 0; i < kPairsPerWarp; ++i)
 #pragma unroll
     for (int c = 0; c < kLaneChannels; ++c) {
-      const int j = 2 * (warp + kBwdWarps * i);
-      out[(lane * kLaneChannels + c) * (kTileRows + 1) + j] = acc[i][0][c];
-      out[(lane * kLaneChannels + c) * (kTileRows + 1) + j + 1] = acc[i][1][c];
+      const int j = 2 * (warp + kWarps * i);
+      out[(lane * kLaneChannels + c) * (kTileOut + 1) + j] = acc[i][0][c];
+      out[(lane * kLaneChannels + c) * (kTileOut + 1) + j + 1] = acc[i][1][c];
     }
   __syncthreads();
   const int n0 = (tile / tiles_t) * kTileN, t0 = (tile % tiles_t) * kTileT, rows = N * T;
-  for (int i = threadIdx.x; i < kBwdChannels * kTileRows; i += kBwdWarps * 32) {
-    const int ch = i / kTileRows, j = i % kTileRows, n = n0 + j / kTileT, t = t0 + j % kTileT;
-    if (c0 + ch < BO && n < N && t < T) dp[(int64_t)(c0 + ch) * rows + n * T + t] = out[ch * (kTileRows + 1) + j];
+  for (int i = threadIdx.x; i < kChannels * kTileOut; i += kThreads) {
+    const int ch = i / kTileOut, j = i % kTileOut, n = n0 + j / kTileT, t = t0 + j % kTileT;
+    if (c0 + ch < BO && n < N && t < T) dp[(int64_t)(c0 + ch) * rows + n * T + t] = out[ch * (kTileOut + 1) + j];
   }
 }
 
-// A backward block's shared memory: the ring's slots, or dP's tile if that is larger.
-int64_t bwd_smem_bytes(int max_entries) {
-  const int64_t slot = kChunk * kBwdChannels * 4 + (int64_t)max_entries * 16 + (((kPairs + 1) * 4 + 15) & ~15);
-  const int64_t out = (int64_t)kBwdChannels * (kTileRows + 1) * 4;
-  return kSlots * slot > out ? kSlots * slot : out;
-}
+// The forward's gather over cell tiles, the backward's mirror: block = (channel block, tile), the channel block outermost,
+// so that a channel block's slice of P stays in L2 while its tiles run; the tile's union of rows summed by ``tile_sums``
+// (pair q: cells d0 + 2 (q / kFwdTileT) and the next duration, at start t0 + q % kFwdTileT).  The union is ascending in
+// (n, t') and a pair's entries within a chunk ascending too, so each cell adds its column's entries n by n, t' by t', as
+// the plain version does.  A tile with no active cell has no chunk: its block stages nothing and writes relu(0 + bias).
+// The output goes out through shared memory, the kFwdTileT starts t of a (channel, d) side by side.
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bm_gather_fwd_kernel(const float* __restrict__ p, const int32_t* __restrict__ tile_rows,
+                                                                           const int32_t* __restrict__ tile_row_ptr,
+                                                                           const int32_t* __restrict__ tile_chunk_ptr,
+                                                                           const int32_t* __restrict__ chunk_cut, const int4* __restrict__ ent,
+                                                                           const float* __restrict__ bias, float* __restrict__ out, int BO, int O,
+                                                                           int D, int T, int tiles_t, int tiles, int max_entries, int aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockIdx.x % tiles, c0 = (blockIdx.x / tiles) * kChannels;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = tile_row_ptr[tile], chunk0 = tile_chunk_ptr[tile];
+  float acc[kPairsPerWarp][2][kLaneChannels];  // [pair][cell d or d + 1][channel]
+  tile_sums(p, tile_rows + first, tile_row_ptr[tile + 1] - first, chunk0, tile_chunk_ptr[tile + 1] - chunk0, chunk_cut, ent, c0, BO,
+            max_entries, aligned, smem, acc);
 
-// OB for a forward block: the most channels (8, 4, 2 or 1) whose P fits the shared memory; 0 if one channel does not.
-int fwd_channels(int N, int T) {
-  const int64_t plane = (int64_t)N * T * sizeof(float);
-  for (int ob = kMaxChannels; ob >= 1; ob /= 2)
-    if (ob * plane <= kSharedMax) return ob;
-  return 0;
-}
-
-template <int OB>
-int launch_fwd(const float* p, const int32_t* order, const int16_t* col_t, const float* col_w, const uint8_t* col_n, const float* bias,
-               float* out, int B, int O, int N, int T, int cells, int A, int K, cudaStream_t stream) {
-  const int bytes = OB * N * T * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bm_gather_fwd_kernel<OB>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((cells + kFwdThreads * kFwdCellsPerThread - 1) / (kFwdThreads * kFwdCellsPerThread), B * ((O + OB - 1) / OB));
-  bm_gather_fwd_kernel<OB><<<grid, kFwdThreads, bytes, stream>>>(p, order, col_t, col_w, col_n, bias, out, O, N, T, cells, A, K);
-  return (int)cudaGetLastError();
+  float* tile_out = reinterpret_cast<float*>(smem);  // [kChannels][kTileOut + 1]
+#pragma unroll
+  for (int i = 0; i < kPairsPerWarp; ++i)
+#pragma unroll
+    for (int c = 0; c < kLaneChannels; ++c) {
+      const int q = warp + kWarps * i, j = (q / kFwdTileT) * 2 * kFwdTileT + q % kFwdTileT;
+      tile_out[(lane * kLaneChannels + c) * (kTileOut + 1) + j] = acc[i][0][c];
+      tile_out[(lane * kLaneChannels + c) * (kTileOut + 1) + j + kFwdTileT] = acc[i][1][c];
+    }
+  __syncthreads();
+  const int d0 = (tile / tiles_t) * kFwdTileD, t0 = (tile % tiles_t) * kFwdTileT;
+  const int64_t cells = (int64_t)D * T;
+  for (int i = threadIdx.x; i < kChannels * kTileOut; i += kThreads) {
+    const int ch = i / kTileOut, j = i % kTileOut, d = d0 + j / kFwdTileT, t = t0 + j % kFwdTileT;
+    if (c0 + ch < BO && d < D && t < T)
+      out[(c0 + ch) * cells + d * T + t] = relu(__fadd_rn(tile_out[ch * (kTileOut + 1) + j], bias[(c0 + ch) % O]));
+  }
 }
 
 }  // namespace
 
-// p [B, O, N, T], bias [O], out [B, O, cells] float32, contiguous; the column lists as above.  Returns a
-// cudaError_t (0 = launched).
-extern "C" int bm_gather_fwd(const void* p, const void* order, const void* col_t, const void* col_w, const void* col_n, const void* bias,
-                             void* out, int B, int O, int N, int T, int cells, int A, int K, void* stream) {
-  const int ob = fwd_channels(N, T);
-  if (B < 0 || O < 0 || N < 1 || T < 1 || cells < 0 || A < 0 || A > cells || K < 0 || ob == 0 || (int64_t)B * ((O + ob - 1) / ob) > 65535)
-    return (int)cudaErrorInvalidValue;  // (ob == 0: one channel's P does not fit a block's shared memory)
-  if ((int64_t)B * O == 0 || cells == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* pp = static_cast<const float*>(p);
-  const int32_t* ord = static_cast<const int32_t*>(order);
-  const int16_t* ct = static_cast<const int16_t*>(col_t);
-  const float* cw = static_cast<const float*>(col_w);
-  const uint8_t* cn = static_cast<const uint8_t*>(col_n);
-  const float* bs = static_cast<const float*>(bias);
-  float* y = static_cast<float*>(out);
-  switch (ob) {
-    case 8: return launch_fwd<8>(pp, ord, ct, cw, cn, bs, y, B, O, N, T, cells, A, K, s);
-    case 4: return launch_fwd<4>(pp, ord, ct, cw, cn, bs, y, B, O, N, T, cells, A, K, s);
-    case 2: return launch_fwd<2>(pp, ord, ct, cw, cn, bs, y, B, O, N, T, cells, A, K, s);
-    case 1: return launch_fwd<1>(pp, ord, ct, cw, cn, bs, y, B, O, N, T, cells, A, K, s);
-    default: return (int)cudaErrorInvalidValue;
+// p [N * T, B * O] (row n * T + t' holds its B * O channels side by side), bias [O], out [B, O, D * T] float32,
+// contiguous; the forward's tile lists as above (tiles = ceil(D / 8) * ceil(T / 8), ent as int4; max_entries the most
+// entries of a chunk), built for tiles of tile_d durations by tile_t starts and chunks of chunk rows, which must be the
+// kernel's (kFwdTileD, kFwdTileT, kChunk).  Returns a cudaError_t (0 = launched).
+extern "C" int bm_gather_fwd(const void* p, const void* tile_rows, const void* tile_row_ptr, const void* tile_chunk_ptr, const void* chunk_cut,
+                             const void* ent, const void* bias, void* out, int B, int O, int N, int T, int D, int max_entries, int tile_d,
+                             int tile_t, int chunk, void* stream) {
+  if (tile_d != kFwdTileD || tile_t != kFwdTileT || chunk != kChunk) return (int)cudaErrorInvalidValue;  // lists built for other tiles
+  const int64_t bo = (int64_t)B * O;
+  const int tiles_t = (T + kFwdTileT - 1) / kFwdTileT;
+  const int64_t tiles = (int64_t)((D + kFwdTileD - 1) / kFwdTileD) * tiles_t;
+  const int64_t blocks = tiles * ((bo + kChannels - 1) / kChannels);
+  const int64_t smem = gather_smem_bytes(max_entries);
+  if (B < 0 || O < 0 || N < 1 || T < 1 || D < 1 || bo > INT32_MAX || blocks > INT32_MAX || (int64_t)N * T > INT32_MAX ||
+      (int64_t)D * T > INT32_MAX || max_entries < 0 || max_entries > kPairs * kChunk || smem > kSharedMax)
+    return (int)cudaErrorInvalidValue;
+  if (bo == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(bm_gather_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  const int aligned = bo % 4 == 0 && ((uintptr_t)p & 15) == 0;
+  bm_gather_fwd_kernel<<<(unsigned)blocks, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const int32_t*>(tile_rows), static_cast<const int32_t*>(tile_row_ptr),
+      static_cast<const int32_t*>(tile_chunk_ptr), static_cast<const int32_t*>(chunk_cut), static_cast<const int4*>(ent),
+      static_cast<const float*>(bias), static_cast<float*>(out), (int)bo, O, D, T, tiles_t, (int)tiles, max_entries, aligned);
+  return (int)cudaGetLastError();
 }
 
 // out, dout [B, O, cells], dyt [cells, B * O] (scratch), dp [B, O, N * T] float32, contiguous; the tile lists as above
@@ -403,8 +419,8 @@ extern "C" int bm_gather_bwd(const void* out, const void* dout, void* dyt, const
   const int64_t bo = (int64_t)B * O;
   const int tiles_t = (T + kTileT - 1) / kTileT;
   const int64_t tiles = (int64_t)((N + kTileN - 1) / kTileN) * tiles_t;
-  const int64_t blocks = tiles * ((bo + kBwdChannels - 1) / kBwdChannels);
-  const int64_t smem = bwd_smem_bytes(max_entries);
+  const int64_t blocks = tiles * ((bo + kChannels - 1) / kChannels);
+  const int64_t smem = gather_smem_bytes(max_entries);
   if (B < 0 || O < 0 || N < 1 || T < 1 || cells < 0 || bo > INT32_MAX || (bo + 63) / 64 > 65535 || blocks > INT32_MAX ||
       (int64_t)N * T > INT32_MAX || max_entries < 0 || max_entries > kPairs * kChunk || smem > kSharedMax)
     return (int)cudaErrorInvalidValue;
@@ -425,7 +441,7 @@ extern "C" int bm_gather_bwd(const void* out, const void* dout, void* dyt, const
     if (err != cudaSuccess) return (int)err;
   }
   const int aligned = bo % 4 == 0 && ((uintptr_t)dyt & 15) == 0;
-  bm_gather_bwd_kernel<<<(unsigned)blocks, kBwdWarps * 32, (size_t)smem, s>>>(
+  bm_gather_bwd_kernel<<<(unsigned)blocks, kThreads, (size_t)smem, s>>>(
       g, static_cast<const int32_t*>(tile_cells), static_cast<const int32_t*>(tile_cell_ptr), static_cast<const int32_t*>(tile_chunk_ptr),
       static_cast<const int32_t*>(chunk_cut), static_cast<const int4*>(ent), static_cast<float*>(dp), (int)bo, N, T, tiles_t, (int)tiles, max_entries,
       aligned);

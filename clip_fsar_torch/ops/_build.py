@@ -115,8 +115,9 @@ def library() -> ctypes.CDLL:
     # extents, kernel, stride, padding, the tile and its box; ops/pool3d.py)
     lib.pool3d_bwd.argtypes = [p] * 3 + [i] * 3 + [ctypes.POINTER(i), p]
     lib.pool3d_bwd.restype = i
-    # BMN's boundary-matching gathers: P, order, col_t, col_w, col_n, bias, out, then (B, C3, N, T, cells, active, K)
-    lib.bm_gather_fwd.argtypes = [p] * 7 + [i] * 7 + [p]
+    # BMN's boundary-matching gathers: P, fwd_tile_rows, fwd_tile_row_ptr, fwd_tile_chunk_ptr, fwd_chunk_cut, fwd_ent, bias, out,
+    # then (B, C3, N, T, D, the most entries of a chunk) and the tile the lists were built for (durations, starts, rows a chunk)
+    lib.bm_gather_fwd.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.bm_gather_fwd.restype = i
     # out, dout, the [cells, B*C3] scratch, tile_cells, tile_cell_ptr, tile_chunk_ptr, chunk_cut, ent, dP, then (B, C3, N, T,
     # cells, the most entries of a chunk) and the tile the lists were built for (samples, positions, cells a chunk)

@@ -139,15 +139,21 @@ def test_tiled_schedule_gives_the_plain_bits(key):
 
 
 def test_lists_move_only_what_the_kernels_read():
-    """``BMLists.to`` moves the column and tile forms the kernels read and leaves the row form on the host, shared
-    with the host lists; ``rows(device)`` copies the row form there once; the lists carry the tile they were built for."""
+    """``BMLists.to`` moves the two tile forms the kernels read and leaves the column and row forms, which only the
+    plain versions read, on the host, shared with the host lists; ``columns(device)`` and ``rows(device)`` copy them
+    there once; the lists carry the tiles they were built for."""
     lists = bm.boundary_matching_lists(*KEYS[1])
     moved = lists.to("meta")
     assert moved is lists.to("meta") and moved.device == torch.device("meta") and lists.device == torch.device("cpu")
+    assert set(bm.BMLists.KERNEL_TENSORS) == {"tile_cell_ptr", "tile_cells", "tile_chunk_ptr", "chunk_cut", "ent", "fwd_tile_row_ptr",
+                                              "fwd_tile_rows", "fwd_tile_chunk_ptr", "fwd_chunk_cut", "fwd_ent"}
     assert all(getattr(moved, name).device == torch.device("meta") for name in bm.BMLists.KERNEL_TENSORS)
-    assert all(getattr(moved, name) is getattr(lists, name) for name in bm.BMLists.ROW_TENSORS)
+    assert all(getattr(moved, name) is getattr(lists, name) for name in bm.BMLists.COLUMN_TENSORS + bm.BMLists.ROW_TENSORS)
     assert (moved.nnz, moved.max_chunk_entries, moved.tile) == (lists.nnz, lists.max_chunk_entries, (bm.TILE_N, bm.TILE_T, bm.TILE_CHUNK))
-    rows = moved.rows("meta")
-    assert rows is lists.rows("meta") and all(t.device == torch.device("meta") for t in rows)
-    assert [t.shape for t in rows] == [lists.row_ptr.shape, lists.row_cell.shape, lists.row_w.shape]
-    assert all(a is b for a, b in zip(lists.rows("cpu"), (lists.row_ptr, lists.row_cell, lists.row_w)))
+    assert (moved.fwd_max_chunk_entries, moved.fwd_tile) == (lists.fwd_max_chunk_entries, (bm.FWD_TILE_D, bm.FWD_TILE_T, bm.TILE_CHUNK))
+    for form, names in ((moved.rows, bm.BMLists.ROW_TENSORS), (moved.columns, bm.BMLists.COLUMN_TENSORS)):
+        on_meta = form("meta")
+        assert on_meta is form("meta") and all(t.device == torch.device("meta") for t in on_meta)
+        assert [t.shape for t in on_meta] == [getattr(lists, name).shape for name in names]
+        assert all(a is getattr(lists, name) for a, name in zip(form("cpu"), names))
+    assert lists.rows("meta") is moved.rows("meta") and lists.columns("meta") is moved.columns("meta")

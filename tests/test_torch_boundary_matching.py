@@ -156,7 +156,7 @@ def test_plain_versions_add_in_the_kernels_order():
     key = KEYS[1]
     lists = boundary_matching_lists(*key)
     g = torch.Generator().manual_seed(0)
-    p = torch.randn(2, 3, lists.num_sample, lists.tscale, generator=g)
+    p = torch.randn(lists.num_sample, lists.tscale, 2, 3, generator=g)  # P's rows [N, T], each row's (b, o) side by side
     bias = torch.randn(3, generator=g)
     out = gather_fwd_reference(p, bias, lists)
     order, col_n = lists.order.tolist(), lists.col_n
@@ -166,7 +166,7 @@ def test_plain_versions_add_in_the_kernels_order():
             if i < lists.active:
                 for n in range(lists.num_sample):
                     for k in range(int(col_n[n, i])):
-                        acc = acc + lists.col_w[n, k, i] * p[b, o, n, lists.col_t[n, k, i].long()]
+                        acc = acc + lists.col_w[n, k, i] * p[n, lists.col_t[n, k, i].long(), b, o]
             assert torch.equal(out[b, o, order[i]], torch.relu(acc + bias[o]))
     dout = torch.randn(out.shape, generator=g)
     dp = gather_bwd_reference(out, dout, lists)

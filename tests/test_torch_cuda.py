@@ -1049,11 +1049,12 @@ def test_tada2d_train_steps_past_the_first_update_are_the_same_bits_on_a_second_
 
 
 # BMN's boundary-matching gathers: (T, D, N, per-bin, ratio) of the mask, windows B, output channels C3: the
-# localization tests' key; D < T with C3 = 13 (a ragged last block of 8 channels); T = 100 at N = 32; the EPIC preset's
-# mask (T = D = 200, N = 32: 25.6 KB of P a channel, 8 channels a block) at a few windows and channels
+# localization tests' key; D < T with C3 = 13 (B*C3 = 26: no 16-byte copies, a ragged channel block); T = 100 at N = 32;
+# the EPIC preset's mask (T = D = 200, N = 32) at a few windows and channels, at B*C3 = 300 (two channel blocks of 128
+# and a ragged third) and at the preset's full width (8 windows, DIM3D 512)
 BM_CASES = [((32, 32, 8, 3, 0.5), 3, 16), ((32, 12, 8, 3, 0.5), 2, 13), ((100, 100, 32, 3, 0.5), 2, 24), ((200, 200, 32, 3, 0.5), 2, 16),
-            ((200, 200, 32, 3, 0.5), 8, 512)]
-BM_IDS = ["T32_D32_N8", "T32_D12_N8_C13", "T100_N32", "T200_N32", "epic_preset"]
+            ((200, 200, 32, 3, 0.5), 3, 100), ((200, 200, 32, 3, 0.5), 8, 512)]
+BM_IDS = ["T32_D32_N8", "T32_D12_N8_C13", "T100_N32", "T200_N32", "epic_C300", "epic_preset"]
 
 
 def _bm_inputs(key, b, c3, dev, seed=0):
@@ -1061,7 +1062,7 @@ def _bm_inputs(key, b, c3, dev, seed=0):
 
     lists = bm_op.boundary_matching_lists(*key).to(dev)
     g = torch.Generator().manual_seed(seed)
-    p = torch.randn(b, c3, key[2], key[0], generator=g).to(dev)
+    p = torch.randn(key[2], key[0], b, c3, generator=g).to(dev)  # P's rows [N, T], each row's (b, o) side by side
     bias = (0.1 * torch.randn(c3, generator=g)).to(dev)
     return lists, p, bias
 
@@ -1096,7 +1097,7 @@ def test_bm_gather_kernels_match_plain(cuda, key, b, c3):
     dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
     dp = bm_op.bm_gather_bwd_cuda(out, dout, lists)
     torch.cuda.synchronize()
-    assert bm_op.LAUNCHES["bm_gather_bwd"] == before["bm_gather_bwd"] + 1 and dp.shape == p.shape
+    assert bm_op.LAUNCHES["bm_gather_bwd"] == before["bm_gather_bwd"] + 1 and dp.shape == (b, c3, key[2], key[0])
     want = bm_op.gather_bwd_reference(out, dout, lists)
     _close_to_plain(dp, want, "backward")
     assert torch.equal(dp, want)
@@ -1122,6 +1123,26 @@ def test_bm_gather_bwd_refuses_lists_of_another_tile(cuda):
         with pytest.raises(RuntimeError, match="bm_gather_bwd launch"):
             bm_op.bm_gather_bwd_cuda(out, dout, other)
     assert bm_op.LAUNCHES["bm_gather_bwd"] == before
+
+
+@pytest.mark.cuda
+def test_bm_gather_fwd_refuses_lists_of_another_tile(cuda):
+    """Lists whose forward tile form was built for another tile than the kernel's are refused, not read with the wrong
+    layout."""
+    import copy
+
+    from clip_fsar_torch.ops import boundary_matching as bm_op
+
+    lists, p, bias = _bm_inputs((32, 12, 8, 3, 0.5), 2, 3, cuda)
+    before = bm_op.LAUNCHES["bm_gather_fwd"]
+    for tile in ((bm_op.FWD_TILE_D * 2, bm_op.FWD_TILE_T, bm_op.TILE_CHUNK), (bm_op.FWD_TILE_D, bm_op.FWD_TILE_T // 2, bm_op.TILE_CHUNK),
+                 (bm_op.FWD_TILE_D, bm_op.FWD_TILE_T, bm_op.TILE_CHUNK * 2)):
+        other = copy.copy(lists)
+        other.fwd_tile = tile
+        with pytest.raises(RuntimeError, match="bm_gather_fwd launch"):
+            bm_op.bm_gather_fwd_cuda(p, bias, other)
+    assert bm_op.LAUNCHES["bm_gather_fwd"] == before
+    assert torch.equal(bm_op.bm_gather_fwd_cuda(p, bias, lists), bm_op.gather_fwd_reference(p, bias, lists))
 
 
 @pytest.mark.cuda
@@ -1157,9 +1178,11 @@ def test_bm_gather_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         bm_op.bm_gather_fwd_cuda(p.double(), bias.double(), lists)
     with pytest.raises(ValueError):
-        bm_op.bm_gather_fwd_cuda(p[:, :, :4], bias, lists)  # another N than the mask's
+        bm_op.bm_gather_fwd_cuda(p[:4], bias, lists)  # another N than the mask's
     with pytest.raises(ValueError):
         bm_op.bm_gather_fwd_cuda(p.transpose(2, 3).contiguous().transpose(2, 3), bias, lists)  # not contiguous
+    with pytest.raises(ValueError):
+        bm_op.bm_gather_fwd_cuda(p, bias[:3], lists)  # another C3 than P's
     with pytest.raises(ValueError):
         bm_op.bm_gather_fwd_cuda(p, bias, bm_op.boundary_matching_lists(32, 12, 8, 3, 0.5))  # lists on the host
     out = bm_op.bm_gather_fwd_cuda(p, bias, lists)

@@ -21,6 +21,7 @@ from clip_fsar_torch.data.sampling import sample_indices_for_cfg
 from clip_fsar_torch.data.splits import FewShotSplit
 from clip_fsar_torch.data.transforms import fewshot_test_transform, fewshot_train_transform
 from clip_fsar_torch.data.types import Episode, stack_episodes
+from clip_fsar_torch.utils import tracing
 from clip_fsar_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -177,7 +178,7 @@ class EpisodeLoader:
 
     def __iter__(self) -> Iterator[Episode]:
         while self._next_emit < self.num_steps:
-            with self._cond:
+            with tracing.span("fsar.loader.wait", step=self._next_emit), self._cond:
                 while self._next_emit not in self._buffer and not self._stop.is_set():
                     self._cond.wait(timeout=0.2)
                 if self._error is not None:

@@ -15,6 +15,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from clip_fsar_torch.utils import tracing
+
 
 @dataclasses.dataclass
 class Episode:
@@ -60,7 +62,8 @@ class Episode:
                 t = t.pin_memory()
             return t.to(device, non_blocking=non_blocking)
 
-        return self.map(move)
+        with tracing.span("fsar.h2d"):
+            return self.map(move)
 
 
 def stack_episodes(episodes) -> Episode:

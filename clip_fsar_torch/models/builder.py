@@ -41,6 +41,7 @@ from clip_fsar_torch.models.clip.model import (
 from clip_fsar_torch.models.heads import fsheads, molo  # noqa: F401  (registers the classic heads and MoLo)
 from clip_fsar_torch.models.heads.clipfsar import CLIPFSARConfig, CLIPFSARHead
 from clip_fsar_torch.models.resnet import RESNET_SPECS, load_torchvision_resnet
+from clip_fsar_torch.utils import tracing
 from clip_fsar_torch.utils.logging import get_logger
 from clip_fsar_torch.utils.registry import HEAD_REGISTRY
 
@@ -260,10 +261,11 @@ def make_head(cfg, arch: CLIPArch, device: torch.device) -> CLIPFSARHead:
         # backward, where the JAX package keeps one chunk's: recompute them instead (same numbers)
         logger.info("TPU.REMAT_POLICY dots under TPU.FRAME_CHUNKS %d: the blocks recompute their products too", frame_chunks)
         remat_policy = "nothing"
-    return CLIPFSARHead(
-        arch, CLIPFSARConfig.from_cfg(cfg), dtype=_dtype_from_cfg(cfg), attention_backend=_attention_backend_from_cfg(cfg, device),
-        train_backbone_bn=not bn_freeze, remat=remat, remat_policy=remat_policy, frame_chunks=frame_chunks,
-    )
+    with tracing.setup_span("fsar.setup.model"):
+        return CLIPFSARHead(
+            arch, CLIPFSARConfig.from_cfg(cfg), dtype=_dtype_from_cfg(cfg), attention_backend=_attention_backend_from_cfg(cfg, device),
+            train_backbone_bn=not bn_freeze, remat=remat, remat_policy=remat_policy, frame_chunks=frame_chunks,
+        )
 
 
 @HEAD_REGISTRY.register(name="CNN_OTAM_CLIPFSAR")

@@ -41,6 +41,7 @@ from clip_fsar_torch.models.clip.arch import CLIPArch
 from clip_fsar_torch.models.clip.model import BatchNorm, build_vision_tower, rematerialized
 from clip_fsar_torch.models.heads.common import TransformerV1, class_mean, cos_sim
 from clip_fsar_torch.ops.otam import otam_distance
+from clip_fsar_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,15 +109,16 @@ class CLIPFSARHead(nn.Module):
     def _encode(self, images: torch.Tensor, bn_groups: Optional[int] = None) -> torch.Tensor:
         """[E, N, T, H, W, 3] -> float32 features [E, N, T, D] in one tower
         call, or in ``frame_chunks`` sequential parts of it."""
-        flat = images.reshape((-1,) + images.shape[3:])
-        c = self.frame_chunks
-        if not self.arch.is_vit:
-            feats = self.backbone(flat, bn_groups)
-        elif c > 1 and (images.shape[1] * images.shape[2]) % c == 0:
-            feats = torch.cat([rematerialized(self.backbone, part) for part in flat.chunk(c)])
-        else:
-            feats = self.backbone(flat)
-        return feats.float().reshape(images.shape[:3] + (-1,))
+        with tracing.span("fsar.tower"):
+            flat = images.reshape((-1,) + images.shape[3:])
+            c = self.frame_chunks
+            if not self.arch.is_vit:
+                feats = self.backbone(flat, bn_groups)
+            elif c > 1 and (images.shape[1] * images.shape[2]) % c == 0:
+                feats = torch.cat([rematerialized(self.backbone, part) for part in flat.chunk(c)])
+            else:
+                feats = self.backbone(flat)
+            return feats.float().reshape(images.shape[:3] + (-1,))
 
     def _text_logits(self, text_bank, ep: Episode, image_features: torch.Tensor) -> torch.Tensor:
         """softmax(scale * <image, class-mean support text>) over the way

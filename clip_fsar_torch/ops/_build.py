@@ -19,12 +19,17 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+
+from clip_fsar_torch.utils import tracing
+from clip_fsar_torch.utils.logging import get_logger
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _LIB_NAME = "libclip_fsar_kernels.so"
+logger = get_logger(__name__)
 
 
 def _nvcc() -> str:
@@ -56,20 +61,25 @@ def _compile_all(nvcc: str, srcs: list, work: str) -> list:
     return objs
 
 
+def library_path() -> str:
+    """Where the library of this source/header/flag combination lives, built or not."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_ROOT, digest.hexdigest()[:16], _LIB_NAME)
+
+
 def build() -> str:
     """Compile the kernels if this source/header/flag combination has no
     library yet; returns the library path.  The compilers' ``-Xptxas -v``
     report (registers, shared memory, spills per kernel) is kept as
     ``nvcc.log`` beside it."""
-    srcs = sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
-        with open(path, "rb") as f:
-            digest.update(os.path.basename(path).encode() + f.read())
-    out_dir = os.path.join(BUILD_ROOT, digest.hexdigest()[:16])
-    lib_path = os.path.join(out_dir, _LIB_NAME)
+    lib_path = library_path()
     if os.path.exists(lib_path):
         return lib_path
+    out_dir = os.path.dirname(lib_path)
+    srcs = sources()
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
@@ -86,8 +96,14 @@ def build() -> str:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), with every entry
-    point's argument and result types declared."""
-    lib = ctypes.CDLL(build())
+    point's argument and result types declared.  Logs whether it was built
+    or found, and in how many seconds."""
+    t0 = time.perf_counter()
+    with tracing.setup_span("fsar.setup.kernels") as span:
+        built = not os.path.exists(library_path())
+        lib = ctypes.CDLL(build())
+        span.set(built=built)
+    logger.info("kernel library %s in %.1f s", "built" if built else "loaded from cache", time.perf_counter() - t0)
     p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.clip_mha_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.clip_mha_fwd.restype = i

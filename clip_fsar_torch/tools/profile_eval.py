@@ -21,9 +21,12 @@ printed on a line that starts with the tag of its reading set:
   grouped into attention kernel (``clip_mha`` or ``flash_mha``) / GEMM /
   softmax / memcpy / other, the wall time, and the busy share of the wall;
 - ``loop[<path> #i]``: ``evaluate`` over 16 episodes (loader, H2D copies,
-  steps), without and then under the profiler: wall seconds, device
-  busy time (the union of device-event intervals) and idle share, and the
-  peak device memory of the loop.
+  steps), without the profiler with the program's spans off and then
+  recording (``utils/tracing.recording``: the two rates give the tracing's
+  cost), and under the profiler: wall seconds, device busy time (the union
+  of device-event intervals) and idle share, the ten longest idle gaps of
+  the card named by the ``fsar.`` span open at their start
+  (``tracing.name_gaps``), and the peak device memory of the loop.
 
 ``<path>`` is ``fused`` (the clip_mha kernel), ``split`` (plain attention
 with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
@@ -36,9 +39,9 @@ the ViT-L/14@336px 16-frame configuration (``VIT_L336_OPTS``: 640 frames of
 attention path of the config (its attention pool is plain float32 softmax),
 so only ``split`` is read, and its ``kernels`` sets also print
 ``rn_split[...]``: the device time inside the convolutions (``aten::convolution``
-and its backward), inside BatchNorm (each module's forward under a profiler
-range, and its autograd backward) and the rest, from the profiler's
-per-op device totals.
+and its backward), inside BatchNorm (the program's ``fsar.bn`` range around
+every BatchNorm call, and its autograd backward) and the rest, from the
+profiler's per-op device totals.
 
 ``--cfg`` profiles another config as it is written (its head and backbone;
 ``--backbone`` is not read), e.g. a shipped HyRSM++ or MoLo config on its
@@ -60,6 +63,8 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+
+from clip_fsar_torch.utils import tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CONFIG = os.path.join(REPO, "configs", "projects", "CLIPFSAR", "hmdb51", "CLIPFSAR_HMDB51_1shot_v1.yaml")
@@ -165,7 +170,7 @@ def report_classic_split(tag: str, prof, busy_ms: float) -> None:
     rows = {row.key: row for row in prof.key_averages()}
     pick = lambda *names: sum(_device_total_ms(rows[n]) for n in names if n in rows)  # noqa: E731
     conv_fwd, conv_bwd = pick("aten::convolution"), pick("aten::convolution_backward")
-    bn_fwd = pick("bn_chain")
+    bn_fwd = pick("fsar.bn")
     bn_bwd = pick("_BatchNormFnBackward") or pick("autograd::engine::evaluate_function: _BatchNormFnBackward")
     trunk, decoder = pick("trunk"), pick("decoder")
     if not conv_fwd + bn_fwd:
@@ -176,36 +181,19 @@ def report_classic_split(tag: str, prof, busy_ms: float) -> None:
         f"step also every backward and the optimizer) {busy_ms - trunk - decoder:.3f} ms, of {busy_ms:.3f} ms device busy")
 
 
-@contextlib.contextmanager
-def bn_ranges():
-    """Every RN BatchNorm forward inside a profiler range named ``bn_chain`` (the backward is the
-    autograd node ``_BatchNormFnBackward``), for ``report_split``; the model's code is untouched."""
-    from unittest import mock
-
-    from clip_fsar_torch.models.clip.model import BatchNorm
-
-    forward = BatchNorm.forward
-
-    def ranged(self, *args, **kwargs):
-        with torch.profiler.record_function("bn_chain"):
-            return forward(self, *args, **kwargs)
-
-    with mock.patch.object(BatchNorm, "forward", ranged):
-        yield
-
-
 def _device_total_ms(row) -> float:
     total = getattr(row, "device_time_total", None)
     return (total if total is not None else row.cuda_time_total) / 1e3
 
 
 def report_split(tag: str, prof, busy_ms: float) -> None:
-    """The RN step's device time split into convolutions, the BatchNorm chain and the rest, from the
-    profiler's per-op totals (each op's own kernels and its children's)."""
+    """The RN step's device time split into convolutions, the BatchNorm chain (the program's ``fsar.bn``
+    ranges, and the autograd node ``_BatchNormFnBackward``) and the rest, from the profiler's per-op totals
+    (each op's own kernels and its children's)."""
     rows = {row.key: row for row in prof.key_averages()}
     pick = lambda *names: sum(_device_total_ms(rows[n]) for n in names if n in rows)  # noqa: E731
     conv_fwd, conv_bwd = pick("aten::convolution"), pick("aten::convolution_backward")
-    bn_fwd = pick("bn_chain")
+    bn_fwd = pick("fsar.bn")
     bn_bwd = pick("_BatchNormFnBackward") or pick("autograd::engine::evaluate_function: _BatchNormFnBackward")
     if not conv_fwd + bn_fwd:
         say(f"{tag}: the profiler's op rows carry no device time; read the kernel groups above instead")
@@ -241,10 +229,8 @@ def _group(name: str) -> str:
 
 
 def _device_events(prof) -> List:
-    """The card's kernels and copies, without the spans that profiler ranges (``bn_chain``) leave on the
-    device timeline."""
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and e.name != "bn_chain"]
+    """The card's kernels and copies, without the spans that profiler ranges leave on the device timeline."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
 
 
 def _busy_us(events) -> float:
@@ -280,6 +266,16 @@ def _report_kernels(tag: str, prof, wall_ms: float, steps: int) -> float:
     for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
         say(f"{tag}: {ms:10.3f} ms {ms / total * 100:5.1f} % x{n:<5d} {name[:110]}")
     return busy
+
+
+def say_gaps(tag: str, prof) -> None:
+    """The ten longest idle gaps of the card in a profiled loop from its first step on, each named by the
+    program's span open at its start; then drops the recorded spans."""
+    spans = tracing.collect()["spans"]
+    first = min((s.start_ns for s in spans if s.name == "fsar.step"), default=0)
+    gaps = tracing.name_gaps([iv for iv in tracing.device_intervals(prof) if iv[1] >= first], spans)
+    say(f"{tag}: longest idle gaps from the first step on: " + ", ".join(f"{name} {length / 1e6:.3f} ms" for name, _, length in gaps))
+    tracing.reset()
 
 
 def resize_variants():
@@ -352,7 +348,7 @@ def profile_path(path: str, reading: int, steps: int = STEPS, backbone: Optional
     frames = batch.support_images.shape[:3].numel() + batch.target_images.shape[:3].numel()
     say(f"{tag}: batch resident, {frames} frames, ms per step over {steps} steps: " + " / ".join(f"{ms:.3f}" for ms in readings))
 
-    with bn_ranges(), classic_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with classic_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             eval_step(batch)
@@ -370,6 +366,11 @@ def profile_path(path: str, reading: int, steps: int = STEPS, backbone: Optional
     plain = evaluate(cfg, model, episodes, EPISODES_PER_STEP, device=dev)
     say(f"{tag}: {episodes} episodes, {plain['seconds']:.3f} s, {episodes / plain['seconds']:.3f} episodes/s (no profiler), "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    with tracing.recording():
+        spanned = evaluate(cfg, model, episodes, EPISODES_PER_STEP, device=dev)
+    say(f"{tag}: {episodes} episodes, {spanned['seconds']:.3f} s, {episodes / spanned['seconds']:.3f} episodes/s with the "
+        f"program's spans recording (no profiler) against {episodes / plain['seconds']:.3f} without")
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced = evaluate(cfg, model, episodes, EPISODES_PER_STEP, device=dev)
         torch.cuda.synchronize()
@@ -377,6 +378,7 @@ def profile_path(path: str, reading: int, steps: int = STEPS, backbone: Optional
     busy_s = _busy_us(events) / 1e6
     say(f"{tag}: {episodes} episodes, {traced['seconds']:.3f} s under the profiler, device busy {busy_s:.3f} s, "
         f"idle {(1 - busy_s / traced['seconds']) * 100:.1f} % of the loop")
+    say_gaps(tag, prof)
     del model, eval_step, batch
     torch.cuda.empty_cache()
 

@@ -32,8 +32,12 @@ with the tag of its reading set:
   its flat buckets, CUDA events); more than one card is not measured here;
 - ``loop[<path> #i]``: ``train_few_shot`` over 6 steps (no validation), first
   as it runs for a user (wall seconds of the step loop and train episodes/s),
-  then under the profiler: wall seconds, device busy time (the union of
-  device-event intervals) and idle share, peak device memory.
+  then with the program's spans recording (``utils/tracing.recording``, no
+  profiler: the two rates give the tracing's cost), then under the
+  profiler: wall seconds, device busy time (the union of device-event
+  intervals) and idle share, peak device memory, and the ten longest idle
+  gaps of the card named by the ``fsar.`` span open at their start
+  (``profile_eval.say_gaps``).
 
 ``<path>`` is ``fused`` (the clip_mha kernels), ``split`` (plain attention
 with fp32 logits) or ``pallas`` (``TPU.PALLAS_ATTENTION``: the flash_mha
@@ -76,7 +80,6 @@ from clip_fsar_torch.tools.profile_eval import (
     _device_events,
     _report_kernels,
     backbone_opts,
-    bn_ranges,
     card,
     classic_ranges,
     config_opts,
@@ -84,7 +87,9 @@ from clip_fsar_torch.tools.profile_eval import (
     report_classic_split,
     report_split,
     say,
+    say_gaps,
 )
+from clip_fsar_torch.utils import tracing
 
 EPISODES = 4
 TRAIN_OPTS = [
@@ -172,7 +177,7 @@ def profile_step(path: str, reading: int, steps: int = STEPS, backbone: Optional
     say(f"{tag}: batch resident, {frames_per_step(cfg)} frames in 2 chunks, ms per train step over {steps} steps: "
         + " / ".join(f"{ms:.3f}" for ms in readings) + "; the host queued a step in " + " / ".join(f"{ms:.3f}" for ms in queued) + " ms")
 
-    with bn_ranges(), classic_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with classic_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             train_step(state, batch, 1e-6, gen)
@@ -264,8 +269,15 @@ def profile_loop(path: str, reading: int, steps: int = 6, backbone: Optional[str
         loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir, backbone=backbone, cfg_path=cfg_path)
         stats = train_few_shot(loop_cfg)
     episodes = int(loop_cfg.TPU.EPISODES_PER_STEP)
-    say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s without the profiler, "
-        f"{stats['steps'] * episodes / stats['seconds']:.3f} train episodes/s")
+    rate = stats["steps"] * episodes / stats["seconds"]
+    say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s without the profiler, {rate:.3f} train episodes/s")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir, tracing.recording():
+        loop_cfg = train_cfg(*PATHS[path], "TRAIN.NUM_TRAIN_TASKS", str(steps), "OUTPUT_DIR", out_dir, backbone=backbone, cfg_path=cfg_path)
+        stats = train_few_shot(loop_cfg)
+    say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s, {stats['steps'] * episodes / stats['seconds']:.3f} train "
+        f"episodes/s with the program's spans recording (no profiler) against {rate:.3f} without")
+    tracing.reset()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -277,6 +289,7 @@ def profile_loop(path: str, reading: int, steps: int = 6, backbone: Optional[str
     say(f"{tag}: {stats['steps']} steps, {stats['seconds']:.3f} s under the profiler, "
         f"{stats['steps'] * episodes / stats['seconds']:.3f} train episodes/s, device busy {busy_s:.3f} s, "
         f"idle {(1 - busy_s / stats['seconds']) * 100:.1f} % of the loop; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    say_gaps(tag, prof)
     torch.cuda.empty_cache()
 
 

@@ -44,6 +44,7 @@ from clip_fsar_torch.train.optimizer import Optimizer, epoch_for_iter, get_lr_at
 from clip_fsar_torch.train.pretrain import surgery_flags
 from clip_fsar_torch.train.state import TrainState
 from clip_fsar_torch.train.step import make_eval_step, make_train_step
+from clip_fsar_torch.utils import tracing
 from clip_fsar_torch.utils.logging import get_logger, log_json_stats, setup_logging
 from clip_fsar_torch.utils.misc import log_model_info
 
@@ -93,20 +94,22 @@ def evaluate(
     logits_kept = []
     queries = 0
 
-    def consume(out: Dict[str, torch.Tensor]) -> None:
+    def consume(out: Dict[str, torch.Tensor], step: int) -> None:
         nonlocal top1, top5, count, loss_sum, episodes_left, queries
-        out = {k: v.cpu().numpy() for k, v in out.items()}  # waits for the step
-        take = min(e, episodes_left)
-        episodes_left -= take
-        top1 += int(out["top1_correct"][:take].sum())
-        top5 += int(out["top5_correct"][:take].sum())
-        count += int(out["count"][:take].sum())
-        queries = int(out["count"][0])
-        loss_sum += float(out["loss"][:take].mean())
-        logits_kept.append(out["logits"][:take])
-        for real, corr in zip(out["real_labels"][:take].reshape(-1), out["correct"][:take].reshape(-1)):
-            per_class[int(real)][0] += float(corr)
-            per_class[int(real)][1] += 1
+        with tracing.span("fsar.eval.fetch", step=step):
+            out = {k: v.cpu().numpy() for k, v in out.items()}  # waits for the step
+        with tracing.span("fsar.eval.account", step=step):
+            take = min(e, episodes_left)
+            episodes_left -= take
+            top1 += int(out["top1_correct"][:take].sum())
+            top5 += int(out["top5_correct"][:take].sum())
+            count += int(out["count"][:take].sum())
+            queries = int(out["count"][0])
+            loss_sum += float(out["loss"][:take].mean())
+            logits_kept.append(out["logits"][:take])
+            for real, corr in zip(out["real_labels"][:take].reshape(-1), out["correct"][:take].reshape(-1)):
+                per_class[int(real)][0] += float(corr)
+                per_class[int(real)][1] += 1
 
     log_every = 50
     pending: Optional[Dict[str, torch.Tensor]] = None
@@ -121,22 +124,23 @@ def evaluate(
             out = eval_step(mesh.retry_transient(lambda: batch.to(device, non_blocking=True), "eval batch upload"))  # noqa: B023
             fut = {k: mesh.all_gather_rows(v) for k, v in out.items()}
             if pending is not None:
-                consume(pending)
+                consume(pending, steps_done - 1)
                 if steps_done % log_every == 0:
-                    done = num_tasks - episodes_left
-                    log_json_stats(
-                        {
-                            "_type": f"eval_{split}_iter",
-                            "episodes": done,
-                            "of": num_tasks,
-                            "top1_acc": round(top1 / max(count, 1) * 100.0, 2),
-                            "eps_per_sec": round(done / max(time.perf_counter() - t0, 1e-9), 2),
-                        },
-                        logger,
-                    )
+                    with tracing.span("fsar.eval.account", step=steps_done - 1):
+                        done = num_tasks - episodes_left
+                        log_json_stats(
+                            {
+                                "_type": f"eval_{split}_iter",
+                                "episodes": done,
+                                "of": num_tasks,
+                                "top1_acc": round(top1 / max(count, 1) * 100.0, 2),
+                                "eps_per_sec": round(done / max(time.perf_counter() - t0, 1e-9), 2),
+                            },
+                            logger,
+                        )
             pending = fut
         if pending is not None:
-            consume(pending)
+            consume(pending, steps_done)
     seconds = time.perf_counter() - t0
 
     stats = {

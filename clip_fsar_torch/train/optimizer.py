@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from clip_fsar_torch.parallel import tensor
+from clip_fsar_torch.utils import tracing
 
 # ---------------------------------------------------------------------------
 # LR policies (reference lr_policy.py:10-56)
@@ -216,6 +217,10 @@ class Optimizer:
     before its module was sharded takes the slices with ``follow_shards``."""
 
     def __init__(self, cfg, module: nn.Module, name_prefix: str = "head"):
+        with tracing.setup_span("fsar.setup.state"):  # the train state's optimizer part (train/state.py)
+            self._make(cfg, module, name_prefix)
+
+    def _make(self, cfg, module: nn.Module, name_prefix: str) -> None:
         s = cfg.SOLVER
         self.method = str(s.get("OPTIM_METHOD", "adam"))
         wd = float(s.get("WEIGHT_DECAY", 0.0) or 0.0)

@@ -18,6 +18,7 @@ from torch import nn
 
 from clip_fsar_torch.parallel import tensor
 from clip_fsar_torch.train.optimizer import Optimizer
+from clip_fsar_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -29,10 +30,11 @@ class TrainState:
 
     @classmethod
     def create(cls, cfg, head: nn.Module, optimizer: Optimizer) -> "TrainState":
-        ema = None
-        if "MODEL" in cfg and cfg.MODEL.EMA.get("ENABLE", False):
-            ema = {n: p.detach().clone() for n, p in head.named_parameters()}
-        return cls(step=0, head=head, optimizer=optimizer, ema=ema)
+        with tracing.setup_span("fsar.setup.state"):
+            ema = None
+            if "MODEL" in cfg and cfg.MODEL.EMA.get("ENABLE", False):
+                ema = {n: p.detach().clone() for n, p in head.named_parameters()}
+            return cls(step=0, head=head, optimizer=optimizer, ema=ema)
 
     def model_variables(self) -> Dict[str, torch.Tensor]:
         """The head's weights (its state dict)."""

@@ -46,6 +46,7 @@ rank.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -58,6 +59,7 @@ from clip_fsar_torch.data.transforms import normalize_images
 from clip_fsar_torch.data.types import Episode
 from clip_fsar_torch.parallel import mesh
 from clip_fsar_torch.train.state import TrainState
+from clip_fsar_torch.utils import tracing
 
 _CONTRASTIVE = ("logits_s2q", "logits_q2s", "logits_s2q_motion", "logits_q2s_motion")
 
@@ -156,32 +158,37 @@ def make_grad_fn(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor, b
         e_all, first = e * mesh.data_size(), e * mesh.data_rank()
         draws = (None, None)
         if generator is not None:
-            host = augment.host_generator(generator)  # the step's host draws (the jitter's op orders)
-            device = batch.support_images.device
-            draws = tuple(augment.draw_train_augment(cfg, clip_shape(images, e_all), is_query, generator, host, device=device)
-                          for images, is_query in ((batch.support_images, False), (batch.target_images, True)))
+            with tracing.span("fsar.augment"):
+                host = augment.host_generator(generator)  # the step's host draws (the jitter's op orders)
+                device = batch.support_images.device
+                draws = tuple(augment.draw_train_augment(cfg, clip_shape(images, e_all), is_query, generator, host, device=device)
+                              for images, is_query in ((batch.support_images, False), (batch.target_images, True)))
         c = ep_chunks if (ep_chunks > 1 and e % ep_chunks == 0) else 1
         head.zero_grad(set_to_none=True)
         chunk_metrics, stats = [], None
         for i in range(c):
             lo, hi = i * (e // c), (i + 1) * (e // c)
-            chunk = batch.map(lambda x: x[lo:hi])
-            chunk = chunk.replace(
-                support_images=aug(clips(chunk.support_images), draws[0], (first + lo) * s, e_all * s),
-                target_images=aug(clips(chunk.target_images), draws[1], (first + lo) * q, e_all * q),
-            )
+            with tracing.span("fsar.augment"):
+                chunk = batch.map(lambda x: x[lo:hi])
+                chunk = chunk.replace(
+                    support_images=aug(clips(chunk.support_images), draws[0], (first + lo) * s, e_all * s),
+                    target_images=aug(clips(chunk.target_images), draws[1], (first + lo) * q, e_all * q),
+                )
             for bn in live_bn:
                 bn.step_stats = None  # every chunk's episodes start from the step's running stats
-            loss, metrics = loss_fn(chunk, generator)
-            loss.backward()  # sums the chunks' gradients into .grad
+            with tracing.span("fsar.forward"):
+                loss, metrics = loss_fn(chunk, generator)
+            with tracing.span("fsar.backward"):
+                loss.backward()  # sums the chunks' gradients into .grad
             chunk_metrics.append(metrics)
             if live_bn:  # the mean over the chunk's episodes, summed over the chunks
                 means = [bn.step_stats.mean(dim=0) for bn in live_bn]
                 stats = means if stats is None else torch._foreach_add(stats, means)
         if c > 1:
-            for p in head.parameters():
-                if p.grad is not None:
-                    p.grad.div_(c)
+            with tracing.span("fsar.backward"):
+                for p in head.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(c)
         stats = [st / c for st in stats or []]
         names = list(chunk_metrics[0])
         values = torch.stack([torch.stack([m[k] for m in chunk_metrics]).mean() for k in names])
@@ -212,17 +219,19 @@ def make_train_step(head, cfg, text_train: torch.Tensor, text_test: torch.Tensor
     ema_decay = float(cfg.MODEL.EMA.DECAY) if ("MODEL" in cfg and cfg.MODEL.EMA.get("ENABLE", False)) else None
 
     def train_step(state: TrainState, batch: Episode, lr: float, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        metrics = grad_fn(batch, generator)
-        ok = torch.isfinite(metrics["loss"])
-        metrics["updated"] = state.optimizer.step(lr, ok)
-        for bn in live_bn:
-            bn.commit(ok)
-        head.zero_grad(set_to_none=True)
-        state.step += 1
-        if ema_decay is not None:
-            state.update_ema(ema_decay)
-        metrics["nan_skipped"] = (~ok).float()
-        return metrics
+        with tracing.span("fsar.step", step=state.step):
+            metrics = grad_fn(batch, generator)
+            with tracing.span("fsar.optimizer"):
+                ok = torch.isfinite(metrics["loss"])
+                metrics["updated"] = state.optimizer.step(lr, ok)
+                for bn in live_bn:
+                    bn.commit(ok)
+                head.zero_grad(set_to_none=True)
+                if ema_decay is not None:
+                    state.update_ema(ema_decay)
+            state.step += 1
+            metrics["nan_skipped"] = (~ok).float()
+            return metrics
 
     return train_step
 
@@ -235,33 +244,37 @@ def make_eval_step(
     int32 [E, N, T] bank rows, gathered on the device (data/frame_bank.py)."""
     mean = tuple(float(x) for x in cfg.DATA.MEAN)
     std = tuple(float(x) for x in cfg.DATA.STD)
+    calls = itertools.count()  # the eval step index: the step of the caller's loader
 
     @torch.no_grad()
     def eval_step(batch: Episode) -> Dict[str, torch.Tensor]:
         """Per-episode metrics, each with a leading [E] axis: top-1 / top-5
         correct counts, query count, mean CE, and per-query real labels and
         correctness (for the per-class report), plus the logits."""
-        clips = (lambda rows: rows) if bank is None else (lambda rows: gather_eval_clips(bank, rows))
-        batch = batch.replace(
-            support_images=normalize_images(clips(batch.support_images), mean, std),
-            target_images=normalize_images(clips(batch.target_images), mean, std),
-        )
-        logits = head(batch, text_train, text_test, train=False)["logits"]  # [E, Q, WAY]
-        labels = batch.target_labels.long()
-        order = torch.argsort(-logits, dim=-1, stable=True)
-        hit1 = order[..., 0] == labels
-        kmax = min(5, logits.shape[-1])
-        top5 = (order[..., :kmax] == labels[..., None]).any(dim=-1).sum(dim=-1)
-        ce = F.cross_entropy(logits.flatten(0, 1), labels.flatten(), reduction="none").reshape(labels.shape).mean(dim=-1)
-        e, q = labels.shape
-        return {
-            "top1_correct": hit1.sum(dim=-1),
-            "top5_correct": top5,
-            "count": torch.full((e,), q, dtype=torch.int32, device=labels.device),
-            "loss": ce,
-            "real_labels": batch.real_target_labels,
-            "correct": hit1.float(),
-            "logits": logits,
-        }
+        with tracing.span("fsar.step", step=next(calls)):
+            with tracing.span("fsar.augment"):
+                clips = (lambda rows: rows) if bank is None else (lambda rows: gather_eval_clips(bank, rows))
+                batch = batch.replace(
+                    support_images=normalize_images(clips(batch.support_images), mean, std),
+                    target_images=normalize_images(clips(batch.target_images), mean, std),
+                )
+            with tracing.span("fsar.forward"):
+                logits = head(batch, text_train, text_test, train=False)["logits"]  # [E, Q, WAY]
+                labels = batch.target_labels.long()
+                order = torch.argsort(-logits, dim=-1, stable=True)
+                hit1 = order[..., 0] == labels
+                kmax = min(5, logits.shape[-1])
+                top5 = (order[..., :kmax] == labels[..., None]).any(dim=-1).sum(dim=-1)
+                ce = F.cross_entropy(logits.flatten(0, 1), labels.flatten(), reduction="none").reshape(labels.shape).mean(dim=-1)
+                e, q = labels.shape
+                return {
+                    "top1_correct": hit1.sum(dim=-1),
+                    "top5_correct": top5,
+                    "count": torch.full((e,), q, dtype=torch.int32, device=labels.device),
+                    "loss": ce,
+                    "real_labels": batch.real_target_labels,
+                    "correct": hit1.float(),
+                    "logits": logits,
+                }
 
     return eval_step

@@ -3,22 +3,19 @@ clip_fsar_tpu/utils/meters.py, the reference's utils/meters.py).  Numpy on
 the host, as there, so the port's meters give the JAX package's numbers.
 
 * ``ScalarMeter`` — sliding-window median/average of a scalar.
-* ``TrainMeter`` — iteration stats + ETA + JSON log lines.
-* ``ValMeter``   — epoch-level top1/top5 aggregation (few-shot eval).
 * ``TestMeter``  — multi-view ensemble by video id
   (NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS protocol, meters.py:24-176).
+* ``EpicKitchenMeter`` — the same with EPIC's verb and noun heads.
 """
 
 from __future__ import annotations
 
-import datetime
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 
 from clip_fsar_torch.utils.logging import get_logger, log_json_stats
-from clip_fsar_torch.utils.timer import Timer
 
 logger = get_logger(__name__)
 
@@ -47,154 +44,6 @@ class ScalarMeter:
 
     def get_global_avg(self) -> float:
         return self._total / self._count if self._count else 0.0
-
-
-def _eta_str(seconds: float) -> str:
-    return str(datetime.timedelta(seconds=int(max(seconds, 0))))
-
-
-class TrainMeter:
-    def __init__(self, epoch_iters: int, cfg):
-        self.cfg = cfg
-        self.epoch_iters = epoch_iters
-        self.max_iter = int(cfg.SOLVER.MAX_EPOCH) * epoch_iters
-        self.iter_timer = Timer()
-        self.loss = ScalarMeter(int(cfg.get("LOG_PERIOD", 10)))
-        self.loss_total = 0.0
-        self.lr: Optional[float] = None
-        self.num_top1_mis = 0
-        self.num_top5_mis = 0
-        self.num_samples = 0
-        self.extra: Dict[str, ScalarMeter] = {}
-
-    def reset(self) -> None:
-        self.loss.reset()
-        self.loss_total = 0.0
-        self.lr = None
-        self.num_top1_mis = 0
-        self.num_top5_mis = 0
-        self.num_samples = 0
-        for m in self.extra.values():
-            m.reset()
-
-    def iter_tic(self) -> None:
-        self.iter_timer.tic()
-
-    def iter_toc(self) -> None:
-        self.iter_timer.toc()
-
-    def update_stats(self, top1_err: float, top5_err: float, loss: float, lr: float, mb_size: int, **extras) -> None:
-        self.loss.add_value(loss)
-        self.lr = lr
-        self.loss_total += loss * mb_size
-        # float accumulation like the reference (meters.py:600-601):
-        # int(err*size/100) truncates small-batch misses to zero and
-        # systematically under-reports epoch error
-        self.num_top1_mis += top1_err * mb_size / 100.0
-        self.num_top5_mis += top5_err * mb_size / 100.0
-        self.num_samples += mb_size
-        for k, v in extras.items():
-            self.extra.setdefault(k, ScalarMeter(10)).add_value(float(v))
-
-    def log_iter_stats(self, cur_epoch: int, cur_iter: int) -> None:
-        log_period = int(self.cfg.get("LOG_PERIOD", 10))
-        if (cur_iter + 1) % log_period != 0:
-            return
-        iters_done = cur_epoch * self.epoch_iters + cur_iter + 1
-        eta = self.iter_timer.avg_seconds * (self.max_iter - iters_done)
-        stats = {
-            "_type": "train_iter",
-            "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
-            "iter": f"{cur_iter + 1}/{self.epoch_iters}",
-            "time_avg": round(self.iter_timer.avg_seconds, 4),
-            "eta": _eta_str(eta),
-            "loss": round(self.loss.get_win_median(), 5),
-            "lr": self.lr,
-        }
-        for k, m in self.extra.items():
-            stats[k] = round(m.get_win_median(), 5)
-        log_json_stats(stats, logger)
-
-    def log_epoch_stats(self, cur_epoch: int) -> None:
-        stats = {
-            "_type": "train_epoch",
-            "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
-            "loss": self.loss_total / max(self.num_samples, 1),
-            "lr": self.lr,
-        }
-        if self.num_samples:
-            stats["top1_err"] = self.num_top1_mis / self.num_samples * 100.0
-            stats["top5_err"] = self.num_top5_mis / self.num_samples * 100.0
-        log_json_stats(stats, logger)
-
-
-class ValMeter:
-    def __init__(self, max_iter: int, cfg):
-        self.cfg = cfg
-        self.max_iter = max_iter
-        self.iter_timer = Timer()
-        self.num_top1_cor = 0
-        self.num_top5_cor = 0
-        self.num_samples = 0
-        self.loss = ScalarMeter(int(cfg.get("LOG_PERIOD", 10)))
-        self.model_ema_enabled = False
-        self.best_top1 = 0.0
-
-    def reset(self) -> None:
-        self.num_top1_cor = 0
-        self.num_top5_cor = 0
-        self.num_samples = 0
-        self.loss.reset()
-
-    def iter_tic(self) -> None:
-        self.iter_timer.tic()
-
-    def iter_toc(self) -> None:
-        self.iter_timer.toc()
-
-    def set_model_ema_enabled(self, enabled: bool) -> None:
-        self.model_ema_enabled = enabled
-
-    def update_stats(self, top1_correct: float, top5_correct: float, mb_size: int, loss: Optional[float] = None) -> None:
-        self.num_top1_cor += float(top1_correct)
-        self.num_top5_cor += float(top5_correct)
-        self.num_samples += mb_size
-        if loss is not None:
-            self.loss.add_value(loss)
-
-    @property
-    def top1_acc(self) -> float:
-        return self.num_top1_cor / max(self.num_samples, 1) * 100.0
-
-    @property
-    def top5_acc(self) -> float:
-        return self.num_top5_cor / max(self.num_samples, 1) * 100.0
-
-    def log_iter_stats(self, cur_epoch: int, cur_iter: int) -> None:
-        log_period = int(self.cfg.get("LOG_PERIOD", 10))
-        if (cur_iter + 1) % log_period != 0:
-            return
-        stats = {
-            "_type": "val_iter" + ("_ema" if self.model_ema_enabled else ""),
-            "epoch": f"{cur_epoch + 1}",
-            "iter": f"{cur_iter + 1}/{self.max_iter}",
-            "time_avg": round(self.iter_timer.avg_seconds, 4),
-            "top1_acc": round(self.top1_acc, 3),
-            "top5_acc": round(self.top5_acc, 3),
-        }
-        log_json_stats(stats, logger)
-
-    def log_epoch_stats(self, cur_epoch: int) -> None:
-        self.best_top1 = max(self.best_top1, self.top1_acc)
-        stats = {
-            "_type": "val_epoch" + ("_ema" if self.model_ema_enabled else ""),
-            "epoch": f"{cur_epoch + 1}",
-            "top1_acc": round(self.top1_acc, 3),
-            "top5_acc": round(self.top5_acc, 3),
-            "best_top1_acc": round(self.best_top1, 3),
-            "num_samples": self.num_samples,
-        }
-        log_json_stats(stats, logger)
 
 
 class TestMeter:

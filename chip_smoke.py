@@ -100,9 +100,10 @@ and read just after.  Phases:
    the step-8 checkpoint) with BatchNorm on per-episode batch statistics;
    checks finite losses, 2 updates, and that the checkpoints hold finite
    running stats that moved from their fresh values and between steps 4 and 8.
-   Neither RN50 phase launches any kernel: the RN towers' convs, BatchNorm and
-   attention pooling are cuDNN and plain torch, as they are XLA in the JAX
-   package (no Pallas kernel lies on that path);
+   Both RN50 phases launch the BatchNorm kernels and no other: on batch
+   statistics each chunk's support and target calls, on running statistics
+   each eval step's call (phase 35); the convs and the attention pooling are
+   cuDNN and plain torch, as they are XLA in the JAX package;
 12. remat against none at ViT-B/16: one train step (E = 4 in 2 chunks) with
    TPU.REMAT False, True with policy nothing and True with policy dots, on
    the fused and on the flash path, same weights, batch and generator; loss
@@ -133,8 +134,8 @@ and read just after.  Phases:
    step-8 checkpoint, then again in fp32 (bf16 logits against fp32 ones), one
    train step in bf16 against fp32 (loss, picked gradients), the step timed
    with its batch resident beside the host's time to queue it; checks finite
-   losses, 2 updates, no kernel launched anywhere (the classic heads reach no
-   Pallas kernel in the JAX package either), and the step-8 checkpoint's
+   losses, 2 updates, no kernel launched anywhere but the BatchNorm's (the
+   classic heads reach no Pallas kernel in the JAX package), and the step-8 checkpoint's
    running stats: the trunk's as fresh, MoLo's decoder's moved; and two train
    steps of each run twice from one seed: the same loss bits and parameters;
 18. the frame banks against the pixel path, bit for bit, at ViT-B/16's widths:
@@ -237,7 +238,7 @@ and read just after.  Phases:
    MERGE_BEFORE), MoLo 5-shot (the test at SHOT_TEST 5), HyRSM++ 1-shot and 2-shot
    (standing for SHOT 2-4) configs through the CLI: 2 train steps of E = 2 in 2 chunks
    (MoLo 5-shot: none), the test protocol on 8 episodes, train and test episodes/s,
-   peak, no kernel launched; then on one batch of its loaders bf16 against fp32 (eval
+   peak, no kernel launched but the BatchNorm's; then on one batch of its loaders bf16 against fp32 (eval
    logits, loss, picked gradients), the resident bf16 step's card ms beside the host's;
    K1-K5 at the train step of one episode of ViT-B/32 (N = 50) and ViT-L/14 at 224 px
    (N = 257) against their plain versions, timed beside the library call and the bound;
@@ -260,7 +261,16 @@ and read just after.  Phases:
    phase 31); the host seconds of the mask's lists; the op forward and forward +
    backward beside the dense path it
    replaced (matmul by the 1.02 GB mask, Conv3d, ReLU), whose output and gradients it
-   matches at 1e-4 of their largest values.
+   matches at 1e-4 of their largest values;
+35. the RN towers' BatchNorm kernels (``csrc/batch_norm.cu``) in bf16 at RN50's largest and
+   smallest train shapes on batch statistics and at its eval shapes on running statistics:
+   each entry (forward and backward) against the plain chain (y, dx; the same bits on a second
+   run; its launches), timed beside it and beside its bound, each input read once and each
+   output written once, and the passes the work needs.
+
+Every phase holds the BatchNorm kernels' launches to the ``BatchNorm`` calls counted in the same
+window (3 forward and 3 backward a call on batch statistics, 1 and 2 on running statistics);
+the RN50 slices hold them to the calls the loop makes.
 
 Beside each kernel's time the phases time its plain version and, where one
 PyTorch call computes the same function (``scaled_dot_product_attention``
@@ -278,6 +288,7 @@ The second-to-last line is a JSON record of the kernels; the last line is
 ``python3 chip_smoke.py --cudnn-determinism`` runs none of the phases: it measures what cuDNN's deterministic
 convolution algorithms (``runtime.deterministic_convolutions``, under which every train step runs) cost each
 conv-heavy train step, BMN's with its device time by operator, and whether small fp32 MoSI steps repeat without them.
+``python3 chip_smoke.py --batch-norm`` runs the device, build and BatchNorm phases (1, 2 and 35) alone.
 """
 
 from __future__ import annotations
@@ -505,33 +516,71 @@ def _alternate(kernel, plain, iters: int = 20) -> tuple:
     return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
 
 
+# the RN towers' BatchNorm calls since the last reset (``_count_batch_norm_calls``): on batch or running statistics, and
+# of those the ones that recorded a graph, each of which the step's backward runs once
+BN_CALLS = {"batch": 0, "running": 0, "batch_grad": 0, "running_grad": 0}
+
+
+def _count_batch_norm_calls() -> None:
+    """Count every ``BatchNorm`` call into BN_CALLS, from outside the model (its forward is wrapped, unchanged)."""
+    from clip_fsar_torch.models.clip.model import BatchNorm
+
+    forward = BatchNorm.forward
+
+    def counted(self, x, groups=None):
+        kind = "running" if groups is None else "batch"
+        BN_CALLS[kind] += 1
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
+            BN_CALLS[kind + "_grad"] += 1
+        return forward(self, x, groups)
+
+    BatchNorm.forward = counted
+
+
+def _bn_launches(batch: int = 0, running: int = 0, batch_grad: int = None, running_grad: int = 0) -> dict:
+    """The BatchNorm kernels' launches of ``batch`` calls on batch statistics and ``running`` on running ones, of which
+    ``batch_grad`` (default: all) and ``running_grad`` run a backward: forward 3 a call on batch statistics (sum,
+    combine, affine) and 1 on running ones (the affine), backward 3 and 2 (sum, combine, dx; the sum pass writing dx)."""
+    bg = batch if batch_grad is None else batch_grad
+    return {"batch_norm_stats": batch, "batch_norm_combine": batch, "batch_norm_apply": batch + running,
+            "batch_norm_bwd_reduce": bg + running_grad, "batch_norm_bwd_combine": bg + running_grad, "batch_norm_bwd_dx": bg}
+
+
+def _bn_want() -> dict:
+    """The BatchNorm kernels' launches that the calls counted since the last reset make."""
+    return _bn_launches(**BN_CALLS)
+
+
 def _reset_launches() -> None:
-    from clip_fsar_torch.ops import boundary_matching, flash_attention, fused_layernorm, pool3d
+    from clip_fsar_torch.ops import batch_norm, boundary_matching, flash_attention, fused_layernorm, pool3d
     from clip_fsar_torch.ops.fused_attention import clip_mha_bwd_cuda, clip_mha_cuda
     from clip_fsar_torch.tools import fa_decomp
 
     clip_mha_cuda.launches = clip_mha_bwd_cuda.launches = 0
-    for counts in (flash_attention.LAUNCHES, fused_layernorm.LAUNCHES, fa_decomp.LAUNCHES, pool3d.LAUNCHES, boundary_matching.LAUNCHES):
+    for counts in (flash_attention.LAUNCHES, fused_layernorm.LAUNCHES, fa_decomp.LAUNCHES, pool3d.LAUNCHES, boundary_matching.LAUNCHES,
+                   batch_norm.LAUNCHES, BN_CALLS):
         for name in counts:
             counts[name] = 0
 
 
 def _launches() -> dict:
     """Every kernel's launches since the last reset, by kernel name."""
-    from clip_fsar_torch.ops import boundary_matching, flash_attention, fused_layernorm, pool3d
+    from clip_fsar_torch.ops import batch_norm, boundary_matching, flash_attention, fused_layernorm, pool3d
     from clip_fsar_torch.ops.fused_attention import clip_mha_bwd_cuda, clip_mha_cuda
     from clip_fsar_torch.tools import fa_decomp
 
     return {"clip_mha_fwd": clip_mha_cuda.launches, "clip_mha_bwd": clip_mha_bwd_cuda.launches, **flash_attention.LAUNCHES,
             **fused_layernorm.LAUNCHES, **{f"clip_mha_decomp_{mode}": n for mode, n in fa_decomp.LAUNCHES.items()}, **pool3d.LAUNCHES,
-            **boundary_matching.LAUNCHES}
+            **boundary_matching.LAUNCHES, **batch_norm.LAUNCHES}
 
 
-def _expect_launches(what: str, got: dict = None, **want: int) -> dict:
-    """The launches since the last reset (or ``got``, read earlier); raises unless the named kernels launched ``want``
-    times and every other kernel never."""
+def _expect_launches(what: str, got: dict = None, bn: dict = None, **want: int) -> dict:
+    """The launches since the last reset (or ``got``, read earlier, with ``bn``, the ``_bn_want`` of the same moment);
+    raises unless the named kernels launched ``want`` times, the BatchNorm kernels as the BatchNorm calls counted
+    since the reset make them, and every other kernel never."""
     got = _launches() if got is None else got
-    expected = {name: want.get(name, 0) for name in got}
+    bn = _bn_want() if bn is None else bn
+    expected = {name: want.get(name, bn.get(name, 0)) for name in got}
     if got != expected:
         raise AssertionError(f"{what} launched {got}, expected {expected}")
     return got
@@ -1216,8 +1265,11 @@ def phase_train_slice(out_dir: str, path: str) -> dict:
     wall = time.perf_counter() - t0
     want_bwd = LAYERS * TRAIN_STEPS * CHUNKS
     # every chunk's forward, then one eval step of 4 episodes per validation and 4 test steps
-    want_fwd = want_bwd + LAYERS * (TRAIN_STEPS // VAL_EVERY + TEST_EPISODES // 4)
-    launches = _expect_launches(f"the {path} train slice ({LAYERS} layers x {TRAIN_STEPS} steps x {CHUNKS} chunks, then eval)",
+    eval_steps = TRAIN_STEPS // VAL_EVERY + TEST_EPISODES // 4
+    want_fwd = want_bwd + LAYERS * eval_steps
+    # RN50: each chunk's support and target calls on batch statistics, each eval step's one call on running ones
+    bn = _bn_launches(RN_BATCH_NORMS * TRAIN_STEPS * CHUNKS * 2, RN_BATCH_NORMS * eval_steps) if path == "rn50" else {}
+    launches = _expect_launches(f"the {path} train slice ({LAYERS} layers x {TRAIN_STEPS} steps x {CHUNKS} chunks, then eval)", bn=bn,
                                 **{name: want_fwd for name in fwd_kernels}, **{name: want_bwd for name in bwd_kernels})
     peak = torch.cuda.max_memory_allocated()
 
@@ -1293,7 +1345,7 @@ def _rn50_work() -> dict:
 
 def phase_rn_test_slice(out_dir: str, card_line: str) -> dict:
     """The RN50 test slice in bf16 and in fp32 (same fresh weights, same episodes), no kernel launched in
-    either; the bf16 logits against the fp32 ones."""
+    either but the BatchNorm's affine on running statistics; the bf16 logits against the fp32 ones."""
     from clip_fsar_torch.runs.run import load_config
 
     backbone = load_config(CONFIG, RN_TEST_OPTS).VIDEO.HEAD.BACKBONE_NAME
@@ -1308,7 +1360,8 @@ def phase_rn_test_slice(out_dir: str, card_line: str) -> dict:
     for dtype in ("bfloat16", "float32"):
         _reset_launches()
         runs[dtype] = run_test_slice(["TPU.COMPUTE_DTYPE", dtype], os.path.join(out_dir, f"rn50_{dtype}"), RN_TEST_OPTS)
-        got = _expect_launches(f"the RN50 test slice ({dtype})")  # no kernel: K1-K8 lie on no RN50 path
+        # the BatchNorm's affine once a BatchNorm an eval step (16 episodes in 4); K1-K8 lie on no RN50 path
+        got = _expect_launches(f"the RN50 test slice ({dtype})", bn=_bn_launches(running=RN_BATCH_NORMS * 4))
         launches = {name: launches.get(name, 0) + n for name, n in got.items()}
     got, want = (torch.from_numpy(runs[d]["episode_logits"]) for d in ("bfloat16", "float32"))
     diff = (got - want).abs().max().item()
@@ -1597,7 +1650,7 @@ def _classic_opts(name: str) -> list:
 
 def _classic_step(name: str, dtype: str, batch, picked) -> dict:
     """One ``make_grad_fn`` step of the classic slice's fresh model (the same weights in either dtype) in
-    CLASSIC_GRAD_CHUNKS episode chunks: loss, the picked gradients (float32), launches (all 0)."""
+    CLASSIC_GRAD_CHUNKS episode chunks: loss, the picked gradients (float32), launches (the BatchNorm kernels' alone)."""
     from clip_fsar_torch import runtime
     from clip_fsar_torch.models.builder import build_few_shot_model
     from clip_fsar_torch.runs.run import load_config
@@ -1638,7 +1691,7 @@ def _resident_steps(name: str, batch, steps: int = 4) -> dict:
 def phase_classic_slice(out_dir: str, name: str, card_line: str) -> dict:
     """A classic head's shipped config through the CLI at full width: train (8 steps, validation, checkpoint)
     then test (8 episodes) in bf16, the test again in fp32 on the step-8 checkpoint, one train step in bf16
-    against fp32, and the step timed with its batch resident; no kernel launched anywhere.  MoLo's checkpoint
+    against fp32, and the step timed with its batch resident; no kernel launched but the BatchNorm's.  MoLo's checkpoint
     holds decoder running stats that moved and trunk running stats that did not."""
     from clip_fsar_torch import runtime
     from clip_fsar_torch.data.loader import build_few_shot_loader
@@ -3370,7 +3423,7 @@ def _few_shot_run(what: str, cfg, dev, train_batch, test_batch, probe: str = Non
     metrics = make_grad_fn(model.head, cfg, model.text_train, model.text_test)(train_batch, step_generator(cfg, 0, dev))
     torch.cuda.synchronize()
     out = {"logits": logits, "loss": metrics["loss"].item(), "grads": _grads(model.head, picked), "picked": picked, "launches": _launches(),
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+           "bn": _bn_want(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     if probe:
         model.head.zero_grad(set_to_none=True)
         state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
@@ -3414,7 +3467,7 @@ def phase_signatures(out_dir: str, card_line: str) -> dict:
     """Phase 32a: the four shipped signatures that no earlier phase runs, as written (RN50 or ResNet-50 at 224 px, 8
     frames, 5-way; fresh weights, the synthetic decoder) through the CLI: 2 train steps of E = 2 in 2 chunks and the test
     protocol on 8 episodes of their checkpoint (MoLo 5-shot: the test protocol alone, on fresh weights), no kernel
-    launched; then bf16 against fp32 on one train and one test batch of its loaders (eval logits, loss, picked
+    launched but the BatchNorm's; then bf16 against fp32 on one train and one test batch of its loaders (eval logits, loss, picked
     gradients), the bf16 train step with its batch resident, and one train step under the determinism probe."""
     from clip_fsar_torch import runtime
     from clip_fsar_torch.models.builder import build_few_shot_model
@@ -3437,7 +3490,7 @@ def phase_signatures(out_dir: str, card_line: str) -> dict:
         results = main(["--cfg", path, *opts, "OUTPUT_DIR", os.path.join(out_dir, name)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _expect_launches(f"the {name} CLI run")  # RN50 and the torchvision trunks reach no kernel, as in JAX
+        launches = _expect_launches(f"the {name} CLI run")  # RN50 and the torchvision trunks reach the BatchNorm kernels alone
         peak = torch.cuda.max_memory_allocated()
         test = results["test_few_shot"]
         _check_test_stats(test, SIGNATURE_TEST_EPISODES)
@@ -3462,7 +3515,7 @@ def phase_signatures(out_dir: str, card_line: str) -> dict:
                              train_batch, test_batch)
         got = _few_shot_run(name, one, dev, train_batch, test_batch, probe=name)
         record.update(_compare_dtypes(f"{name} (one batch of E = {SIGNATURE_EPISODES})", got, want))
-        _expect_launches(f"the {name} steps", got["launches"])
+        _expect_launches(f"the {name} steps", got["launches"], got["bn"])
         model = build_few_shot_model(one, flow="train", device=dev)
         timed = resident_step_ms(model, one, train_batch, steps=3)
         del model
@@ -3526,9 +3579,9 @@ def phase_towers(card_line: str) -> dict:
             layers = ARCHS[tower].vision_layers
             remat = tower_execution(cfg)[0]
             fwd, bwd = layers + layers * (1 + remat), layers  # one eval step, one train step (twice a block under remat)
-            _expect_launches(f"tower {tower}, fused path", got["launches"], clip_mha_fwd=fwd, clip_mha_bwd=bwd)
+            _expect_launches(f"tower {tower}, fused path", got["launches"], got["bn"], clip_mha_fwd=fwd, clip_mha_bwd=bwd)
             flash = _few_shot_run(tower, load_config(CONFIG, opts + FLASH_OPTS), dev, train_batch, test_batch, probe=f"{tower}_flash")
-            launches["flash"] = _expect_launches(f"tower {tower}, flash path", flash["launches"], flash_mha_fwd=fwd, flash_mha_bwd_dq=bwd,
+            launches["flash"] = _expect_launches(f"tower {tower}, flash path", flash["launches"], flash["bn"], flash_mha_fwd=fwd, flash_mha_bwd_dq=bwd,
                                                  flash_mha_bwd_dkv=bwd)
             diff = (flash["logits"] - got["logits"]).abs().max().item()
             print(f"tower {tower}: flash path against the fused path (bf16): eval logits max abs diff {diff:.4e}, loss {flash['loss']:.6f} "
@@ -3536,7 +3589,7 @@ def phase_towers(card_line: str) -> dict:
             torch.testing.assert_close(flash["logits"], got["logits"], atol=2e-2, rtol=2e-2)
             torch.testing.assert_close(torch.tensor(flash["loss"]), torch.tensor(got["loss"]), atol=2e-2, rtol=2e-2)
         else:
-            _expect_launches(f"tower {tower}", got["launches"])
+            _expect_launches(f"tower {tower}", got["launches"], got["bn"])
         print(f"tower {tower} under the CLIP-FSAR head on {card_line} ({ARCHS[tower].vision_width} wide, one episode of "
               f"{cfg.DATA.NUM_INPUT_FRAMES} frames at {cfg.DATA.TRAIN_CROP_SIZE} px): the bf16 train step's peak {got['peak_gib']:.3f} GiB; "
               f"launches {launches}")
@@ -3571,9 +3624,9 @@ def phase_heads(card_line: str) -> dict:
         want = _few_shot_run(case, load_config(path, opts + ["TPU.COMPUTE_DTYPE", "float32"]), dev, *batches)
         got = _few_shot_run(case, cfg, dev, *batches, probe=case)
         record = _compare_dtypes(f"{cfg.VIDEO.HEAD.NAME} on {cfg.VIDEO.HEAD.BACKBONE_NAME} (one episode)", got, want)
-        _expect_launches(f"{case}", got["launches"])
+        _expect_launches(f"{case}", got["launches"], got["bn"])
         print(f"{cfg.VIDEO.HEAD.NAME} on {cfg.VIDEO.HEAD.BACKBONE_NAME} on {card_line}: the bf16 train step's peak {got['peak_gib']:.3f} GiB; "
-              "no kernel launched")
+              "no kernel launched but the BatchNorm's")
         out[case] = {**record, "peak_gib": got["peak_gib"], "launches": got["launches"]}
     return out
 
@@ -3618,6 +3671,94 @@ def _bm_check(what: str, got: torch.Tensor, want: torch.Tensor, again: torch.Ten
     if not torch.equal(again, got):
         raise AssertionError(f"{what}: a second launch gave other bits")
     return err
+
+
+# --- the RN towers' BatchNorm kernels (phase 35) -------------------------------------------------------------------
+# RN50's largest and smallest BatchNorm calls of a train step (the stem over the target call's 2 x 200 frames of
+# 112 x 112, stage 4 over the support call's 2 x 40 frames of 7 x 7, one episode a group) and of an eval step (the
+# stem and stage 4 over 320 frames, one group): (G, M, C)
+BN_TRAIN_SHAPES = [(2, 200 * 112 * 112, 32), (2, 40 * 7 * 7, 2048)]
+BN_EVAL_SHAPES = [(1, 320 * 112 * 112, 32), (1, 320 * 7 * 7, 2048)]
+# kernel against plain chain: one rounding of y or dx to bf16 (2^-8 relative) on top of the statistics' other order
+# of fp32 sums
+BN_TOL = 1.6e-2
+# each entry's kernels, in the order they launch
+BN_ENTRIES = {"forward, batch statistics": ("batch_norm_stats", "batch_norm_combine", "batch_norm_apply"),
+              "forward, running statistics": ("batch_norm_apply",),
+              "backward, batch statistics": ("batch_norm_bwd_reduce", "batch_norm_bwd_combine", "batch_norm_bwd_dx"),
+              "backward, running statistics": ("batch_norm_bwd_reduce", "batch_norm_bwd_combine")}
+
+
+def _bn_entry(entry: str, shape: tuple, dev) -> dict:
+    """One entry of the BatchNorm kernels at ``shape`` in bf16 against the plain chain on the same card tensors: y or
+    dx at BN_TOL, the same bits on a second run, the entry's launches; kernel and plain ms in turn; the bound, bytes
+    over 3.35 TB/s, with each input read once and each output written once (``bound_ms``) and with the passes the
+    work needs where x does not stay in the card's 50 MB L2 (``passes_bound_ms``: batch statistics read x for the
+    statistics before the affine reads it again; the backward on them reads x and dy for the sums before dx does)."""
+    from clip_fsar_torch.ops import batch_norm as bn
+
+    g = torch.Generator().manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g) * 1.5 + 0.5).to(dev, torch.bfloat16)
+    dy = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    c = shape[2]
+    w, beta = torch.rand(c, generator=g).to(dev) + 0.5, torch.randn(c, generator=g).to(dev)
+    rmean, rvar = 0.1 * torch.randn(c, generator=g).to(dev), torch.rand(c, generator=g).to(dev) + 0.5
+    batch, backward = "batch" in entry, entry.startswith("backward")
+    fwd_args = (x, w, beta, rmean, rvar, None, batch, 1e-5, 0.9)
+    _, _, saved = bn.batch_norm_cuda(*fwd_args)
+    _, _, ref_saved = bn.batch_norm_reference(*fwd_args)
+    if backward:
+        kernel = lambda: bn.batch_norm_bwd_cuda(x, dy, w, saved, batch, 1e-5)[0]  # noqa: E731
+        plain = lambda: bn.batch_norm_bwd_reference(x, dy, w, ref_saved, batch, 1e-5)[0]  # noqa: E731
+    else:
+        kernel = lambda: bn.batch_norm_cuda(*fwd_args)[0]  # noqa: E731
+        plain = lambda: bn.batch_norm_reference(*fwd_args)[0]  # noqa: E731
+    torch.cuda.synchronize()
+    before = dict(bn.LAUNCHES)
+    out = kernel()
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in bn.LAUNCHES.items() if n != before[k]}
+    if launched != {k: 1 for k in BN_ENTRIES[entry]}:
+        raise AssertionError(f"BatchNorm {entry} at {shape}: launched {launched}, expected one each of {BN_ENTRIES[entry]}")
+    ref = plain()
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=BN_TOL * max(ref.float().abs().max().item(), 1.0), rtol=BN_TOL)
+    if not torch.equal(kernel(), out):
+        raise AssertionError(f"BatchNorm {entry} at {shape}: a second run gave other bits")
+    ms, plain_ms, all_ms = _alternate(kernel, plain)
+    n = x.numel() * x.element_size()
+    tensors, passes = (3, 5 if batch else 3) if backward else (2, 3 if batch else 2)
+    bound = _bound(tensors * n, 0)
+    passes_ms = passes * n / PEAK_BYTES_PER_S * 1e3
+    print(f"BatchNorm {entry} {list(shape)} bf16: kernels {all_ms[0]:.4f} / {all_ms[1]:.4f} ms, plain chain {all_ms[2]:.4f} / "
+          f"{all_ms[3]:.4f} ms ({plain_ms / ms:.1f}x), bound {bound['bound_ms']:.4f} ms ({100 * bound['bound_ms'] / ms:.1f} % of it "
+          f"reached), the passes' bound {passes_ms:.4f} ms ({100 * passes_ms / ms:.1f} %); max|out - plain| {err:.3e}; launches {launched}")
+    return {"entry": entry, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "library_ms": None, "passes_bound_ms": passes_ms, **bound}
+
+
+def phase_batch_norm(card_line: str) -> dict:
+    """Phase 35: the RN towers' BatchNorm kernels (``csrc/batch_norm.cu``) in bf16 at RN50's largest and smallest
+    train shapes, on batch statistics, and at its eval shapes, on running statistics, each entry against the plain
+    chain (``_bn_entry``).  No single PyTorch call computes the per-episode fast-variance BatchNorm, so there is no
+    library time.  Returns the ``kernels`` records: each kernel's entry timed at the largest shape, the others under
+    ``at_shapes``."""
+    from clip_fsar_torch import runtime
+
+    dev = runtime.device("cuda")
+    timed = {(entry, shape): _bn_entry(entry, shape, dev) for entry in BN_ENTRIES
+             for shape in (BN_TRAIN_SHAPES if "batch" in entry else BN_EVAL_SHAPES)}
+    print(f"BatchNorm kernels on {card_line}: timed at {len(timed)} (entry, shape) pairs")
+    records = {}
+    for entry, names in BN_ENTRIES.items():
+        for name in names:
+            if name in records:  # a kernel of both entries: its batch-statistics entry leads, the other is another shape
+                continue
+            rows = {f"{e} {list(shape)}": t for (e, shape), t in timed.items() if name in BN_ENTRIES[e]}
+            first = next(iter(rows.values()))
+            records[name] = {**first, "max_abs_err": max(t["max_abs_err"] for t in rows.values()),
+                             "at_shapes": {k: {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "passes_bound_ms")}
+                                           for k, t in list(rows.items())[1:]}}
+    return records
 
 
 def phase_boundary_matching(card_line: str) -> dict:
@@ -3859,8 +4000,14 @@ def main() -> None:
         phase_build()
         phase_cudnn_determinism(smi)
         return
+    if sys.argv[1:2] == ["--batch-norm"]:  # the BatchNorm kernels' phase alone
+        smi = phase_device()
+        phase_build()
+        print(json.dumps({"batch_norm": phase_batch_norm(smi)}))
+        return
     smi = phase_device()
     build_seconds = phase_build()
+    _count_batch_norm_calls()
     timings = {"clip_mha_fwd": phase_fwd_vs_plain(), "clip_mha_bwd": phase_bwd_vs_plain(), "flash_mha_fwd": phase_flash_fwd_vs_plain()}
     phase_tiled_branch_times()
     timings["flash_mha_bwd_dq"], timings["flash_mha_bwd_dkv"] = phase_flash_bwd_vs_plain()
@@ -3924,6 +4071,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     timings.update(phase_boundary_matching(smi))
     _elapsed("phase 34 (BMN's boundary-matching gathers)")
+    timings.update(phase_batch_norm(smi))
+    _elapsed("phase 35 (the BatchNorm kernels)")
     classification_launches = {name: {"tada2d_k400_cli": cls["launches"][name], "presets": presets["launches"][name],
                                       "nccl_world1": cls_dp["launches"][name]} for name in _launches()}
     # each kernel's launches in the bank phases' bank runs, counted from 0 in each
@@ -3982,13 +4131,18 @@ def main() -> None:
         # gathers replace torch.matmul by the mask, cuDNN's Conv3d and their backwards)
         ("bm_gather_fwd", "localization", "clip_fsar_torch/csrc/boundary_matching.cu", "clip_fsar_tpu/models/heads/bmn.py:98"),
         ("bm_gather_bwd", "localization", "clip_fsar_torch/csrc/boundary_matching.cu", "clip_fsar_tpu/models/heads/bmn.py:102"),
+    ] + [
+        # no TPU kernel: the JAX package's BatchNorm is jnp that XLA fuses (the port's replace its chain of plain torch ops)
+        (name, "rn50", "clip_fsar_torch/csrc/batch_norm.cu", "clip_fsar_tpu/models/clip/model.py:407")
+        for name in ("batch_norm_stats", "batch_norm_combine", "batch_norm_apply", "batch_norm_bwd_reduce", "batch_norm_bwd_combine",
+                     "batch_norm_bwd_dx")
     ]
     # launches: each kernel's count from the path that runs it, counted from 0: the train slice (train,
     # validation, test) of its own attention path, the LayerNorm replay, the stage-ablation tool's table
     launches = {"fused": train["fused"]["launches"], "flash": train["flash"]["launches"], "replay": replay["launches"],
                 "tool": {name: record["launches"] for name, record in timings.items() if "launches" in record},
                 "pool": {"max_pool3d_bwd": mosi["launches"]["max_pool3d_bwd"], "avg_pool3d_bwd": cls["launches"]["avg_pool3d_bwd"]},
-                "localization": bmn["launches"]}
+                "localization": bmn["launches"], "rn50": train["rn50"]["launches"]}
     # K1-K5 at the new towers' shapes, with the launches of the tower phase's bf16 steps (K1 / K2 fused, K3-K5 flash)
     tower_launches = {key: {name: n for path in towers[tower]["launches"].values() for name, n in path.items() if n}
                       for key, tower in (("at_vit_b32", "ViT-B/32"), ("at_vit_l14_224", "ViT-L/14"))}
@@ -4004,7 +4158,7 @@ def main() -> None:
                         "classification_launches": classification_launches[name], "localization_launches": bmn["launches"][name],
                         "pretrain_launches": mosi["launches"][name], "tp_launches": tp["launches"][name],
                         **({"at_tp_rank_heads": tp["kernels"][name]} if name in tp["kernels"] else {}),
-                        **{key: t[key] for key in ("device_ms", "library_covers", "at_480_frames", "at_shapes",
+                        **{key: t[key] for key in ("device_ms", "library_covers", "at_480_frames", "at_shapes", "entry", "passes_bound_ms",
                                                    "op_fwd_ms", "dense_fwd_ms", "op_fwd_bwd_ms", "dense_fwd_bwd_ms") if key in t},
                         **{key: {**tower_kernels[key][name], "launches": tower_launches[key].get(name, 0)} for key in tower_kernels
                            if name in tower_kernels[key]},

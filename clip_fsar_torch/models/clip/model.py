@@ -37,7 +37,11 @@ on the NHWC layout.  ``BatchNorm`` follows the JAX module, not
 ``torch.nn.BatchNorm2d``: float32 statistics with the fast variance,
 eps 1e-5, the affine as one float32 ``x * a + b``, and a running update
 with flax's momentum 0.9 on the biased batch variance.  Its mode is decided
-per call (``groups``), never by ``nn.Module.training``.  The attention
+per call (``groups``), never by ``nn.Module.training``.  On a card it runs
+as the hand-written kernels of ``ops/batch_norm.py`` (``csrc/batch_norm.cu``:
+a statistics pass, a combine and an affine pass each way on batch
+statistics, the affine alone on running ones), on the CPU as the plain chain
+of torch ops there, whose bits the JAX parity tests hold.  The attention
 pool always runs the plain float32-softmax ``mha``: its one query never
 reaches ``clip_mha`` or ``flash_mha``.
 """
@@ -53,6 +57,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn
 
 from clip_fsar_torch.models.clip.arch import CLIPArch
+from clip_fsar_torch.ops import batch_norm
 from clip_fsar_torch.ops.attention import merge_heads, mha, split_heads
 from clip_fsar_torch.ops.fused_attention import clip_mha
 from clip_fsar_torch.parallel.tensor import ModelShard, copy_to_model, reduce_from_model, shard_param
@@ -310,45 +315,34 @@ class _BatchNormFn(torch.autograd.Function):
     b = beta - mean * a, on x [G, M, C].  With ``batch`` the statistics are
     each group's own (mean and fast variance E[x^2] - E[x]^2 clamped at 0,
     both part of the gradient), else the given running ones.  Returns y in
-    x's dtype and the statistics used, [G, C] each.
+    x's dtype and, on batch statistics, the advanced running stats [G, 2, C]
+    (``momentum * prev + (1 - momentum) * (mean, var)``, ``prev`` None: the
+    running buffers), else None.
 
-    The backward is the chain rule of that same expression, step by step as
-    autodiff takes it in the JAX package, but it keeps only x in its own
-    dtype and per-channel vectors, never a float32 copy of the activation."""
+    A CUDA tensor runs the kernels of ``ops/batch_norm.py`` each way, a CPU
+    tensor the plain chain there.  Either keeps only x in its own dtype and
+    per-channel vectors for the backward, never a float32 copy of the
+    activation."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, running_mean, running_var, batch: bool, eps: float):
-        xf = x.float()
-        g = x.shape[0]
-        if batch:
-            mean = xf.mean(dim=1)
-            raw = xf.square().mean(dim=1) - mean.square()
-            var = raw.clamp_min(0.0)
-            live = (raw > 0).float()  # the clamp passes no gradient to the variance
+    def forward(ctx, x, weight, bias, running_mean, running_var, prev, batch: bool, eps: float, momentum: float):
+        fwd = batch_norm.batch_norm_cuda if x.is_cuda else batch_norm.batch_norm_reference
+        x = x.contiguous() if x.is_cuda else x  # a no-op for the towers' channels_last activations
+        y, step, saved = fwd(x, weight, bias, running_mean, running_var, prev, batch, eps, momentum)
+        ctx.save_for_backward(x, weight, *saved)
+        ctx.batch, ctx.eps = batch, eps
+        if step is not None:
+            ctx.mark_non_differentiable(step)
+        return y, step
+
+    @staticmethod
+    def backward(ctx, dy, _dstep):
+        x, weight, *saved = ctx.saved_tensors
+        if x.is_cuda:
+            dx, dw, db = batch_norm.batch_norm_bwd_cuda(x, dy.contiguous(), weight, tuple(saved), ctx.batch, ctx.eps)
         else:
-            mean, var, live = running_mean.expand(g, -1), running_var.expand(g, -1), None
-        rstd = torch.rsqrt(var + eps)
-        a = weight * rstd
-        b = bias - mean * a
-        y = (xf * a[:, None] + b[:, None]).to(x.dtype)
-        ctx.save_for_backward(x, weight, mean, var + eps, rstd, live)
-        ctx.batch = batch
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        x, weight, mean, var_eps, rstd, live = ctx.saved_tensors
-        xf, dyf = x.float(), dy.float()
-        a = weight * rstd
-        d_b = dyf.sum(dim=1)  # y = x * a + b
-        d_a = (dyf * xf).sum(dim=1) - d_b * mean  # b = beta - mean * a
-        dx = dyf * a[:, None]
-        if ctx.batch:
-            d_var = d_a * weight * (-0.5) * rstd / var_eps * live  # a = g * rsqrt(var + eps), var = max(E[x^2] - mean^2, 0)
-            d_mean = -d_b * a - 2.0 * mean * d_var
-            dx = dx + (d_mean[:, None] + 2.0 * d_var[:, None] * xf) / x.shape[1]
-        return dx.to(x.dtype), (d_a * rstd).sum(dim=0), d_b.sum(dim=0), None, None, None, None
+            dx, dw, db = batch_norm.batch_norm_bwd_reference(x, dy, weight, tuple(saved), ctx.batch, ctx.eps)
+        return dx, dw, db, None, None, None, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -385,10 +379,10 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, groups: Optional[int] = None) -> torch.Tensor:
         b, c, h, w = x.shape
         xv = x.permute(0, 2, 3, 1).reshape(groups or 1, -1, c)  # a view of channels_last memory
-        y, mean, var = _BatchNormFn.apply(xv, self.weight, self.bias, self.running_mean, self.running_var, groups is not None, self.EPS)
+        y, step = _BatchNormFn.apply(xv, self.weight, self.bias, self.running_mean, self.running_var, self.step_stats, groups is not None,
+                                     self.EPS, self.MOMENTUM)
         if groups is not None:
-            prev = torch.stack([self.running_mean, self.running_var]) if self.step_stats is None else self.step_stats
-            self.step_stats = self.MOMENTUM * prev + (1.0 - self.MOMENTUM) * torch.stack([mean, var], dim=1)
+            self.step_stats = step
         return y.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
     @torch.no_grad()

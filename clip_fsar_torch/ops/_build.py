@@ -139,6 +139,15 @@ def library() -> ctypes.CDLL:
     # cells, the most entries of a chunk) and the tile the lists were built for (samples, positions, cells a chunk)
     lib.bm_gather_bwd.argtypes = [p] * 9 + [i] * 9 + [p]
     lib.bm_gather_bwd.restype = i
+    # the RN towers' BatchNorm: x, y, w, beta, running mean and var, the previous running stats (mean, var, group
+    # stride), st, step, the partials, then G, M and the tile plan (C, vec, lanes, bands, rows, run, tiles), batch, eps,
+    # the momentum's two factors and the dtype (ops/batch_norm.py)
+    f = ctypes.c_float
+    lib.batch_norm_fwd.argtypes = [p] * 8 + [l] + [p] * 3 + [i, l] + [i] * 8 + [f] * 3 + [i, p]
+    lib.batch_norm_fwd.restype = i
+    # x, dy, dx, w, running mean and var, st, co, the partials, dw, dbeta, then G, M, the plan, batch, eps and the dtype
+    lib.batch_norm_bwd.argtypes = [p] * 11 + [i, l] + [i] * 8 + [f, i, p]
+    lib.batch_norm_bwd.restype = i
     lib.attn_fwd_single_block_max.argtypes = []
     lib.attn_fwd_single_block_max.restype = i
     lib.attn_bwd_resident_max.argtypes = []

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (clip_mha K1/K2, flash_mha K3-K5, layer_norm K6/K7, the clip_mha
-stage-ablation kernels K8, the 3-D pools' backward, BMN's boundary-matching gathers) against their
-plain-torch versions, on the card, and the train steps that must repeat bit for bit.
+stage-ablation kernels K8, the 3-D pools' backward, BMN's boundary-matching gathers, the RN towers'
+BatchNorm) against their plain-torch versions, on the card, and the train steps that must repeat bit for bit.
 
 Skips without a CUDA device (the kernels have no CPU mode).  On the card:
 
@@ -1245,3 +1245,138 @@ def test_bmn_step_runs_the_gathers_and_no_3d_convolution(cuda):
     five_d = [(e.key, e.input_shapes) for e in prof.key_averages(group_by_input_shape=True)
               if "conv" in e.key and any(len(s) == 5 for s in (e.input_shapes or []))]
     assert five_d == []
+
+
+# the RN towers' BatchNorm kernels (ops/batch_norm.py) at RN50's train and eval shapes: the stem over the target
+# call's 2 x 200 frames of 112 x 112 and the eval step's 320, stage 4 over the support call's 2 x 40 frames of 7 x 7
+# and the eval step's 320 (the largest and smallest rows a group); channels no multiple of a 16-byte vector; fewer
+# rows than a block has row lanes
+BN_SHAPES = [(2, 200 * 112 * 112, 32), (2, 40 * 49, 2048), (1, 320 * 112 * 112, 32), (1, 320 * 49, 2048), (3, 333, 12), (2, 5, 40)]
+# y, dx: one rounding of an output of size up to ~8 to the dtype (bf16: 2^-8 relative) on top of the statistics'
+# other order of fp32 sums (about 1e-6 relative); the running update and the weight and bias gradients: fp32 sums of
+# up to 4 M terms in another order
+BN_TOLERANCE = [(torch.float32, 2e-5), (torch.bfloat16, 1.6e-2)]
+BN_SUM_TOL = 1e-4
+
+
+def _bn_case(shape, dtype, device, seed):
+    g, m, c = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(g, m, c, generator=gen) * 1.5 + 0.5).to(device, dtype)
+    dy = torch.randn(g, m, c, generator=gen).to(device, dtype)
+    vec = [torch.rand(c, generator=gen).to(device) + 0.5, torch.randn(c, generator=gen).to(device),
+           0.1 * torch.randn(c, generator=gen).to(device), torch.rand(c, generator=gen).to(device) + 0.5]
+    prev = torch.randn(g, 2, c, generator=gen).abs().to(device)
+    return x, dy, vec, prev
+
+
+def _bn_close(got, want, tol, what):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * max(want.float().abs().max().item(), 1.0), rtol=tol,
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [True, False], ids=["batch", "running"])
+@pytest.mark.parametrize("dtype, tol", BN_TOLERANCE)
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_batch_norm_kernels_match_the_chain(cuda, shape, dtype, tol, batch):
+    """The kernels against the plain chain run on the same card tensors, both entries: y, the running update (from
+    the running buffers and from a previous call's [G, 2, C]), dx, dw and dbeta at the tolerances above; on batch
+    statistics y is bit for bit x * a + b from the kernels' own a and b (rounded as the chain rounds), on running
+    statistics bit for bit the chain's (the same a and b); 3 / 1 launches forward and 3 / 2 backward; a second run
+    gives the same bits (no atomics, a fixed order of sums)."""
+    from clip_fsar_torch.ops import batch_norm as bn
+
+    x, dy, (w, beta, rmean, rvar), prev = _bn_case(shape, dtype, cuda, seed=shape[1] % 1000)
+    for p in (None, prev):
+        before = dict(bn.LAUNCHES)
+        y, step, saved = bn.batch_norm_cuda(x, w, beta, rmean, rvar, p, batch, 1e-5, 0.9)
+        dx, dw, db = bn.batch_norm_bwd_cuda(x, dy, w, saved, batch, 1e-5)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in bn.LAUNCHES.items()}
+        assert launched == ({"batch_norm_stats": 1, "batch_norm_combine": 1, "batch_norm_apply": 1, "batch_norm_bwd_reduce": 1,
+                             "batch_norm_bwd_combine": 1, "batch_norm_bwd_dx": 1} if batch else
+                            {"batch_norm_stats": 0, "batch_norm_combine": 0, "batch_norm_apply": 1, "batch_norm_bwd_reduce": 1,
+                             "batch_norm_bwd_combine": 1, "batch_norm_bwd_dx": 0})
+        ref_y, ref_step, ref_saved = bn.batch_norm_reference(x, w, beta, rmean, rvar, p, batch, 1e-5, 0.9)
+        ref_dx, ref_dw, ref_db = bn.batch_norm_bwd_reference(x, dy, w, ref_saved, batch, 1e-5)
+        _bn_close(y, ref_y, tol, "y")
+        _bn_close(dx, ref_dx, tol, "dx")
+        _bn_close(dw, ref_dw, BN_SUM_TOL, "dw")
+        _bn_close(db, ref_db, BN_SUM_TOL, "dbeta")
+        if batch:
+            (st,) = saved
+            _bn_close(step, ref_step, BN_SUM_TOL, "step")
+            assert torch.equal(y, (x.float() * st[3][:, None] + st[4][:, None]).to(dtype))
+            assert torch.equal(st[5], (st[1] > 0).float()) and torch.isfinite(st).all()
+        else:
+            assert step is None and torch.equal(y, ref_y)
+        again = bn.batch_norm_cuda(x, w, beta, rmean, rvar, p, batch, 1e-5, 0.9)
+        again_bwd = bn.batch_norm_bwd_cuda(x, dy, w, again[2], batch, 1e-5)
+        assert torch.equal(again[0], y) and all(torch.equal(a, b) for a, b in zip(again_bwd, (dx, dw, db)))
+        assert step is None or torch.equal(again[1], step)
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_refuse_what_they_do_not_take(cuda):
+    """float16, a strided x, a float64 weight, previous stats of another group count, dy in another dtype: each raises."""
+    from clip_fsar_torch.ops import batch_norm as bn
+
+    x, dy, (w, beta, rmean, rvar), _ = _bn_case((2, 64, 16), torch.bfloat16, cuda, seed=0)
+    with pytest.raises(TypeError):
+        bn.batch_norm_cuda(x.half(), w, beta, rmean, rvar, None, True, 1e-5, 0.9)
+    with pytest.raises(ValueError, match="contiguous x aligned"):
+        bn.batch_norm_cuda(x.transpose(1, 2), w, beta, rmean, rvar, None, True, 1e-5, 0.9)
+    with pytest.raises(ValueError, match="weight must be"):
+        bn.batch_norm_cuda(x, w.double(), beta, rmean, rvar, None, True, 1e-5, 0.9)
+    with pytest.raises(ValueError, match="prev must be"):
+        bn.batch_norm_cuda(x, w, beta, rmean, rvar, torch.zeros(3, 2, 16, device=cuda), True, 1e-5, 0.9)
+    with pytest.raises(ValueError, match="dy must be"):
+        bn.batch_norm_bwd_cuda(x, dy.float(), w, (torch.zeros(6, 2, 16, device=cuda),), True, 1e-5)
+
+
+@pytest.mark.cuda
+def test_rn50_train_step_repeats_bit_for_bit_on_the_kernels(cuda):
+    """One RN50 train step of the flagship config (E = 2 in 2 chunks at 4 frames, jitter and dropout on, an Adam
+    update) under torch.use_deterministic_algorithms(True, warn_only=True), run twice from one seed: the same loss
+    bits, parameters and running stats; every BatchNorm call went through the kernels (3 launches each way a call on
+    batch statistics) and none reached the plain chain.  warn_only: the cuBLAS workspace setting that strict mode
+    asks for must be in the environment before the process's first cuBLAS call."""
+    from clip_fsar_torch.config.config import load_config
+    from clip_fsar_torch.data.loader import build_few_shot_loader
+    from clip_fsar_torch.models.builder import build_few_shot_model
+    from clip_fsar_torch.models.clip.model import BatchNorm
+    from clip_fsar_torch.ops import batch_norm as bn
+    from clip_fsar_torch.tools.profile_eval import CONFIG
+    from clip_fsar_torch.train.loop import step_generator
+    from clip_fsar_torch.train.optimizer import Optimizer
+    from clip_fsar_torch.train.state import TrainState
+    from clip_fsar_torch.train.step import make_train_step
+
+    cfg = load_config(CONFIG, ["TRAIN.ENABLE", "True", "DATA.DECODER", "synthetic", "DATA.NUM_INPUT_FRAMES", "4", "TPU.EPISODES_PER_STEP", "2",
+                               "TPU.EPISODE_CHUNKS", "2", "TRAIN.BATCH_SIZE_PER_TASK", "1"])
+    with build_few_shot_loader(cfg, "train", num_steps=1, episodes_per_step=2) as loader:
+        batch = next(iter(loader)).to(cuda)
+
+    def run():
+        model = build_few_shot_model(cfg, flow="train", device=cuda)
+        state = TrainState.create(cfg, model.head, Optimizer(cfg, model.head))
+        step = make_train_step(model.head, cfg, model.text_train, model.text_test)
+        before = dict(bn.LAUNCHES)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss = step(state, batch, 1e-3, step_generator(cfg, 0, cuda))["loss"]
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        calls = 2 * 2 * sum(isinstance(m, BatchNorm) for m in model.head.backbone.modules())  # 2 chunks x (support, target)
+        assert {k: n - before[k] for k, n in bn.LAUNCHES.items()} == {k: calls for k in bn.LAUNCHES}
+        return loss.cpu(), {k: v.detach().clone() for k, v in model.head.state_dict().items()}
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain BatchNorm chain")
+
+    with mock.patch.object(bn, "batch_norm_reference", plain), mock.patch.object(bn, "batch_norm_bwd_reference", plain):
+        (a, first), (b, second) = run(), run()
+    assert torch.isfinite(a).all() and torch.equal(a, b), (a.tolist(), b.tolist())
+    assert sorted(k for k in first if not torch.equal(first[k], second[k])) == []

@@ -1,5 +1,6 @@
 """Operations of the clipfsar_rn50 cells: CLIP RN50 ((3, 4, 6, 3) bottlenecks, width 64, 224 px,
-attention pool of 32 heads, output 1024) under the CLIP-FSAR head.  No kernel of the port runs."""
+attention pool of 32 heads, output 1024) under the CLIP-FSAR head.  Of the port's kernels the tower
+runs the BatchNorm's; no attention kernel."""
 
 from __future__ import annotations
 
@@ -14,5 +15,5 @@ def model_flops(cfg: dict, kind: str, episodes: int) -> float:
 
 
 def attention_work(cfg: dict, kind: str, episodes: int) -> list:
-    """No attention kernel: the RN tower's pool runs plain attention."""
+    """No attention kernel: the RN tower's pool runs plain attention (its BatchNorm kernels are read by time alone)."""
     return []

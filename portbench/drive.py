@@ -1,8 +1,9 @@
 """The system under test, assembled from the benchmark's inputs and driven over the window.
 
-The port (``clip_fsar_torch``) is imported here, in ``trace.bn_ranges`` and in ``faults``.  Its model is
-built by its own ``make_head`` at the configuration's widths and takes the benchmark's weights;
-its frame banks are the benchmark's pixels under a ``FrameBankTable`` of the benchmark's table.
+The port (``clip_fsar_torch``) is imported here, in ``trace.bn_ranges``, in ``faults`` and in each
+family's ``build_head`` (``portbench/families/<family>.py``), which builds the configuration's head
+at its widths; the head takes the benchmark's weights, and its frame banks are the benchmark's
+pixels under a ``FrameBankTable`` of the benchmark's table.
 
 Train cells drive the loop body of ``train.loop.train_few_shot`` (validation and checkpoints
 left out): the loader with ``TrainIndexEpisodeSampler``, ``Episode.to``, ``make_train_step``'s
@@ -47,22 +48,14 @@ def frame_bank(inputs: Inputs):
     return FrameBank(pixels=inputs.bank, table=table, build_seconds=0.0, upload_seconds=0.0)
 
 
-def head_shapes(cfg: dict, device) -> Dict[str, tuple]:
+def head_shapes(cfg: dict, device, family) -> Dict[str, tuple]:
     """Names and shapes of the port's head state dict at the configuration's widths."""
     with torch.device("meta"):
-        head = _make_head(_config(cfg), torch.device(device))
+        head = family.build_head(_config(cfg), torch.device(device))
     return {k: tuple(v.shape) for k, v in head.state_dict().items()}
 
 
-def _make_head(cfg, device: torch.device):
-    from clip_fsar_torch.models.builder import _adapt_vision_resolution, make_head
-    from clip_fsar_torch.models.clip.arch import ARCHS
-
-    arch = _adapt_vision_resolution(cfg, ARCHS[cfg.VIDEO.HEAD.BACKBONE_NAME])
-    return make_head(cfg, arch, device)
-
-
-def build_model(inputs: Inputs, flow: str, device):
+def build_model(inputs: Inputs, flow: str, device, family):
     """The port's FewShotModel holding the benchmark's weights and text banks."""
     from clip_fsar_torch.models.builder import FewShotModel
 
@@ -71,7 +64,7 @@ def build_model(inputs: Inputs, flow: str, device):
     cfg = _config(inputs.cfg)
     device = runtime.device(str(device))  # as the port's entry takes it: float32 products in float32 (TF32 off)
     with torch.device(device):
-        head = _make_head(cfg, device)
+        head = family.build_head(cfg, device)
     head.load_state_dict(inputs.weights)
     head.to(device).train(flow == "train")
     return FewShotModel(head=head, text_train=inputs.text_train, text_test=inputs.text_test)
@@ -105,7 +98,7 @@ class Spans:
 class TrainRun:
     """The train loop's body over one loader, step and state (see the module docstring)."""
 
-    def __init__(self, inputs: Inputs, device, spans: Spans):
+    def __init__(self, inputs: Inputs, device, spans: Spans, family):
         from clip_fsar_torch.data.frame_bank import TrainIndexEpisodeSampler
         from clip_fsar_torch.data.loader import build_few_shot_loader
         from clip_fsar_torch.train.optimizer import Optimizer
@@ -116,7 +109,7 @@ class TrainRun:
         self.device = torch.device(device)
         self.spans = spans
         self.e = int(self.cfg.TPU.EPISODES_PER_STEP)
-        self.model = build_model(inputs, "train", device)
+        self.model = build_model(inputs, "train", device, family)
         self.state = TrainState.create(self.cfg, self.model.head, Optimizer(self.cfg, self.model.head))
         self.bank = bank = frame_bank(inputs)
         self.step_fn = make_train_step(self.model.head, self.cfg, self.model.text_train, self.model.text_test, bank.pixels)
@@ -222,12 +215,12 @@ def chunk_seed(seed: int, chunk: int) -> int:
 class TestRun:
     """``evaluate`` over the benchmark's bank, in chunks of episodes."""
 
-    def __init__(self, inputs: Inputs, device, spans: Spans):
+    def __init__(self, inputs: Inputs, device, spans: Spans, family):
         self.inputs = inputs
         self.device = torch.device(device)
         self.spans = spans
         self.e = int(inputs.cfg["TEST"]["BATCH_SIZE"])
-        self.model = build_model(inputs, "test", device)
+        self.model = build_model(inputs, "test", device, family)
         self.bank = frame_bank(inputs)
         self.seed = int(inputs.cfg["RANDOM_SEED"])
         self.logits: List[np.ndarray] = []  # per chunk [n, Q, WAY]

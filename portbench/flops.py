@@ -49,6 +49,32 @@ def resnet_forward(layers: Sequence[int], width: int, resolution: int, out: int,
     return {"total": flops, "first": first}
 
 
+def tv_resnet_forward(layers: Sequence[int], bottleneck: bool, resolution: int) -> dict:
+    """FLOPs of one frame through a torchvision ResNet trunk (``reference/tv_resnet.py``: basic
+    blocks for resnet18 / 34, v1.5 bottlenecks for resnet50), pooled: {"total", "first"} (first:
+    the stem's 7x7 conv).  Every stride-2 step gives ceil(r / 2) rows, as the padded convs and pool do."""
+    half = lambda r: -(-r // 2)  # noqa: E731
+    r = half(resolution)
+    first = 2.0 * r * r * 64 * 3 * 49
+    flops = first
+    r = half(r)  # the max pool
+    inplanes = 64
+    expansion = 4 if bottleneck else 1
+    for stage, (blocks, planes) in enumerate(zip(layers, (64, 128, 256, 512))):
+        for i in range(blocks):
+            stride = 2 if (stage > 0 and i == 0) else 1
+            r2 = half(r) if stride > 1 else r
+            outp = planes * expansion
+            if bottleneck:
+                flops += 2.0 * r * r * inplanes * planes + 2.0 * r2 * r2 * planes * planes * 9 + 2.0 * r2 * r2 * planes * outp
+            else:
+                flops += 2.0 * r2 * r2 * inplanes * planes * 9 + 2.0 * r2 * r2 * planes * planes * 9
+            if stride > 1 or inplanes != outp:
+                flops += 2.0 * r2 * r2 * inplanes * outp
+            inplanes, r = outp, r2
+    return {"total": flops, "first": first}
+
+
 def clipfsar_head(dim: int, way: int, shot_clips: int, query_clips: int, frames: int, classes: int, mlp: int = 2048) -> float:
     """FLOPs of one episode through the CLIP-FSAR head after the tower."""
     def modulate(seqs: int, n: int) -> float:

@@ -4,7 +4,10 @@ Everything that belongs to one cell, configuration or per-layer metric is found 
 ``BENCHMARK.json`` at the checkout's root names each cell's configuration and metrics,
 ``portbench/workloads/<cell>.json`` holds the cell's traffic, its trace and check sizes and
 its limits, ``portbench/configs/<config>.json`` the configuration, ``portbench/counts/<config>.py``
-its operations, and ``portbench/metrics/<metric>.py`` each per-layer metric's reader (or
+its operations, ``portbench/families/<family>.py`` (the configuration's ``family``) its head:
+``build_head`` (the program's head at the configuration's widths), ``check_weights``,
+``text_banks``, ``reference_step`` and ``reference_logits`` (the plain reference of a train step
+and of a test episode), and ``portbench/metrics/<metric>.py`` each per-layer metric's reader (or
 ``portbench/metrics/<metric up to its first dot>.py``, one reader for ``<name>.train`` and
 ``<name>.test``).
 """
@@ -73,15 +76,19 @@ def load_module(kind: str, name: str):
     return mod
 
 
-def make_inputs(config_file: dict, cell: dict, seed: int, device) -> inp.Inputs:
+def family_of(config_file: dict):
+    """The configuration's family: ``portbench/families/<family>.py``."""
+    return load_module("families", config_file["family"])
+
+
+def make_inputs(config_file: dict, cell: dict, seed: int, device, family) -> inp.Inputs:
     """The run's inputs from ``seed``: weights, text banks and the bank of the cell's kind."""
     cfg = inp.run_config(config_file, seed)
     kind = cell["kind"]
-    shapes = drive.head_shapes(cfg, device)
+    shapes = drive.head_shapes(cfg, device, family)
     weights = inp.make_weights(shapes, seed, device)
-    judge.check_arch(weights, config_file["arch"])
-    dim = weights["context2.norm_0.weight"].shape[0]
-    text_train, text_test = inp.make_text_banks(cfg, dim, seed, device)
+    family.check_weights(weights, config_file["arch"])
+    text_train, text_test = family.text_banks(cfg, weights, seed, device)
     data = cfg["DATA"]
     key = "TRAIN_FRAME_BANK_FRAMES" if kind == "train" else "EVAL_FRAME_BANK_FRAMES"
     frames = int(cfg["TPU"].get(key) or data.get("FRAME_CACHE_FRAMES", 64))  # the port's rule (data/frame_bank.py)
@@ -109,25 +116,26 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda", 
     cell = cell_spec(bench, name)
     config_file = config_file or inp.load_json("configs", cell["config"])
     counts = load_module("counts", cell["config"])
+    family = family_of(config_file)
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     kind = cell["kind"]
-    inputs = make_inputs(config_file, cell, seed, device)
+    inputs = make_inputs(config_file, cell, seed, device, family)
     data = inputs.cfg["DATA"]
     say(f"inputs made at {time.perf_counter() - t_start:.3f} s")
     w0 = {k: v.detach().cpu().clone() for k, v in inputs.weights.items()}
     spans = drive.Spans()
     with trace.bn_ranges() if traced else contextlib.nullcontext():
         if kind == "train":
-            run = drive.TrainRun(inputs, device, spans)
+            run = drive.TrainRun(inputs, device, spans, family)
             inputs.weights = w0  # the model holds its own copy: the reference's waits on the host
             say(f"model built at {time.perf_counter() - t_start:.3f} s")
             if fault is not None:
                 fault(run)
             setup = drive.train_setup(run, int(cell["check_steps"]), w0)
         else:
-            run = drive.TestRun(inputs, device, spans)
+            run = drive.TestRun(inputs, device, spans, family)
             inputs.weights = w0
             if fault is not None:
                 fault(run)
@@ -170,11 +178,11 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda", 
         if ref_cache is not None and ref_cache.get("batches") is not None and _same_batches(ref_cache["batches"], batches):
             ref = ref_cache["ref"]
         else:
-            ref = judge.reference_train(inputs, batches, arch, device, Precision("fp32"))
+            ref = judge.reference_train(inputs, batches, family, arch, device, Precision("fp32"))
             if ref_cache is not None:
                 ref_cache.update(batches=batches, ref=ref)
         if precision != "fp32":  # the control: the reference in the program's place
-            program = judge.reference_train(inputs, batches, arch, device, prec)
+            program = judge.reference_train(inputs, batches, family, arch, device, prec)
         readings = judge.train_readings(program, ref, bad)
     else:
         picks = drive.pick_episodes(run.logits, int(cell["check_episodes"]), seed)
@@ -183,9 +191,9 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda", 
         drive.free()
         episodes = drive.redraw_test_episodes(inputs, e, picks)
         bad = sum(judge.episode_bad_rows(inputs.table, ep, t, way) for ep in episodes)
-        ref = judge.reference_test_logits(inputs, episodes, arch, device, Precision("fp32"))
+        ref = judge.reference_test_logits(inputs, episodes, family, arch, device, Precision("fp32"))
         if precision != "fp32":
-            program_logits = judge.reference_test_logits(inputs, episodes, arch, device, prec)
+            program_logits = judge.reference_test_logits(inputs, episodes, family, arch, device, prec)
         readings = judge.test_readings(program_logits, ref, bad)
     check_s = time.perf_counter() - t0
     correct, compared = judge.verdict(readings, cell["limits"])

@@ -1,5 +1,8 @@
 """How ``correct`` is decided: the reference recomputes what the timed path produced, from the
-same inputs, and each number compared is held to its limit in the cell's file.
+same inputs, and each number compared is held to its limit in the cell's file.  The head's
+reference is the configuration's family's (``portbench/families/<family>.py``: a train step's
+loss and gradient, a test episode's logits); the optimizer, the readings and the verdict here
+serve every family.
 
 Train cells (the first ``check_steps`` steps, which set-up ran through the window's own loop
 body, step and feed; with ``BATCH_SIZE_PER_TASK`` 4 they are one optimizer window, closed by
@@ -36,27 +39,8 @@ import numpy as np
 import torch
 
 from portbench.inputs import Inputs
-from portbench.reference import episode as ref_ep
-from portbench.reference.head import head as ref_head
 from portbench.reference.ops import Precision, no_tf32
-from portbench.reference.towers import tower
-from portbench.reference.train import Adam, decay_of, learning_rate, step_loss_and_grad, tower_part
-
-
-def check_arch(weights: Dict[str, torch.Tensor], arch: dict) -> None:
-    """The weights' shapes against the configuration's published tower."""
-    w = weights
-    if arch["tower"] == "ViT":
-        width, patch = w["backbone.conv1.weight"].shape[0], w["backbone.conv1.weight"].shape[-1]
-        layers = len({k.split(".")[3] for k in w if k.startswith("backbone.transformer.resblocks.")})
-        got = {"width": width, "patch": patch, "layers": layers, "embed_dim": w["backbone.proj"].shape[1]}
-    else:
-        got = {"width": w["backbone.conv3.weight"].shape[0],
-               "layers": [len({k.split(".")[2] for k in w if k.startswith(f"backbone.layer{i}.")}) for i in range(1, 5)],
-               "embed_dim": w["backbone.attnpool.c_proj.weight"].shape[0]}
-    want = {k: arch[k] for k in got}
-    if got != want:
-        raise ValueError(f"the model's tower {got} is not the configuration's {want}")
+from portbench.reference.train import Adam, decay_of, learning_rate
 
 
 def bad_rows(table: dict, rows: np.ndarray, real: np.ndarray, local: np.ndarray, num_frames: int, crop: int = 0,
@@ -127,11 +111,11 @@ def descent_gap(program: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], 
     return abs(1.0 - dot(program) / r) if r else float("inf")
 
 
-def reference_train(inputs: Inputs, batches: List[dict], arch: dict, device, prec: Precision) -> dict:
-    """The reference's first steps on the same batches: each step's loss, the first gradient's
-    norm by leaf, Adam's moments' norms by leaf after the last step (and the first moment on
-    the host), the window's mean gradient's norm by leaf, and each leaf's change (its norm, and
-    the tensor on the host)."""
+def reference_train(inputs: Inputs, batches: List[dict], family, arch: dict, device, prec: Precision) -> dict:
+    """The reference's first steps on the same batches, each step the configuration's
+    ``family.reference_step``: each step's loss, the first gradient's norm by leaf, Adam's
+    moments' norms by leaf after the last step (and the first moment on the host), the window's
+    mean gradient's norm by leaf, and each leaf's change (its norm, and the tensor on the host)."""
     no_tf32()
     cfg = inputs.cfg
     w = {k: v.detach().to(device).float().clone() for k, v in inputs.weights.items()}
@@ -144,7 +128,7 @@ def reference_train(inputs: Inputs, batches: List[dict], arch: dict, device, pre
     chunks = int(cfg["TPU"].get("EPISODE_CHUNKS", 1))
     losses, first, mean = [], None, None
     for step, batch in enumerate(batches):
-        loss, grads = step_loss_and_grad(w, batch, inputs.bank, inputs.text_train, cfg, step, prec, arch["heads"], chunks)
+        loss, grads = family.reference_step(w, batch, inputs.bank, inputs.text_train, cfg, step, prec, arch, chunks)
         losses.append(loss)
         if first is None:
             first = norms(unpacked(grads))
@@ -184,26 +168,16 @@ def train_readings(program: dict, ref: dict, bad: int) -> dict:
                        "left_out": sorted(set(ref["change"]) - moved)}}
 
 
-def reference_test_logits(inputs: Inputs, episodes: List[dict], arch: dict, device, prec: Precision) -> List[np.ndarray]:
-    """The reference's logits [Q, WAY] of each episode (bank rows and labels as host arrays)."""
+def reference_test_logits(inputs: Inputs, episodes: List[dict], family, arch: dict, device, prec: Precision) -> List[np.ndarray]:
+    """The reference's logits [Q, WAY] of each episode (bank rows and labels as host arrays), each
+    the configuration's ``family.reference_logits``."""
     no_tf32()
-    cfg = inputs.cfg
     w = {k: v.detach().to(device).float() for k, v in inputs.weights.items()}
-    wt = tower_part(w)
-    mean, std = cfg["DATA"]["MEAN"], cfg["DATA"]["STD"]
-    way = int(cfg["TRAIN"]["WAY"])
-    groups = None  # the test step's tower runs BatchNorm on the running statistics
     out = []
     with torch.no_grad():
         for ep in episodes:
             rows = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in ep.items()}
-            s, q, t = rows["support"].shape[0], rows["target"].shape[0], rows["support"].shape[1]
-            clips = torch.cat([ref_ep.eval_clips(inputs.bank, rows["support"]), ref_ep.eval_clips(inputs.bank, rows["target"])])
-            x = ref_ep.normalize(clips.float() / 255.0, mean, std)
-            feats = tower(x.flatten(0, 1), wt, prec, arch["heads"], groups).reshape(s + q, t, -1)
-            text = inputs.text_test
-            logits, _ = ref_head(feats[:s], feats[s:], rows["support_labels"], text, text[rows["real_support"].long()], w, prec, way)
-            out.append(logits.cpu().numpy())
+            out.append(family.reference_logits(w, rows, inputs.bank, inputs.text_test, inputs.cfg, prec, arch).cpu().numpy())
     return out
 
 

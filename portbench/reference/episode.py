@@ -40,6 +40,13 @@ def normalize(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> t
     return (x - torch.tensor(mean, device=x.device)) / torch.tensor(std, device=x.device)
 
 
+def eval_episode_clips(bank: torch.Tensor, support: torch.Tensor, target: torch.Tensor, mean: Sequence[float],
+                       std: Sequence[float]) -> torch.Tensor:
+    """Normalized float clips [S + Q, T, H, W, 3] of an episode's support then target bank rows."""
+    clips = torch.cat([eval_clips(bank, support), eval_clips(bank, target)])
+    return normalize(clips.float() / 255.0, mean, std)
+
+
 def _gray(img: torch.Tensor) -> torch.Tensor:
     """Luma of [..., H, W, 3], broadcast to 3 channels."""
     return (img * torch.tensor(LUMA, device=img.device)).sum(dim=-1, keepdim=True).expand(img.shape)

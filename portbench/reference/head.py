@@ -52,11 +52,11 @@ def modulate(x: torch.Tensor, w: Weights, prec: Precision, masks: Optional[List[
     return f + x
 
 
-def _otam_one_way(d: torch.Tensor) -> torch.Tensor:
+def _otam_one_way(d: torch.Tensor, lbda: float) -> torch.Tensor:
     """Cumulative soft-min alignment of d [..., Tq, Ts] with a zero column padded on each side."""
     d = F.pad(d, (1, 1))
     tq, w = d.shape[-2], d.shape[-1]
-    softmin = lambda *v: -LAMBDA * torch.logsumexp(-torch.stack(v) / LAMBDA, dim=0)  # noqa: E731
+    softmin = lambda *v: -lbda * torch.logsumexp(-torch.stack(v) / lbda, dim=0)  # noqa: E731
     prev = [torch.zeros_like(d[..., 0, 0])]
     for m in range(1, w):
         prev.append(prev[-1] + d[..., 0, m])
@@ -70,9 +70,9 @@ def _otam_one_way(d: torch.Tensor) -> torch.Tensor:
     return prev[-1]
 
 
-def otam(d: torch.Tensor) -> torch.Tensor:
-    """Bidirectional OTAM distance of frame distances d [..., Tq, Ts]."""
-    return _otam_one_way(d) + _otam_one_way(d.transpose(-1, -2))
+def otam(d: torch.Tensor, lbda: float = LAMBDA) -> torch.Tensor:
+    """Bidirectional OTAM distance of frame distances d [..., Tq, Ts], soft-min temperature ``lbda``."""
+    return _otam_one_way(d, lbda) + _otam_one_way(d.transpose(-1, -2), lbda)
 
 
 def head(support: torch.Tensor, target: torch.Tensor, support_labels: torch.Tensor, text: torch.Tensor, text_support: torch.Tensor,

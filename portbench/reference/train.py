@@ -1,44 +1,34 @@
-"""CLIP-FSAR's episodic train step in plain PyTorch: loss, gradient and the optimizer.
+"""The episodic train step in plain PyTorch, shared by every family: the clips of each episode,
+the gradient of the step's loss over its episode chunks, and the optimizer.
 
-The loss of an episode is the cross-entropy of its query logits against the query labels
-plus USE_CLASSIFICATION_VALUE times the cross-entropy of the video-text class logits of all
-its clips against their real classes (the reference code's train_net_few_shot.py); a step's
-loss is the mean over its E episodes.  Parameters train with Adam (b1 0.9, b2 0.999, eps
-1e-8), L2 weight decay added to the gradient (SOLVER.WEIGHT_DECAY; none on names holding
-"embd" or "cls_token", BN.WEIGHT_DECAY on names holding "bn" or "norm", the reference's
-groups under the "head." prefix), the gradient averaged over TRAIN.BATCH_SIZE_PER_TASK steps
-before each update, at the learning rate of the step that closes the window: linear warmup
-over WARMUP_EPOCHS from WARMUP_START_LR, then steps_with_relative_lrs, the epoch of step i
-being i // STEPS_ITER + NUM_FOLDS * i / STEPS_ITER.
+A step's loss is the mean over its E episodes of the family's episode loss
+(``portbench/families/<family>.py``), taken E / TPU.EPISODE_CHUNKS episodes at a time.
+Parameters train with Adam (b1 0.9, b2 0.999, eps 1e-8), L2 weight decay added to the gradient
+(SOLVER.WEIGHT_DECAY; none on names holding "embd" or "cls_token", BN.WEIGHT_DECAY on names
+holding "bn" or "norm", the reference's groups under the "head." prefix), the gradient averaged
+over TRAIN.BATCH_SIZE_PER_TASK steps before each update, at the learning rate of the step that
+closes the window: linear warmup over WARMUP_EPOCHS from WARMUP_START_LR, then
+steps_with_relative_lrs, the epoch of step i being i // STEPS_ITER + NUM_FOLDS * i / STEPS_ITER.
 
-Random numbers: the jitter's factors and flags and the dropout masks come from a
-torch.Generator seeded per step with the configuration's seed rule, drawn in the order of the
-program's documented contract (the jitter of all E episodes' query clips first, then per
-episode chunk the query transformer's three masks and the support transformer's three); the
-jitter's op order from a numpy generator seeded with the same seed.
+Random numbers: the jitter's factors and flags and the head's own draws (dropout masks) come
+from a torch.Generator seeded per step with the configuration's seed rule, drawn in the order
+of the program's documented contract (the jitter of all E episodes' query clips first, then per
+episode chunk what the family's head draws); the jitter's op order from a numpy generator
+seeded with the same seed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Callable, Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from portbench.reference import episode as ep
-from portbench.reference.head import ATTN_DROP, FFN_DROP, head
-from portbench.reference.ops import Precision
-from portbench.reference.towers import tower
 
 Weights = Dict[str, torch.Tensor]
-TOWER = "backbone."  # the tower's leaves in the head's state dict
-
-
-def tower_part(w: Weights) -> Weights:
-    """The tower's leaves under the names ``towers`` reads."""
-    return {k[len(TOWER):]: v for k, v in w.items() if k.startswith(TOWER)}
+LABELS = ("support_labels", "target_labels", "real_support", "real_target")
 
 
 def step_seed(random_seed: int, step: int) -> int:
@@ -131,39 +121,15 @@ def draws(generator: torch.Generator, host: np.random.Generator, n_query: int, a
     return out
 
 
-def dropout_masks(generator: torch.Generator, eps: int, s: int, q: int, t: int, dim: int, mlp: int, device) -> dict:
-    """Keep masks of one episode chunk: the query transformer's (attention output, first and second
-    feed-forward layer), then the support transformer's, each over the chunk's clips."""
-    def three(rows: int, n: int) -> List[torch.Tensor]:
-        return [torch.rand((rows, n, width), generator=generator, device=device) < 1.0 - rate
-                for width, rate in ((dim, ATTN_DROP), (mlp, FFN_DROP), (dim, FFN_DROP))]
-
-    return {"target": three(eps * q, t), "support": three(eps * s, t + 1)}
-
-
-def episode_loss(w: Weights, clips_s: torch.Tensor, clips_q: torch.Tensor, labels_s: torch.Tensor, labels_q: torch.Tensor,
-                 real_s: torch.Tensor, real_q: torch.Tensor, text: torch.Tensor, masks: dict, cfg: dict, prec: Precision,
-                 heads: int, recompute: bool) -> torch.Tensor:
-    """One episode's loss from its normalized clips [S | Q, T, H, W, 3]."""
-    s, q, t = clips_s.shape[0], clips_q.shape[0], clips_s.shape[1]
-    wt = tower_part(w)
-    groups = None if "class_embedding" in wt else 1  # the RN tower on the episode's batch statistics, support then query
-    feats_s = tower(clips_s.flatten(0, 1), wt, prec, heads, groups, recompute).reshape(s, t, -1)
-    feats_q = tower(clips_q.flatten(0, 1), wt, prec, heads, groups, recompute).reshape(q, t, -1)
-    way = int(cfg["TRAIN"]["WAY"])
-    logits, class_logits = head(feats_s, feats_q, labels_s, text, text[real_s.long()], w, prec, way, masks, with_class_logits=True)
-    loss = F.cross_entropy(logits, labels_q.long())
-    if cfg["TRAIN"].get("USE_CLASSIFICATION", False):
-        loss = loss + float(cfg["TRAIN"].get("USE_CLASSIFICATION_VALUE", 1.0)) * F.cross_entropy(
-            class_logits, torch.cat([real_s, real_q]).long())
-    return loss
-
-
-def step_loss_and_grad(w: Weights, batch: dict, bank: torch.Tensor, text: torch.Tensor, cfg: dict, step: int, prec: Precision,
-                       heads: int, chunks: int) -> tuple:
+def episodic_step(w: Weights, batch: dict, bank: torch.Tensor, cfg: dict, step: int, chunks: int,
+                  chunk_draws: Callable, episode_loss: Callable) -> tuple:
     """One train step of a batch of E episodes (host arrays: ``support``/``target`` [E, N, T + 3]
     bank indices, ``support_labels``, ``target_labels``, ``real_support``, ``real_target``
-    [E, N]).  Returns (the mean loss over the E episodes, its gradient by leaf)."""
+    [E, N]).  ``chunk_draws(generator, eps, s, q, t)`` draws what the head draws for a chunk of
+    ``eps`` episodes of S support and Q query clips of T frames; ``episode_loss(w, clips_s,
+    clips_q, labels, drawn, j)`` is the loss of the chunk's ``j``-th episode from its normalized
+    clips [S | Q, T, H, W, 3], its ``LABELS`` on the device and the chunk's draws.  Returns (the
+    mean loss over the E episodes, its gradient by leaf)."""
     device = bank.device
     data, aug = cfg["DATA"], cfg["AUGMENTATION"]
     t, crop = int(data["NUM_INPUT_FRAMES"]), int(data["TRAIN_CROP_SIZE"])
@@ -173,14 +139,12 @@ def step_loss_and_grad(w: Weights, batch: dict, bank: torch.Tensor, text: torch.
     seed = step_seed(cfg["RANDOM_SEED"], step)
     gen = torch.Generator(device=device).manual_seed(seed)
     jit = draws(gen, np.random.default_rng(seed), e * q, aug, device)
-    dim = w["context2.norm_0.weight"].shape[0]
-    mlp = w["context2.ff_0.fc1.weight"].shape[0]
     params = {n: p for n, p in w.items() if p.is_floating_point() and "running_" not in n}
     grads = {n: torch.zeros_like(p) for n, p in params.items()}
     total = 0.0
     per = e // chunks
     for c in range(chunks):
-        masks = dropout_masks(gen, per, s, q, t, dim, mlp, device)
+        drawn = chunk_draws(gen, per, s, q, t)
         for j in range(per):
             i = c * per + j
             as_t = lambda key: torch.as_tensor(batch[key][i], device=device)  # noqa: E731
@@ -190,11 +154,9 @@ def step_loss_and_grad(w: Weights, batch: dict, bank: torch.Tensor, text: torch.
             raw_q = ep.color_jitter(raw_q, jit["brightness"][sl], jit["contrast"][sl], jit["saturation"][sl], jit["hue"][sl],
                                     jit["order"], jit["gray"][sl])
             clips_q = ep.normalize(raw_q, mean, std)
-            em = {k: [m[j * (q if k == "target" else s):(j + 1) * (q if k == "target" else s)] for m in v] for k, v in masks.items()}
             leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
             wl = {**w, **leaves}
-            loss = episode_loss(wl, clips_s, clips_q, as_t("support_labels"), as_t("target_labels"), as_t("real_support"),
-                                as_t("real_target"), text, em, cfg, prec, heads, True) / e
+            loss = episode_loss(wl, clips_s, clips_q, {k: as_t(k) for k in LABELS}, drawn, j) / e
             got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
             for n, g in zip(leaves, got):
                 if g is not None:

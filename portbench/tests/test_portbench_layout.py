@@ -17,10 +17,24 @@ CHECKOUT = harness.CHECKOUT
 BENCH = harness.benchmark()
 
 
+def missing_files(bench: dict, checkout: str) -> list:
+    """The files that the names in ``bench`` lead to and that ``checkout`` lacks: each
+    configuration's file, its counts and its family's module."""
+    root = os.path.join(checkout, "portbench")
+    missing = []
+    for c in bench["configs"]:
+        need = [os.path.join(checkout, c["file"]), os.path.join(root, "counts", c["name"] + ".py")]
+        if os.path.exists(need[0]):
+            with open(need[0]) as f:
+                need.append(os.path.join(root, "families", json.load(f)["family"] + ".py"))
+        missing += [p for p in need if not os.path.exists(p)]
+    return missing
+
+
 def test_every_name_has_its_files():
+    missing = missing_files(BENCH, CHECKOUT)
+    assert not missing, f"missing: {missing}"
     for c in BENCH["configs"]:
-        assert os.path.exists(os.path.join(CHECKOUT, c["file"]))
-        assert os.path.exists(os.path.join(harness.ROOT, "counts", c["name"] + ".py"))
         cf = json.load(open(os.path.join(CHECKOUT, c["file"])))
         assert cf["reduced"] == c["reduced"] and cf["source"] == c["source"]
     for w in BENCH["workloads"]:
@@ -28,6 +42,16 @@ def test_every_name_has_its_files():
         assert spec["kind"] in ("train", "test") and spec["config"] == w["config"]
         assert {m["name"] for m in harness.metrics_of(BENCH, spec, "end_to_end")} >= {"setup_s", f"{spec['kind']}_samples_per_s"}
         assert harness.metrics_of(BENCH, spec, "per_layer")
+
+
+def test_a_family_with_no_file_is_named(tmp_path):
+    """A configuration whose family has no module fails the layout check, which names the path."""
+    cf = json.load(open(os.path.join(harness.ROOT, "configs", "clipfsar_rn50.json")))
+    cf["family"] = "no_such_family"
+    (tmp_path / "portbench" / "configs").mkdir(parents=True)
+    (tmp_path / "portbench" / "configs" / "clipfsar_rn50.json").write_text(json.dumps(cf))
+    bench = {"configs": [c for c in BENCH["configs"] if c["name"] == "clipfsar_rn50"]}
+    assert str(tmp_path / "portbench" / "families" / "no_such_family.py") in missing_files(bench, str(tmp_path))
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])

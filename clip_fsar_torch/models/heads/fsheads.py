@@ -48,6 +48,7 @@ from clip_fsar_torch.models.heads.common import (
 )
 from clip_fsar_torch.models.resnet import RESNET_SPECS, TorchResNet
 from clip_fsar_torch.ops.otam import otam_distance
+from clip_fsar_torch.utils import tracing
 from clip_fsar_torch.utils.registry import HEAD_REGISTRY
 
 
@@ -105,7 +106,8 @@ class ClassicHead(nn.Module):
         [E, N_i, T, D] each, from ONE trunk call over every frame of every set."""
         self.check(image_sets[0])
         images = torch.cat(image_sets, dim=1) if len(image_sets) > 1 else image_sets[0]
-        feats = self.backbone(images.reshape((-1,) + images.shape[3:])).float().reshape(images.shape[:3] + (-1,))
+        with tracing.span("fsar.tower"):
+            feats = self.backbone(images.reshape((-1,) + images.shape[3:])).float().reshape(images.shape[:3] + (-1,))
         return feats.split([s.shape[1] for s in image_sets], dim=1)
 
 

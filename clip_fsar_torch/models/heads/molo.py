@@ -42,6 +42,7 @@ from clip_fsar_torch.models.clip.model import BatchNorm, Conv2d, Dense
 from clip_fsar_torch.models.heads.common import HyRSMPositionalEncoding, PreNormSelfAttention, class_mean, cos_sim, dropout
 from clip_fsar_torch.models.heads.fsheads import ClassicHead
 from clip_fsar_torch.models.resnet import TorchResNet
+from clip_fsar_torch.utils import tracing
 from clip_fsar_torch.utils.registry import HEAD_REGISTRY
 
 
@@ -177,9 +178,10 @@ class MoLoHead(ClassicHead):
         """[E, N, T, H, W, 3] -> the trunk's map, NHWC [E*N*T, h, w, D], in
         one trunk call (a CLIP tower's token grid for CLIP backbones)."""
         flat = images.reshape((-1,) + images.shape[3:])
-        if isinstance(self.backbone, TorchResNet):
-            return self.backbone(flat, pool=False)
-        _, tokens = self.backbone(flat, return_tokens=True)
+        with tracing.span("fsar.tower"):
+            if isinstance(self.backbone, TorchResNet):
+                return self.backbone(flat, pool=False)
+            _, tokens = self.backbone(flat, return_tokens=True)
         g = int(tokens.shape[1] ** 0.5)
         return tokens.reshape(tokens.shape[0], g, g, tokens.shape[-1])
 
@@ -211,14 +213,16 @@ class MoLoHead(ClassicHead):
         h, w = spatial.shape[1:3]
 
         # motion: a 3-D conv over (T, h, w), the difference of the next frame's 3x3-conv'd copy and this frame's reduction
-        red = self.motion_reduce(spatial.reshape(e * n, t, h, w, dim).permute(0, 4, 1, 2, 3))  # [E*N, D/8, T, h, w]
-        red = red.permute(0, 2, 1, 3, 4)  # [E*N, T, D/8, h, w]
-        conv = self.motion_conv(red.reshape(e * n * t, -1, h, w)).reshape(red.shape)
-        motion = (conv[:, 1:] - red[:, :-1]).reshape(e, n, t - 1, -1, h, w)
+        with tracing.span("fsar.molo.motion", clips=e * n):
+            red = self.motion_reduce(spatial.reshape(e * n, t, h, w, dim).permute(0, 4, 1, 2, 3))  # [E*N, D/8, T, h, w]
+            red = red.permute(0, 2, 1, 3, 4)  # [E*N, T, D/8, h, w]
+            conv = self.motion_conv(red.reshape(e * n * t, -1, h, w)).reshape(red.shape)
+            motion = (conv[:, 1:] - red[:, :-1]).reshape(e, n, t - 1, -1, h, w)
 
         if train:  # the decoder: the support call, then the target call, each episode on its own batch statistics
             size = ep.support_images.shape[3:5]
-            recs = [self._decode(motion[:, part].flatten(0, 2), size, e) for part in (slice(0, s), slice(s, n))]
+            with tracing.span("fsar.molo.decode", maps=e * n * (t - 1), pixels=e * n * (t - 1) * size[0] * size[1]):
+                recs = [self._decode(motion[:, part].flatten(0, 2), size, e) for part in (slice(0, s), slice(s, n))]
 
         motion_feat = F.relu(self.motion_up(motion.flatten(0, 2))).mean(dim=(2, 3)).float().reshape(e, n, t - 1, dim)
         motion_feat = self._tokens(self.temporal_atte_before_motion, motion_feat, self.class_token_motion, g)  # [E, N, T, D]

@@ -26,8 +26,12 @@ the names ``bn_chain`` and ``pb.*`` are the benchmark's own ranges.
 The program's spans: ``fsar.loader.wait`` (data/episodes.py, the wait for a
 batch), ``fsar.h2d`` (data/types.py ``Episode.to``), ``fsar.step``,
 ``fsar.augment``, ``fsar.forward``, ``fsar.backward``, ``fsar.optimizer``
-(train/step.py), ``fsar.tower`` (models/heads/clipfsar.py), ``fsar.ln`` /
-``fsar.bn`` (models/clip/model.py), ``fsar.eval.fetch`` / ``fsar.eval.account``
+(train/step.py), ``fsar.tower`` (the trunk or vision tower of every head:
+models/heads/clipfsar.py, fsheads.py, molo.py), ``fsar.molo.motion`` (MoLo's
+3-D conv, 3x3 conv and frame difference, attribute ``clips``) and
+``fsar.molo.decode`` (its two decoder calls, attributes ``maps`` and
+``pixels``, the maps' and the reconstructed pixels' count; models/heads/molo.py),
+``fsar.ln`` / ``fsar.bn`` (models/clip/model.py), ``fsar.eval.fetch`` / ``fsar.eval.account``
 (train/loop.py ``evaluate``), and the set-up spans ``fsar.setup.model``
 (models/builder.py), ``fsar.setup.state`` (train/state.py,
 train/optimizer.py) and ``fsar.setup.kernels`` (ops/_build.py).
